@@ -1,0 +1,15 @@
+"""VisFly in PyTorch and CUDA: the port of ``visfly_tpu`` to one NVIDIA H100.
+
+The package mirrors the layout and module names of ``visfly_tpu`` (``core/``,
+``dynamics/``, ``scene/``, ``render/``, ``envs/``) so that each module's
+counterpart is easy to find. It imports ``torch`` and numpy, never ``jax``
+and never ``visfly_tpu``; it only reads the drone JSON data files under
+``visfly_tpu/configs/drone/``.
+
+Plain tensor code is PyTorch. The ray-trace kernel is hand-written CUDA C++
+for ``sm_90a`` (``csrc/trace_analytic.cu``), built with ``nvcc`` at first use
+and bound with ``ctypes``; on CPU tensors its plain PyTorch version runs
+instead.
+"""
+
+__version__ = "0.1.0"

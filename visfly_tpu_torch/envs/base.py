@@ -1,0 +1,304 @@
+"""Vectorised drone environment core (counterpart of
+``visfly_tpu/envs/base.py``).
+
+    state', out = env.step(state, action)
+
+All ``num_scene × num_agent_per_scene`` agents advance together. Auto-reset
+happens inside ``step`` by masked selects: the returned observations are
+post-reset, while reward/done/info describe the pre-reset transition (SB3
+VecEnv semantics). Randomness comes from the ``torch.Generator`` carried in
+``EnvState.gen``; ``reset`` takes it (or seeds one from ``seed`` on the
+env's device).
+
+Subclasses implement ``get_observation`` / ``get_reward`` / ``get_success``
+/ ``get_failure``. Not ported yet, and raising ``NotImplementedError``:
+differentiable rollouts, dynamic objects (``obj_settings``), IMU and sensor
+noise, world-model latents, ``terminal_obs_in_info``, wind functions and
+velocity sub-sampled collision checks. The env-specific ``aux`` state and
+its hooks come with the envs that need them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+from torch import Tensor
+
+from ..dynamics import DroneConfig, DynState, make_drone_params
+from ..dynamics import dynamics as dyn_mod
+from ..render.camera import camera_geometry
+from . import randomization as rnd
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+class CollisionInfo(NamedTuple):
+    """Per-agent closest-obstacle info."""
+
+    point: Tensor  # (N, 3) closest point on obstacle/world boundary
+    vector: Tensor  # (N, 3) point - position
+    dis: Tensor  # (N,)
+    is_collision: Tensor  # (N,) bool — dis < uav_radius
+    is_out_bounds: Tensor  # (N,) bool
+
+
+class EnvState(NamedTuple):
+    """Environment state for N agents."""
+
+    dyn: DynState
+    gen: torch.Generator  # all in-env randomness
+    step_count: Tensor  # (N,) int32
+    episode_done: Tensor  # (N,) bool — terminal (not timeout)
+    success: Tensor  # (N,) bool (this step)
+    failure: Tensor  # (N,) bool
+    collision: CollisionInfo
+    once_collided: Tensor  # (N,) bool since episode start
+    returns: Tensor  # (N,) accumulated episode reward
+
+
+class StepOutput(NamedTuple):
+    obs: Dict[str, Tensor]
+    reward: Tensor  # (N,)
+    done: Tensor  # (N,) bool — terminal OR truncated (SB3 convention)
+    info: Dict[str, Tensor]
+
+
+class DroneGymEnv:
+    """Base env. Construction is host-side; ``reset`` and ``step`` work on
+    tensors on ``device``."""
+
+    # include the pre-reset observation in step info (set by PPO and SAC)
+    terminal_obs_in_info: bool = False
+
+    def __init__(
+        self,
+        num_agent_per_scene: int = 1,
+        num_scene: int = 1,
+        seed: int = 42,
+        visual: bool = False,
+        max_episode_steps: int = 256,
+        requires_grad: bool = False,
+        random_kwargs: Optional[dict] = None,
+        dynamics_kwargs: Optional[dict] = None,
+        scene_kwargs: Optional[dict] = None,
+        sensor_kwargs: Optional[Sequence[dict]] = None,
+        device: Any = "cpu",
+        is_collision_reset: bool = True,
+        uav_radius: float = 0.1,
+        col_refine_steps: int = 0,
+        grad_collision: bool = False,
+        latent_dim: Optional[int] = None,
+        dtype=torch.float32,
+    ):
+        if requires_grad or grad_collision:
+            raise _unported("differentiable rollouts", "BPTT and the IFT backward")
+        if col_refine_steps:
+            raise _unported("col_refine_steps > 0", "velocity sub-sampled collisions")
+        if latent_dim is not None:
+            raise _unported("world-model latents", "the other policies")
+        self.device = torch.device(device)
+        self.num_agent_per_scene = int(num_agent_per_scene)
+        self.num_scene = int(num_scene)
+        self.num_agent = self.num_envs = self.num_agent_per_scene * self.num_scene
+        self.seed = seed
+        self.visual = visual
+        self.max_episode_steps = int(max_episode_steps)
+        self.is_collision_reset = is_collision_reset
+        self.uav_radius = float(uav_radius)
+        self.dtype = dtype
+        self.scene_ids = torch.arange(self.num_scene, device=self.device).repeat_interleave(
+            self.num_agent_per_scene)
+
+        dynamics_kwargs = dict(dynamics_kwargs or {})
+        self.wind_const = dynamics_kwargs.pop("wind_settings", None)
+        if "wind_fn" in dynamics_kwargs or (
+                self.wind_const is not None and isinstance(self.wind_const[0], str)):
+            raise _unported("wind functions", "dynamics wind functions")
+        dynamics_kwargs.pop("seed", None)
+        dynamics_kwargs.pop("device", None)
+        self.dyn_config = DroneConfig(**dynamics_kwargs)
+        self.params = make_drone_params(self.dyn_config, dtype=dtype, device=self.device)
+
+        random_kwargs = random_kwargs or self.default_random_kwargs()
+        if random_kwargs.get("noise_kwargs"):
+            raise _unported("IMU and sensor noise", "colour and semantic shading")
+        self.randomizers = rnd.from_reference_kwargs(random_kwargs, device=self.device)
+
+        self.scene = None
+        self.scene_kwargs = dict(scene_kwargs or {})
+        if self.scene_kwargs.get("obj_settings"):
+            raise _unported("dynamic objects (obj_settings)", "dynamic objects")
+        self.sensor_kwargs = [dict(s) for s in (sensor_kwargs or [])]
+        self.cameras = [camera_geometry(s, self.device) for s in self.sensor_kwargs]
+        # non-visual envs fly in the hard-coded empty-box world
+        self.bbox = torch.tensor([[-30.0, -30.0, 0.0], [30.0, 30.0, 8.0]], dtype=dtype,
+                                 device=self.device)
+        if visual:
+            from ..scene import load_scenes_for_env
+
+            self.scene = load_scenes_for_env(self)
+            self.bbox = self.scene.bbox
+
+        self.state_size = 13 if self.dyn_config.is_quat_output else 12
+        self.action_size = 4
+
+    # -- hooks for subclasses ------------------------------------------------
+
+    def default_random_kwargs(self) -> dict:
+        return {}
+
+    def get_observation(self, state: EnvState, sensor_obs: Dict[str, Tensor]
+                        ) -> Dict[str, Tensor]:
+        return {"state": self.state_obs(state)}
+
+    def get_success(self, state: EnvState) -> Tensor:
+        return torch.zeros((self.num_agent,), dtype=torch.bool, device=self.device)
+
+    def get_failure(self, state: EnvState) -> Tensor:
+        return torch.zeros((self.num_agent,), dtype=torch.bool, device=self.device)
+
+    def get_reward(self, state: EnvState) -> Tensor:
+        return torch.zeros((self.num_agent,), dtype=self.dtype, device=self.device)
+
+    # -- helpers ---------------------------------------------------------------
+
+    def sensor_observations(self, state: EnvState) -> Dict[str, Tensor]:
+        """Render per-agent sensors on the env's device."""
+        if not self.visual or not self.sensor_kwargs:
+            return {}
+        from ..render import render_sensors
+
+        return render_sensors(self, state)
+
+    def state_obs(self, state: EnvState) -> Tensor:
+        """IMU state, 13-dim (12 with euler output)."""
+        return dyn_mod.get_state(state.dyn, self.dyn_config)
+
+    def is_collision_fn(self, pos: Tensor) -> Tensor:
+        """Spawn rejection: closer than 1 m to a surface or out of bounds."""
+        from ..scene import point_is_collision
+
+        if pos.shape[0] == self.num_agent:
+            sid = self.scene_ids
+        else:
+            sid = torch.zeros((pos.shape[0],), dtype=torch.long, device=self.device)
+        return point_is_collision(self.scene, pos, sid=sid, radius=1.0)
+
+    def _spawn(self, gen: torch.Generator) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """Spawn states for ALL agents (one block per randomizer spec)."""
+        n_per = self.num_agent // max(len(self.randomizers), 1)
+        target = getattr(self, "target", None)
+        outs = [
+            rnd.safe_sample(spec, gen, n_per,
+                            is_collision_fn=self.is_collision_fn if self.visual else None,
+                            target_pos=None if target is None else target[0])
+            for spec in self.randomizers
+        ]
+        return tuple(torch.cat(parts, dim=0).to(self.dtype) for parts in zip(*outs))
+
+    def _update_collision(self, dyn: DynState, once: Tensor) -> Tuple[CollisionInfo, Tensor]:
+        """Closest-point and bounds queries: the scene SDF for visual envs,
+        the nearest face of the bbox world otherwise."""
+        pos = dyn.pos.detach()
+        if self.scene is not None:
+            from ..scene import closest_point_query
+
+            point, dis, out = closest_point_query(self.scene, self.scene_ids, pos)
+        else:
+            lo, hi = self.bbox[0], self.bbox[1]
+            d = torch.cat([pos - lo, hi - pos], dim=-1)  # (N, 6)
+            idx = torch.argmin(d, dim=-1)  # nearest face
+            point = pos.clone()
+            point[torch.arange(pos.shape[0], device=pos.device), idx % 3] = \
+                self.bbox.reshape(-1)[idx]
+            dis = torch.linalg.vector_norm(point - pos, dim=-1)
+            out = torch.any(pos < lo, dim=-1) | torch.any(pos > hi, dim=-1)
+        is_col = dis < self.uav_radius
+        return CollisionInfo(point, point - pos, dis, is_col, out), once | is_col
+
+    # -- API -------------------------------------------------------------------
+
+    def reset(self, gen: Optional[torch.Generator] = None
+              ) -> Tuple[EnvState, Dict[str, Tensor]]:
+        """Fresh episode for all agents. ``gen`` defaults to a generator on
+        the env's device seeded with ``seed``."""
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        pos, q, vel, omega = self._spawn(gen)
+        dyn = dyn_mod.init_state(self.dyn_config, self.params, self.num_agent, self.dtype)
+        dyn = dyn_mod.reset(self.dyn_config, self.params, dyn, pos=pos, ori=q, vel=vel,
+                            ori_vel=omega)
+        n = self.num_agent
+        falses = torch.zeros((n,), dtype=torch.bool, device=self.device)
+        collision, _once = self._update_collision(dyn, falses)
+        st = EnvState(
+            dyn=dyn, gen=gen,
+            step_count=torch.zeros((n,), dtype=torch.int32, device=self.device),
+            episode_done=falses, success=falses, failure=falses,
+            collision=collision, once_collided=falses,
+            returns=torch.zeros((n,), dtype=self.dtype, device=self.device),
+        )
+        return st, self.get_observation(st, self.sensor_observations(st))
+
+    def step(self, state: EnvState, action: Tensor, is_test: bool = False
+             ) -> Tuple[EnvState, StepOutput]:
+        """One control step for all agents. ``is_test=True`` suppresses the
+        auto-reset."""
+        if self.terminal_obs_in_info:
+            raise _unported("terminal_obs_in_info", "the other trainers and policies")
+        dyn = dyn_mod.step(self.dyn_config, self.params, state.dyn, action,
+                           wind_const=self.wind_const)
+        collision, once = self._update_collision(dyn, state.once_collided)
+        step_count = state.step_count + 1
+        st = state._replace(dyn=dyn, step_count=step_count, collision=collision,
+                            once_collided=once)
+
+        success = self.get_success(st)
+        failure = self.get_failure(st)
+        st = st._replace(success=success, failure=failure)
+
+        reward = self.get_reward(st)
+        returns = state.returns + reward
+
+        episode_done = state.episode_done | success | failure | collision.is_out_bounds
+        if self.is_collision_reset:
+            episode_done = episode_done | collision.is_collision
+        truncated = step_count >= self.max_episode_steps
+        done = episode_done | truncated
+
+        info = {
+            "episode_done": episode_done,
+            "is_success": success,
+            "TimeLimit.truncated": truncated & ~episode_done,
+            "episode_return": returns,
+            "episode_length": step_count,
+            "episode_time": step_count.to(self.dtype) * self.dyn_config.ctrl_dt,
+            "collision": once,
+        }
+        st = st._replace(returns=returns, episode_done=episode_done)
+        if not is_test:
+            st = self._auto_reset(st, done)
+        obs = self.get_observation(st, self.sensor_observations(st))
+        return st, StepOutput(obs=obs, reward=reward, done=done, info=info)
+
+    def _auto_reset(self, st: EnvState, done: Tensor) -> EnvState:
+        """Masked respawn of done agents, with a random clock phase."""
+        pos, q, vel, omega = self._spawn(st.gen)
+        dyn = dyn_mod.reset(self.dyn_config, self.params, st.dyn, mask=done, pos=pos, ori=q,
+                            vel=vel, ori_vel=omega, generator=st.gen)
+        collision, once = self._update_collision(dyn, st.once_collided & ~done)
+        return st._replace(
+            dyn=dyn,
+            step_count=torch.where(done, 0, st.step_count).to(st.step_count.dtype),
+            episode_done=st.episode_done & ~done,
+            returns=torch.where(done, torch.zeros_like(st.returns), st.returns),
+            collision=collision,
+            once_collided=once,
+        )
+
+    def __repr__(self):
+        return (f"{type(self).__name__}(num_scene={self.num_scene}, "
+                f"num_agent_per_scene={self.num_agent_per_scene}, visual={self.visual}, "
+                f"device={self.device})")

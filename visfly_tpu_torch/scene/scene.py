@@ -1,0 +1,262 @@
+"""Host-side scene description and the procedural presets (counterpart of
+``visfly_tpu/scene/scene.py``).
+
+Named presets mirror the reference dataset scene families:
+``box15_wall_empty``, ``garage_simple``, ``garage_crossing``,
+``garage_landing``, ``racing``, ``forest`` and ``box_random``. The generators
+draw from ``numpy.random.default_rng(seed)`` in the same order as the JAX
+package, so one seed gives the same scene in both.
+
+Only procedural presets load here; imported meshes, habitat datasets,
+directories of scene JSONs and the dense-grid backend are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, List
+
+import numpy as np
+
+from . import primitives as prim
+
+
+@dataclasses.dataclass
+class SceneSpec:
+    """One scene: bounds + primitive list (with color/semantic metadata)."""
+
+    bounds_min: np.ndarray
+    bounds_max: np.ndarray
+    primitives: List[Dict[str, Any]]
+    name: str = "scene"
+
+    def sdf(self, p: np.ndarray) -> np.ndarray:
+        return prim.eval_scene_sdf(p, self.primitives)
+
+
+def best_candidate_points(
+    rng: np.random.Generator,
+    n: int,
+    bounds_min: np.ndarray,
+    bounds_max: np.ndarray,
+    n_candidates: int = 16,
+) -> np.ndarray:
+    """Mitchell best-candidate (blue-noise) placement: each new point is the
+    candidate farthest from all previously chosen points."""
+    pts: List[np.ndarray] = []
+    for _ in range(n):
+        cand = rng.uniform(bounds_min, bounds_max, size=(n_candidates, len(bounds_min)))
+        if not pts:
+            pts.append(cand[0])
+            continue
+        d = np.linalg.norm(cand[:, None, :] - np.asarray(pts)[None, :, :], axis=-1).min(axis=1)
+        pts.append(cand[int(np.argmax(d))])
+    return np.asarray(pts)
+
+
+_COLORS = np.asarray(
+    [
+        [188, 143, 143],
+        [112, 128, 144],
+        [160, 82, 45],
+        [85, 107, 47],
+        [70, 130, 180],
+        [205, 133, 63],
+        [119, 136, 153],
+        [139, 69, 19],
+    ],
+    dtype=np.uint8,
+)
+
+
+def _room(bmin, bmax, open_top: bool = True) -> Dict[str, Any]:
+    """Hollow room. ``open_top`` lifts the ceiling out of the geometry; the
+    flight volume's z bound is enforced by the out-of-bounds test."""
+    bmax_geo = np.asarray(bmax, np.float32).copy()
+    if open_top:
+        bmax_geo[2] += 50.0
+    return {
+        "type": "room",
+        "bounds_min": np.asarray(bmin, np.float32),
+        "bounds_max": bmax_geo,
+        "color": np.asarray([210, 210, 205], np.uint8),
+        "semantic": 1,
+    }
+
+
+def _column(x, y, z, radius, half_height, i, semantic):
+    return {
+        "type": "cylinder",
+        "center": np.asarray([x, y, z], np.float32),
+        "radius": radius,
+        "half_height": half_height,
+        "color": _COLORS[i % len(_COLORS)],
+        "semantic": semantic,
+    }
+
+
+def make_scene(name: str, seed: int = 42, **kwargs) -> SceneSpec:
+    """Procedural scene presets."""
+    rng = np.random.default_rng(seed)
+
+    if name in ("box15_wall_empty", "empty"):
+        bmin, bmax = np.asarray([-30.0, -30.0, 0.0]), np.asarray([30.0, 30.0, 8.0])
+        return SceneSpec(bmin, bmax, [_room(bmin, bmax)], name)
+
+    if name in ("garage_simple", "garage_simple_l_medium", "cluttered"):
+        # rectangular garage with random columns and boxes between spawn
+        # (x≈1) and target (x≈9..14); ``obstacle_scale`` shrinks obstacle
+        # cross-sections without changing the primitive count
+        bmin, bmax = np.asarray([-2.0, -6.0, 0.0]), np.asarray([18.0, 6.0, 5.0])
+        prims = [_room(bmin, bmax)]
+        n_obs = kwargs.get("n_obstacles", 14)
+        scale = float(kwargs.get("obstacle_scale", 1.0))
+        pts = best_candidate_points(rng, n_obs, np.asarray([2.5, -5.0]), np.asarray([13.0, 5.0]))
+        for i, (x, y) in enumerate(pts):
+            if rng.uniform() < 0.6:
+                prims.append(_column(x, y, 2.5, float(rng.uniform(0.25, 0.5)) * scale, 2.5,
+                                     i, 2 + (i % 8)))
+            else:
+                prims.append(
+                    {
+                        "type": "box",
+                        "center": np.asarray([x, y, float(rng.uniform(0.6, 1.8))], np.float32),
+                        "half_extents": np.asarray(
+                            [
+                                rng.uniform(0.3, 0.8) * scale,
+                                rng.uniform(0.3, 0.8) * scale,
+                                rng.uniform(0.6, 1.8),
+                            ],
+                            np.float32,
+                        ),
+                        "color": _COLORS[i % len(_COLORS)],
+                        "semantic": 2 + (i % 8),
+                    }
+                )
+        return SceneSpec(bmin, bmax, prims, name)
+
+    if name in ("garage_crossing", "crossing"):
+        bmin, bmax = np.asarray([-8.0, -8.0, 0.0]), np.asarray([8.0, 8.0, 5.0])
+        prims = [_room(bmin, bmax)]
+        for i, (x, y) in enumerate(
+            best_candidate_points(rng, kwargs.get("n_obstacles", 10),
+                                  np.asarray([-6.0, -6.0]), np.asarray([6.0, 6.0]))
+        ):
+            prims.append(_column(x, y, 2.5, float(rng.uniform(0.2, 0.45)), 2.5, i, 2 + (i % 8)))
+        return SceneSpec(bmin, bmax, prims, name)
+
+    if name in ("garage_landing", "landing"):
+        bmin, bmax = np.asarray([-4.0, -4.0, 0.0]), np.asarray([8.0, 4.0, 5.0])
+        prims = [_room(bmin, bmax)]
+        # landing pad: a dark flat box
+        prims.append(
+            {
+                "type": "box",
+                "center": np.asarray(kwargs.get("pad_center", [2.0, 0.0, 0.05]), np.float32),
+                "half_extents": np.asarray([0.5, 0.5, 0.05], np.float32),
+                "color": np.asarray([35, 35, 40], np.uint8),
+                "semantic": 9,
+            }
+        )
+        return SceneSpec(bmin, bmax, prims, name)
+
+    if name in ("racing", "racing_gates"):
+        bmin, bmax = np.asarray([-12.0, -12.0, 0.0]), np.asarray([12.0, 12.0, 6.0])
+        prims = [_room(bmin, bmax)]
+        gates = kwargs.get(
+            "gates",
+            [
+                ([6.0, 0.0, 2.0], np.pi / 2),
+                ([0.0, 6.0, 2.0], 0.0),
+                ([-6.0, 0.0, 2.0], np.pi / 2),
+                ([0.0, -6.0, 2.0], 0.0),
+            ],
+        )
+        for i, (c, yaw) in enumerate(gates):
+            prims.append(
+                {
+                    "type": "gate",
+                    "center": np.asarray(c, np.float32),
+                    "yaw": float(yaw),
+                    "inner_half": 0.7,
+                    "thickness": 0.08,
+                    "color": np.asarray([240, 120, 20], np.uint8),
+                    "semantic": 10 + i,
+                }
+            )
+        return SceneSpec(bmin, bmax, prims, name)
+
+    if name == "forest":
+        bmin, bmax = np.asarray([-10.0, -10.0, 0.0]), np.asarray([10.0, 10.0, 6.0])
+        prims = [_room(bmin, bmax)]
+        for i, (x, y) in enumerate(
+            best_candidate_points(rng, kwargs.get("n_obstacles", 24), bmin[:2] + 1, bmax[:2] - 1)
+        ):
+            prims.append(_column(x, y, 3.0, float(rng.uniform(0.15, 0.35)), 3.0, i, 2))
+        return SceneSpec(bmin, bmax, prims, name)
+
+    if name == "box_random":
+        bmin, bmax = np.asarray([-8.0, -8.0, 0.0]), np.asarray([8.0, 8.0, 5.0])
+        prims = [_room(bmin, bmax)]
+        for i, (x, y) in enumerate(
+            best_candidate_points(rng, kwargs.get("n_obstacles", 12), bmin[:2] + 1, bmax[:2] - 1)
+        ):
+            prims.append(
+                {
+                    "type": "sphere" if rng.uniform() < 0.3 else "box",
+                    "center": np.asarray([x, y, rng.uniform(0.5, 2.0)], np.float32),
+                    "radius": float(rng.uniform(0.3, 0.8)),
+                    "half_extents": np.asarray([rng.uniform(0.3, 0.9)] * 3, np.float32),
+                    "color": _COLORS[i % len(_COLORS)],
+                    "semantic": 2 + (i % 8),
+                }
+            )
+        return SceneSpec(bmin, bmax, prims, name)
+
+    raise ValueError(f"unknown scene preset {name!r}")
+
+
+SCENE_PATH_ALIASES = {
+    # reference dataset paths → presets
+    "box15_wall_empty": "box15_wall_empty",
+    "box15_center_wall_empty": "box15_wall_empty",
+    "garage_simple_l_medium": "garage_simple",
+    "garage_crossing": "garage_crossing",
+    "garage_landing": "garage_landing",
+    "racing": "racing",
+}
+
+
+def resolve_scene_path(path: str) -> str:
+    """Map a reference-style dataset path to a preset name."""
+    base = path.rstrip("/").split("/")[-1]
+    return SCENE_PATH_ALIASES.get(base, base)
+
+
+def load_scenes_for_env(env):
+    """Build the device scene from an env's ``scene_kwargs`` (procedural
+    presets only), one scene per ``env.num_scene`` with seeds
+    ``seed, seed + 1, ...``."""
+    kw = dict(env.scene_kwargs)
+    path = kw.get("path", "box15_wall_empty")
+    seed = kw.get("seed", env.seed)
+    if "data" in kw or (isinstance(path, str) and (
+            os.path.isfile(path) or os.path.isdir(path))):
+        raise NotImplementedError(
+            "only procedural scene presets are ported; pre-baked scenes, mesh "
+            "files, habitat datasets and scene directories are ROADMAP Queue A "
+            "item 15-17 (imported meshes)")
+    preset = resolve_scene_path(path)
+    specs = [make_scene(preset, seed=seed + i, **kw.get("scene_gen_kwargs", {}))
+             for i in range(env.num_scene)]
+    return _build_scene(env, specs)
+
+
+def _build_scene(env, specs):
+    kw = dict(env.scene_kwargs)
+    if kw.get("backend", "primitive") != "primitive":
+        raise NotImplementedError(
+            "the dense-grid scene backend is ROADMAP Queue A item 15 (imported meshes)")
+    from .prim_scene import pack_scenes
+
+    return pack_scenes(specs, device=env.device)
