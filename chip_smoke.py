@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``visfly_tpu_torch``).
 
-Drives the port's main path, the depth leg of ``bench.py``, on one CUDA
-card: ``NavigationEnv`` with 256 agents in the procedural
-``garage_simple_l_medium`` scene, 64×64 depth rendered every step, bodyrate
-control at dt = ctrl_dt = 0.03, actions uniform in [-0.3, 0.3], stepped in
-32-step chunks. Phases, one line each; any failure exits non-zero:
+Drives the port's paths on one CUDA card, through ``Env(...)``,
+``env.reset(gen)`` and ``env.step(state, action)``, with actions uniform in
+[-0.3, 0.3] and every observation consumed:
+
+- the depth leg of ``bench.py``: ``NavigationEnv``, 256 agents in the
+  procedural ``garage_simple_l_medium`` scene, 64×64 depth every step,
+  bodyrate control at dt = ctrl_dt = 0.03, 32-step chunks;
+- path A, the colour landing: ``LandingEnv``, 256 agents in
+  ``garage_landing``, one 64×64 down-facing colour camera rendered twice a
+  step (before the reward and after the auto-reset);
+- path B, the sensor suite: the depth leg's env with four 64×64 sensors
+  (semantic; march depth; un-culled over-relaxed march depth; march depth
+  warm-started by an 8×8 cone prepass);
+- path C, the physics leg of ``bench.py``: ``HoverEnv``, 200 agents, no
+  scene, 8 substeps a control step, 125-step chunks.
+
+Phases, one line each; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: every CUDA kernel of the package, from the sources in the
-   checkout;
-3. kernel vs plain PyTorch on the card at the main-path shapes (the reset
-   agents' camera rays, 1 M random rays, a scene with dynamic capsules):
-   max |Δt| ≤ 1e-3 m on rays that both hit, hit disagreeing on ≤ 1e-5 of
-   rays; both timed with CUDA events (median of 20);
-4. the slice: reset, 1 warm-up chunk, 6 timed chunks; every render must
-   have launched the kernel, outputs finite, depth in [0, 20];
-5. one step from the same state on the card and on the CPU plain path:
-   depth within 1e-3 m on all but ≤ 1e-5 of pixels (silhouette pixels that
-   see another object after last-ulp differences in the dynamics), state
-   obs within 1e-4.
+   checkout, the compilers side by side;
+3. every kernel mode vs its plain PyTorch version on the card at the
+   main-path shapes (the reset agents' camera rays of paths A and B, 1 M
+   random rays, a scene with 256 dynamic capsules): max |Δt| ≤ 1e-3 m on
+   rays that both hit, hit and winning-id disagreeing on ≤ 1e-5 of rays;
+   both timed with CUDA events (median of 20; 3 for the plain march);
+   then the implicit-function-theorem gradient through the kernel forward
+   against the same rule on the plain forward, within 1e-4 relative;
+4. each path: reset, 1 warm-up chunk, timed chunks; every render must have
+   launched exactly its kernel mode, outputs finite and in range;
+5. one step from the same state on the card and on the CPU plain path, for
+   the depth leg (depth within 1e-3 m on all but ≤ 1e-5 of pixels) and for
+   path A (colour equal on all but ≤ 1e-4 of pixels, pad centre within 1e-3);
+   state obs within 1e-4.
 
-The line before the last is a JSON object with each kernel's route,
-source, launches in phase 4, error and times; the last line is
+The line before the last is a JSON object with each kernel's route, source,
+launches in phase 4, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
 
     python3 chip_smoke.py
@@ -38,11 +53,41 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 N_AGENTS = 256
 RES = (64, 64)
 CHUNK = 32
-N_CHUNKS = 6
 MAX_DEPTH = 20.0
+TRACE_STEPS = 40
 T_TOL = 1e-3  # m; grazing rays amplify rounding in the slab divisions
-HIT_TOL = 1e-5  # share of rays whose hit flag may differ (grazing rays)
+HIT_TOL = 1e-5  # share of rays whose hit flag or id may differ (grazing rays)
 OBS_TOL = 1e-4
+GRAD_TOL = 1e-4  # relative
+COLOR_TOL = 1e-4  # share of pixels: a silhouette pixel flips a whole uint8 triple
+# the card's peaks the bounds are held against (H100 SXM data sheet)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# float32 operations of one row, a division or square root counted as the
+# 8-instruction sequence it compiles to, everything else as 1
+OPS = {"box_hit": 100, "cap_hit": 185, "box_sdf": 41, "cap_sdf": 49}
+SUITE = [
+    {"uuid": "semantic", "sensor_type": "semantic"},
+    {"uuid": "depth_march", "sensor_type": "depth", "trace_mode": "march"},
+    {"uuid": "depth_nocull", "sensor_type": "depth", "trace_mode": "march", "cull": False,
+     "march_omega": 1.5},
+    {"uuid": "depth_tile", "sensor_type": "depth", "trace_mode": "march", "tile": 8},
+]
+# the kernel mode each sensor of path B must launch, once per render
+SUITE_MODES = {"semantic": "trace_analytic_kid", "depth_march": "trace_march",
+               "depth_nocull": "trace_march_nocull", "depth_tile": "trace_march_packed"}
+KERNELS = {
+    "trace_analytic": ("visfly_tpu_torch/csrc/trace_analytic.cu",
+                       "visfly_tpu/render/pallas_trace.py:385"),
+    "trace_analytic_kid": ("visfly_tpu_torch/csrc/trace_analytic.cu",
+                           "visfly_tpu/render/pallas_trace.py:328"),
+    "trace_march": ("visfly_tpu_torch/csrc/trace_march.cu",
+                    "visfly_tpu/render/pallas_trace.py:108"),
+    "trace_march_nocull": ("visfly_tpu_torch/csrc/trace_march.cu",
+                           "visfly_tpu/render/pallas_trace.py:618"),
+    "trace_march_packed": ("visfly_tpu_torch/csrc/trace_march.cu",
+                           "visfly_tpu/render/pallas_trace.py:93"),
+}
 
 
 def check(ok, msg):
@@ -50,20 +95,35 @@ def check(ok, msg):
         raise RuntimeError(f"FAILED: {msg}")
 
 
-def bench_env(device):
+def bench_env(device, sensors=None, n=N_AGENTS, res=RES):
+    """The depth leg's env; ``sensors`` replaces its one depth camera."""
     from visfly_tpu_torch.envs import NavigationEnv
 
+    sensors = sensors or [{"uuid": "depth", "sensor_type": "depth"}]
     return NavigationEnv(
-        num_agent_per_scene=N_AGENTS,
+        num_agent_per_scene=n,
         visual=True,
-        scene_kwargs={"path": "garage_simple_l_medium", "trace_steps": 40},
-        sensor_kwargs=[{"uuid": "depth", "sensor_type": "depth", "resolution": list(RES)}],
+        scene_kwargs={"path": "garage_simple_l_medium", "trace_steps": TRACE_STEPS},
+        sensor_kwargs=[dict(s, resolution=list(res)) for s in sensors],
         random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [
             {"position": {"mean": [1.0, 0.0, 1.5], "half": [0.5, 2.0, 1.0]}}]}},
         dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate"},
         max_episode_steps=256,
         device=device,
     )
+
+
+def landing_env(device, n=N_AGENTS):
+    from visfly_tpu_torch.envs import LandingEnv
+
+    return LandingEnv(num_agent_per_scene=n, device=device)
+
+
+def hover_env(device, n=200):
+    from visfly_tpu_torch.envs import HoverEnv
+
+    return HoverEnv(num_agent_per_scene=n, visual=False, max_episode_steps=500, device=device,
+                    dynamics_kwargs={"dt": 0.0025, "ctrl_dt": 0.02, "action_type": "bodyrate"})
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -83,35 +143,163 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def compare_trace(name, kscene, o, d):
-    """Kernel vs plain version on the same card tensors → (max |Δt| on rays
-    that both hit, share of rays whose hit differs)."""
+def camera_rays_of(env, state, sensor=0):
+    """The component-major rays (3, 1, N·H·W) the render gives the kernels."""
+    from visfly_tpu_torch.render import camera_rays_components
+
+    spec = env.sensor_kwargs[sensor]
+    n, hw = env.num_agent, spec["resolution"][0] * spec["resolution"][1]
+    o_c, d_c, _ = camera_rays_components(spec, state.dyn.pos, state.dyn.q, env.cameras[sensor])
+    o = o_c[:, :, None].expand(3, n, hw).reshape(3, 1, n * hw).contiguous()
+    return o, d_c.reshape(3, 1, n * hw).contiguous()
+
+
+def packed(x):
+    return x.permute(1, 2, 0).contiguous()
+
+
+def kernel_modes(t_init):
+    """name → (kernel call, plain call) on (kscene, o, d), with the arguments
+    the main paths give each mode. ``t_init`` warm-starts the packed march."""
+    from visfly_tpu_torch.render import (trace_analytic, trace_analytic_reference, trace_march,
+                                         trace_march_reference)
+
+    half = max(8, TRACE_STEPS // 2)
+    return {
+        "trace_analytic": (
+            lambda ks, o, d: trace_analytic(ks, o, d, MAX_DEPTH),
+            lambda ks, o, d, **kw: trace_analytic_reference(ks, o, d, MAX_DEPTH)),
+        "trace_analytic_kid": (
+            lambda ks, o, d: trace_analytic(ks, o, d, MAX_DEPTH, want_kid=True),
+            lambda ks, o, d, **kw: trace_analytic_reference(ks, o, d, MAX_DEPTH, want_kid=True)),
+        "trace_march": (
+            lambda ks, o, d: trace_march(ks, o, d, None, TRACE_STEPS, MAX_DEPTH),
+            lambda ks, o, d, **kw: trace_march_reference(ks, o, d, None, TRACE_STEPS,
+                                                         MAX_DEPTH, **kw)),
+        "trace_march_nocull": (
+            lambda ks, o, d: trace_march(ks, o, d, None, TRACE_STEPS, MAX_DEPTH, omega=1.5,
+                                         cull=False),
+            lambda ks, o, d, **kw: trace_march_reference(ks, o, d, None, TRACE_STEPS,
+                                                         MAX_DEPTH, omega=1.5, **kw)),
+        "trace_march_packed": (
+            lambda ks, o, d: trace_march(ks, packed(o), packed(d), t_init(o), half, MAX_DEPTH,
+                                         packed=True),
+            lambda ks, o, d, **kw: trace_march_reference(ks, o, d, t_init(o), half, MAX_DEPTH,
+                                                         **kw)),
+    }
+
+
+def compare(mode, case, kernel, plain, kscene, o, d):
+    """Kernel vs plain version on the same card tensors → max |Δt| on rays
+    that both hit. Fails on non-finite output, |Δt| > T_TOL, or hit flags or
+    ids that differ on more than HIT_TOL of the rays."""
     import torch
 
-    from visfly_tpu_torch.render import trace_analytic, trace_analytic_reference
-
-    t_k, hit_k = trace_analytic(kscene, o, d, MAX_DEPTH)
-    t_p, hit_p = trace_analytic_reference(kscene, o, d, MAX_DEPTH)
+    out_k, out_p = kernel(kscene, o, d), plain(kscene, o, d)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(t_k).all()), f"{name}: non-finite kernel output")
+    (t_k, hit_k), (t_p, hit_p) = out_k[:2], out_p[:2]
+    check(bool(torch.isfinite(t_k).all()), f"{mode} on {case}: non-finite kernel output")
     both = hit_k & hit_p
     err = float((t_k - t_p).abs()[both].max()) if bool(both.any()) else 0.0
     flip = float((hit_k != hit_p).float().mean())
-    print(f"phase 3 | {name}: rays={o.shape[2] * o.shape[1]} hit={float(hit_k.float().mean()):.4f} "
-          f"max|dt|={err:.3e} m hit_mismatch={flip:.3e}", flush=True)
-    check(err <= T_TOL, f"{name}: max |dt| {err} > {T_TOL}")
-    check(flip <= HIT_TOL, f"{name}: hit mismatch {flip} > {HIT_TOL}")
+    msg = (f"phase 3 | {mode} on {case}: rays={o.shape[1] * o.shape[2]} "
+           f"hit={float(hit_k.float().mean()):.4f} max|dt|={err:.3e} m hit_mismatch={flip:.3e}")
+    if len(out_k) > 2:
+        kid_off = float((out_k[2] != out_p[2]).float().mean())
+        msg += f" kid_mismatch={kid_off:.3e} kid>=0 on {float((out_k[2] >= 0).float().mean()):.4f}"
+        check(kid_off <= HIT_TOL, f"{mode} on {case}: kid mismatch {kid_off} > {HIT_TOL}")
+        check(bool((out_k[2][~hit_k] == -1).all()), f"{mode} on {case}: a miss has an id")
+    print(msg, flush=True)
+    check(err <= T_TOL, f"{mode} on {case}: max |dt| {err} > {T_TOL}")
+    check(flip <= HIT_TOL, f"{mode} on {case}: hit mismatch {flip} > {HIT_TOL}")
     return err
 
 
-def main_path_rays(env, state):
-    from visfly_tpu_torch.render import camera_rays_components
+def bound_ms(mode, kscene, n_rays, sdf_evals):
+    """The least time the card could take: the larger of the bytes the
+    function must move over the memory rate and its float32 operations, on
+    this run's data, over the float32 peak → (ms, "bytes" | "operations")."""
+    nb = int((kscene.boxes[0, :, 11] > 0.5).sum())
+    nc = int((kscene.capsules[0, :, 7] > 0.5).sum())
+    if mode.startswith("trace_analytic"):
+        # six ray components in, t and hit (and the id) out
+        n_bytes = n_rays * (6 * 4 + 4 + 1 + (4 if mode.endswith("kid") else 0))
+        ops = n_rays * (nb * OPS["box_hit"] + nc * OPS["cap_hit"])
+    else:
+        n_bytes = n_rays * (6 * 4 + 4 + 4 + 1)  # and t_init in
+        ops = sdf_evals * (nb * OPS["box_sdf"] + nc * OPS["cap_sdf"])
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
-    spec = env.sensor_kwargs[0]
-    n, hw = env.num_agent, RES[0] * RES[1]
-    o_c, d_c, _ = camera_rays_components(spec, state.dyn.pos, state.dyn.q, env.cameras[0])
-    o = o_c[:, :, None].expand(3, n, hw).reshape(3, 1, n * hw)
-    return o, d_c.reshape(3, 1, n * hw).contiguous()
+
+def gradient_phase(kscene, o, d, gen):
+    """The IFT gradient through the kernel forward against the same rule on
+    the plain forward, for both layouts, with one upstream gradient."""
+    import torch
+
+    from visfly_tpu_torch.render import trace_diff, trace_march_reference
+    from visfly_tpu_torch.render.trace_kernel import trace_ift_backward
+
+    g_t = torch.randn((o.shape[1], o.shape[2]), generator=gen, device=o.device)
+    for layout, o_in, d_in in (("component", o, d), ("packed", packed(o), packed(d))):
+        o_in, d_in = o_in.clone().requires_grad_(True), d_in.clone().requires_grad_(True)
+        t = trace_diff(kscene, o_in, d_in, None, TRACE_STEPS, MAX_DEPTH,
+                       packed=layout == "packed")[0]
+        g_o, g_d = torch.autograd.grad((t * g_t).sum(), (o_in, d_in))
+        t_p, hit_p = trace_march_reference(kscene, o, d, None, TRACE_STEPS, MAX_DEPTH)
+        r_o, r_d = trace_ift_backward(kscene, o_in.detach(), d_in.detach(), t_p, hit_p, g_t,
+                                      layout == "packed")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(g_o).all() and torch.isfinite(g_d).all()),
+              f"{layout} gradient not finite")
+        check(float(g_o.abs().max()) > 0, f"{layout} gradient is zero")
+        rel = max(float((g - r).abs().max() / r.abs().max()) for g, r in ((g_o, r_o), (g_d, r_d)))
+        print(f"phase 3 | gradient ({layout} rays, kernel forward vs plain forward): "
+              f"max relative difference {rel:.3e}, max|d_o|={float(g_o.abs().max()):.3e}",
+              flush=True)
+        check(rel <= GRAD_TOL, f"{layout} gradient differs by {rel} > {GRAD_TOL}")
+
+
+def drive(env, gen_seed, n_chunks, chunk, expect):
+    """Reset, one warm-up chunk, ``n_chunks`` timed chunks with every
+    observation consumed. ``expect(steps)`` → {mode: launches} of the whole
+    run, reset and warm-up included; modes it leaves out must not launch.
+    Returns (state, last output, env steps/s, launches by mode, timed s)."""
+    import torch
+
+    from visfly_tpu_torch.render import trace_kernel
+
+    dev = env.device
+    gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    act_gen = torch.Generator(device=dev).manual_seed(gen_seed + 1)
+    n = env.num_agent
+    trace_kernel.reset_launches()
+    state, obs = env.reset(gen)
+    carried = torch.zeros((), device=dev)
+
+    def run(state, carried):
+        for _ in range(chunk):
+            a = torch.rand((n, 4), generator=act_gen, device=dev) * 0.6 - 0.3
+            state, out = env.step(state, a)
+            obs_sum = sum(v.float().sum() for v in out.obs.values())
+            carried = carried + out.reward.sum() + obs_sum * 1e-12
+        return state, carried, out
+
+    state, carried, out = run(state, carried)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_chunks):
+        state, carried, out = run(state, carried)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(trace_kernel.LAUNCHES)
+    steps = chunk * (n_chunks + 1)
+    want = {k: 0 for k in launches}
+    want.update(expect(steps))
+    check(launches == want, f"kernel launches {launches} != expected {want}")
+    check(bool(torch.isfinite(carried)), "carried sum is not finite")
+    check(bool(torch.isfinite(out.obs["state"]).all()), "state obs not finite")
+    return state, out, n * chunk * n_chunks / dt, launches, dt
 
 
 def to_device(x, device, gen):
@@ -125,6 +313,20 @@ def to_device(x, device, gen):
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(to_device(v, device, gen) for v in x))
     return x
+
+
+def card_vs_cpu(env, env_cpu, state, seed):
+    """One ``is_test`` step from ``state`` on the card and on the CPU."""
+    import torch
+
+    a = torch.rand((env.num_agent, 4), device=env.device,
+                   generator=torch.Generator(device=env.device).manual_seed(seed)) * 0.6 - 0.3
+    state_cpu = to_device(state, "cpu", torch.Generator().manual_seed(0))
+    _, out_gpu = env.step(state, a, is_test=True)
+    _, out_cpu = env_cpu.step(state_cpu, a.cpu(), is_test=True)
+    s_err = float((out_gpu.obs["state"].cpu() - out_cpu.obs["state"]).abs().max())
+    check(s_err <= OBS_TOL, f"state obs card vs cpu {s_err} > {OBS_TOL}")
+    return out_gpu, out_cpu, s_err
 
 
 def main():
@@ -151,106 +353,188 @@ def main():
     from visfly_tpu_torch.build import build_all
 
     t0 = time.perf_counter()
-    built = build_all()
-    for name, (secs, log) in built.items():
-        info = " ".join(line.strip() for line in log.splitlines() if "Used" in line)
-        print(f"phase 2 | built {name} in {secs:.1f} s | {info}", flush=True)
+    for name, (secs, log) in build_all().items():
+        regs = [line.split("Used")[1].split(",")[0].strip() for line in log.splitlines()
+                if "Used" in line]
+        print(f"phase 2 | built {name} in {secs:.1f} s | ptxas: {', '.join(regs)}", flush=True)
     print(f"phase 2 | build total {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 3. kernel vs plain on the card at the main-path shapes
-    from visfly_tpu_torch.render import (prepare_kernel_scene, trace_analytic,
-                                         trace_analytic_reference)
-    from visfly_tpu_torch.render import trace_kernel
+    # 3. every kernel mode vs its plain version on the card
+    from visfly_tpu_torch.render import cone_warm_start, prepare_kernel_scene
 
-    env = bench_env(dev)
-    state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
-    kscene = prepare_kernel_scene(env.scene)
-    o, d = main_path_rays(env, state)
-    errs = [compare_trace("camera rays of 256 reset agents", kscene, o, d)]
+    env_d = bench_env(dev)
+    env_a = landing_env(dev)
+    env_b = bench_env(dev, SUITE)
+    env_c = hover_env(dev)
+    state_b, _ = env_b.reset(torch.Generator(device=dev).manual_seed(0))
+    state_a, _ = env_a.reset(torch.Generator(device=dev).manual_seed(0))
+    ks_b, ks_a = prepare_kernel_scene(env_b.scene), prepare_kernel_scene(env_a.scene)
+    o_b, d_b = camera_rays_of(env_b, state_b)
+    o_a, d_a = camera_rays_of(env_a, state_a)
     g = torch.Generator(device=dev).manual_seed(1)
     r = 1 << 20
     o_rand = (torch.rand((3, 1, r), generator=g, device=dev)
               * torch.tensor([19.0, 11.0, 4.5], device=dev)[:, None, None]
-              + torch.tensor([-1.5, -5.5, 0.25], device=dev)[:, None, None])
+              + torch.tensor([-1.5, -5.5, 0.25], device=dev)[:, None, None]).contiguous()
     d_rand = torch.randn((3, 1, r), generator=g, device=dev)
-    d_rand = d_rand / torch.linalg.vector_norm(d_rand, dim=0, keepdim=True)
-    errs.append(compare_trace("1M random rays", kscene, o_rand.contiguous(),
-                              d_rand.contiguous()))
-    objects = (state.dyn.pos[None], torch.full((1, N_AGENTS), 0.15, device=dev))
-    errs.append(compare_trace("camera rays with 256 dynamic capsules",
-                              prepare_kernel_scene(env.scene, objects), o, d))
-    ms = cuda_ms(lambda: trace_analytic(kscene, o, d, MAX_DEPTH))
-    plain_ms = cuda_ms(lambda: trace_analytic_reference(kscene, o, d, MAX_DEPTH))
-    print(f"phase 3 | trace_analytic at ({3}, 1, {o.shape[2]}): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms (median of 20) | {card}", flush=True)
+    d_rand = (d_rand / torch.linalg.vector_norm(d_rand, dim=0, keepdim=True)).contiguous()
+    objects = (state_b.dyn.pos[None], torch.full((1, N_AGENTS), 0.15, device=dev))
+    ks_dyn = prepare_kernel_scene(env_b.scene, objects)
 
-    # 4. the slice: reset, 1 warm-up chunk, 6 timed chunks
-    gen = torch.Generator(device=dev).manual_seed(0)
-    act_gen = torch.Generator(device=dev).manual_seed(1)
-    trace_kernel.LAUNCHES = 0
-    state, obs = env.reset(gen)
-    renders = 1
-    carried = torch.zeros((), device=dev)
+    # the warm start path B gives the packed march: one cone per 8×8 pixels
+    # of each camera, as render_camera computes it
+    spec_tile = env_b.sensor_kwargs[3]
+    q_b = state_b.dyn.q
 
-    def chunk(state, carried):
-        for _ in range(CHUNK):
-            a = torch.rand((N_AGENTS, 4), generator=act_gen, device=dev) * 0.6 - 0.3
-            state, out = env.step(state, a)
-            obs_sum = sum(v.float().sum() for v in out.obs.values())
-            carried = carried + out.reward.sum() + obs_sum * 1e-12
-        return state, carried, out
+    def cone_t_init(objs):
+        def t_init(o):
+            origins = o[:, 0, ::RES[0] * RES[1]].T.contiguous()  # (N, 3): one per camera
+            return cone_warm_start(env_b.scene, spec_tile, spec_tile["tile"], origins, q_b, 1,
+                                   objs, TRACE_STEPS, MAX_DEPTH)
+        return t_init
 
-    state, carried, out = chunk(state, carried)
-    renders += CHUNK
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(N_CHUNKS):
-        state, carried, out = chunk(state, carried)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    renders += CHUNK * N_CHUNKS
-    launches = trace_kernel.LAUNCHES
-    check(launches == renders, f"kernel launches {launches} != renders {renders}")
+    random_t_init = lambda o: (torch.rand((1, o.shape[2]), device=dev,  # noqa: E731
+                                          generator=torch.Generator(device=dev).manual_seed(2))
+                               * 2.0)
+    cases = [
+        ("path B camera rays of 256 reset agents", ks_b, o_b, d_b, cone_t_init(None)),
+        ("path A camera rays of 256 reset agents", ks_a, o_a, d_a, random_t_init),
+        ("1M random rays", ks_b, o_rand, d_rand, random_t_init),
+        ("path B camera rays with 256 dynamic capsules", ks_dyn, o_b, d_b,
+         cone_t_init(objects)),
+    ]
+    errs = {m: 0.0 for m in KERNELS}
+    for case, ks, o, d, t_init in cases:
+        for mode, (kernel, plain) in kernel_modes(t_init).items():
+            errs[mode] = max(errs[mode], compare(mode, case, kernel, plain, ks, o, d))
+
+    # times at the shapes and arguments the main path gives each mode: B1 and
+    # the marches on path B's rays, the id kernel on path A's
+    from visfly_tpu_torch.render import trace_march
+
+    timing = {}
+    ti_b = cone_t_init(None)(o_b)  # the prepass is plain PyTorch, not the kernel: outside
+    op_b, dp_b = packed(o_b), packed(d_b)  # and so is the layout change
+    modes_b = kernel_modes(lambda o: ti_b)
+    for mode, (kernel, plain) in modes_b.items():
+        ks, o, d = (ks_a, o_a, d_a) if mode == "trace_analytic_kid" else (ks_b, o_b, d_b)
+        if mode == "trace_march_packed":
+            ms = cuda_ms(lambda: trace_march(ks, op_b, dp_b, ti_b, max(8, TRACE_STEPS // 2),
+                                             MAX_DEPTH, packed=True))
+        else:
+            ms = cuda_ms(lambda: kernel(ks, o, d))
+        march = "march" in mode
+        plain_ms = cuda_ms(lambda: plain(ks, o, d), reps=3 if march else 20,
+                           warmup=1 if march else 3)
+        stats = {}
+        if march:
+            plain(ks, o, d, stats=stats)
+        b_ms, b_by = bound_ms(mode, ks, o.shape[2], stats.get("sdf_evals", 0))
+        timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        evals = f", {stats['sdf_evals'] / o.shape[2]:.2f} SDF evaluations a ray" if march else ""
+        print(f"phase 3 | {mode} at {o.shape[2]} rays: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms by {b_by}{evals} | {card}", flush=True)
+    # the id's cost beside B1 on the same rays (path B's semantic sensor)
+    kid_b = cuda_ms(lambda: modes_b["trace_analytic_kid"][0](ks_b, o_b, d_b))
+    print(f"phase 3 | trace_analytic_kid on path B's rays: kernel {kid_b:.4f} ms beside "
+          f"trace_analytic's {timing['trace_analytic']['ms']:.4f} ms | {card}", flush=True)
+    gradient_phase(ks_b, o_b, d_b, g)
+
+    # 4. the paths
+    launches = {m: 0 for m in KERNELS}
+
+    def report(name, env, sps, counts, dt, steps, what):
+        used = {k: v for k, v in counts.items() if v}
+        for k, v in counts.items():
+            launches[k] += v
+        print(f"phase 4 | {name}: {used or 'no kernel'} launches in {steps} steps | "
+              f"{sps:.1f} env steps/s ({env.num_agent} agents, {what}, timed {dt:.3f} s) | {card}",
+              flush=True)
+
+    # depth leg: one render at the reset and one a step
+    n_chunks = 3
+    state_d, out, sps, counts, dt = drive(env_d, 0, n_chunks, CHUNK,
+                                          lambda steps: {"trace_analytic": 1 + steps})
     depth = out.obs["depth"]
     check(tuple(depth.shape) == (N_AGENTS, 1, *RES), f"depth shape {tuple(depth.shape)}")
-    check(bool(torch.isfinite(carried)), "carried sum is not finite")
-    check(bool(torch.isfinite(out.obs["state"]).all()), "state obs not finite")
     check(bool(((depth >= 0) & (depth <= MAX_DEPTH)).all()), "depth outside [0, 20]")
-    sps = N_AGENTS * CHUNK * N_CHUNKS / dt
-    print(f"phase 4 | {launches} kernel launches for {renders} renders | "
-          f"{sps:.1f} env steps/s ({N_AGENTS} agents, {RES[0]}x{RES[1]} depth, "
-          f"{N_CHUNKS}x{CHUNK} steps in {dt:.3f} s) | {card}", flush=True)
+    report("depth leg", env_d, sps, counts, dt, CHUNK * (n_chunks + 1), "64x64 depth")
+
+    # path A: one render at the reset, two a step (before the reward, after
+    # the auto-reset)
+    n_chunks = 6
+    state_a, out, sps, counts, dt = drive(env_a, 10, n_chunks, CHUNK,
+                                          lambda steps: {"trace_analytic_kid": 1 + 2 * steps})
+    color = out.obs["color"]
+    check(tuple(color.shape) == (N_AGENTS, 3, *RES) and color.dtype == torch.uint8,
+          f"colour {tuple(color.shape)} {color.dtype}")
+    check(bool(state_a.aux.seen.any()), "no agent of path A ever saw the pad")
+    check(bool((out.obs["target"].abs() <= 0.5).all()), "pad centre outside the image")
+    check(10 < float(color.float().mean()) < 250, "colour image is blank")
+    report("path A (colour landing)", env_a, sps, counts, dt, CHUNK * (n_chunks + 1),
+           f"64x64 colour twice a step, pad seen by {int(state_a.aux.seen.sum())}")
+
+    # path B: every sensor renders once at the reset and once a step
+    n_chunks = 2
+    state_b, out, sps, counts, dt = drive(
+        env_b, 20, n_chunks, CHUNK, lambda steps: {m: 1 + steps for m in SUITE_MODES.values()})
+    report("path B (sensor suite)", env_b, sps, counts, dt, CHUNK * (n_chunks + 1),
+           "4 sensors of 64x64")
+    images = env_b.sensor_observations(state_b)  # outside the counted run
+    sem = images["semantic"]
+    check(tuple(sem.shape) == (N_AGENTS, 1, *RES) and sem.dtype == torch.uint8,
+          f"semantic {tuple(sem.shape)} {sem.dtype}")
+    check(int(sem.max()) <= int(env_b.scene.semantic.max()), "semantic id outside the table")
+    check(len(torch.unique(sem)) > 1, "semantic image is blank")
+    for k in ("depth_march", "depth_nocull", "depth_tile"):
+        dm = images[k]
+        check(tuple(dm.shape) == (N_AGENTS, 1, *RES) and dm.dtype == torch.float32, f"{k} shape")
+        check(bool(((dm >= 0) & (dm <= MAX_DEPTH)).all()), f"{k} outside [0, 20]")
+    # the marches agree with each other where they converge: the median pixel
+    med = [float((images[k] - images["depth_march"]).abs().median())
+           for k in ("depth_nocull", "depth_tile")]
+    check(max(med) < 1e-2, f"march sensors disagree: median |d| {med}")
+
+    # path C: state only
+    n_chunks = 4
+    _, out, sps, counts, dt = drive(env_c, 30, n_chunks, 125, lambda steps: {})
+    report("path C (physics leg)", env_c, sps, counts, dt, 125 * (n_chunks + 1),
+           "no scene, 8 substeps")
 
     # 5. one step from the same state, card vs CPU plain path
-    env_cpu = bench_env("cpu")
-    state_cpu = to_device(state, "cpu", torch.Generator().manual_seed(0))
-    a = torch.rand((N_AGENTS, 4), generator=act_gen, device=dev) * 0.6 - 0.3
-    _, out_gpu = env.step(state, a, is_test=True)
-    _, out_cpu = env_cpu.step(state_cpu, a.cpu(), is_test=True)
+    out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
     # the two devices' float32 dynamics differ in the last ulps, so a pixel on
     # a silhouette may see another object: such pixels count as mismatches
-    # and may be at most HIT_TOL of the image
     diff = (out_gpu.obs["depth"].cpu() - out_cpu.obs["depth"]).abs()
     off = diff > T_TOL
-    d_err = float(diff[~off].max())
     d_flip = float(off.float().mean())
-    s_err = float((out_gpu.obs["state"].cpu() - out_cpu.obs["state"]).abs().max())
-    print(f"phase 5 | card vs cpu: depth max|d|={d_err:.3e} m on all but "
-          f"{int(off.sum())} of {diff.numel()} pixels (silhouette share {d_flip:.3e}, "
+    print(f"phase 5 | depth leg card vs cpu: depth max|d|={float(diff[~off].max()):.3e} m on "
+          f"all but {int(off.sum())} of {diff.numel()} pixels (silhouette share {d_flip:.3e}, "
           f"largest {float(diff.max()):.3f} m) | state max|d|={s_err:.3e}", flush=True)
     check(d_flip <= HIT_TOL, f"depth card vs cpu off by > {T_TOL} m on {d_flip} of pixels")
-    check(s_err <= OBS_TOL, f"state obs card vs cpu {s_err} > {OBS_TOL}")
 
-    print(json.dumps({"kernels": [{
-        "name": "trace_analytic",
-        "route": "cuda",
-        "source": "visfly_tpu_torch/csrc/trace_analytic.cu",
-        "replaces": "visfly_tpu/render/pallas_trace.py:385",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    out_gpu, out_cpu, s_err = card_vs_cpu(env_a, landing_env("cpu"), state_a, 41)
+    px_off = (out_gpu.obs["color"].cpu() != out_cpu.obs["color"]).any(dim=1)
+    c_flip = float(px_off.float().mean())
+    t_err = float((out_gpu.obs["target"].cpu() - out_cpu.obs["target"]).abs().max())
+    print(f"phase 5 | path A card vs cpu: colour differs on {int(px_off.sum())} of "
+          f"{px_off.numel()} pixels ({c_flip:.3e}) | pad centre max|d|={t_err:.3e} | "
+          f"state max|d|={s_err:.3e}", flush=True)
+    check(c_flip <= COLOR_TOL, f"colour card vs cpu differs on {c_flip} of pixels")
+    check(t_err <= 1e-3, f"pad centre card vs cpu {t_err} > 1e-3")
+
+    for mode, n_launch in launches.items():
+        check(n_launch > 0, f"no main path launched {mode}")
+    print(json.dumps({
+        "kernels": [{
+            "name": mode, "route": "cuda", "source": KERNELS[mode][0],
+            "replaces": KERNELS[mode][1], "launches": launches[mode],
+            "max_abs_err": errs[mode], **timing[mode], "library_ms": None,
+        } for mode in KERNELS],
+        "note": "trace_march and trace_march_nocull are one kernel instantiation (the per-tile "
+                "cull is not ported): the launch count tells the cull settings apart; "
+                "library_ms is null because no single PyTorch call computes a first hit"}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

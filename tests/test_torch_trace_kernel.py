@@ -207,7 +207,7 @@ def test_wrapper_runs_plain_version_on_cpu_without_launching():
     ks = prepare_kernel_scene(sc)
     oc = torch.from_numpy(o.T.copy())[:, None, :]
     dc = torch.from_numpy(d.T.copy())[:, None, :]
-    before = trace_kernel.LAUNCHES
+    before = dict(trace_kernel.LAUNCHES)
     t, hit = trace_analytic(ks, oc, dc)
     t_ref, hit_ref = trace_analytic_reference(ks, oc, dc, chunk=333)
     assert trace_kernel.LAUNCHES == before

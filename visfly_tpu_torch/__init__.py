@@ -6,10 +6,11 @@ counterpart is easy to find. It imports ``torch`` and numpy, never ``jax``
 and never ``visfly_tpu``; it only reads the drone JSON data files under
 ``visfly_tpu/configs/drone/``.
 
-Plain tensor code is PyTorch. The ray-trace kernel is hand-written CUDA C++
-for ``sm_90a`` (``csrc/trace_analytic.cu``), built with ``nvcc`` at first use
-and bound with ``ctypes``; on CPU tensors its plain PyTorch version runs
-instead.
+Plain tensor code is PyTorch. The ray-trace kernels are hand-written CUDA
+C++ for ``sm_90a`` (``csrc/trace_analytic.cu``, ``csrc/trace_march.cu``),
+built with ``nvcc`` at first use and bound with ``ctypes``; on CPU tensors
+their plain PyTorch versions run instead. Envs run on the CUDA card unless
+built with ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

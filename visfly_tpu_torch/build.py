@@ -1,15 +1,17 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
-plain C interface, in a directory named by the hash of its source and flags
-under ``build/kernels/`` at the repository root (``build/`` is git-ignored).
-A library already built from the same source is reused. A build that fails
-raises; nothing falls back.
+plain C interface, in a directory named by the hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, under ``build/kernels/`` at
+the repository root (``build/`` is git-ignored). A library already built
+from the same sources is reused. A build that fails raises; nothing falls
+back. ``build_all`` starts one ``nvcc`` per source, all at once.
 
     python -m visfly_tpu_torch.build      # build every kernel, print ptxas info
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import glob
@@ -43,9 +45,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its content and flags."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to, keyed by its content, the shared
+    headers' and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu"), *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_ROOT, f"{name}-{digest}", f"lib{name}.so")
 
 
@@ -82,14 +88,19 @@ def kernel_names() -> list:
 
 
 def build_all() -> dict:
-    """Build every kernel; returns {name: (seconds, build log)}."""
-    out = {}
-    for name in kernel_names():
+    """Build every kernel, the compilers running side by side; returns
+    {name: (seconds, build log)}."""
+    def one(name):
         t0 = time.perf_counter()
         lib = build(name)
-        load_library(name)
         with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
-            out[name] = (time.perf_counter() - t0, f.read())
+            return time.perf_counter() - t0, f.read()
+
+    names = kernel_names()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        out = dict(zip(names, pool.map(one, names)))
+    for name in names:
+        load_library(name)
     return out
 
 

@@ -11,11 +11,16 @@ VecEnv semantics). Randomness comes from the ``torch.Generator`` carried in
 env's device).
 
 Subclasses implement ``get_observation`` / ``get_reward`` / ``get_success``
-/ ``get_failure``. Not ported yet, and raising ``NotImplementedError``:
-differentiable rollouts, dynamic objects (``obj_settings``), IMU and sensor
-noise, world-model latents, ``terminal_obs_in_info``, wind functions and
-velocity sub-sampled collision checks. The env-specific ``aux`` state and
-its hooks come with the envs that need them.
+/ ``get_failure``, and keep env-specific state in ``EnvState.aux`` through
+the hooks ``init_aux`` / ``reset_aux`` / ``step_aux`` /
+``update_aux_from_sensors``. Not ported yet, and raising
+``NotImplementedError``: differentiable rollouts, dynamic objects
+(``obj_settings``), IMU and sensor noise, world-model latents,
+``terminal_obs_in_info``, wind functions and velocity sub-sampled collision
+checks.
+
+The env runs on ``device``, by default the CUDA card; pass ``device="cpu"``
+to run on the CPU.
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ class EnvState(NamedTuple):
     collision: CollisionInfo
     once_collided: Tensor  # (N,) bool since episode start
     returns: Tensor  # (N,) accumulated episode reward
+    aux: Any = ()  # env-specific NamedTuple of tensors (pad centre, ...)
 
 
 class StepOutput(NamedTuple):
@@ -71,6 +77,9 @@ class DroneGymEnv:
 
     # include the pre-reset observation in step info (set by PPO and SAC)
     terminal_obs_in_info: bool = False
+    # set by envs whose reward depends on sensor images (LandingEnv): forces a
+    # render before the reward each step, beside the one after the auto-reset
+    needs_sensors_for_reward: bool = False
 
     def __init__(
         self,
@@ -84,7 +93,7 @@ class DroneGymEnv:
         dynamics_kwargs: Optional[dict] = None,
         scene_kwargs: Optional[dict] = None,
         sensor_kwargs: Optional[Sequence[dict]] = None,
-        device: Any = "cpu",
+        device: Any = "cuda",
         is_collision_reset: bool = True,
         uav_radius: float = 0.1,
         col_refine_steps: int = 0,
@@ -93,11 +102,12 @@ class DroneGymEnv:
         dtype=torch.float32,
     ):
         if requires_grad or grad_collision:
-            raise _unported("differentiable rollouts", "BPTT and the IFT backward")
+            raise _unported("differentiable rollouts", "Queue A item 9, differentiable rollouts")
         if col_refine_steps:
-            raise _unported("col_refine_steps > 0", "velocity sub-sampled collisions")
+            raise _unported("col_refine_steps > 0",
+                            "Queue A item 8, velocity sub-sampled collisions")
         if latent_dim is not None:
-            raise _unported("world-model latents", "the other policies")
+            raise _unported("world-model latents", "Queue A item 14, world_model.py")
         self.device = torch.device(device)
         self.num_agent_per_scene = int(num_agent_per_scene)
         self.num_scene = int(num_scene)
@@ -108,6 +118,7 @@ class DroneGymEnv:
         self.is_collision_reset = is_collision_reset
         self.uav_radius = float(uav_radius)
         self.dtype = dtype
+        self.max_sense_radius = 10.0
         self.scene_ids = torch.arange(self.num_scene, device=self.device).repeat_interleave(
             self.num_agent_per_scene)
 
@@ -115,7 +126,7 @@ class DroneGymEnv:
         self.wind_const = dynamics_kwargs.pop("wind_settings", None)
         if "wind_fn" in dynamics_kwargs or (
                 self.wind_const is not None and isinstance(self.wind_const[0], str)):
-            raise _unported("wind functions", "dynamics wind functions")
+            raise _unported("wind functions", "Queue A item 2, wind functions")
         dynamics_kwargs.pop("seed", None)
         dynamics_kwargs.pop("device", None)
         self.dyn_config = DroneConfig(**dynamics_kwargs)
@@ -123,13 +134,13 @@ class DroneGymEnv:
 
         random_kwargs = random_kwargs or self.default_random_kwargs()
         if random_kwargs.get("noise_kwargs"):
-            raise _unported("IMU and sensor noise", "colour and semantic shading")
+            raise _unported("IMU and sensor noise", "Queue A items 8 and 12, render/noise.py")
         self.randomizers = rnd.from_reference_kwargs(random_kwargs, device=self.device)
 
         self.scene = None
         self.scene_kwargs = dict(scene_kwargs or {})
         if self.scene_kwargs.get("obj_settings"):
-            raise _unported("dynamic objects (obj_settings)", "dynamic objects")
+            raise _unported("dynamic objects (obj_settings)", "Queue A item 16, dynamic objects")
         self.sensor_kwargs = [dict(s) for s in (sensor_kwargs or [])]
         self.cameras = [camera_geometry(s, self.device) for s in self.sensor_kwargs]
         # non-visual envs fly in the hard-coded empty-box world
@@ -161,6 +172,24 @@ class DroneGymEnv:
 
     def get_reward(self, state: EnvState) -> Tensor:
         return torch.zeros((self.num_agent,), dtype=self.dtype, device=self.device)
+
+    def init_aux(self) -> Any:
+        """Env-specific aux state of a fresh env."""
+        return ()
+
+    def reset_aux(self, state: EnvState, mask: Tensor) -> Any:
+        """Aux state with the masked agents reset; ``state.dyn`` is already
+        the respawned dynamics."""
+        return state.aux
+
+    def step_aux(self, aux: Any, dyn: DynState) -> Any:
+        """Advance the aux state by one control step."""
+        return aux
+
+    def update_aux_from_sensors(self, state: EnvState, sensor_obs: Dict[str, Tensor]
+                                ) -> EnvState:
+        """Refresh aux state that is derived from rendered sensors."""
+        return state
 
     # -- helpers ---------------------------------------------------------------
 
@@ -239,21 +268,28 @@ class DroneGymEnv:
             episode_done=falses, success=falses, failure=falses,
             collision=collision, once_collided=falses,
             returns=torch.zeros((n,), dtype=self.dtype, device=self.device),
+            aux=self.init_aux(),
         )
-        return st, self.get_observation(st, self.sensor_observations(st))
+        st = st._replace(aux=self.reset_aux(st, torch.ones_like(falses)))
+        sensor_obs = self.sensor_observations(st)
+        st = self.update_aux_from_sensors(st, sensor_obs)
+        return st, self.get_observation(st, sensor_obs)
 
     def step(self, state: EnvState, action: Tensor, is_test: bool = False
              ) -> Tuple[EnvState, StepOutput]:
         """One control step for all agents. ``is_test=True`` suppresses the
         auto-reset."""
         if self.terminal_obs_in_info:
-            raise _unported("terminal_obs_in_info", "the other trainers and policies")
+            raise _unported("terminal_obs_in_info", "Queue A item 8, terminal_obs_in_info")
         dyn = dyn_mod.step(self.dyn_config, self.params, state.dyn, action,
                            wind_const=self.wind_const)
+        aux = self.step_aux(state.aux, dyn)
         collision, once = self._update_collision(dyn, state.once_collided)
         step_count = state.step_count + 1
         st = state._replace(dyn=dyn, step_count=step_count, collision=collision,
-                            once_collided=once)
+                            once_collided=once, aux=aux)
+        if self.needs_sensors_for_reward:
+            st = self.update_aux_from_sensors(st, self.sensor_observations(st))
 
         success = self.get_success(st)
         failure = self.get_failure(st)
@@ -280,7 +316,9 @@ class DroneGymEnv:
         st = st._replace(returns=returns, episode_done=episode_done)
         if not is_test:
             st = self._auto_reset(st, done)
-        obs = self.get_observation(st, self.sensor_observations(st))
+        sensor_obs = self.sensor_observations(st)
+        st = self.update_aux_from_sensors(st, sensor_obs)
+        obs = self.get_observation(st, sensor_obs)
         return st, StepOutput(obs=obs, reward=reward, done=done, info=info)
 
     def _auto_reset(self, st: EnvState, done: Tensor) -> EnvState:
@@ -291,6 +329,7 @@ class DroneGymEnv:
         collision, once = self._update_collision(dyn, st.once_collided & ~done)
         return st._replace(
             dyn=dyn,
+            aux=self.reset_aux(st._replace(dyn=dyn), done),
             step_count=torch.where(done, 0, st.step_count).to(st.step_count.dtype),
             episode_done=st.episode_done & ~done,
             returns=torch.where(done, torch.zeros_like(st.returns), st.returns),

@@ -16,7 +16,13 @@ from .core.types import Bound
 from .dynamics.config import DroneParams
 from .dynamics.dynamics import DynState
 from .envs.base import CollisionInfo, EnvState
+from .envs.landing import LandingAux
+from .render.sphere_trace import Lighting
+from .render.trace_kernel import KernelScene
 from .scene.prim_scene import PrimitiveScene, scene_from_arrays
+
+# env-specific aux states the port knows, by their field names
+_AUX_TYPES = {LandingAux._fields: LandingAux}
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -48,14 +54,44 @@ def scene_from_numpy(scene, device=None) -> PrimitiveScene:
     return scene_from_arrays(arrays, float(scene.eps), device)
 
 
+def kernel_scene_from_numpy(kscene, device=None) -> KernelScene:
+    """``visfly_tpu.render.pallas_trace.KernelScene`` of numpy arrays →
+    KernelScene."""
+    return KernelScene(_t(kscene.boxes, device), _t(kscene.capsules, device))
+
+
+def lighting_from_numpy(lighting, device=None) -> Optional[Lighting]:
+    """The tuple ``visfly_tpu.render.sphere_trace.bake_lighting`` returns
+    (numpy leaves, the ``shadows`` bool last), or None → Lighting or None."""
+    if lighting is None:
+        return None
+    return Lighting(*(_t(x, device, torch.float32) for x in lighting[:5]),
+                    shadows=bool(lighting[5]))
+
+
+def aux_from_numpy(aux, device=None):
+    """An env's ``EnvState.aux`` NamedTuple of numpy arrays → the port's
+    NamedTuple of the same fields; ``()`` stays ``()``."""
+    if isinstance(aux, tuple) and not hasattr(aux, "_fields"):
+        if len(aux):
+            raise NotImplementedError("only NamedTuple aux states cross over")
+        return ()
+    if aux._fields not in _AUX_TYPES:
+        raise NotImplementedError(f"EnvState.aux of type {type(aux).__name__} is not ported "
+                                  "yet (ROADMAP: Queue A item 15, the rest of the env zoo)")
+    return _AUX_TYPES[aux._fields](*(_t(x, device) for x in aux))
+
+
 def env_state_from_numpy(st, gen: Optional[torch.Generator] = None,
                          device=None) -> EnvState:
     """``visfly_tpu.envs.EnvState`` of numpy arrays → EnvState. The JAX PRNG
     key has no counterpart; ``gen`` (default: a generator on ``device``
-    seeded with 0) takes its place."""
-    for name in ("aux", "objects", "latent"):
+    seeded with 0) takes its place. ``aux`` crosses over for the envs the
+    port has (``LandingAux``)."""
+    for name, item in (("objects", "Queue A item 16, dynamic objects"),
+                       ("latent", "Queue A item 14, world_model.py")):
         if not isinstance(getattr(st, name, ()), tuple):
-            raise NotImplementedError(f"EnvState.{name} is not ported yet")
+            raise NotImplementedError(f"EnvState.{name} is not ported yet (ROADMAP: {item})")
     if gen is None:
         gen = torch.Generator(device=device or "cpu").manual_seed(0)
     c = st.collision
@@ -75,4 +111,5 @@ def env_state_from_numpy(st, gen: Optional[torch.Generator] = None,
         ),
         once_collided=_t(st.once_collided, device, torch.bool),
         returns=_t(st.returns, device),
+        aux=aux_from_numpy(getattr(st, "aux", ()), device),
     )

@@ -52,6 +52,28 @@ def pixel_dirs_body(spec: Dict) -> Tuple[np.ndarray, np.ndarray]:
     return dirs.astype(np.float32), forward.astype(np.float32)
 
 
+def tile_cones_body(spec: Dict, tile: int = 8):
+    """Per-tile cone prepass geometry (host-side constants): the H×W pixel
+    grid in (H/t)×(W/t) tiles → (tile_dirs (Ht·Wt, 3), the normalised mean
+    pixel direction of each tile; tile_tan (Ht·Wt,), the tangent of the cone
+    half-angle that holds every pixel ray of the tile), or (None, None) when
+    the tile does not divide the image. A cone that marches with radius
+    t·tanθ cannot overshoot the first hit of any of its pixel rays."""
+    dirs, _f = pixel_dirs_body(spec)
+    H, W = dirs.shape[:2]
+    t = tile
+    if H % t or W % t:
+        return None, None
+    tiles = dirs.reshape(H // t, t, W // t, t, 3).transpose(0, 2, 1, 3, 4)
+    tiles = tiles.reshape(H // t, W // t, t * t, 3)
+    center = tiles.mean(axis=2)
+    center = center / np.linalg.norm(center, axis=-1, keepdims=True)
+    cos = np.einsum("hwc,hwpc->hwp", center, tiles).min(axis=-1)
+    cos = np.clip(cos, 1e-3, 1.0)
+    tan = np.sqrt(1.0 - cos**2) / cos
+    return center.reshape(-1, 3).astype(np.float32), tan.reshape(-1).astype(np.float32)
+
+
 class CameraGeometry(NamedTuple):
     """Per-sensor constants on the device, built once per env."""
 
@@ -88,3 +110,18 @@ def camera_rays_components(spec: Dict, pos: Tensor, q: Tensor,
     rot = quat.to_rotation_matrix(q)  # (N, 3, 3)
     dirs = torch.einsum("nck,kp->cnp", rot, geom.dirs_body.to(rot.dtype))
     return origins.T, dirs, geom.cos_forward
+
+
+def camera_rays(spec: Dict, pos: Tensor, q: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Point-major rays for the packed trace: (origins (N, 3), dirs
+    (N, H, W, 3), cos_forward (N, H, W))."""
+    dirs_body, forward_body = pixel_dirs_body(spec)
+    H, W = dirs_body.shape[:2]
+    n = pos.shape[0]
+    offset = torch.as_tensor(np.asarray(spec.get("position", [0.0, 0.0, 0.0]), np.float32),
+                             device=pos.device)
+    origins = pos + quat.rotate_fused(q, offset.to(pos.dtype).expand_as(pos))
+    db = torch.as_tensor(dirs_body.reshape(1, H * W, 3), device=pos.device)
+    dirs = quat.rotate_fused(q[:, None, :], db.expand(n, H * W, 3))
+    cos_f = torch.as_tensor(dirs_body.reshape(H * W, 3) @ forward_body, device=pos.device)
+    return origins, dirs.reshape(n, H, W, 3), cos_f.reshape(1, H, W).expand(n, H, W)

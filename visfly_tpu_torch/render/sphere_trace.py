@@ -1,29 +1,227 @@
-"""Depth rendering of packed primitive scenes (counterpart of the depth
-branch of ``visfly_tpu/render/sphere_trace.py``).
+"""Rendering of packed primitive scenes: depth, colour and semantic cameras
+(counterpart of the primitive-scene branches of
+``visfly_tpu/render/sphere_trace.py``).
 
-Per sensor: component-major camera rays → analytic trace (the CUDA kernel
-on the card, its plain version on the CPU) → planar depth
-``where(hit, t·cos, max_depth)`` in the layout ``(N, 1, H, W)`` float32.
-Colour and semantic sensors, the march trace mode, the residual refine and
-mesh scenes are not ported yet and raise ``NotImplementedError``; so do
-dynamic objects and sensor noise, at env construction.
+Per sensor: camera rays → trace (a CUDA kernel on the card, its plain
+version on the CPU; ``render/trace_kernel.py``) → planar depth
+``where(hit, t·cos, max_depth)``, or Lambert-shaded colour, or semantic ids.
+Layouts: depth ``(N, 1, H, W)`` float32, colour ``(N, 3, H, W)`` uint8,
+semantic ``(N, 1, H, W)`` uint8.
+
+Sensor-spec keys beyond the camera's: ``trace_mode`` ("analytic", the
+default: closed-form first hit; or "march": the sphere trace),
+``analytic_refine`` (residual march steps after the analytic candidate),
+``cull``, ``march_omega`` (over-relaxed march), ``trace_steps_override`` and
+``tile`` (> 1: one conservative cone per tile of pixels warm-starts the
+per-pixel march, which then takes half the steps; march mode only).
+
+Grid and triangle scenes, dynamic objects with mesh templates and sensor
+noise are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import Tensor
 
-from ..scene.prim_scene import PrimitiveScene
-from .camera import CameraGeometry, camera_rays_components
-from .trace_kernel import prepare_kernel_scene, trace_analytic
+from ..core import quaternion as quat
+from ..scene.prim_scene import PrimitiveScene, prim_distances, prim_normal_single, prim_sdf
+from .camera import (CameraGeometry, camera_rays, camera_rays_components, tile_cones_body)
+from .trace_kernel import prepare_kernel_scene, trace_diff
 
 DEFAULT_MAX_DEPTH = 20.0  # background value
+BIG = 1e9
+_LIGHT_DIR = (0.33798, 0.24142, 0.90966)  # normalised
 
 
 def _unported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+# ---------------------------------------------------------------------------
+# lighting and shading
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Lighting:
+    """A baked lighting setup. ``shadows`` is a static flag, not a tensor: it
+    selects code (shadow rays on the exact-triangle backend, which is not
+    ported; primitive scenes ignore it)."""
+
+    kind: Tensor  # (L,) 0 directional / 1 point
+    vec: Tensor  # (L, 3) unit direction TO the light, or the light's position
+    color: Tensor  # (L, 3) colour · intensity
+    ambient: Tensor  # ()
+    attenuation: Tensor  # () point lights: 1/(1 + a·d²)
+    shadows: bool = False
+
+
+def bake_lighting(cfg, device=None) -> Optional[Lighting]:
+    """``scene_kwargs["lighting"]`` → :class:`Lighting`, or ``None`` when cfg
+    is falsy (the default single fixed directional light):
+
+        {"ambient": 0.35, "attenuation": 0.0, "lights": [
+            {"type": "directional", "direction": [x, y, z],
+             "color": [1, 1, 1], "intensity": 0.65},
+            {"type": "point", "position": [x, y, z],
+             "color": [1.0, 0.9, 0.8], "intensity": 2.0}]}
+    """
+    if not cfg:
+        return None
+    kind, vec, col = [], [], []
+    for li in cfg.get("lights", ()):
+        ty = str(li.get("type", "directional")).lower()
+        c = np.asarray(li.get("color", [1.0, 1.0, 1.0]), np.float32)
+        c = c * float(li.get("intensity", 1.0))
+        if ty.startswith("dir"):
+            d = np.asarray(li["direction"], np.float32)
+            kind.append(0.0)
+            vec.append(-d / max(float(np.linalg.norm(d)), 1e-9))  # surface → light
+        elif ty == "point":
+            kind.append(1.0)
+            vec.append(np.asarray(li["position"], np.float32))
+        else:
+            raise ValueError(f"unknown light type {ty!r}")
+        col.append(c)
+    if not kind:  # ambient-only setup
+        kind, vec, col = [0.0], [np.zeros(3, np.float32)], [np.zeros(3, np.float32)]
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    return Lighting(t(kind), t(np.stack(vec)), t(np.stack(col)), t(cfg.get("ambient", 0.35)),
+                    t(cfg.get("attenuation", 0.0)), bool(cfg.get("shadows", False)))
+
+
+def lambert_shade(n: Tensor, p: Tensor, lighting: Optional[Lighting]) -> Tensor:
+    """Lambertian shade multiplier (..., 3) from normal ``n`` and hit point
+    ``p`` (both (..., 3)). ``lighting=None`` is the fixed
+    ``0.35 + 0.65·max(n·L, 0)`` single directional light."""
+    if lighting is None:
+        lam = torch.clamp(torch.sum(n * n.new_tensor(_LIGHT_DIR), dim=-1), min=0.0)
+        return (0.35 + 0.65 * lam)[..., None].expand(*lam.shape, 3)
+    kind, vec, col = lighting.kind, lighting.vec, lighting.color
+    to = vec - p[..., None, :]  # (..., L, 3) towards a point light
+    d2 = torch.sum(to * to, dim=-1)
+    l_pt = to * torch.rsqrt(torch.clamp(d2, min=1e-12))[..., None]
+    l = torch.where(kind[:, None] > 0.5, l_pt, vec)  # (..., L, 3)
+    lam = torch.clamp(torch.sum(n[..., None, :] * l, dim=-1), min=0.0)  # (..., L)
+    w = torch.where(kind > 0.5, 1.0 / (1.0 + lighting.attenuation * d2), 1.0)
+    return lighting.ambient + torch.sum((lam * w)[..., None] * col, dim=-2)
+
+
+def _shade_rows(scene: PrimitiveScene, p_hit: Tensor, hit: Tensor, k: Tensor, dyn_px,
+                want: str, lighting) -> Tensor:
+    """Shade hit points with the tables' rows ``k (S, R)`` int64: a gather
+    where the JAX package multiplies by a one-hot matrix. ``dyn_px`` marks
+    pixels of dynamic objects, which have no row: grey 110 × 0.75, semantic
+    255."""
+    if want == "semantic":
+        sem = torch.gather(scene.semantic, 1, k).to(p_hit.dtype)
+        if dyn_px is not None:
+            sem = torch.where(dyn_px, 255.0, sem)
+        return torch.where(hit, sem, 0.0)
+    albedo = torch.gather(scene.colors, 1, k[..., None].expand(*k.shape, 3))
+    prow = torch.gather(scene.params, 1, k[..., None].expand(*k.shape, 12))
+    # the normal of the winning primitive only: the scene SDF is a hard min,
+    # so its gradient is that primitive's
+    shade = lambert_shade(prim_normal_single(prow, p_hit), p_hit, lighting)
+    if dyn_px is not None:
+        albedo = torch.where(dyn_px[..., None], 110.0, albedo)
+        shade = torch.where(dyn_px[..., None], 0.75, shade)
+    return torch.where(hit[..., None], albedo * shade, 0.0)
+
+
+def _shade_primitive(scene: PrimitiveScene, p_hit: Tensor, hit: Tensor, want: str,
+                     lighting=None) -> Tensor:
+    """Colour (S, R, 3) or semantic (S, R) of hit points p_hit (S, R, 3), by
+    the nearest primitive at each point (an all-K distance pass)."""
+    k = torch.argmin(prim_distances(scene.params[:, None], p_hit), dim=-1)
+    return _shade_rows(scene, p_hit, hit, k, None, want, lighting)
+
+
+def _shade_primitive_indexed(scene: PrimitiveScene, p_hit: Tensor, hit: Tensor, kid: Tensor,
+                             want: str, lighting=None) -> Tensor:
+    """Shading when the trace reported the winning primitive ``kid (S, R)``
+    (float32, −1 = none): no distance pass. A hit pixel with kid −1 belongs
+    to a dynamic object."""
+    k = kid.to(torch.int64)
+    return _shade_rows(scene, p_hit, hit, torch.clamp(k, min=0), k < 0, want, lighting)
+
+
+# ---------------------------------------------------------------------------
+# cone prepass (plain PyTorch, as it is plain XLA in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _trace_cones_one_scene(params, origins, dirs, tan, obj_pos, obj_radius, n_steps: int,
+                           max_depth: float, eps: float) -> Tensor:
+    """Conservative cone march: advance while the SDF exceeds the cone radius
+    t·tanθ; the returned t cannot overshoot the first hit of ANY pixel ray
+    inside the cone. The damped step (÷(1 + tanθ)) keeps that between
+    samples for off-axis rays. origins/dirs (T, 3), tan (T,) → (T,)."""
+    excl = None
+    if obj_pos is not None:  # an object that holds the origin is invisible
+        d0 = torch.linalg.vector_norm(origins[:, None, :] - obj_pos[None], dim=-1)
+        excl = d0 <= obj_radius[None] + 0.05
+
+    def sdf(p):
+        d = prim_sdf(params, p)
+        if obj_pos is not None:
+            do = torch.linalg.vector_norm(p[:, None, :] - obj_pos[None], dim=-1) - obj_radius
+            d = torch.minimum(d, torch.amin(do.masked_fill(excl, BIG), dim=-1))
+        return d
+
+    damp = 1.0 / (1.0 + tan)
+    t = torch.zeros_like(tan)
+    done = torch.zeros_like(tan, dtype=torch.bool)
+    for _ in range(n_steps):
+        margin = sdf(origins + dirs * t[:, None]) - t * tan
+        done = done | (margin < eps) | (t >= max_depth)
+        t = torch.where(done, t, t + margin * damp)
+    return torch.clamp(t - 2.0 * eps, min=0.0)
+
+
+def trace_cones_grouped(scene: PrimitiveScene, origins: Tensor, dirs: Tensor, tan: Tensor,
+                        objects=None, n_steps: int = 32,
+                        max_depth: float = DEFAULT_MAX_DEPTH) -> Tensor:
+    """origins/dirs (S, T, 3), tan (S, T) → cone depths (S, T)."""
+    eps = float(scene.eps)
+    out = []
+    for s in range(origins.shape[0]):
+        op, orad = (None, None) if objects is None else (objects[0][s], objects[1][s])
+        out.append(_trace_cones_one_scene(scene.params[s], origins[s], dirs[s], tan[s], op,
+                                          orad, n_steps, max_depth, eps))
+    return torch.stack(out)
+
+
+# ---------------------------------------------------------------------------
+# camera rendering
+# ---------------------------------------------------------------------------
+
+
+def cone_warm_start(data, spec, tile, origins, q, S, objects, n_steps, max_depth):
+    """Per-pixel warm starts (S, R) from one cone per ``tile``×``tile``
+    pixels, or None when the tile does not divide the image."""
+    H, W = spec["resolution"]
+    n = origins.shape[0]
+    tdirs_body, ttan = tile_cones_body(spec, tile)
+    if tdirs_body is None:
+        return None
+    Tn = tdirs_body.shape[0]
+    tb = torch.as_tensor(tdirs_body, device=origins.device).reshape(1, Tn, 3)
+    tdirs = quat.rotate_fused(q[:, None, :], tb.expand(n, Tn, 3))
+    to_g = origins[:, None, :].expand(n, Tn, 3).reshape(S, (n // S) * Tn, 3)
+    tan_g = torch.as_tensor(ttan, device=origins.device)[None].expand(n, Tn)
+    t_tile = trace_cones_grouped(data, to_g, tdirs.reshape(S, (n // S) * Tn, 3),
+                                 tan_g.reshape(S, (n // S) * Tn), objects, n_steps, max_depth)
+    t_tile = t_tile.reshape(n, H // tile, W // tile)
+    t_px = t_tile.repeat_interleave(tile, dim=1).repeat_interleave(tile, dim=2)
+    return t_px.reshape(S, n // S * H * W).contiguous()
 
 
 def render_camera(
@@ -31,43 +229,91 @@ def render_camera(
     pos: Tensor,
     q: Tensor,
     spec: Dict,
+    n_steps: int = 40,
+    max_depth: float = DEFAULT_MAX_DEPTH,
+    objects=None,
     num_scene: Optional[int] = None,
+    lighting: Optional[Lighting] = None,
     geom: Optional[CameraGeometry] = None,
 ) -> Dict[str, Tensor]:
-    """Render one depth sensor for N agents ordered scene-contiguously
-    (scene id = agent // agents per scene). Returns
-    ``{"depth": (N, 1, H, W)}``, background ``DEFAULT_MAX_DEPTH``."""
+    """Render one sensor for N agents ordered scene-contiguously (scene id =
+    agent // agents per scene). ``objects`` (positions (S, M, 3), radii
+    (S, M)) render as spheres that do not occlude a camera inside them."""
     stype = str(spec.get("sensor_type", spec.get("uuid", "depth"))).lower()
     if not isinstance(data, PrimitiveScene):
-        raise _unported("rendering of grid and triangle scenes", "imported meshes")
-    if stype != "depth":
-        raise _unported(f"the {stype!r} sensor", "colour and semantic shading")
-    if str(spec.get("trace_mode", "analytic")) != "analytic":
-        raise _unported("trace_mode='march'", "kernel B2, the sphere-trace march")
-    if int(spec.get("analytic_refine", 0)) > 0:
-        raise _unported("analytic_refine > 0", "kernel B1's residual refine")
+        raise _unported("rendering of grid and triangle scenes",
+                        "Queue A items 18-19, imported meshes")
+    if objects is not None and len(objects) > 3 and objects[3] is not None:
+        raise _unported("dynamic objects with mesh templates", "Queue A item 16, dynamic objects")
+    if stype not in ("depth", "color", "semantic"):
+        raise ValueError(f"unknown sensor type {stype!r}")
 
     H, W = spec["resolution"]
     n = pos.shape[0]
     S = data.num_scene if num_scene is None else num_scene
     R = (n // S) * H * W
-    o_c, d_c, cos_f = camera_rays_components(spec, pos, q, geom)
-    o_full = o_c[:, :, None].expand(3, n, H * W).reshape(3, S, R)
-    d_full = d_c.reshape(3, S, R).contiguous()
-    t, hit = trace_analytic(prepare_kernel_scene(data), o_full, d_full, DEFAULT_MAX_DEPTH)
-    depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f.reshape(1, H, W),
-                        DEFAULT_MAX_DEPTH)
-    return {"depth": depth[:, None, :, :]}
+    analytic = str(spec.get("trace_mode", "analytic")) == "analytic"
+    # analytic tracing discards warm starts, so the cone prepass would be
+    # dead work: it is skipped
+    tile = 1 if analytic else int(spec.get("tile", 1))
+    kscene = prepare_kernel_scene(data, objects)
+    kid = None
+
+    if tile > 1 and H % tile == 0 and W % tile == 0 and H >= tile:
+        # one conservative cone per tile, then the packed march from the tile
+        # depth with half the steps
+        origins, dirs, cos_f = camera_rays(spec, pos, q)
+        o_pm = origins[:, None, :].expand(n, H * W, 3).reshape(S, R, 3).contiguous()
+        d_pm = dirs.reshape(S, R, 3)
+        t_init = cone_warm_start(data, spec, tile, origins, q, S, objects, n_steps, max_depth)
+        pixel_steps = n_steps if t_init is None else max(8, n_steps // 2)
+        t, hit, _ = trace_diff(kscene, o_pm, d_pm, t_init, pixel_steps, max_depth,
+                               packed=True)
+        cos_f = cos_f[:1]
+    else:
+        # component-major: rays never exist as (R, 3) tensors on the way in
+        o_c, d_c, cos_f = camera_rays_components(spec, pos, q, geom)
+        o_full = o_c[:, :, None].expand(3, n, H * W).reshape(3, S, R)
+        d_full = d_c.reshape(3, S, R).contiguous()
+        # the winning row's id is produced only when shading needs it
+        want_kid = stype != "depth" and analytic
+        out = trace_diff(kscene, o_full, d_full, None,
+                         int(spec.get("trace_steps_override", n_steps)), max_depth,
+                         float(spec.get("march_omega", 1.0)), bool(spec.get("cull", True)),
+                         analytic, int(spec.get("analytic_refine", 0)), want_kid)
+        t, hit = out[0], out[1]
+        kid = out[2] if want_kid else None
+        cos_f = cos_f.reshape(1, H, W)
+        if stype != "depth":  # shading needs point-major arrays
+            o_pm, d_pm = o_full.permute(1, 2, 0), d_full.permute(1, 2, 0)
+
+    if stype == "depth":
+        depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f, max_depth)
+        return {"depth": depth[:, None, :, :]}
+    p_hit = o_pm + d_pm * t[..., None]
+    if kid is not None:
+        shaded = _shade_primitive_indexed(data, p_hit, hit, kid, stype, lighting)
+    else:
+        shaded = _shade_primitive(data, p_hit, hit, stype, lighting)
+    if stype == "semantic":
+        sem = torch.round(shaded).to(torch.uint8).reshape(n, H, W)
+        return {"semantic": sem[:, None, :, :]}
+    rgb = torch.clamp(shaded, 0, 255).to(torch.uint8).reshape(n, H, W, 3)
+    return {"color": rgb.permute(0, 3, 1, 2)}
 
 
 def render_sensors(env, state) -> Dict[str, Tensor]:
-    """Render every sensor in ``env.sensor_kwargs``, keyed by uuid."""
+    """Render every sensor in ``env.sensor_kwargs``, keyed by uuid. The
+    env's lighting setup is baked once."""
     if env.scene is None:
         return {}
+    if not hasattr(env, "_baked_lighting"):
+        env._baked_lighting = bake_lighting(env.scene_kwargs.get("lighting"), env.device)
     out: Dict[str, Tensor] = {}
     for spec, geom in zip(env.sensor_kwargs, env.cameras):
         res = render_camera(env.scene, state.dyn.pos, state.dyn.q, spec,
-                            num_scene=env.num_scene, geom=geom)
+                            n_steps=int(env.scene_kwargs.get("trace_steps", 40)),
+                            num_scene=env.num_scene, lighting=env._baked_lighting, geom=geom)
         for k, v in res.items():
             out[spec.get("uuid", k)] = v
     return out

@@ -1,36 +1,57 @@
-"""Analytic ray trace: the CUDA kernel, its plain PyTorch version and the
-kernel's scene view (counterpart of ``visfly_tpu/render/pallas_trace.py``).
+"""Ray trace against packed primitive scenes: the CUDA kernels, their plain
+PyTorch versions, the kernels' scene view and the differentiable entry
+(counterpart of ``visfly_tpu/render/pallas_trace.py``).
 
-``trace_analytic`` is the entry the renderer calls. On CUDA tensors it
-launches ``csrc/trace_analytic.cu`` (built at first use, bound with ctypes)
-or raises; on CPU tensors it runs ``trace_analytic_reference``, which
-computes the same function with ``(R, K)`` broadcasting. Both take rays
-component-major, ``(3, S, R)``, and return ``t (S, R)`` float32 and
-``hit (S, R)`` bool, with ``t = clamp(min_k t_k, 0, max_depth)`` and
-``hit = t < max_depth``.
+Two wrappers, each launching its CUDA kernel on CUDA tensors (built at first
+use from ``csrc/``, bound with ctypes) or raising, and running its plain
+version on CPU tensors:
 
-The JAX kernel this replaces runs its tile body with ``analytic=True`` and
-``n_refine=0``: no final residual SDF evaluation (``_march(final_eval=
-False)``), which the plain version mirrors. The march mode, the residual
-refine and the winning-primitive id are not ported yet.
+``trace_analytic``  closed-form first hit per ray (``csrc/trace_analytic.cu``),
+    optionally with the winning row's id (``want_kid``) and an ``n_refine``
+    step residual march. With ``n_refine == 0`` there is no final residual
+    SDF evaluation, as in the JAX tile (``_march(final_eval=False)``).
+``trace_march``  the sphere-trace march (``csrc/trace_march.cu``) from a warm
+    start ``t_init``, plain or over-relaxed (``omega > 1``), on
+    component-major ``(3, S, R)`` or packed ``(S, R, 3)`` rays.
+
+Both return ``t (S, R)`` float32 and ``hit (S, R)`` bool, ``hit = t <
+max_depth``; ``kid (S, R)`` is float32 as the JAX entries return it. The
+per-tile cull of the TPU kernel is not ported: the analytic trace is the same
+function with and without it, and the march evaluates every active row for
+both values of ``cull`` (the un-culled entry's function).
+
+``trace_diff`` is the differentiable entry over either wrapper: its backward
+is the implicit-function-theorem rule in plain PyTorch, so no kernel runs
+backward.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
 
-from ..scene.prim_scene import PrimitiveScene
+from ..scene.prim_scene import PrimitiveScene, prim_sdf
 
 BIG = 1e9
 BOX_COLS = 13
 CAP_COLS = 9
-# Launches of the CUDA kernel since the count was last set to 0. The
-# wrapper adds one where it launches and nowhere else.
-LAUNCHES = 0
+EPS = 0.01  # the march's hit epsilon
+# Launches of each CUDA kernel mode since the counts were last set to 0. A
+# wrapper adds one to its mode where it launches and nowhere else.
+# "trace_march" and "trace_march_nocull" are the same kernel: the count tells
+# the two settings of ``cull`` apart.
+LAUNCHES = {"trace_analytic": 0, "trace_analytic_kid": 0, "trace_march": 0,
+            "trace_march_nocull": 0, "trace_march_packed": 0}
+# static shared memory of the packed march kernel (a block's staged rays)
+_PACKED_RAY_BYTES = 2 * 3 * 256 * 4
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 class KernelScene(NamedTuple):
@@ -108,6 +129,24 @@ def _box_t(b: Tensor, o, d) -> Tensor:
     return torch.where(active > 0.5, tk, big)
 
 
+def _capsule_axis_distance(c: Tensor, p) -> Tensor:
+    """(r, KC) distance from points p (triple of (r, 1)) to each capsule's
+    axis segment."""
+    px, py, pz = p
+    ax, ay, az = c[:, 0], c[:, 1], c[:, 2]
+    bax, bay, baz = c[:, 3] - ax, c[:, 4] - ay, c[:, 5] - az
+    pax, pay, paz = px - ax, py - ay, pz - az
+    inv_denom = 1.0 / (bax * bax + bay * bay + baz * baz + 1e-9)
+    h = torch.clamp((pax * bax + pay * bay + paz * baz) * inv_denom, 0.0, 1.0)
+    ex, ey, ez = pax - bax * h, pay - bay * h, paz - baz * h
+    return torch.sqrt(ex * ex + ey * ey + ez * ez + 1e-12)
+
+
+def _capsule_holds(c: Tensor, o) -> Tensor:
+    """(r, KC) True where the capsule, grown by 5 cm, holds the point."""
+    return _capsule_axis_distance(c, o) <= c[:, 6] + 0.05
+
+
 def _capsule_t(c: Tensor, o, d) -> Tensor:
     """(r, KC) hit t of each capsule row; c (KC, 9), o/d triples of (r, 1)."""
     ox, oy, oz = o
@@ -121,11 +160,7 @@ def _capsule_t(c: Tensor, o, d) -> Tensor:
 
     # origin inside (within rad + 5 cm): static rows hit at 0, dynamic rows
     # (active == 2) are the agent's own body and stay invisible
-    inv_denom = 1.0 / (bax * bax + bay * bay + baz * baz + 1e-9)
-    h = torch.clamp((oax * bax + oay * bay + oaz * baz) * inv_denom, 0.0, 1.0)
-    ex, ey, ez = oax - bax * h, oay - bay * h, oaz - baz * h
-    d0 = torch.sqrt(ex * ex + ey * ey + ez * ez + 1e-12)
-    inside = d0 <= rad + 0.05
+    inside = _capsule_holds(c, o)
     dyn = active > 1.5
 
     baba = bax * bax + bay * bay + baz * baz
@@ -155,92 +190,345 @@ def _capsule_t(c: Tensor, o, d) -> Tensor:
     return torch.where(active > 0.5, tk, big)
 
 
-def trace_analytic_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
-                             max_depth: float = 20.0, chunk: int = 1 << 18
-                             ) -> Tuple[Tensor, Tensor]:
-    """Plain PyTorch version of the kernel: the same formulas in the same
-    order, broadcast over (rays, rows). Rays go in chunks of ``chunk`` to
-    bound the (r, K) intermediates."""
+def _box_sdf(b: Tensor, p) -> Tensor:
+    """(r, KB) signed distance of each box row at points p."""
+    px, py, pz = p
+    cyaw, syaw = b[:, 7], b[:, 8]
+    rx, ry = px - b[:, 0], py - b[:, 1]
+    x = cyaw * rx + syaw * ry
+    y = -syaw * rx + cyaw * ry
+    z = pz - b[:, 2]
+    qx, qy, qz = torch.abs(x) - b[:, 3], torch.abs(y) - b[:, 4], torch.abs(z) - b[:, 5]
+    zero = torch.zeros_like(qx)
+    ex, ey, ez = torch.maximum(qx, zero), torch.maximum(qy, zero), torch.maximum(qz, zero)
+    outside = torch.sqrt(ex * ex + ey * ey + ez * ez + 1e-12)
+    inside = torch.minimum(torch.maximum(qx, torch.maximum(qy, qz)), zero)
+    return (outside + inside - b[:, 6]) * b[:, 9]
+
+
+def _ray_sdf(boxes: Tensor, caps: Tensor, o, d):
+    """The scene SDF a marching ray evaluates, as a function of t (r,):
+    inactive rows and dynamic capsules that hold the ray's origin are out."""
+    box_off = ~(boxes[:, 11] > 0.5)
+    cap_off = ~(caps[:, 7] > 0.5) | ((caps[:, 7] > 1.5) & _capsule_holds(caps, o))
+
+    def sdf(t: Tensor) -> Tensor:
+        p = tuple(oi + di * t[:, None] for oi, di in zip(o, d))
+        db = _box_sdf(boxes, p)
+        dc = _capsule_axis_distance(caps, p) - caps[:, 6]
+        dist = torch.cat([db.masked_fill(box_off, BIG), dc.masked_fill(cap_off, BIG)], dim=1)
+        return torch.amin(dist, dim=1)
+
+    return sdf
+
+
+def _march(sdf, t: Tensor, n_steps: int, max_depth: float, eps: float, omega: float,
+           stats: Optional[dict]) -> Tensor:
+    """``n_steps`` of the march from t, mirroring ``_march`` of the JAX tile
+    step by step; ``stats["sdf_evals"]`` gains the evaluations that rays not
+    yet done needed."""
+    done = torch.zeros_like(t, dtype=torch.bool)
+    prev_r = torch.zeros_like(t)
+    step_len = torch.zeros_like(t)
+    om = torch.full_like(t, omega)
+    for _ in range(n_steps):
+        if stats is not None:
+            stats["sdf_evals"] = stats.get("sdf_evals", 0) + int((~done).sum())
+        r = sdf(t)
+        if omega <= 1.0:
+            done = done | (r < eps) | (t >= max_depth)
+            t = torch.where(done, t, t + r)
+        else:
+            # the safe spheres of the two last samples must overlap, else the
+            # over-relaxed step may have skipped a surface: step back inside
+            # the previous sphere and march plainly from then on
+            fail = (om > 1.0) & (r + prev_r < step_len)
+            done = done | (~fail & (r < eps)) | (t >= max_depth)
+            new_step = torch.where(fail, step_len * (1.0 - omega), r * om)
+            om = torch.where(fail, torch.ones_like(om), om)
+            t = torch.where(done, t, t + new_step)
+            prev_r, step_len = r, new_step
+    return t
+
+
+def _final_eval(sdf, t: Tensor, max_depth: float, stats: Optional[dict]) -> Tensor:
+    if stats is not None:
+        stats["sdf_evals"] = stats.get("sdf_evals", 0) + t.numel()
+    return torch.clamp(t + sdf(t), 0.0, max_depth)
+
+
+def _chunks(origins_c: Tensor, dirs_c: Tensor, chunk: int):
+    """(scene, ray slice, o, d) with o/d triples of (r, 1)."""
     _, S, R = origins_c.shape
-    t = torch.empty((S, R), dtype=torch.float32, device=origins_c.device)
     for s in range(S):
-        boxes, caps = kscene.boxes[s], kscene.capsules[s]
         for r0 in range(0, R, chunk):
-            o = tuple(origins_c[i, s, r0:r0 + chunk, None] for i in range(3))
-            d = tuple(dirs_c[i, s, r0:r0 + chunk, None] for i in range(3))
-            tk = torch.cat([_box_t(boxes, o, d), _capsule_t(caps, o, d)], dim=1)
-            t0 = torch.clamp(torch.amin(tk, dim=1), max=max_depth)
-            t[s, r0:r0 + chunk] = torch.clamp(t0, 0.0, max_depth)
+            sl = slice(r0, r0 + chunk)
+            yield (s, sl, tuple(origins_c[i, s, sl, None] for i in range(3)),
+                   tuple(dirs_c[i, s, sl, None] for i in range(3)))
+
+
+def trace_analytic_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
+                             max_depth: float = 20.0, chunk: int = 1 << 18,
+                             want_kid: bool = False, n_refine: int = 0, eps: float = EPS,
+                             stats: Optional[dict] = None) -> Tuple[Tensor, ...]:
+    """Plain PyTorch version of the analytic kernel: the same formulas in the
+    same order, broadcast over (rays, rows). Rays go in chunks of ``chunk``
+    to bound the (r, K) intermediates. ``kid`` is the id column of the first
+    minimum in row order (boxes, then capsules), −1 on a miss."""
+    _, S, R = origins_c.shape
+    t = torch.empty((S, R), dtype=origins_c.dtype, device=origins_c.device)
+    kid = torch.empty_like(t) if want_kid else None
+    for s, sl, o, d in _chunks(origins_c, dirs_c, chunk):
+        boxes, caps = kscene.boxes[s], kscene.capsules[s]
+        tk = torch.cat([_box_t(boxes, o, d), _capsule_t(caps, o, d)], dim=1)
+        if want_kid:
+            best, k = torch.min(tk, dim=1)  # the index of the first minimum
+            ids = torch.cat([boxes[:, 12], caps[:, 8]])
+            kid[s, sl] = torch.where(best < max_depth, ids[k], -1.0)
+        else:
+            best = torch.amin(tk, dim=1)
+        t0 = torch.clamp(best, max=max_depth)
+        if n_refine > 0:
+            sdf = _ray_sdf(boxes, caps, o, d)
+            t0 = _march(sdf, t0, n_refine, max_depth, eps, 1.0, stats)
+            t[s, sl] = _final_eval(sdf, t0, max_depth, stats)
+        else:
+            t[s, sl] = torch.clamp(t0, 0.0, max_depth)
+    hit = t < max_depth
+    return (t, hit, kid) if want_kid else (t, hit)
+
+
+def trace_march_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
+                          t_init: Optional[Tensor] = None, n_steps: int = 40,
+                          max_depth: float = 20.0, eps: float = EPS, omega: float = 1.0,
+                          chunk: int = 1 << 18, stats: Optional[dict] = None
+                          ) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of the march kernel on component-major rays
+    (3, S, R), float32 step by step as the JAX tile marches."""
+    _, S, R = origins_c.shape
+    t = torch.empty((S, R), dtype=origins_c.dtype, device=origins_c.device)
+    for s, sl, o, d in _chunks(origins_c, dirs_c, chunk):
+        sdf = _ray_sdf(kscene.boxes[s], kscene.capsules[s], o, d)
+        t0 = torch.zeros_like(o[0][:, 0]) if t_init is None else t_init[s, sl]
+        t0 = _march(sdf, t0, n_steps, max_depth, eps, omega, stats)
+        t[s, sl] = _final_eval(sdf, t0, max_depth, stats)
     return t, t < max_depth
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels
 # ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(name: str):
     from ..build import load_library
 
-    fn = load_library("trace_analytic").trace_analytic_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                               ctypes.c_void_p]
+    fn = getattr(load_library(name), f"{name}_launch")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = {
+        # boxes caps origins dirs t hit kid | S R KB KC | max_depth n_refine eps stream
+        "trace_analytic": [p] * 7 + [i] * 4 + [f, i, f, p],
+        # boxes caps origins dirs t_init t hit | S R KB KC n_steps | max_depth eps
+        # omega 1-omega | packed stream
+        "trace_march": [p] * 7 + [i] * 5 + [f] * 4 + [i, p],
+    }[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor) -> None:
+def _check(kscene: KernelScene, origins: Tensor, dirs: Tensor, packed: bool = False,
+           t_init: Optional[Tensor] = None) -> Tuple[int, int]:
+    """Shapes, dtypes and devices both paths need → (S, R)."""
     boxes, caps = kscene.boxes, kscene.capsules
-    if origins_c.dim() != 3 or origins_c.shape[0] != 3 or dirs_c.shape != origins_c.shape:
-        raise ValueError(f"rays must be (3, S, R); got {tuple(origins_c.shape)} and "
-                         f"{tuple(dirs_c.shape)}")
-    S = origins_c.shape[1]
+    layout = "(S, R, 3)" if packed else "(3, S, R)"
+    if (origins.dim() != 3 or origins.shape[2 if packed else 0] != 3
+            or dirs.shape != origins.shape):
+        raise ValueError(f"rays must be {layout}; got {tuple(origins.shape)} and "
+                         f"{tuple(dirs.shape)}")
+    S, R = (origins.shape[0], origins.shape[1]) if packed else origins.shape[1:]
     if (boxes.dim() != 3 or boxes.shape[0] != S or boxes.shape[2] != BOX_COLS
             or caps.dim() != 3 or caps.shape[0] != S or caps.shape[2] != CAP_COLS):
         raise ValueError(f"kernel scene must be boxes (S, KB, {BOX_COLS}) and capsules "
                          f"(S, KC, {CAP_COLS}) with S = {S}; got {tuple(boxes.shape)} and "
                          f"{tuple(caps.shape)}")
-    for x in (boxes, caps, origins_c, dirs_c):
+    if t_init is not None and tuple(t_init.shape) != (S, R):
+        raise ValueError(f"t_init must be ({S}, {R}); got {tuple(t_init.shape)}")
+    for x in (boxes, caps, origins, dirs) + (() if t_init is None else (t_init,)):
         if x.dtype != torch.float32:
-            raise TypeError(f"trace_analytic takes float32 tensors; got {x.dtype}")
-        if x.device != origins_c.device:
-            raise ValueError(f"all inputs must be on {origins_c.device}; got {x.device}")
+            raise TypeError(f"the trace takes float32 tensors; got {x.dtype}")
+        if x.device != origins.device:
+            raise ValueError(f"all inputs must be on {origins.device}; got {x.device}")
+    if origins.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the trace runs on cpu or cuda tensors, not {origins.device}")
+    return S, R
+
+
+def _check_cuda(kscene: KernelScene, tensors, extra_smem: int = 0) -> None:
+    """What only the kernels need: contiguity and rows that fit shared memory."""
+    for x in (kscene.boxes, kscene.capsules, *tensors):
+        if not x.is_contiguous():
+            raise ValueError("the trace kernels take contiguous tensors")
+    smem = (kscene.boxes.shape[1] * BOX_COLS + kscene.capsules.shape[1] * CAP_COLS) * 4
+    if smem + extra_smem > 48 * 1024:
+        raise ValueError(f"scene rows need {smem} bytes of shared memory; the kernel "
+                         f"takes at most {48 * 1024 - extra_smem}")
 
 
 def trace_analytic(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
-                   max_depth: float = 20.0) -> Tuple[Tensor, Tensor]:
+                   max_depth: float = 20.0, want_kid: bool = False, n_refine: int = 0,
+                   eps: float = EPS) -> Tuple[Tensor, ...]:
     """First hit of rays (3, S, R) against each scene's rows → (t (S, R),
-    hit (S, R)). CUDA tensors go through the CUDA kernel, CPU tensors through
-    :func:`trace_analytic_reference`."""
-    global LAUNCHES
-    _check(kscene, origins_c, dirs_c)
+    hit (S, R)[, kid (S, R)]). CUDA tensors go through the CUDA kernel, CPU
+    tensors through :func:`trace_analytic_reference`."""
+    S, R = _check(kscene, origins_c, dirs_c)
     dev = origins_c.device
     if dev.type == "cpu":
-        return trace_analytic_reference(kscene, origins_c, dirs_c, max_depth)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_analytic runs on cpu or cuda tensors, not {dev}")
+        return trace_analytic_reference(kscene, origins_c, dirs_c, max_depth,
+                                        want_kid=want_kid, n_refine=n_refine, eps=eps)
+    _check_cuda(kscene, (origins_c, dirs_c))
     boxes, caps = kscene.boxes, kscene.capsules
-    for x in (boxes, caps, origins_c, dirs_c):
-        if not x.is_contiguous():
-            raise ValueError("trace_analytic takes contiguous tensors")
-    _, S, R = origins_c.shape
-    KB, KC = boxes.shape[1], caps.shape[1]
-    smem = (KB * BOX_COLS + KC * CAP_COLS) * 4
-    if smem > 48 * 1024:
-        raise ValueError(f"scene rows need {smem} bytes of shared memory; the kernel "
-                         "takes at most 48 KiB")
     t = torch.empty((S, R), dtype=torch.float32, device=dev)
     hit = torch.empty((S, R), dtype=torch.bool, device=dev)
-    if S == 0 or R == 0:
-        return t, hit
-    launch = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(boxes.data_ptr(), caps.data_ptr(), origins_c.data_ptr(),
-                    dirs_c.data_ptr(), t.data_ptr(), hit.data_ptr(),
-                    S, R, KB, KC, float(max_depth), stream)
-        LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"trace_analytic kernel launch failed with CUDA error {rc}")
+    kid = torch.empty((S, R), dtype=torch.float32, device=dev) if want_kid else None
+    if S and R:
+        launch = _launcher("trace_analytic")
+        with torch.cuda.device(dev):
+            rc = launch(boxes.data_ptr(), caps.data_ptr(), origins_c.data_ptr(),
+                        dirs_c.data_ptr(), t.data_ptr(), hit.data_ptr(),
+                        kid.data_ptr() if want_kid else None, S, R, boxes.shape[1],
+                        caps.shape[1], float(max_depth), int(n_refine), float(eps),
+                        torch.cuda.current_stream(dev).cuda_stream)
+            LAUNCHES["trace_analytic_kid" if want_kid else "trace_analytic"] += 1
+        if rc != 0:
+            raise RuntimeError(f"trace_analytic kernel launch failed with CUDA error {rc}")
+    return (t, hit, kid) if want_kid else (t, hit)
+
+
+def trace_march(kscene: KernelScene, origins: Tensor, dirs: Tensor,
+                t_init: Optional[Tensor] = None, n_steps: int = 40,
+                max_depth: float = 20.0, eps: float = EPS, omega: float = 1.0,
+                cull: bool = True, packed: bool = False) -> Tuple[Tensor, Tensor]:
+    """Sphere-trace march → (t (S, R), hit (S, R)). Rays are (3, S, R), or
+    (S, R, 3) with ``packed`` (which has no over-relaxed form). ``cull`` is
+    recorded in the launch counts and changes nothing else (module note).
+    CUDA tensors go through the CUDA kernel, CPU tensors through
+    :func:`trace_march_reference`."""
+    S, R = _check(kscene, origins, dirs, packed, t_init)
+    if packed and omega > 1.0:
+        raise ValueError("the packed march has no over-relaxed form (omega > 1)")
+    dev = origins.device
+    if dev.type == "cpu":
+        if packed:
+            origins, dirs = origins.permute(2, 0, 1), dirs.permute(2, 0, 1)
+        return trace_march_reference(kscene, origins, dirs, t_init, n_steps, max_depth, eps,
+                                     omega)
+    if t_init is None:
+        t_init = torch.zeros((S, R), dtype=torch.float32, device=dev)
+    _check_cuda(kscene, (origins, dirs, t_init), _PACKED_RAY_BYTES if packed else 0)
+    boxes, caps = kscene.boxes, kscene.capsules
+    t = torch.empty((S, R), dtype=torch.float32, device=dev)
+    hit = torch.empty((S, R), dtype=torch.bool, device=dev)
+    if S and R:
+        launch = _launcher("trace_march")
+        mode = "trace_march_packed" if packed else "trace_march" if cull else "trace_march_nocull"
+        with torch.cuda.device(dev):
+            rc = launch(boxes.data_ptr(), caps.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
+                        t_init.data_ptr(), t.data_ptr(), hit.data_ptr(), S, R, boxes.shape[1],
+                        caps.shape[1], int(n_steps), float(max_depth), float(eps),
+                        float(omega), 1.0 - float(omega), int(packed),
+                        torch.cuda.current_stream(dev).cuda_stream)
+            LAUNCHES[mode] += 1
+        if rc != 0:
+            raise RuntimeError(f"{mode} kernel launch failed with CUDA error {rc}")
     return t, hit
+
+
+# ---------------------------------------------------------------------------
+# differentiable entry
+# ---------------------------------------------------------------------------
+#
+# The trace defines t*(o, d) implicitly by sdf(o + t·d) = 0. The implicit
+# function theorem gives exact gradients from one normal evaluation:
+#     ∂t/∂o = −n / (n·d),       ∂t/∂d = −t·n / (n·d)
+# so the forward needs no differentiable trace and the backward is one SDF
+# gradient at the hit points.
+
+
+def kernel_scene_sdf(kscene: KernelScene, p: Tensor) -> Tensor:
+    """The kernels' (boxes ∪ capsules) SDF in plain PyTorch, for the
+    backward's normal query. p (S, R, 3) → (S, R)."""
+    out = []
+    for boxes, caps, pts in zip(kscene.boxes, kscene.capsules, p):
+        d = prim_sdf(boxes[:, :12], pts)  # box rows are packed rows + the id column
+        a, b, rad, active = caps[:, 0:3], caps[:, 3:6], caps[:, 6], caps[:, 7]
+        pa = pts[:, None, :] - a
+        ba = b - a
+        h = torch.clamp(torch.sum(pa * ba, -1) / (torch.sum(ba * ba, -1) + 1e-9), 0.0, 1.0)
+        diff = pa - ba * h[..., None]
+        dc = torch.sqrt(torch.sum(diff * diff, -1) + 1e-12) - rad
+        dc = torch.where(active > 0.5, dc, BIG)
+        out.append(torch.minimum(d, torch.amin(dc, dim=-1)) if dc.shape[1] else d)
+    return torch.stack(out)
+
+
+def trace_ift_backward(kscene: KernelScene, origins: Tensor, dirs: Tensor, t: Tensor,
+                       hit: Tensor, g_t: Tensor, packed: bool = False
+                       ) -> Tuple[Tensor, Tensor]:
+    """The implicit-function-theorem rule: (∂o, ∂d) of a loss whose gradient
+    with respect to t is ``g_t``. Normal n = normalised autograd gradient of
+    :func:`kernel_scene_sdf` at o + t·d, scale = 1/(n·d) where the ray hit
+    and |n·d| > 1e-3 else 0, ∂o = −g_t·scale·n, ∂d = t·∂o. Rays and
+    gradients are (3, S, R), or (S, R, 3) with ``packed``."""
+    o, d = (origins, dirs) if packed else (origins.permute(1, 2, 0), dirs.permute(1, 2, 0))
+    with torch.enable_grad():
+        p_hit = (o + d * t[..., None]).detach().requires_grad_(True)
+        (n,) = torch.autograd.grad(kernel_scene_sdf(kscene, p_hit).sum(), p_hit)
+    n = n / (torch.linalg.vector_norm(n, dim=-1, keepdim=True) + 1e-9)
+    denom = torch.sum(n * d, dim=-1)
+    scale = torch.where(hit & (denom.abs() > 1e-3), 1.0 / denom, 0.0)
+    d_o = -(g_t * scale)[..., None] * n
+    d_d = d_o * t[..., None]
+    return (d_o, d_d) if packed else (d_o.permute(2, 0, 1), d_d.permute(2, 0, 1))
+
+
+class _TraceIFT(torch.autograd.Function):
+    """Forward: a kernel wrapper in any mode. Backward:
+    :func:`trace_ift_backward`; nothing for the scene, ``t_init``, ``hit``
+    or ``kid``."""
+
+    @staticmethod
+    def forward(ctx, origins, dirs, t_init, kscene, packed, analytic, want_kid, kw):
+        if analytic:
+            out = trace_analytic(kscene, origins, dirs, kw["max_depth"], want_kid,
+                                 kw["n_refine"])
+        else:
+            out = trace_march(kscene, origins, dirs, t_init, kw["n_steps"], kw["max_depth"],
+                              EPS, kw["omega"], kw["cull"], packed)
+            if want_kid:  # a march does not track the winner: −1 is "unknown"
+                out = (*out, torch.full_like(out[0], -1.0))
+        ctx.kscene, ctx.packed = kscene, packed
+        ctx.save_for_backward(origins, dirs, out[0], out[1])
+        ctx.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_t, *_):
+        origins, dirs, t, hit = ctx.saved_tensors
+        d_o, d_d = trace_ift_backward(ctx.kscene, origins, dirs, t, hit, g_t, ctx.packed)
+        return d_o, d_d, None, None, None, None, None, None
+
+
+def trace_diff(kscene: KernelScene, origins: Tensor, dirs: Tensor,
+               t_init: Optional[Tensor] = None, n_steps: int = 40, max_depth: float = 20.0,
+               omega: float = 1.0, cull: bool = True, analytic: bool = False,
+               n_refine: int = 2, want_kid: bool = True, packed: bool = False
+               ) -> Tuple[Tensor, ...]:
+    """Differentiable trace → (t, hit[, kid]), the counterpart of
+    ``pallas_trace_diff_c`` (component-major rays) and, with ``packed``, of
+    ``pallas_trace_diff`` (march only). Gradients reach ``origins`` and
+    ``dirs`` through t by the implicit function theorem."""
+    if packed and analytic:
+        raise ValueError("packed rays take the march only")
+    kw = dict(n_steps=n_steps, max_depth=max_depth, omega=omega, cull=cull, n_refine=n_refine)
+    return _TraceIFT.apply(origins, dirs, t_init, kscene, packed, analytic, want_kid, kw)

@@ -1,4 +1,11 @@
-from .prim_scene import PrimitiveScene, pack_scenes, prim_distances, prim_sdf
+from .prim_scene import (
+    PrimitiveScene,
+    pack_scenes,
+    prim_distances,
+    prim_normal_single,
+    prim_sdf,
+    scene_sdf_grouped,
+)
 from .queries import closest_point_query, point_is_collision, sample_sdf, sdf_normal
 from .scene import (
     SceneSpec,
@@ -13,6 +20,8 @@ __all__ = [
     "pack_scenes",
     "prim_distances",
     "prim_sdf",
+    "prim_normal_single",
+    "scene_sdf_grouped",
     "SceneSpec",
     "make_scene",
     "best_candidate_points",

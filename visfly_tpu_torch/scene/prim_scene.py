@@ -34,7 +34,7 @@ from torch import Tensor
 from .scene import SceneSpec
 
 BIG = 1e9
-SURFACE_EPS = 0.01  # the march's hit epsilon, carried for parity (unused by the analytic trace)
+SURFACE_EPS = 0.01  # the march's hit epsilon
 
 
 def _family_split(params: np.ndarray) -> tuple:
@@ -176,7 +176,7 @@ def pack_arrays(specs: Sequence[SceneSpec]) -> dict:
             warnings.warn(
                 "scene contains a GENERAL rounded box (half_extents>0 AND "
                 "radius>0): the analytic tracer's candidate for it is a lower "
-                "bound, and the residual refine it needs is not ported yet.",
+                "bound. Render it with analytic_refine >= 4.",
                 stacklevel=3)
 
     K = max(r.shape[0] for r in all_rows)
@@ -266,6 +266,57 @@ def prim_sdf(params: Tensor, p: Tensor) -> Tensor:
     """Scene SDF: min over K. ``amin`` splits the gradient evenly between
     tied minima, as ``jnp.min`` does."""
     return torch.amin(prim_distances(params, p), dim=-1)
+
+
+def prim_normal_single(prow: Tensor, p: Tensor) -> Tensor:
+    """Closed-form outward unit normal of ONE primitive per point. prow
+    (..., 12) is a per-point parameter row (the winning primitive), p
+    (..., 3) → (..., 3). Equals the gradient of :func:`prim_distances`: the
+    rounded-slab gradient rotated through the yaw frame for a box, radial
+    from the closest axis point for a capsule."""
+    c = prow[..., 0:3]
+    he = prow[..., 3:6]
+    cy, sy = prow[..., 7], prow[..., 8]
+    sign = prow[..., 9]
+    family = prow[..., 10]
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+
+    # box family: local frame
+    d0 = p - c
+    x = cy * d0[..., 0] + sy * d0[..., 1]
+    y = -sy * d0[..., 0] + cy * d0[..., 1]
+    z = d0[..., 2]
+    qx = torch.abs(x) - he[..., 0]
+    qy = torch.abs(y) - he[..., 1]
+    qz = torch.abs(z) - he[..., 2]
+    ox = torch.maximum(qx, zero)
+    oy = torch.maximum(qy, zero)
+    oz = torch.maximum(qz, zero)
+    out_norm = torch.sqrt(ox * ox + oy * oy + oz * oz + 1e-12)
+    outside = out_norm > 1e-6
+    # outside: gradient of |max(q, 0)|; inside: the face of max q
+    m = torch.maximum(qx, torch.maximum(qy, qz))
+    nlx = torch.where(outside, ox / out_norm, (qx >= m).to(p.dtype)) * torch.sign(x)
+    nly = torch.where(outside, oy / out_norm, (qy >= m).to(p.dtype)) * torch.sign(y)
+    nlz = torch.where(outside, oz / out_norm, (qz >= m).to(p.dtype)) * torch.sign(z)
+    n_box = torch.stack([cy * nlx - sy * nly, sy * nlx + cy * nly, nlz], dim=-1) * sign[..., None]
+
+    # capsule family: the h-dependence cancels at the optimum, so the
+    # gradient of the distance is diff/|diff| exactly
+    ba = he - c
+    pa = p - c
+    denom = torch.sum(ba * ba, dim=-1) + 1e-9
+    h = torch.clamp(torch.sum(pa * ba, dim=-1) / denom, 0.0, 1.0)
+    diff = pa - ba * h[..., None]
+    n_cap = diff / (torch.linalg.vector_norm(diff, dim=-1, keepdim=True) + 1e-9)
+
+    n = torch.where(family[..., None] < 0.5, n_box, n_cap)
+    return n / (torch.linalg.vector_norm(n, dim=-1, keepdim=True) + 1e-9)
+
+
+def scene_sdf_grouped(scene: PrimitiveScene, p: Tensor) -> Tensor:
+    """p (S, Ns, 3) → (S, Ns): each scene's points against its own rows."""
+    return prim_sdf(scene.params[:, None], p)
 
 
 def scene_sdf_flat(scene: PrimitiveScene, sid: Tensor, p: Tensor) -> Tensor:

@@ -18,7 +18,7 @@ from .prim_scene import PrimitiveScene, scene_sdf_flat
 def _require_prim(data) -> None:
     if not isinstance(data, PrimitiveScene):
         raise NotImplementedError(
-            "grid and triangle-soup scene queries are ROADMAP Queue A item 15 "
+            "grid and triangle-soup scene queries are ROADMAP Queue A item 18 "
             "(imported meshes)")
 
 

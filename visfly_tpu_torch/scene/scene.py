@@ -245,7 +245,7 @@ def load_scenes_for_env(env):
         raise NotImplementedError(
             "only procedural scene presets are ported; pre-baked scenes, mesh "
             "files, habitat datasets and scene directories are ROADMAP Queue A "
-            "item 15-17 (imported meshes)")
+            "items 18-20 (imported meshes)")
     preset = resolve_scene_path(path)
     specs = [make_scene(preset, seed=seed + i, **kw.get("scene_gen_kwargs", {}))
              for i in range(env.num_scene)]
@@ -256,7 +256,7 @@ def _build_scene(env, specs):
     kw = dict(env.scene_kwargs)
     if kw.get("backend", "primitive") != "primitive":
         raise NotImplementedError(
-            "the dense-grid scene backend is ROADMAP Queue A item 15 (imported meshes)")
+            "the dense-grid scene backend is ROADMAP Queue A item 18 (imported meshes)")
     from .prim_scene import pack_scenes
 
     return pack_scenes(specs, device=env.device)
