@@ -6,12 +6,29 @@ for the device's busy time per step. The profiler about doubles the host
 time of a step, so the idle share is taken against the step time clocked
 without it.
 
-    python3 chip_profile.py [depth] [A] [B] [C]      # default: A C
+    python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [sv]     # default: A C
+
+``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
+and 3 times (360, 5,760 and 23,040 triangles); they also clock the parts of
+a mesh step: the cull prepass and the triangle kernel of each sensor, the
+exact closest-point query and the spawn rejection on the baked grid.
+
+``sv`` is no path: it reads how far float32 rounding moves t in each body of
+the triangle kernel, against a float64 brute force on the same float32
+geometry, with lists that hold the whole mesh: 8 cameras of 64×64 in the
+garage at 5,760 and 23,040 triangles, the mesh and the cameras moved together
+0, 20 and 40 m away from the coordinates' origin. Beside the port's bodies it
+reads the expanded coefficients of the JAX package's per-camera pages,
+``g0 = b×c + o×(b − c)``, which multiply world coordinates before they
+subtract (``pages``: every triangle against every ray of a camera, in plain
+PyTorch); the port's bodies subtract the origin first.
 
 Every line ends with the card's name and power limit.
 """
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -50,6 +67,28 @@ def profile(name, env, card):
     }
     if env.visual:
         parts["render_sensors (rays, kernels, shading)"] = lambda: env.sensor_observations(state)
+    if hasattr(env.scene, "triangles"):
+        from visfly_tpu_torch.render import default_tri_cap, tri_first_hit
+        from visfly_tpu_torch.render.tri_kernel import count_name
+        from visfly_tpu_torch.render.tri_trace import plan_tiles
+        from visfly_tpu_torch.scene import point_is_collision, tri_closest_point
+
+        tris = env.scene.triangles
+        cap = default_tri_cap(tris.shape[1])
+        for i, spec in enumerate(env.sensor_kwargs):
+            o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, i)
+            plan = plan_tiles(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w, cam_rays)
+            res = "x".join(str(r) for r in spec["resolution"])
+            parts[f"{res} cull prepass (plan_tiles)"] = (
+                lambda o_c=o_c, d_c=d_c, img_w=img_w, cam_rays=cam_rays:
+                plan_tiles(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w, cam_rays))
+            use = count_name(plan.form, plan.lists.block)
+            parts[f"{res} kernel ({use})"] = lambda plan=plan: tri_first_hit(
+                tris, plan.lists, plan.origins_c, plan.dirs_c, cs.MAX_DEPTH, plan.form,
+                plan.origin_tiles)
+        parts["tri_closest_point"] = lambda: tri_closest_point(tris, env.scene_ids, state.dyn.pos)
+        parts["point_is_collision on the grid (one try)"] = lambda: point_is_collision(
+            env.scene, state.dyn.pos, env.scene_ids, 1.0)
     if env.needs_sensors_for_reward:
         images = env.sensor_observations(state)
         parts["update_aux_from_sensors (images given)"] = lambda: env.update_aux_from_sensors(
@@ -84,6 +123,65 @@ def profile(name, env, card):
               f"{e.self_device_time_total / 1e3:.3f} ms | {card}", flush=True)
 
 
+def page_algebra_t(tris, cam_o, dirs, max_depth, slab=2048):
+    """First hit by signed volumes with the expanded per-camera coefficients
+    ``g0 = b×c + o×(b − c)``, ``g1``, ``g2`` alike, ``kt = (a − o)·g0``, every
+    triangle against every ray: tris (T, 9), cam_o (cams, 3), dirs (cams, rays,
+    3) → (t, hit) (cams, rays)."""
+    a, b, c = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    cross = torch.linalg.cross
+    best = torch.full(dirs.shape[:2], 1e9, device=dirs.device)
+    for cam, o in enumerate(cam_o):
+        ob = o.expand_as(a)
+        g = [cross(p, q) + cross(ob, p - q) for p, q in ((b, c), (c, a), (a, b))]
+        kt = ((a - o) * g[0]).sum(-1)
+        d = dirs[cam][:, None, :]  # (rays, 1, 3)
+        for k0 in range(0, tris.shape[0], slab):
+            w0, w1, w2 = ((d * x[None, k0:k0 + slab]).sum(-1) for x in g)
+            tk = kt[None, k0:k0 + slab] * (1.0 / (w0 + w1 + w2))
+            ok = (w0 * w1 >= 0) & (w0 * w2 >= 0) & (w1 * w2 >= 0) & (tk > 1e-4)
+            best[cam] = torch.minimum(best[cam], torch.where(ok, tk, 1e9).amin(1))
+    t = torch.clamp(best, 0.0, max_depth)
+    return t, t < max_depth
+
+
+def sv_rounding(level, env, card):
+    """max |Δt| of each body against the float64 brute force, and the share
+    of rays past the smoke's limit, per offset of the mesh from the origin."""
+    from visfly_tpu_torch.render import tri_trace_brute, tri_trace_tiled
+
+    state, _ = env.reset(torch.Generator(device=env.device).manual_seed(0))
+    o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, 0)
+    cams = min(8, o_c.shape[2] // cam_rays)
+    o_c, d_c = o_c[:, :, :cams * cam_rays], d_c[:, :, :cams * cam_rays].contiguous()
+    tris = env.scene.triangles
+    T = tris.shape[1]
+    never, always = 1 << 30, 0  # thresholds of the block-list tiers
+    bodies = {"sv_cam": (img_w, cam_rays, always), "sv_tile": (img_w, cam_rays, never),
+              "mt": (None, None, never)}
+    for off in (0.0, 20.0, 40.0):
+        shift = torch.tensor([off, off, 0.0], device=env.device)
+        tr = (tris.reshape(1, T, 3, 3) + shift).reshape(1, T, 9).contiguous()
+        oc = (o_c + shift[:, None, None]).contiguous()
+        t64, hit64, _, _ = tri_trace_brute(tr.double(), oc.double().permute(1, 2, 0),
+                                           d_c.double().permute(1, 2, 0), cs.MAX_DEPTH,
+                                           max_elems=1 << 22)
+        out = {body: tri_trace_tiled(tr, oc, d_c, cs.MAX_DEPTH, T, w, cam,
+                                     soup_min_t=soup_min_t)[:2]
+               for body, (w, cam, soup_min_t) in bodies.items()}
+        t_pg, hit_pg = page_algebra_t(tr[0], oc[:, 0, ::cam_rays].T,
+                                      d_c[:, 0].T.reshape(cams, cam_rays, 3), cs.MAX_DEPTH)
+        out["pages"] = (t_pg.reshape(1, -1), hit_pg.reshape(1, -1))
+        for body, (t, hit) in out.items():
+            both = hit & hit64
+            err = (t.double() - t64).abs()[both]
+            print(f"sv | T={T} offset {off:.0f} m, coordinates up to "
+                  f"{float(tr.abs().max()):.1f} m, {body}: max|dt|={float(err.max()):.3e} m, "
+                  f"mean {float(err.mean()):.3e} m, share of hits above {cs.T_TOL} m "
+                  f"{float((err > cs.T_TOL).double().mean()):.3e}, hit flags differ on "
+                  f"{float((hit != hit64).double().mean()):.3e} | {card}", flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_profile.py needs one CUDA card", file=sys.stderr)
@@ -92,10 +190,24 @@ def main(argv):
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    mesh_dir = tempfile.TemporaryDirectory(prefix="visfly_garage_")
+
+    def garage_env(level):
+        obj = cs.write_obj(os.path.join(mesh_dir.name, f"garage_{level}.obj"),
+                           *cs.garage_mesh(level))
+        return cs.mesh_env(dev, {"path": obj, "backend": "grid"}, cs.PATH_D[level][1])
+
     make_env = {"depth": lambda: cs.bench_env(dev), "A": lambda: cs.landing_env(dev),
-                "B": lambda: cs.bench_env(dev, cs.SUITE), "C": lambda: cs.hover_env(dev)}
+                "B": lambda: cs.bench_env(dev, cs.SUITE), "C": lambda: cs.hover_env(dev),
+                "D0": lambda: garage_env(0), "D2": lambda: garage_env(2),
+                "D3": lambda: garage_env(3)}
     for name in argv or ["A", "C"]:
-        profile(f"path {name}", make_env[name](), card)
+        if name == "sv":
+            for level in (2, 3):
+                sv_rounding(level, garage_env(level), card)
+        else:
+            profile(f"path {name}", make_env[name](), card)
+    mesh_dir.cleanup()
     return 0
 
 

@@ -15,26 +15,40 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   (semantic; march depth; un-culled over-relaxed march depth; march depth
   warm-started by an 8×8 cone prepass);
 - path C, the physics leg of ``bench.py``: ``HoverEnv``, 200 agents, no
-  scene, 8 substeps a control step, 125-step chunks.
+  scene, 8 substeps a control step, 125-step chunks;
+- path D, imported meshes: ``NavigationEnv``, 256 agents in a garage OBJ of
+  30 boxes (the floor, ceiling, walls and 24 pillars; 360 triangles) loaded
+  with ``backend: "grid"``, 64×64 depth from the exact triangles, spawn
+  rejection on the baked grid and exact closest-point collisions; once per
+  mesh size: 360 triangles (per-triangle lists; with a second 48×48 sensor,
+  whose tiles span cameras and take the Möller–Trumbore body), 5,760
+  (subdivided twice: cluster lists) and 23,040 (three times: block lists into
+  the soup, per-camera signed volumes for the 64×64 sensor and
+  Möller–Trumbore for the 48×48 one).
 
 Phases, one line each; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: every CUDA kernel of the package, from the sources in the
-   checkout, the compilers side by side;
+2. build: every CUDA kernel of the package and the C++ mesh baker, from the
+   sources in the checkout, the compilers side by side;
 3. every kernel mode vs its plain PyTorch version on the card at the
    main-path shapes (the reset agents' camera rays of paths A and B, 1 M
    random rays, a scene with 256 dynamic capsules): max |Δt| ≤ 1e-3 m on
    rays that both hit, hit and winning-id disagreeing on ≤ 1e-5 of rays;
    both timed with CUDA events (median of 20; 3 for the plain march);
    then the implicit-function-theorem gradient through the kernel forward
-   against the same rule on the plain forward, within 1e-4 relative;
+   against the same rule on the plain forward, within 1e-4 relative; the
+   triangle kernel in each of its four uses on path D's camera rays at
+   1,048,576 (64×64) and 589,824 (48×48) rays against its plain version (same
+   limits, ids compared on hits), against the brute force on 8 cameras with
+   lists that hold the whole mesh (ids compared where the two winners are
+   not tied), its gradient, and its time apart from the prepass's;
 4. each path: reset, 1 warm-up chunk, timed chunks; every render must have
    launched exactly its kernel mode, outputs finite and in range;
 5. one step from the same state on the card and on the CPU plain path, for
-   the depth leg (depth within 1e-3 m on all but ≤ 1e-5 of pixels) and for
-   path A (colour equal on all but ≤ 1e-4 of pixels, pad centre within 1e-3);
-   state obs within 1e-4.
+   the depth leg and path D at 360 triangles (depth within 1e-3 m on all but
+   ≤ 1e-5 of pixels) and for path A (colour equal on all but ≤ 1e-4 of
+   pixels, pad centre within 1e-3); state obs within 1e-4.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches in phase 4, error, times and bound; the last line is
@@ -47,6 +61,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -66,6 +81,22 @@ PEAK_FP32_PER_S = 67e12
 # float32 operations of one row, a division or square root counted as the
 # 8-instruction sequence it compiles to, everything else as 1
 OPS = {"box_hit": 100, "cap_hit": 185, "box_sdf": 41, "cap_sdf": 49}
+# float32 arithmetic of one ray-triangle test, in two parts: what every test
+# against a triangle needs to reach its gate, and what only a test past the
+# gate needs. Signed volumes: three dot products and the three sign products
+# (18), then the sum, one division (counted as 8) and one product (11). Moeller-Trumbore: a
+# cross and a dot product up to |det| (14), then one division, a difference, a
+# cross product, three dot products, three products and a sum (39).
+# Comparisons and selects are left out, as are a stage's empty slots.
+TRI_OPS = {"sv_tile": (18, 11), "sv_cam": (18, 11), "mt": (14, 39)}
+# path D: subdivision level -> (triangles, the sensors' (uuid, resolution), the
+# kernel use each sensor must launch once per render)
+MESH_SENSORS = {"depth": (64, 64), "depth48": (48, 48)}
+PATH_D = {
+    0: (360, {"depth": "tri_trace_tile_sv", "depth48": "tri_trace_tile_mt"}),
+    2: (5760, {"depth": "tri_trace_tile_sv"}),
+    3: (23040, {"depth": "tri_trace_camsoup", "depth48": "tri_trace_soup"}),
+}
 SUITE = [
     {"uuid": "semantic", "sensor_type": "semantic"},
     {"uuid": "depth_march", "sensor_type": "depth", "trace_mode": "march"},
@@ -87,6 +118,14 @@ KERNELS = {
                            "visfly_tpu/render/pallas_trace.py:618"),
     "trace_march_packed": ("visfly_tpu_torch/csrc/trace_march.cu",
                            "visfly_tpu/render/pallas_trace.py:93"),
+    "tri_trace_tile_sv": ("visfly_tpu_torch/csrc/tri_trace.cu",
+                          "visfly_tpu/render/tri_trace.py:553"),
+    "tri_trace_tile_mt": ("visfly_tpu_torch/csrc/tri_trace.cu",
+                          "visfly_tpu/render/tri_trace.py:553"),
+    "tri_trace_soup": ("visfly_tpu_torch/csrc/tri_trace.cu",
+                       "visfly_tpu/render/tri_trace.py:809"),
+    "tri_trace_camsoup": ("visfly_tpu_torch/csrc/tri_trace.cu",
+                          "visfly_tpu/render/tri_trace.py:942"),
 }
 
 
@@ -124,6 +163,65 @@ def hover_env(device, n=200):
 
     return HoverEnv(num_agent_per_scene=n, visual=False, max_episode_steps=500, device=device,
                     dynamics_kwargs={"dt": 0.0025, "ctrl_dt": 0.02, "action_type": "bodyrate"})
+
+
+def garage_mesh(levels, n_pillars=24, seed=0):
+    """The garage of ``examples/mesh_assets.py::make_garage_obj``: a 16×8×3.5 m
+    interior of six slabs and ``n_pillars`` square pillars, 12 triangles a
+    box, each triangle split 1:4 at its edge midpoints ``levels`` times →
+    (verts (V, 3), faces (F, 3))."""
+    import numpy as np
+
+    corners = np.asarray([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)],
+                         np.float32)
+    box_faces = np.asarray([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                            [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]],
+                           np.int32)
+    boxes = [([8, 0, -0.25], [9, 5, 0.25]), ([8, 0, 3.75], [9, 5, 0.25]),
+             ([-0.75, 0, 1.75], [0.25, 5, 2]), ([16.75, 0, 1.75], [0.25, 5, 2]),
+             ([8, -4.75, 1.75], [9, 0.25, 2]), ([8, 4.75, 1.75], [9, 0.25, 2])]
+    rng = np.random.RandomState(seed)
+    for i in range(n_pillars):
+        boxes.append(([2.0 + 12.0 * (i / max(n_pillars - 1, 1)), rng.uniform(-3, 3), 1.75],
+                      [0.3, 0.3, 1.75]))
+    v = np.concatenate([corners * np.asarray(h, np.float32) + np.asarray(c, np.float32)
+                        for c, h in boxes])
+    f = np.concatenate([box_faces + 8 * i for i in range(len(boxes))])
+    for _ in range(levels):
+        a, b, c = (v[f[:, k]] for k in range(3))
+        ab, bc, ca = (a + b) / 2, (b + c) / 2, (c + a) / 2
+        v = np.concatenate([np.stack([a, ab, ca], 1), np.stack([ab, b, bc], 1),
+                            np.stack([ca, bc, c], 1), np.stack([ab, bc, ca], 1)]).reshape(-1, 3)
+        f = np.arange(len(v), dtype=np.int32).reshape(-1, 3)
+    return v.astype(np.float32), f
+
+
+def write_obj(path, verts, faces):
+    with open(path, "w") as fo:
+        for p in verts.tolist():  # repr of a float32's value reads back exactly
+            fo.write(f"v {p[0]} {p[1]} {p[2]}\n")
+        for t in faces.tolist():
+            fo.write(f"f {t[0] + 1} {t[1] + 1} {t[2] + 1}\n")
+    return path
+
+
+def mesh_env(device, scene_kwargs, sensors, n=N_AGENTS):
+    """Path D's env: agents spawn all over the garage, at least 1 m from
+    every surface of the baked grid."""
+    from visfly_tpu_torch.envs import NavigationEnv
+
+    return NavigationEnv(
+        num_agent_per_scene=n,
+        visual=True,
+        scene_kwargs=scene_kwargs,
+        sensor_kwargs=[{"uuid": u, "sensor_type": "depth", "resolution": list(MESH_SENSORS[u])}
+                       for u in sensors],
+        random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [
+            {"position": {"mean": [8.0, 0.0, 1.75], "half": [7.0, 3.0, 0.5]}}]}},
+        dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate"},
+        max_episode_steps=256,
+        device=device,
+    )
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -260,6 +358,179 @@ def gradient_phase(kscene, o, d, gen):
         check(rel <= GRAD_TOL, f"{layout} gradient differs by {rel} > {GRAD_TOL}")
 
 
+def reset_launches():
+    from visfly_tpu_torch.render import trace_kernel, tri_kernel
+
+    trace_kernel.reset_launches()
+    tri_kernel.reset_launches()
+
+
+def all_launches():
+    """Launches of every kernel since the last reset, by the names of KERNELS."""
+    from visfly_tpu_torch.render import trace_kernel, tri_kernel
+
+    return {**trace_kernel.LAUNCHES, **tri_kernel.LAUNCHES}
+
+
+def mesh_camera_rays(env, state, sensor):
+    """The component-major rays (3, 1, N·H·W) that the exact-triangle render
+    of ``sensor`` traces, and the ``img_w`` and ``cam_rays`` it passes on."""
+    from visfly_tpu_torch.render import camera_rays
+
+    spec = env.sensor_kwargs[sensor]
+    h, w = spec["resolution"]
+    n = env.num_agent
+    origins, dirs, _ = camera_rays(spec, state.dyn.pos, state.dyn.q)
+    o = origins[:, None, :].expand(n, h * w, 3).reshape(1, n * h * w, 3)
+    o_c = o.permute(2, 0, 1).contiguous()
+    d_c = dirs.reshape(1, n * h * w, 3).permute(2, 0, 1).contiguous()
+    whole = (h * w) % 1024 == 0
+    return o_c, d_c, (w if whole else None), (h * w if whole else None)
+
+
+def not_tied(tris, o_c, d_c, gid_a, gid_b):
+    """Rays whose two winners ``gid_a`` and ``gid_b`` differ although the ray
+    does not meet both triangles at one t (shared edges and coplanar
+    neighbours tie; either id is then right)."""
+    import torch
+
+    differ = gid_a != gid_b
+    idx = differ.nonzero(as_tuple=True)
+    if idx[0].numel() == 0:
+        return differ
+    o = o_c[:, idx[0], idx[1]].T
+    d = d_c[:, idx[0], idx[1]].T
+    ts = []
+    for gid in (gid_a, gid_b):
+        rows = tris[idx[0], gid[idx].long()]
+        a, e1, e2 = rows[:, 0:3], rows[:, 3:6] - rows[:, 0:3], rows[:, 6:9] - rows[:, 0:3]
+        p = torch.linalg.cross(d, e2)
+        det = (e1 * p).sum(-1)
+        inv = 1.0 / torch.where(det.abs() > 1e-9, det, 1.0)
+        tv = o - a
+        u = (tv * p).sum(-1) * inv
+        q = torch.linalg.cross(tv, e1)
+        v = (d * q).sum(-1) * inv
+        on = (det.abs() > 1e-9) & (u >= -1e-3) & (v >= -1e-3) & (u + v <= 1 + 1e-3)
+        ts.append(torch.where(on, (e2 * q).sum(-1) * inv, float("nan")))
+    tied = (ts[0] - ts[1]).abs() <= T_TOL
+    out = torch.zeros_like(differ)
+    out[idx] = ~tied
+    return out
+
+
+def triangle_phase(level, env, state, card, errs, timing):
+    """Phase 3 for one mesh size: each sensor's kernel use against its plain
+    version on the same lists, at the full ray count; against the brute force
+    on 8 cameras; the gradient; the times."""
+    import torch
+
+    from visfly_tpu_torch.render import (default_tri_cap, tri_first_hit, tri_first_hit_reference,
+                                         tri_trace_brute, tri_trace_diff, tri_trace_tiled)
+    from visfly_tpu_torch.render.tri_kernel import count_name
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    tris = env.scene.triangles
+    T = tris.shape[1]
+    cap = default_tri_cap(T)
+    for sensor, spec in enumerate(env.sensor_kwargs):
+        h, w = spec["resolution"]
+        o_c, d_c, img_w, cam_rays = mesh_camera_rays(env, state, sensor)
+        n_rays = o_c.shape[2]
+        plan = plan_tiles(tris, o_c, d_c, MAX_DEPTH, cap, img_w, cam_rays)
+        mode = count_name(plan.form, plan.lists.block)
+        check(mode == PATH_D[level][1][spec["uuid"]], f"T={T} {h}x{w}: tier {mode}")
+        args = (tris, plan.lists, plan.origins_c, plan.dirs_c, MAX_DEPTH, plan.form,
+                plan.origin_tiles)
+        t_k, hit_k, gid_k = tri_first_hit(*args)
+        stats = {}
+        t_p, hit_p, gid_p = tri_first_hit_reference(*args, stats=stats)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(t_k).all()), f"{mode} T={T}: non-finite kernel output")
+        both = hit_k & hit_p
+        err = float((t_k - t_p).abs()[both].max()) if bool(both.any()) else 0.0
+        flip = float((hit_k != hit_p).float().mean())
+        gid_off = float(((gid_k != gid_p) & both).float().mean())
+        lists = plan.lists
+        overflow = float((lists.n_stage >= lists.lb.shape[2]).float().mean())
+        print(f"phase 3 | {mode} T={T} {h}x{w}: rays={n_rays} tiles={n_rays // 1024} "
+              f"stages<= {lists.lb.shape[2]} of {lists.chunk} hit={float(hit_k.float().mean()):.4f} "
+              f"max|dt|={err:.3e} m hit_mismatch={flip:.3e} id_mismatch={gid_off:.3e} | "
+              f"{stats['tests'] / n_rays:.1f} slots a ray staged, {stats['real_tests'] / n_rays:.1f} "
+              f"tests a ray on triangles, {stats['gated'] / n_rays:.2f} past the gate, tiles at "
+              f"their cap {overflow:.4f}",
+              flush=True)
+        check(err <= T_TOL, f"{mode} T={T}: max |dt| {err} > {T_TOL}")
+        check(flip <= HIT_TOL, f"{mode} T={T}: hit mismatch {flip} > {HIT_TOL}")
+        check(gid_off <= HIT_TOL, f"{mode} T={T}: id mismatch {gid_off} > {HIT_TOL}")
+
+        # against every triangle, on 8 cameras, with lists that hold the mesh
+        r8 = 8 * h * w
+        o8, d8 = o_c[:, :, :r8].contiguous(), d_c[:, :, :r8].contiguous()
+        t_b, hit_b, _, gid_b = tri_trace_brute(tris, o8.permute(1, 2, 0), d8.permute(1, 2, 0),
+                                               MAX_DEPTH)
+        for cap_b, name in ((T, "lists of the whole mesh"), (cap, f"the default cap {cap}")):
+            t_t, hit_t, _, gid_t = tri_trace_tiled(tris, o8, d8, MAX_DEPTH, cap_b, img_w, cam_rays)
+            bb = hit_t & hit_b
+            e_b = float((t_t - t_b).abs()[bb].max())
+            f_b = float((hit_t != hit_b).float().mean())
+            g_b = float((not_tied(tris, o8, d8, gid_t, gid_b) & bb).float().mean())
+            lost = float((hit_b & ~hit_t).float().mean())
+            print(f"phase 3 | {mode} T={T} {h}x{w} vs brute force on 8 cameras, {name}: "
+                  f"max|dt|={e_b:.3e} m hit_mismatch={f_b:.3e} (far hits lost {lost:.3e}) "
+                  f"untied id_mismatch={g_b:.3e}", flush=True)
+            if cap_b == T:
+                check(e_b <= T_TOL, f"{mode} T={T} vs brute: max |dt| {e_b} > {T_TOL}")
+                check(f_b <= HIT_TOL, f"{mode} T={T} vs brute: hit mismatch {f_b} > {HIT_TOL}")
+                check(g_b <= HIT_TOL, f"{mode} T={T} vs brute: id mismatch {g_b} > {HIT_TOL}")
+            else:  # overflow only ever turns far geometry into background
+                check(bool((t_t >= t_b - T_TOL).all()), f"{mode} T={T}: a nearer hit at the cap")
+
+        # the gradient through the kernel forward against the closed form on
+        # the plain forward's t, hit and ids
+        from visfly_tpu_torch.render import normals_from_gid
+
+        g_t = torch.randn((1, n_rays), device=o_c.device,
+                          generator=torch.Generator(device=o_c.device).manual_seed(3))
+        o_in, d_in = o_c.clone().requires_grad_(True), d_c.clone().requires_grad_(True)
+        t_d = tri_trace_diff(tris, o_in, d_in, MAX_DEPTH, cap, img_w, True, cam_rays)[0]
+        g_o, g_d = torch.autograd.grad((t_d * g_t).sum(), (o_in, d_in))
+        unpack = plan.unpack or (lambda y: y)
+        n_p = normals_from_gid(tris, gid_p, plan.dirs_c.permute(1, 2, 0), hit_p)
+        t_u, hit_u, n_u = unpack(t_p), unpack(hit_p), unpack(n_p)
+        denom = (n_u * d_c.permute(1, 2, 0)).sum(-1)
+        scale = torch.where(hit_u & (denom.abs() > 1e-3), 1.0 / denom, 0.0)
+        r_o = -((g_t * scale)[..., None] * n_u).permute(2, 0, 1)
+        r_d = r_o * t_u
+        rel = max(float((g - r).abs().max() / r.abs().max()) for g, r in ((g_o, r_o), (g_d, r_d)))
+        check(bool(torch.isfinite(g_o).all()) and float(g_o.abs().max()) > 0,
+              f"{mode} T={T}: gradient zero or not finite")
+        check(rel <= GRAD_TOL, f"{mode} T={T}: gradient differs by {rel} > {GRAD_TOL}")
+
+        ms = cuda_ms(lambda: tri_first_hit(*args))
+        prepass_ms = cuda_ms(lambda: plan_tiles(tris, o_c, d_c, MAX_DEPTH, cap, img_w, cam_rays),
+                             reps=10)
+        plain_ms = cuda_ms(lambda: tri_first_hit_reference(*args), reps=3, warmup=1)
+        # bytes: directions in (and origins, for the per-ray body), t, hit and
+        # id out, the walked lists, and every staged triangle row once a tile
+        n_bytes = (n_rays * (12 + (12 if plan.form == "mt" else 0) + 9)
+                   + stats["real_tests"] / 1024 * 36
+                   + stats["tests"] / 1024 * 4.0 / lists.block + lists.lb.numel() * 4
+                   + lists.n_stage.numel() * 4)
+        by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        to_gate, past_gate = TRI_OPS[plan.form]
+        by_ops = ((stats["real_tests"] * to_gate + stats["gated"] * past_gate)
+                  / PEAK_FP32_PER_S * 1e3)
+        b_ms, b_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        print(f"phase 3 | {mode} T={T} {h}x{w} at {n_rays} rays: kernel {ms:.4f} ms, prepass "
+              f"{prepass_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
+              f"(bytes {by_bytes:.4f}); gradient max relative difference {rel:.3e} | {card}",
+              flush=True)
+        errs[mode] = max(errs.get(mode, 0.0), err)
+        if level in (0, 3):  # the sizes whose numbers stand in the kernels line
+            timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def drive(env, gen_seed, n_chunks, chunk, expect):
     """Reset, one warm-up chunk, ``n_chunks`` timed chunks with every
     observation consumed. ``expect(steps)`` → {mode: launches} of the whole
@@ -267,13 +538,11 @@ def drive(env, gen_seed, n_chunks, chunk, expect):
     Returns (state, last output, env steps/s, launches by mode, timed s)."""
     import torch
 
-    from visfly_tpu_torch.render import trace_kernel
-
     dev = env.device
     gen = torch.Generator(device=dev).manual_seed(gen_seed)
     act_gen = torch.Generator(device=dev).manual_seed(gen_seed + 1)
     n = env.num_agent
-    trace_kernel.reset_launches()
+    reset_launches()
     state, obs = env.reset(gen)
     carried = torch.zeros((), device=dev)
 
@@ -292,7 +561,7 @@ def drive(env, gen_seed, n_chunks, chunk, expect):
         state, carried, out = run(state, carried)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(trace_kernel.LAUNCHES)
+    launches = all_launches()
     steps = chunk * (n_chunks + 1)
     want = {k: 0 for k in launches}
     want.update(expect(steps))
@@ -356,7 +625,8 @@ def main():
     for name, (secs, log) in build_all().items():
         regs = [line.split("Used")[1].split(",")[0].strip() for line in log.splitlines()
                 if "Used" in line]
-        print(f"phase 2 | built {name} in {secs:.1f} s | ptxas: {', '.join(regs)}", flush=True)
+        what = f"ptxas: {', '.join(regs)}" if regs else log.strip().splitlines()[-1]
+        print(f"phase 2 | built {name} in {secs:.1f} s | {what}", flush=True)
     print(f"phase 2 | build total {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. every kernel mode vs its plain version on the card
@@ -440,6 +710,24 @@ def main():
           f"trace_analytic's {timing['trace_analytic']['ms']:.4f} ms | {card}", flush=True)
     gradient_phase(ks_b, o_b, d_b, g)
 
+    # the triangle kernel on path D's meshes: one OBJ per size, loaded as a
+    # user would load it; the envs serve phases 4 and 5 as well
+    mesh_dir = tempfile.TemporaryDirectory(prefix="visfly_garage_")
+    envs_d = {}
+    for level, (n_tris, sensors) in PATH_D.items():
+        t0 = time.perf_counter()
+        obj = write_obj(os.path.join(mesh_dir.name, f"garage_{level}.obj"), *garage_mesh(level))
+        env_m = mesh_env(dev, {"path": obj, "backend": "grid"}, sensors)
+        envs_d[level] = env_m
+        check(env_m.scene.triangles.shape == (1, n_tris, 9),
+              f"garage level {level}: {tuple(env_m.scene.triangles.shape)} triangles")
+        print(f"phase 3 | garage level {level}: {n_tris} triangles, SDF grid "
+              f"{tuple(env_m.scene.sdf.shape[1:])}, loaded and baked in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        state_m, _ = env_m.reset(torch.Generator(device=dev).manual_seed(0))
+        triangle_phase(level, env_m, state_m, card, errs, timing)
+    mesh_dir.cleanup()
+
     # 4. the paths
     launches = {m: 0 for m in KERNELS}
 
@@ -501,6 +789,25 @@ def main():
     report("path C (physics leg)", env_c, sps, counts, dt, 125 * (n_chunks + 1),
            "no scene, 8 substeps")
 
+    # path D: every sensor renders once at the reset and once a step, through
+    # the kernel use its mesh size and resolution select
+    states_d = {}
+    for level, (n_tris, sensors) in PATH_D.items():
+        n_chunks = 2
+        env_m = envs_d[level]
+        states_d[level], out, sps, counts, dt = drive(
+            env_m, 50 + level, n_chunks, CHUNK,
+            lambda steps: {mode: 1 + steps for mode in sensors.values()})
+        depth = out.obs["depth"]
+        check(tuple(depth.shape) == (N_AGENTS, 1, *RES), f"path D depth {tuple(depth.shape)}")
+        check(bool(((depth >= 0) & (depth <= MAX_DEPTH)).all()), "path D depth outside [0, 20]")
+        # a closed garage has no background, but a tile at its cap gives up
+        # its farthest triangles (2% of the pixels at 5,760 triangles)
+        check(float((depth < MAX_DEPTH).float().mean()) > 0.9, "path D: too much background")
+        report(f"path D (mesh, {n_tris} triangles)", env_m, sps, counts, dt,
+               CHUNK * (n_chunks + 1), " + ".join(f"{h}x{w} depth" for h, w in
+                                                  (MESH_SENSORS[u] for u in sensors)))
+
     # 5. one step from the same state, card vs CPU plain path
     out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
     # the two devices' float32 dynamics differ in the last ulps, so a pixel on
@@ -512,6 +819,17 @@ def main():
           f"all but {int(off.sum())} of {diff.numel()} pixels (silhouette share {d_flip:.3e}, "
           f"largest {float(diff.max()):.3f} m) | state max|d|={s_err:.3e}", flush=True)
     check(d_flip <= HIT_TOL, f"depth card vs cpu off by > {T_TOL} m on {d_flip} of pixels")
+
+    env_m = envs_d[0]
+    env_m_cpu = mesh_env("cpu", {"data": env_m.scene}, PATH_D[0][1])
+    out_gpu, out_cpu, s_err = card_vs_cpu(env_m, env_m_cpu, states_d[0], 42)
+    diff = (out_gpu.obs["depth"].cpu() - out_cpu.obs["depth"]).abs()
+    off = diff > T_TOL
+    d_flip = float(off.float().mean())
+    print(f"phase 5 | path D (360 triangles) card vs cpu: depth max|d|="
+          f"{float(diff[~off].max()):.3e} m on all but {int(off.sum())} of {diff.numel()} "
+          f"pixels (silhouette share {d_flip:.3e}) | state max|d|={s_err:.3e}", flush=True)
+    check(d_flip <= HIT_TOL, f"path D depth card vs cpu off by > {T_TOL} m on {d_flip} of pixels")
 
     out_gpu, out_cpu, s_err = card_vs_cpu(env_a, landing_env("cpu"), state_a, 41)
     px_off = (out_gpu.obs["color"].cpu() != out_cpu.obs["color"]).any(dim=1)
@@ -532,8 +850,11 @@ def main():
             "max_abs_err": errs[mode], **timing[mode], "library_ms": None,
         } for mode in KERNELS],
         "note": "trace_march and trace_march_nocull are one kernel instantiation (the per-tile "
-                "cull is not ported): the launch count tells the cull settings apart; "
-                "library_ms is null because no single PyTorch call computes a first hit"}),
+                "cull is not ported): the launch count tells the cull settings apart; the four "
+                "tri_trace_* are one kernel (tile_sv and tile_mt the two bodies of B4, soup B5, "
+                "camsoup B6), timed without their prepass at 360 (tile) and 23,040 (soup) "
+                "triangles; library_ms is null because no single PyTorch call computes a first "
+                "hit"}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -174,12 +174,16 @@ def test_randomizer_kinds(kind):
         assert (dis >= 1.0 - 1e-5).all() and (dis <= 2.0 + 1e-5).all()
 
 
-def test_unported_branches_raise():
+def test_unported_branches_raise(tmp_path):
     """What is still to port raises, naming its ROADMAP item."""
     def nav(**over):
         return tenvs.NavigationEnv(**bench_kwargs(**over))
 
     scene = {"path": "garage_simple_l_medium"}
+    obj = _write_room_obj(tmp_path / "room.obj")
+    glb = tmp_path / "stage.glb"
+    glb.write_bytes(b"glTF")
+    (tmp_path / "stage.scene_instance.json").write_text("{}")
     for build in (
         lambda: nav(requires_grad=True),
         lambda: nav(grad_collision=True),
@@ -187,6 +191,11 @@ def test_unported_branches_raise():
         lambda: nav(latent_dim=8),
         lambda: nav(scene_kwargs=dict(scene, obj_settings={"path": "x"})),
         lambda: nav(scene_kwargs=dict(scene, backend="grid")),
+        # a mesh file's default backend (box decomposition), habitat paths
+        lambda: nav(scene_kwargs={"path": obj}),
+        lambda: nav(scene_kwargs={"path": str(glb)}),
+        lambda: nav(scene_kwargs={"path": str(tmp_path / "stage.scene_instance.json")}),
+        lambda: nav(scene_kwargs={"path": str(tmp_path)}),
         lambda: nav(random_kwargs={"noise_kwargs": {"IMU": {"model": "UniformNoiseModel"}}}),
         lambda: nav(dynamics_kwargs={"wind_settings": ["sin(x)", "0*x", "0*x"]}),
     ):
@@ -205,17 +214,52 @@ def test_unported_branches_raise():
     images = env.sensor_observations(st)
     assert images["color"].dtype == torch.uint8 and images["color"].shape == (N, 3, 8, 8)
     assert torch.isfinite(images["depth"]).all() and torch.isfinite(images["refined"]).all()
+    # on a mesh scene: the grid render opt-out, shadow rays, dynamic objects,
+    # textures and the variants of the per-camera kernel
+    from visfly_tpu_torch.render import bake_lighting, render_camera, tri_trace_tiled
+
+    mesh_env = nav(scene_kwargs={"path": obj, "backend": "grid", "sdf_spacing": 0.25})
+    pos, q = st.dyn.pos, st.dyn.q
+    spec = {"sensor_type": "color", "resolution": [8, 8]}
+    sun = bake_lighting({"shadows": True, "lights": [
+        {"type": "directional", "direction": [0, 0, -1]}]})
+    ball = (pos[None, :1] + 1.0, torch.full((1, 1), 0.2))
+    textured = mesh_env.scene._replace(tri_uv=torch.zeros(1, 96, 6))
+    for render in (
+        lambda: render_camera(mesh_env.scene, pos, q, dict(spec, render_backend="grid")),
+        lambda: render_camera(mesh_env.scene, pos, q, spec, lighting=sun),
+        lambda: render_camera(mesh_env.scene, pos, q, spec, objects=ball),
+        lambda: render_camera(textured, pos, q, spec),
+        lambda: render_camera(mesh_env.scene._replace(triangles=()), pos, q, spec),
+        lambda: tri_trace_tiled(mesh_env.scene.triangles, torch.zeros(3, 1, 1024),
+                                torch.ones(3, 1, 1024), variant="mx"),
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render()
+    assert render_camera(mesh_env.scene, pos, q, spec)["color"].shape == (N, 3, 8, 8)
+    # off the CPU a camera whose rays are not whole 1,024-ray tiles raises: no
+    # render steps down to the brute force by shape alone
+    assert (N * 8 * 8) % 1024
+    with pytest.raises(ValueError, match="whole 1024-ray tiles"):
+        render_camera(mesh_env.scene, pos.to("meta"), q.to("meta"), spec)
 
 
-def test_env_without_device_is_on_the_card():
-    """An env built without ``device=`` is on ``cuda``. With no card the
-    constructor fails with torch's own error: nothing falls back to the CPU."""
+def test_env_without_device_is_on_the_card(tmp_path):
+    """An env built without ``device=`` is on ``cuda``, a mesh env with its
+    baked scene too. With no card the constructor fails with torch's own
+    error: nothing falls back to the CPU."""
+    mesh_kw = dict(num_agent_per_scene=2, visual=True, scene_kwargs={
+        "path": _write_room_obj(tmp_path / "room.obj"), "backend": "grid"})
     if torch.cuda.is_available():
         env = tenvs.HoverEnv(num_agent_per_scene=2)
         assert env.device.type == "cuda" and env.params.mass.device.type == "cuda"
+        env = tenvs.NavigationEnv(**mesh_kw)
+        assert env.scene.sdf.device.type == "cuda" and env.scene.triangles.device.type == "cuda"
     else:
-        with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda|nvidia"):
-            tenvs.HoverEnv(num_agent_per_scene=2)
+        for build in (lambda: tenvs.HoverEnv(num_agent_per_scene=2),
+                      lambda: tenvs.NavigationEnv(**mesh_kw)):
+            with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda|nvidia"):
+                build()
 
 
 # ---------------------------------------------------------------------------
@@ -428,3 +472,124 @@ def test_landing_and_sensor_suite_paths_run_as_in_jax():
         images = tenv.sensor_observations(tst)
         for k, v in jenv.sensor_observations(jst).items():
             assert images[k].numpy().shape == v.shape and images[k].numpy().dtype == v.dtype, k
+
+
+# ---------------------------------------------------------------------------
+# imported meshes
+# ---------------------------------------------------------------------------
+
+_CUBE_FACES = np.asarray([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                          [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
+
+
+def _write_room_obj(path):
+    """A 12×8×3 m room of six slabs with a cube and two pillars in it, as an
+    OBJ of 108 triangles."""
+    parts = [((4, 0, -0.25), (6, 4, 0.25)), ((4, 0, 3.25), (6, 4, 0.25)),
+             ((-2.25, 0, 1.5), (0.25, 4, 1.5)), ((10.25, 0, 1.5), (0.25, 4, 1.5)),
+             ((4, -4.25, 1.5), (6, 0.25, 1.5)), ((4, 4.25, 1.5), (6, 0.25, 1.5)),
+             ((4, 1, 1.5), (0.3, 0.3, 1.5)), ((6, -1.5, 1.5), (0.3, 0.3, 1.5)),
+             ((7.5, 1.5, 0.5), (0.5, 0.5, 0.5))]
+    with open(path, "w") as fo:
+        for c, h in parts:
+            for x in (-h[0], h[0]):
+                for y in (-h[1], h[1]):
+                    for z in (-h[2], h[2]):
+                        fo.write(f"v {c[0] + x} {c[1] + y} {c[2] + z}\n")
+        for i in range(len(parts)):
+            for t in _CUBE_FACES + 8 * i + 1:
+                fo.write(f"f {t[0]} {t[1]} {t[2]}\n")
+    return str(path)
+
+
+def _mesh_kwargs(obj, sensors=None, **over):
+    spawn = {"class": "Uniform", "kwargs": [{"position": {"mean": [1.0, 0.0, 1.5],
+                                                          "half": [0.5, 2.0, 0.4]}}]}
+    sensors = sensors or [{"uuid": "depth", "sensor_type": "depth", "resolution": [16, 64]}]
+    kw = dict(scene_kwargs={"path": obj, "backend": "grid"}, sensor_kwargs=sensors,
+              random_kwargs={"state_generator": spawn})
+    kw.update(over)
+    return bench_kwargs(**kw)
+
+
+def test_mesh_slice_matches_jax(tmp_path):
+    """``NavigationEnv`` on an imported OBJ (grid backend: spawn rejection on
+    the baked grid, exact closest-point collisions, the exact-triangle camera),
+    4 agents, 16×64 depth, 8 steps from the same state. The JAX CPU path
+    traces by brute force, the port through its tiled tier with the wedge
+    cull and the signed-volume body."""
+    obj = _write_room_obj(tmp_path / "room.obj")
+    jenv = jenvs.NavigationEnv(**_mesh_kwargs(obj))
+    tenv = tenvs.NavigationEnv(**_mesh_kwargs(obj))
+    np.testing.assert_array_equal(tenv.scene.sdf.numpy(), _np(jenv.scene.sdf))
+    np.testing.assert_array_equal(tenv.bbox.numpy(), _np(jenv.scene.bbox))
+    jst, tst, jstep = _start(jenv)
+    tobs = tenv.get_observation(tst, tenv.sensor_observations(tst))
+    rng = np.random.default_rng(0)
+    for i in range(8):
+        a = rng.uniform(-0.3, 0.3, size=(N, 4)).astype(np.float32)
+        jst, jout = jstep(jst, jnp.asarray(a))
+        tst, tout = tenv.step(tst, torch.from_numpy(a), is_test=True)
+        assert set(tout.obs) == set(jout.obs)
+        _assert_depth_close(tout.obs["depth"].numpy(), _np(jout.obs["depth"]), f"step {i}")
+        for k in ("state", "target"):
+            np.testing.assert_allclose(tout.obs[k].numpy(), _np(jout.obs[k]), atol=TOL, rtol=0)
+        _assert_step_close(tout, jout, tst, jst, i)
+        np.testing.assert_allclose(tst.collision.dis.numpy(), _np(jst.collision.dis),
+                                   atol=TOL, rtol=0)
+        np.testing.assert_allclose(tst.collision.vector.numpy(), _np(jst.collision.vector),
+                                   atol=TOL, rtol=0)
+    depth = tout.obs["depth"]
+    assert depth.shape == (N, 1, 16, 64) and (depth < 20.0).all()  # a closed room
+
+
+def test_mesh_colour_and_semantic_match_jax(tmp_path):
+    """One colour and one semantic render of the mesh scene, with the default
+    light and with a baked point light: equal within one count."""
+    obj = _write_room_obj(tmp_path / "room.obj")
+    sensors = [{"uuid": "color", "sensor_type": "color", "resolution": [16, 64]},
+               {"uuid": "semantic", "sensor_type": "semantic", "resolution": [16, 64]},
+               {"uuid": "small", "sensor_type": "depth", "resolution": [12, 12]}]
+    lamp = {"ambient": 0.3, "lights": [{"type": "point", "position": [4.0, 0.0, 2.5],
+                                        "color": [1.0, 0.9, 0.8], "intensity": 1.5}]}
+    for lighting in (None, lamp):
+        scene = {"path": obj, "backend": "grid", "lighting": lighting}
+        jenv = jenvs.NavigationEnv(**_mesh_kwargs(obj, sensors, scene_kwargs=scene))
+        tenv = tenvs.NavigationEnv(**_mesh_kwargs(obj, sensors, scene_kwargs=scene))
+        # an eager reset: the JAX env bakes its lighting at the first render,
+        # and under jit the cached bake would leak a tracer
+        jst, _ = jenv.reset(jax.random.PRNGKey(3))
+        tst = env_state_from_numpy(jax.tree_util.tree_map(np.asarray, jst))
+        jimg = {k: _np(v) for k, v in jenv.sensor_observations(jst).items()}
+        timg = {k: v.numpy() for k, v in tenv.sensor_observations(tst).items()}
+        assert timg["color"].dtype == np.uint8 and timg["color"].shape == (N, 3, 16, 64)
+        _assert_uint8_close(timg["color"], jimg["color"], f"colour {lighting}")
+        _assert_uint8_close(timg["semantic"], jimg["semantic"], "semantic")
+        assert timg["semantic"].dtype == np.uint8 and set(np.unique(timg["semantic"])) == {1}
+        assert len(np.unique(timg["color"])) > (2 if lighting is None else 8)
+        # 144 rays a camera are no whole tiles: the brute force traces them
+        _assert_depth_close(timg["small"], jimg["small"], "12x12 depth")
+
+
+def test_mesh_env_from_baked_data_on_two_scenes(tmp_path):
+    """``scene_kwargs["data"]`` hands over a baked scene, repeated over the
+    env's scenes; 8 steps with the auto-reset on respawn collision-free on
+    the grid."""
+    from visfly_tpu_torch.scene import bake_mesh_scene
+
+    data = bake_mesh_scene(_write_room_obj(tmp_path / "room.obj"), device="cpu")
+    kw = _mesh_kwargs("unused", max_episode_steps=4)
+    kw.update(scene_kwargs={"data": data}, num_scene=2, num_agent_per_scene=2)
+    env = tenvs.NavigationEnv(**kw)
+    assert env.scene.num_scene == 2 and env.scene.triangles.shape == (2, 112, 9)
+    st, obs = env.reset(torch.Generator().manual_seed(0))
+    assert not point_is_collision(env.scene, st.dyn.pos, env.scene_ids, 1.0).any()
+    n_done = 0
+    for _ in range(8):
+        st, out = env.step(st, torch.zeros(N, 4))
+        n_done += int(out.done.sum())
+        assert torch.isfinite(out.obs["depth"]).all() and torch.isfinite(out.reward).all()
+    assert n_done >= N and out.obs["depth"].shape == (N, 1, 16, 64)
+    assert (st.collision.dis > 0.1).all()
+    with pytest.raises(TypeError, match="SceneData"):
+        tenvs.NavigationEnv(**dict(kw, scene_kwargs={"data": {"sdf": 0}}))

@@ -4,12 +4,14 @@ The package mirrors the layout and module names of ``visfly_tpu`` (``core/``,
 ``dynamics/``, ``scene/``, ``render/``, ``envs/``) so that each module's
 counterpart is easy to find. It imports ``torch`` and numpy, never ``jax``
 and never ``visfly_tpu``; it only reads the drone JSON data files under
-``visfly_tpu/configs/drone/``.
+``visfly_tpu/configs/drone/`` and compiles the framework-free C++ mesh baker
+``native/mesh_sdf.cpp``.
 
 Plain tensor code is PyTorch. The ray-trace kernels are hand-written CUDA
-C++ for ``sm_90a`` (``csrc/trace_analytic.cu``, ``csrc/trace_march.cu``),
-built with ``nvcc`` at first use and bound with ``ctypes``; on CPU tensors
-their plain PyTorch versions run instead. Envs run on the CUDA card unless
+C++ for ``sm_90a`` (``csrc/trace_analytic.cu``, ``csrc/trace_march.cu`` for
+primitive scenes, ``csrc/tri_trace.cu`` for the exact triangles of imported
+meshes), built with ``nvcc`` at first use and bound with ``ctypes``; on CPU
+tensors their plain PyTorch versions run instead. Envs run on the CUDA card unless
 built with ``device="cpu"``.
 """
 

@@ -206,7 +206,8 @@ class DroneGymEnv:
         return dyn_mod.get_state(state.dyn, self.dyn_config)
 
     def is_collision_fn(self, pos: Tensor) -> Tensor:
-        """Spawn rejection: closer than 1 m to a surface or out of bounds."""
+        """Spawn rejection: closer than 1 m to a surface (the analytic SDF of
+        a primitive scene, the baked grid of a mesh scene) or out of bounds."""
         from ..scene import point_is_collision
 
         if pos.shape[0] == self.num_agent:
@@ -228,8 +229,9 @@ class DroneGymEnv:
         return tuple(torch.cat(parts, dim=0).to(self.dtype) for parts in zip(*outs))
 
     def _update_collision(self, dyn: DynState, once: Tensor) -> Tuple[CollisionInfo, Tensor]:
-        """Closest-point and bounds queries: the scene SDF for visual envs,
-        the nearest face of the bbox world otherwise."""
+        """Closest-point and bounds queries: the scene for visual envs (its
+        SDF, or the exact triangles of a mesh scene), the nearest face of the
+        bbox world otherwise."""
         pos = dyn.pos.detach()
         if self.scene is not None:
             from ..scene import closest_point_query

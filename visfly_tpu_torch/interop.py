@@ -20,6 +20,7 @@ from .envs.landing import LandingAux
 from .render.sphere_trace import Lighting
 from .render.trace_kernel import KernelScene
 from .scene.prim_scene import PrimitiveScene, scene_from_arrays
+from .scene.scene import SceneData, scene_data_from_arrays
 
 # env-specific aux states the port knows, by their field names
 _AUX_TYPES = {LandingAux._fields: LandingAux}
@@ -52,6 +53,17 @@ def scene_from_numpy(scene, device=None) -> PrimitiveScene:
     arrays = {f: getattr(scene, f) for f in
               ("params", "colors", "semantic", "bbox", "boxes", "capsules")}
     return scene_from_arrays(arrays, float(scene.eps), device)
+
+
+def scene_data_from_numpy(data, device=None) -> SceneData:
+    """``visfly_tpu.scene.SceneData`` of numpy arrays (sdf, albedo, semantic,
+    origin, spacing, bbox, triangles) → SceneData. Texture tables do not
+    cross over."""
+    if not isinstance(getattr(data, "tri_uv", ()), tuple):
+        raise NotImplementedError("textured scenes are not ported yet (ROADMAP: Queue A item "
+                                  "18, imported meshes: textures)")
+    fields = ("sdf", "albedo", "semantic", "origin", "spacing", "bbox", "triangles")
+    return scene_data_from_arrays({f: getattr(data, f) for f in fields}, device)
 
 
 def kernel_scene_from_numpy(kscene, device=None) -> KernelScene:

@@ -1,11 +1,12 @@
-"""Rendering of packed primitive scenes: depth, colour and semantic cameras
-(counterpart of the primitive-scene branches of
+"""Rendering of packed primitive scenes and of baked mesh scenes: depth,
+colour and semantic cameras (counterpart of
 ``visfly_tpu/render/sphere_trace.py``).
 
 Per sensor: camera rays → trace (a CUDA kernel on the card, its plain
-version on the CPU; ``render/trace_kernel.py``) → planar depth
-``where(hit, t·cos, max_depth)``, or Lambert-shaded colour, or semantic ids.
-Layouts: depth ``(N, 1, H, W)`` float32, colour ``(N, 3, H, W)`` uint8,
+version on the CPU; ``render/trace_kernel.py`` for primitive scenes,
+``render/tri_trace.py`` for the exact triangles of a mesh scene) → planar
+depth ``where(hit, t·cos, max_depth)``, or Lambert-shaded colour, or semantic
+ids. Layouts: depth ``(N, 1, H, W)`` float32, colour ``(N, 3, H, W)`` uint8,
 semantic ``(N, 1, H, W)`` uint8.
 
 Sensor-spec keys beyond the camera's: ``trace_mode`` ("analytic", the
@@ -15,8 +16,13 @@ default: closed-form first hit; or "march": the sphere trace),
 ``tile`` (> 1: one conservative cone per tile of pixels warm-starts the
 per-pixel march, which then takes half the steps; march mode only).
 
-Grid and triangle scenes, dynamic objects with mesh templates and sensor
-noise are not ported yet and raise ``NotImplementedError``.
+A mesh scene (``SceneData`` with triangles) renders its true triangles;
+its sensor-spec keys are ``tri_cap`` (per-tile list length, default by mesh
+size) and ``tri_backface``; colour and semantic ids come from the baked grids
+at the exact hit. Not ported yet, each raising ``NotImplementedError``: the
+``render_backend: "grid"`` opt-out (the trilinear SDF march), grid scenes
+without triangles, textures, shadow rays, dynamic objects in mesh scenes and
+with mesh templates, and sensor noise.
 """
 from __future__ import annotations
 
@@ -29,8 +35,11 @@ from torch import Tensor
 
 from ..core import quaternion as quat
 from ..scene.prim_scene import PrimitiveScene, prim_distances, prim_normal_single, prim_sdf
+from ..scene.scene import SceneData
 from .camera import (CameraGeometry, camera_rays, camera_rays_components, tile_cones_body)
 from .trace_kernel import prepare_kernel_scene, trace_diff
+from .tri_kernel import TILE
+from .tri_trace import default_tri_cap, tri_trace_diff
 
 DEFAULT_MAX_DEPTH = 20.0  # background value
 BIG = 1e9
@@ -224,8 +233,66 @@ def cone_warm_start(data, spec, tile, origins, q, S, objects, n_steps, max_depth
     return t_px.reshape(S, n // S * H * W).contiguous()
 
 
+def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype: str,
+                      max_depth: float, objects, lighting: Optional[Lighting]
+                      ) -> Dict[str, Tensor]:
+    """One sensor on a mesh scene's exact triangles (``tri_trace_diff``): the
+    tiled kernel path where a scene's rays are whole 1,024-ray tiles. Where
+    they are not, CPU tensors take the brute force (every ray against every
+    triangle, as the JAX package does); on the card that would be a plain
+    PyTorch render by shape alone, so it raises instead."""
+    if str(spec.get("render_backend", "tri")) == "grid":
+        raise _unported("render_backend 'grid' (the trilinear SDF march, trace_rays)",
+                        "Queue A item 19, exact-triangle render: the grid opt-out")
+    if objects is not None:
+        raise _unported("dynamic objects in mesh scenes", "Queue A item 16, dynamic objects")
+    if isinstance(data.tri_uv, Tensor):
+        raise _unported("textured colour", "Queue A item 18, imported meshes: textures")
+    if lighting is not None and lighting.shadows and stype == "color":
+        raise _unported("shadow rays (shadow_visibility)",
+                        "Queue A item 19, exact-triangle render: shadows")
+    H, W = spec["resolution"]
+    n, S = pos.shape[0], data.num_scene
+    Rs = (n // S) * H * W
+    if Rs % TILE and pos.device.type != "cpu":
+        raise ValueError(
+            f"the exact-triangle camera on {pos.device} needs whole {TILE}-ray tiles a scene: "
+            f"{n // S} agents a scene × {H}×{W} pixels = {Rs} rays is not a multiple of {TILE}; "
+            "change the resolution or the number of agents a scene")
+    origins, dirs, cos_f = camera_rays(spec, pos, q)
+    o_g3 = origins[:, None, :].expand(n, H * W, 3).reshape(S, Rs, 3)
+    d_g3 = dirs.reshape(S, Rs, 3)
+    tiled = Rs % TILE == 0
+    whole = tiled and (H * W) % TILE == 0  # a tile never spans two cameras
+    tri = data.triangles
+    t, hit, normal, _gid = tri_trace_diff(
+        tri, o_g3.permute(2, 0, 1).contiguous(), d_g3.permute(2, 0, 1).contiguous(),
+        max_depth, int(spec.get("tri_cap", default_tri_cap(tri.shape[1]))),
+        W if whole else None, tiled, H * W if whole else None,
+        bool(spec.get("tri_backface", False)))
+    if stype == "depth":
+        depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f, max_depth)
+        return {"depth": depth[:, None, :, :]}
+    # albedo and ids from the baked grids at the exact hit
+    p_hit = (o_g3 + d_g3 * t[..., None]).reshape(n * H * W, 3)
+    hit_f = hit.reshape(n * H * W)
+    sid_f = torch.arange(S, device=pos.device).repeat_interleave(Rs)
+    X, Y, Z = data.sdf.shape[1:]
+    g = torch.round((p_hit - data.origin) / data.spacing).to(torch.int64)
+    g = torch.minimum(torch.clamp(g, min=0), g.new_tensor([X - 1, Y - 1, Z - 1]))
+    lin = ((sid_f * X + g[..., 0]) * Y + g[..., 1]) * Z + g[..., 2]
+    if stype == "semantic":
+        sem = torch.where(hit_f, data.semantic.reshape(-1)[lin], 0).reshape(n, H, W)
+        return {"semantic": sem[:, None, :, :].to(torch.uint8)}
+    albedo = data.albedo.reshape(-1, 3)[lin].to(torch.float32)
+    shade = lambert_shade(normal.reshape(-1, 3), p_hit, lighting)
+    rgb = torch.clamp(albedo * shade, 0, 255)
+    rgb = torch.where(hit_f[:, None], rgb, 0.0).reshape(n, H, W, 3)
+    return {"color": rgb.permute(0, 3, 1, 2).to(torch.uint8)}
+
+
 def render_camera(
-    data: PrimitiveScene,
+    data,
     pos: Tensor,
     q: Tensor,
     spec: Dict,
@@ -240,13 +307,17 @@ def render_camera(
     agent // agents per scene). ``objects`` (positions (S, M, 3), radii
     (S, M)) render as spheres that do not occlude a camera inside them."""
     stype = str(spec.get("sensor_type", spec.get("uuid", "depth"))).lower()
-    if not isinstance(data, PrimitiveScene):
-        raise _unported("rendering of grid and triangle scenes",
-                        "Queue A items 18-19, imported meshes")
-    if objects is not None and len(objects) > 3 and objects[3] is not None:
-        raise _unported("dynamic objects with mesh templates", "Queue A item 16, dynamic objects")
     if stype not in ("depth", "color", "semantic"):
         raise ValueError(f"unknown sensor type {stype!r}")
+    if isinstance(data, SceneData):
+        if not data.has_triangles:
+            raise _unported("rendering of a grid scene without triangles (trace_rays)",
+                            "Queue A item 19, exact-triangle render: the grid opt-out")
+        return _render_triangles(data, pos, q, spec, stype, max_depth, objects, lighting)
+    if not isinstance(data, PrimitiveScene):
+        raise TypeError(f"cannot render a {type(data).__name__}")
+    if objects is not None and len(objects) > 3 and objects[3] is not None:
+        raise _unported("dynamic objects with mesh templates", "Queue A item 16, dynamic objects")
 
     H, W = spec["resolution"]
     n = pos.shape[0]

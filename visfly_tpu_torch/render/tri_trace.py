@@ -1,0 +1,540 @@
+"""Exact triangle-mesh ray tracing (counterpart of
+``visfly_tpu/render/tri_trace.py``).
+
+An imported stage renders as its true triangles: per 1,024-ray tile a cull
+prepass (plain PyTorch, as it is plain XLA in the JAX package) keeps the
+``cap`` nearest triangles, or blocks of triangles, that the tile can see, and
+one kernel (``render/tri_kernel.py``, ``csrc/tri_trace.cu``) finds each ray's
+first hit on its tile's list and the id of the winning triangle; normals
+follow from the id by one gather.
+
+* :func:`tri_trace_brute` — every ray against every triangle
+  (Möller–Trumbore), the reference of the tests and the path for ray counts
+  that are no multiple of 1,024.
+* :func:`tri_trace_tiled` — the tiers of ``tri_trace_pallas``, picked by mesh
+  size: ``T ≤ 2,048`` per-triangle lists; up to ``soup_min_t`` lists of
+  Morton-ordered 64-triangle clusters (both through the kernel's signed-volume
+  body on camera tiles, Möller–Trumbore otherwise); above it lists of
+  128-triangle blocks, with per-camera signed volumes for whole cameras
+  (``variant="scalar"``) and Möller–Trumbore for other ray sets. Whole
+  cameras wider than 32 pixels are first repacked into 32×32-pixel tiles.
+* :func:`tri_trace_diff` — differentiable in the rays: the hit surface is a
+  plane, so ∂t/∂o = −n/(n·d) and ∂t/∂d = −t·n/(n·d) exactly; no kernel runs
+  backward.
+
+Overflow: a tile that sees more than ``cap`` keeps its ``cap`` nearest, so the
+near field stays exact and far geometry turns into background, never the
+reverse. The tile is the unit of that choice, which is why the tile size and
+the repack are part of the function and not of the kernel's schedule.
+
+The thresholds between tiers are arguments, so a test reaches every tier
+with a small mesh.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from .tri_kernel import BIG, MAX_CHUNK, TILE, TileLists, tri_first_hit
+
+CLUSTER = 64  # triangles per cull cluster of the two-level path
+CLUSTER_CULL_MIN_T = 2048  # above: cull whole clusters, not triangles
+SHARED_SOUP_MIN_T = 16384  # above: lists of blocks into the shared soup
+STAGE = 64  # triangles a kernel stage for caps up to 1,024, twice that above
+VARIANTS = ("scalar", "merged", "mx", "wl")
+
+
+def default_tri_cap(n_tris: int) -> int:
+    """Default per-tile ``cap`` by mesh size: 256 for meshes that cull per
+    triangle (stages are a few large walls and floors), a quarter of the mesh
+    in whole clusters, at least 1,024, for dense ones."""
+    if n_tris <= CLUSTER_CULL_MIN_T:
+        return min(n_tris, 256)
+    return min(n_tris, max(1024, -(-n_tris // 4 // CLUSTER) * CLUSTER))
+
+
+def _morton3(x: np.ndarray) -> np.ndarray:
+    """(N, 3) in [0,1] → 30-bit Morton codes (10 bits/axis)."""
+    q = np.clip((x * 1023.0), 0, 1023).astype(np.uint32)
+
+    def spread(v):
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+
+
+def pack_triangles(verts: np.ndarray, faces: np.ndarray, pad_to: int = 8,
+                   return_order: bool = False):
+    """(V, 3) + (F, 3) → (T, 9) rows [a | b | c], zero-padded (degenerate
+    rows never intersect). Meshes above ``CLUSTER_CULL_MIN_T`` are sorted by
+    an orientation-aware Morton code of the centroid (a 3-bit facing bucket
+    below the top 12 spatial bits, so that clusters are spatially tight and
+    orientation-pure) and padded to whole clusters. ``return_order`` also
+    returns packed row → original face, −1 on padding rows."""
+    tris = verts[faces.reshape(-1)].reshape(-1, 9).astype(np.float32)
+    t = len(tris)
+    order = np.arange(t)
+    if t > CLUSTER_CULL_MIN_T:
+        cen = tris.reshape(-1, 3, 3).mean(1)
+        lo, hi = cen.min(0), cen.max(0)
+        norm = (cen - lo) / np.maximum(hi - lo, 1e-9)
+        v3 = tris.reshape(-1, 3, 3).astype(np.float64)
+        n = np.cross(v3[:, 1] - v3[:, 0], v3[:, 2] - v3[:, 0])
+        axis = np.argmax(np.abs(n), axis=1)
+        sign = np.take_along_axis(n, axis[:, None], 1)[:, 0] < 0
+        bucket = (axis * 2 + sign).astype(np.uint64)  # 6 facings
+        m = _morton3(norm).astype(np.uint64)
+        key = ((m >> 18) << 21) | (bucket << 18) | (m & ((1 << 18) - 1))
+        order = np.argsort(key, kind="stable")
+        tris = tris[order]
+        pad_to = max(pad_to, CLUSTER)
+    padded = -(-max(t, 1) // pad_to) * pad_to
+    out = np.zeros((padded, 9), np.float32)
+    out[:t] = tris
+    if return_order:
+        ids = np.full(padded, -1, np.int64)
+        ids[:t] = order
+        return out, ids
+    return out
+
+
+# ---------------------------------------------------------------------------
+# brute force
+# ---------------------------------------------------------------------------
+
+
+def _norm3(x: Tensor) -> Tensor:
+    """Euclidean norm over the last axis of 3, summed in index order."""
+    return torch.sqrt(x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2])
+
+
+def _face_normals(tris: Tensor) -> Tensor:
+    """Unnormalised geometric normals (b − a) × (c − a) of rows (..., 9)."""
+    a = tris[..., 0:3]
+    return torch.linalg.cross(tris[..., 3:6] - a, tris[..., 6:9] - a)
+
+
+def normals_from_gid(tris: Tensor, gid: Tensor, dirs: Tensor, hit: Tensor) -> Tensor:
+    """Unit normals (S, R, 3) of the winning triangles ``gid (S, R)``, turned
+    against the ray ``dirs (S, R, 3)``; zero on misses."""
+    n = torch.gather(_face_normals(tris), 1, gid.to(torch.int64)[..., None].expand(*gid.shape, 3))
+    n = n / (_norm3(n)[..., None] + 1e-12)
+    n = torch.where(torch.sum(n * dirs, -1, keepdim=True) > 0, -n, n)
+    return torch.where(hit[..., None], n, 0.0)
+
+
+def tri_trace_brute(tris: Tensor, origins: Tensor, dirs: Tensor, max_depth: float = 20.0,
+                    max_elems: int = 1 << 24) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Every ray against every triangle. tris (S, T, 9), origins/dirs
+    (S, R, 3) → (t (S, R), hit (S, R), normal (S, R, 3) geometric and facing
+    the ray, id (S, R) int32 of the first minimum in row order). Triangles go
+    in slabs so that a (slab, R) intermediate holds ``max_elems``."""
+    S, T = tris.shape[0], tris.shape[1]
+    R = origins.shape[1]
+    best = torch.full((S, R), BIG, dtype=origins.dtype, device=origins.device)
+    gid = torch.zeros((S, R), dtype=torch.int64, device=origins.device)
+    slab = max(1, min(T, max_elems // max(S * R, 1)))
+    o = origins[:, None]  # (S, 1, R, 3)
+    d = dirs[:, None]
+    for k0 in range(0, T, slab):
+        rows = tris[:, k0:k0 + slab, None, :]  # (S, slab, 1, 9)
+        a = rows[..., 0:3]
+        e1 = rows[..., 3:6] - a
+        e2 = rows[..., 6:9] - a
+        pvec = torch.linalg.cross(d, e2.expand(S, -1, R, 3))
+        det = torch.sum(e1 * pvec, -1)
+        okd = det.abs() > 1e-9
+        inv = torch.where(okd, 1.0 / torch.where(okd, det, 1.0), 0.0)
+        tvec = o - a
+        u = torch.sum(tvec * pvec, -1) * inv
+        qvec = torch.linalg.cross(tvec, e1.expand(S, -1, R, 3))
+        v = torch.sum(d * qvec, -1) * inv
+        t = torch.sum(e2 * qvec, -1) * inv
+        ok = okd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-4)
+        ts, k = torch.min(torch.where(ok, t, BIG), dim=1)  # (S, R), first minimum
+        better = ts < best
+        gid = torch.where(better, k + k0, gid)
+        best = torch.where(better, ts, best)
+    hit = best < max_depth
+    n = torch.gather(_face_normals(tris), 1, gid[..., None].expand(S, R, 3))
+    n = n / (_norm3(n)[..., None] + 1e-12)
+    n = torch.where(torch.sum(n * dirs, -1, keepdim=True) > 0, -n, n)
+    return torch.clamp(best, 0.0, max_depth), hit, n, gid.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# per-tile cull prepasses (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _apex_spread(origins_c: Tensor, S: int, n_tiles: int) -> Tuple[Tensor, Tensor]:
+    """Per-tile mean ray origin (apex (S, tiles, 3)) and the largest distance
+    of an origin from it (spread (S, tiles)): the sound radius of the
+    occlusion lower bound."""
+    o4 = origins_c.reshape(3, S, n_tiles, TILE)
+    apex = o4.mean(-1)
+    spread = torch.sqrt(torch.sum((o4 - apex[..., None]) ** 2, dim=0).amax(-1))
+    return apex.permute(1, 2, 0), spread
+
+
+def _tile_planes(origins_c: Tensor, dirs_c: Tensor, S: int, n_tiles: int, img_w: int
+                 ) -> Tuple[Tensor, Tensor]:
+    """The four planes of a tile's camera wedge (planes (S, tiles, 4, 3),
+    inward) and its apex (S, tiles, 3); valid when a tile is a block of whole
+    rows of one camera."""
+    dt4 = dirs_c.reshape(3, S, n_tiles, TILE)
+    corners = torch.stack([dt4[..., 0], dt4[..., img_w - 1], dt4[..., TILE - 1],
+                           dt4[..., TILE - img_w]], dim=-1).permute(1, 2, 3, 0)
+    planes = torch.linalg.cross(corners, torch.roll(corners, -1, dims=2))
+    centre = corners.sum(dim=2, keepdim=True)
+    sign_fix = torch.sign(torch.sum(planes * centre, -1, keepdim=True))
+    planes = planes * torch.where(sign_fix == 0, 1.0, sign_fix)
+    apex = origins_c.reshape(3, S, n_tiles, TILE)[..., 0].permute(1, 2, 0)
+    return planes, apex
+
+
+def _tile_aabb(origins_c: Tensor, dirs_c: Tensor, max_depth: float) -> Tuple[Tensor, Tensor]:
+    """Bounds (S, tiles, 3) of every point a tile's rays reach in max_depth."""
+    _, S, R = origins_c.shape
+    o = origins_c.reshape(3, S, R // TILE, TILE)
+    d = dirs_c.reshape(3, S, R // TILE, TILE)
+    lo = o.amin(-1) + max_depth * torch.clamp(d.amin(-1), max=0.0)
+    hi = o.amax(-1) + max_depth * torch.clamp(d.amax(-1), min=0.0)
+    return lo.permute(1, 2, 0), hi.permute(1, 2, 0)
+
+
+def _nearest_first(active: Tensor, dist: Tensor, keep: int) -> Tensor:
+    """Indices (S, tiles, keep) of the active entries by distance, then the
+    inactive ones in index order."""
+    key = torch.where(active, dist, torch.inf)
+    return torch.argsort(key, dim=-1, stable=True)[:, :, :keep]
+
+
+def tri_cull_compact(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float,
+                     cap: int, img_w: Optional[int] = None, backface: bool = False
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(S, T, 9) triangles × (3, S, R) rays → per tile the ``cap`` nearest
+    visible triangles: ids (S, tiles, cap') int32 slot → triangle, counts
+    (S, tiles) int32 of visible triangles, lb (S, tiles, cap') lower bound on
+    a hit t of each slot (BIG on invisible ones). The test is the tile's
+    reach AABB, plus the exact camera wedge when ``img_w`` says that a tile
+    is whole rows of one camera, plus facing when ``backface``. Above
+    ``CLUSTER_CULL_MIN_T`` whole clusters are culled and ``cap'`` is ``cap``
+    in whole clusters.
+
+    The JAX function also returns a compacted copy of the rows; the kernel
+    here gathers rows from the soup by id."""
+    S, T = tris.shape[0], tris.shape[1]
+    n_tiles = origins_c.shape[2] // TILE
+    lo, hi = _tile_aabb(origins_c, dirs_c, max_depth)
+    if T > CLUSTER_CULL_MIN_T and T % CLUSTER == 0:
+        return _cluster_cull_compact(tris, origins_c, dirs_c, max_depth, cap, lo, hi, img_w,
+                                     backface)
+    v = tris.reshape(S, T, 3, 3)
+    tlo, thi = v.amin(2), v.amax(2)  # (S, T, 3)
+    active = torch.all((lo[:, :, None] <= thi[:, None]) & (hi[:, :, None] >= tlo[:, None]), -1)
+    # zero-padded rows are out (degenerate at the origin, they could overlap)
+    active = active & torch.any(tris.abs() > 0, dim=-1)[:, None]
+
+    if img_w is not None and TILE % img_w == 0:
+        planes, apex_w = _tile_planes(origins_c, dirs_c, S, n_tiles, img_w)
+        # visible unless all three vertices lie outside one plane; the plane
+        # distance written out, so that no matrix product rounds it
+        rel = v[:, None] - apex_w[:, :, None, None]  # (S, tiles, T, 3 verts, 3)
+        pl = planes[:, :, :, None, None, :]  # (S, tiles, 4, 1, 1, 3)
+        rl = rel[:, :, None]
+        dv = pl[..., 0] * rl[..., 0] + pl[..., 1] * rl[..., 1] + pl[..., 2] * rl[..., 2]
+        active = active & torch.all(torch.any(dv >= 0.0, dim=-1), dim=2)
+
+    apex, spread = _apex_spread(origins_c, S, n_tiles)
+    if backface:
+        # exact per triangle: x on its plane has n·x = n·a, so the largest
+        # n·(o − x) over the tile's origins is n·(apex − a) + spread
+        a_t = v[:, :, 0]
+        n_t = torch.linalg.cross(v[:, :, 1] - a_t, v[:, :, 2] - a_t)
+        n_t = n_t / (_norm3(n_t)[..., None] + 1e-12)
+        front = (torch.sum(n_t[:, None] * (apex[:, :, None] - a_t[:, None]), -1)
+                 + spread[..., None]) > 0.0
+        active = active & front
+
+    centroid = v.mean(2)  # (S, T, 3)
+    dist = _norm3(centroid[:, None] - apex[:, :, None])  # (S, tiles, T)
+    ids = _nearest_first(active, dist, cap)
+    # |d| = 1, so a hit t is at least the distance: centroid distance less the
+    # triangle's circumradius less the spread of the tile's origins
+    rad = _norm3(v - centroid[:, :, None]).amax(-1)
+    lb_all = torch.clamp(dist - rad[:, None] - spread[..., None], min=0.0)
+    lb_all = torch.where(active, lb_all, BIG)
+    return (ids.to(torch.int32), active.sum(-1).to(torch.int32), torch.gather(lb_all, 2, ids))
+
+
+def _cluster_activity(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, lo: Tensor, hi: Tensor,
+                      img_w: Optional[int], cluster: int = CLUSTER, backface: bool = False
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Visibility of ``cluster``-triangle blocks: active (S, tiles, C),
+    apex-to-centre distance (S, tiles, C) and the blocks' hit-t lower bounds
+    (S, tiles, C), BIG where inactive. ``backface`` also drops blocks whose
+    whole normal cone faces away from every origin of the tile (exact on
+    closed, consistently wound meshes)."""
+    S, T = tris.shape[0], tris.shape[1]
+    C = T // cluster
+    n_tiles = lo.shape[1]
+    v = tris.reshape(S, C, cluster, 3, 3)
+    clo, chi = v.amin((2, 3)), v.amax((2, 3))  # (S, C, 3)
+    nonzero = torch.any(tris.abs().reshape(S, C, -1) > 0, -1)
+    active = torch.all((lo[:, :, None] <= chi[:, None]) & (hi[:, :, None] >= clo[:, None]), -1)
+    active = active & nonzero[:, None]
+    cen = (clo + chi) * 0.5
+    half = (chi - clo) * 0.5
+
+    if img_w is not None and TILE % img_w == 0:
+        planes, apex_w = _tile_planes(origins_c, dirs_c, S, n_tiles, img_w)
+        # conservative box against wedge: centre distance + Σ|n|·half ≥ 0
+        pl = planes[:, :, :, None, :]  # (S, tiles, 4, 1, 3)
+        cc = cen[:, None, None]  # (S, 1, 1, C, 3)
+        hh = half[:, None, None]
+        d_cen = (pl[..., 0] * cc[..., 0] + pl[..., 1] * cc[..., 1] + pl[..., 2] * cc[..., 2]
+                 - torch.sum(planes * apex_w[:, :, None], -1)[..., None])
+        ap = pl.abs()
+        r_eff = ap[..., 0] * hh[..., 0] + ap[..., 1] * hh[..., 1] + ap[..., 2] * hh[..., 2]
+        active = active & torch.all(d_cen + r_eff >= 0.0, dim=2)
+
+    apex, spread = _apex_spread(origins_c, S, n_tiles)
+    dist = _norm3(cen[:, None] - apex[:, :, None])
+    hd = _norm3(half)  # (S, C)
+
+    if backface:
+        a = v[..., 0, :]
+        nt = torch.linalg.cross(v[..., 1, :] - a, v[..., 2, :] - a)  # (S, C, k, 3)
+        nt = nt / (_norm3(nt)[..., None] + 1e-12)
+        nbar = nt.sum(2)
+        nbar = nbar / (_norm3(nbar)[..., None] + 1e-12)
+        # padding rows have n = 0: cos 0, sin 1, the cone covers everything
+        cos_min = torch.sum(nt * nbar[:, :, None], -1).amin(2)  # (S, C)
+        # past a hemisphere sqrt(1 − cos²) no longer bounds the cone
+        sin_max = torch.where(cos_min <= 0.0, 1.0,
+                              torch.sqrt(torch.clamp(1.0 - cos_min * cos_min, min=0.0)))
+        d = apex[:, :, None] - cen[:, None]  # (S, tiles, C, 3)
+        front = (torch.sum(nbar[:, None] * d, -1) + dist * sin_max[:, None]
+                 + spread[..., None] + hd[:, None]) > 0.0
+        active = active & front
+
+    # any hit lies in the block's box: t ≥ dist(apex, box) − spread
+    gap = torch.maximum(clo[:, None] - apex[:, :, None], apex[:, :, None] - chi[:, None])
+    d_aabb = _norm3(torch.clamp(gap, min=0.0))
+    lb_all = torch.clamp(d_aabb - spread[..., None], min=0.0)
+    return active, dist, torch.where(active, lb_all, BIG)
+
+
+def _cluster_cull_compact(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float,
+                          cap: int, lo: Tensor, hi: Tensor, img_w: Optional[int],
+                          backface: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """Two-level cull of a Morton-ordered mesh: whole ``CLUSTER``-triangle
+    clusters are culled, sorted and kept (``cap // CLUSTER`` of them); ids and
+    lb are per slot as in :func:`tri_cull_compact`, counts in whole
+    clusters."""
+    S, T = tris.shape[0], tris.shape[1]
+    n_tiles = lo.shape[1]
+    active, dist, lb_all = _cluster_activity(tris, origins_c, dirs_c, lo, hi, img_w,
+                                             backface=backface)
+    cap_c = max(1, min(cap, T) // CLUSTER)
+    order = _nearest_first(active, dist, cap_c)
+    counts = (active.sum(-1) * CLUSTER).to(torch.int32)
+    lb = torch.gather(lb_all, 2, order).repeat_interleave(CLUSTER, dim=-1)
+    ids = (order[..., None] * CLUSTER + torch.arange(CLUSTER, device=tris.device))
+    return ids.reshape(S, n_tiles, cap_c * CLUSTER).to(torch.int32), counts, lb
+
+
+def _cluster_ids_prepass(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float,
+                         cap: int, img_w: Optional[int], backface: bool = False
+                         ) -> Tuple[Tensor, Tensor, Tensor, int]:
+    """Dense-mesh prepass: per tile a list of block ids into the shared soup
+    → (cids (S, tiles, cap_c) int32, counts (S, tiles) int32 of visible
+    blocks, lb_c (S, tiles, cap_c), block size). Consecutive Morton clusters
+    pair into 128-triangle blocks where the mesh allows."""
+    T = tris.shape[1]
+    lo, hi = _tile_aabb(origins_c, dirs_c, max_depth)
+    cluster = 2 * CLUSTER if T % (2 * CLUSTER) == 0 else CLUSTER
+    while T % cluster:
+        cluster //= 2
+    active, dist, lb_all = _cluster_activity(tris, origins_c, dirs_c, lo, hi, img_w,
+                                             cluster=cluster, backface=backface)
+    cap_c = max(1, min(cap, T) // cluster)
+    cids = _nearest_first(active, dist, cap_c)
+    return (cids.to(torch.int32), active.sum(-1).to(torch.int32),
+            torch.gather(lb_all, 2, cids), cluster)
+
+
+def cull_stats(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
+               cap: int = 256, img_w: Optional[int] = None) -> dict:
+    """Visible triangles per tile and the share of tiles above ``cap``, for
+    sizing ``cap``."""
+    _, counts, _ = tri_cull_compact(tris, origins_c, dirs_c, max_depth, cap=1, img_w=img_w)
+    c = counts.cpu().numpy()
+    return {"max": int(c.max()), "mean": float(c.mean()), "p99": float(np.percentile(c, 99)),
+            "overflow_frac": float((c > cap).mean())}
+
+
+# ---------------------------------------------------------------------------
+# the tiers
+# ---------------------------------------------------------------------------
+
+
+def tile_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float, cap: int,
+               img_w: Optional[int], backface: bool) -> TileLists:
+    """The per-triangle and cluster tiers' prepass as the kernel takes it:
+    slots in stages of 64 triangles (128 for caps above 1,024), padded with
+    empty slots to whole stages; a stage's bound is the least of its slots'."""
+    ids, counts, lb = tri_cull_compact(tris, origins_c, dirs_c, max_depth, cap, img_w, backface)
+    cap = ids.shape[2]  # the cluster path rounds to whole clusters
+    counts = torch.clamp(counts, max=cap)
+    chunk = min(cap, STAGE if cap <= 1024 else 2 * STAGE)
+    pad = -cap % chunk
+    if pad:
+        ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+        lb = torch.nn.functional.pad(lb, (0, pad), value=BIG)
+    n_stage = (cap + pad) // chunk
+    nst = torch.clamp((counts + chunk - 1) // chunk, min=1).to(torch.int32)
+    lbc = lb.reshape(*lb.shape[:2], n_stage, chunk).amin(-1)
+    return TileLists(ids.contiguous(), nst, lbc.contiguous(), chunk, 1)
+
+
+def block_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float, cap: int,
+                img_w: Optional[int], backface: bool) -> TileLists:
+    """The dense tiers' prepass as the kernel takes it: one block a stage."""
+    cids, counts, lb_c, cluster = _cluster_ids_prepass(tris, origins_c, dirs_c, max_depth, cap,
+                                                       img_w, backface)
+    if cluster > MAX_CHUNK:
+        raise ValueError(f"blocks of {cluster} triangles exceed a stage of {MAX_CHUNK}")
+    nst = torch.clamp(counts, 1, cids.shape[2]).to(torch.int32)
+    return TileLists(cids.contiguous(), nst, lb_c.contiguous(), cluster, cluster)
+
+
+class TilePlan(NamedTuple):
+    """Everything :func:`tri_trace_tiled` decides before the kernel: the rays
+    in tile order, the tiles' lists, the kernel's body, and how to put
+    per-ray results back into the caller's order."""
+
+    origins_c: Tensor  # (3, S, R) contiguous, repacked where cameras allow
+    dirs_c: Tensor
+    lists: TileLists
+    form: str  # "mt" | "sv_tile" | "sv_cam"
+    origin_tiles: int  # tiles that share one origin
+    unpack: Optional[Callable[[Tensor], Tensor]]  # (S, R, ...) tile order → caller's order
+
+
+def plan_tiles(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
+               cap: int = 256, img_w: Optional[int] = None, cam_rays: Optional[int] = None,
+               backface: bool = False, soup_min_t: int = SHARED_SOUP_MIN_T) -> TilePlan:
+    """The repack, the tier and its cull prepass for rays (3, S, R)."""
+    _, S, R = origins_c.shape
+    if R % TILE:
+        raise ValueError(f"rays per scene ({R}) must be a multiple of {TILE}")
+    T = tris.shape[1]
+    cap = min(cap, T)
+    o_c, d_c = origins_c.detach(), dirs_c.detach()
+    whole_cams = (img_w is not None and cam_rays is not None and cam_rays % TILE == 0
+                  and R % cam_rays == 0 and cam_rays % img_w == 0)
+    unpack = None
+    if whole_cams and img_w > 32 and img_w % 32 == 0 and (cam_rays // img_w) % (TILE // 32) == 0:
+        # square pixel blocks: a tile's wedge is a compact 32×32 square, not a
+        # full-width strip
+        bw, bh = 32, TILE // 32
+        cams, hb, wb = R // cam_rays, cam_rays // img_w // bh, img_w // bw
+        o_c, d_c = (x.reshape(3, S, cams, hb, bh, wb, bw).transpose(4, 5).reshape(3, S, R)
+                    for x in (o_c, d_c))
+        img_w = bw
+
+        def unpack(y):
+            y = y.reshape(S, cams, hb, wb, bh, bw, *y.shape[2:])
+            return y.transpose(3, 4).reshape(S, R, *y.shape[6:])
+
+    o_c, d_c = o_c.contiguous(), d_c.contiguous()
+    if T > soup_min_t and T % CLUSTER == 0:
+        lists = block_lists(tris, o_c, d_c, max_depth, cap, img_w, backface)
+        if whole_cams:
+            return TilePlan(o_c, d_c, lists, "sv_cam", cam_rays // TILE, unpack)
+        return TilePlan(o_c, d_c, lists, "mt", 1, unpack)
+    lists = tile_lists(tris, o_c, d_c, max_depth, cap, img_w, backface)
+    if img_w is not None:  # camera tiles have one origin each
+        return TilePlan(o_c, d_c, lists, "sv_tile", 1, unpack)
+    return TilePlan(o_c, d_c, lists, "mt", 1, unpack)
+
+
+def tri_trace_tiled(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
+                    cap: int = 256, img_w: Optional[int] = None,
+                    cam_rays: Optional[int] = None, backface: bool = False,
+                    soup_min_t: int = SHARED_SOUP_MIN_T, variant: str = "scalar"
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(S, T, 9) × (3, S, R) → (t (S, R), hit (S, R), normal (S, R, 3),
+    id (S, R) int32); R a multiple of 1,024. ``img_w`` says that a tile is
+    whole rows of one camera (wedge cull, one origin a tile); ``cam_rays``
+    (H·W, rays arriving as whole row-major cameras) unlocks the 32×32-pixel
+    repack and, above ``soup_min_t``, the per-camera signed volumes.
+    ``variant`` picks the body of that last tier; only ``"scalar"`` exists
+    here."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}; got {variant!r}")
+    if variant != "scalar":
+        raise NotImplementedError(
+            f"the {variant!r} body of the dense camera tier is not ported yet (ROADMAP: "
+            "Queue B rows B7a-c, variants of the per-camera kernel)")
+    plan = plan_tiles(tris, origins_c, dirs_c, max_depth, cap, img_w, cam_rays, backface,
+                      soup_min_t)
+    t, hit, gid = tri_first_hit(tris, plan.lists, plan.origins_c, plan.dirs_c, max_depth,
+                                plan.form, plan.origin_tiles)
+    out = (t, hit, normals_from_gid(tris, gid, plan.dirs_c.permute(1, 2, 0), hit), gid)
+    return out if plan.unpack is None else tuple(plan.unpack(y) for y in out)
+
+
+# ---------------------------------------------------------------------------
+# differentiable entry
+# ---------------------------------------------------------------------------
+
+
+class _TriTraceIFT(torch.autograd.Function):
+    """Forward: :func:`tri_trace_tiled` or :func:`tri_trace_brute`. Backward: the
+    closed form for a planar hit surface; nothing for the triangles, ``hit``,
+    the normals or the ids."""
+
+    @staticmethod
+    def forward(ctx, origins_c, dirs_c, tris, kw):
+        if kw["tiled"]:
+            out = tri_trace_tiled(tris, origins_c, dirs_c, kw["max_depth"], kw["cap"], kw["img_w"],
+                            kw["cam_rays"], kw["backface"], kw["soup_min_t"], kw["variant"])
+        else:
+            out = tri_trace_brute(tris, origins_c.permute(1, 2, 0), dirs_c.permute(1, 2, 0),
+                                  kw["max_depth"])
+        t, hit, n, gid = out
+        ctx.save_for_backward(dirs_c, t, hit, n)
+        ctx.mark_non_differentiable(hit, n, gid)
+        return t, hit, n, gid
+
+    @staticmethod
+    def backward(ctx, g_t, *_):
+        dirs_c, t, hit, n = ctx.saved_tensors
+        denom = torch.sum(n * dirs_c.permute(1, 2, 0), dim=-1)
+        scale = torch.where(hit & (denom.abs() > 1e-3), 1.0 / denom, 0.0)
+        common = (g_t * scale)[..., None] * n
+        return -common.permute(2, 0, 1), -(common * t[..., None]).permute(2, 0, 1), None, None
+
+
+def tri_trace_diff(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
+                   cap: int = 256, img_w: Optional[int] = None, tiled: bool = True,
+                   cam_rays: Optional[int] = None, backface: bool = False,
+                   soup_min_t: int = SHARED_SOUP_MIN_T, variant: str = "scalar"
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Differentiable trace → (t, hit, normal, id), the counterpart of
+    ``tri_trace_diff`` (``tiled`` is its ``use_pallas``). Gradients reach
+    ``origins_c`` and ``dirs_c`` through t: ∂t/∂o = −n/(n·d),
+    ∂t/∂d = −t·n/(n·d), zero where the ray missed or |n·d| ≤ 1e-3."""
+    kw = dict(max_depth=max_depth, cap=cap, img_w=img_w, tiled=tiled, cam_rays=cam_rays,
+              backface=backface, soup_min_t=soup_min_t, variant=variant)
+    return _TriTraceIFT.apply(origins_c, dirs_c, tris, kw)

@@ -7,16 +7,22 @@ Named presets mirror the reference dataset scene families:
 draw from ``numpy.random.default_rng(seed)`` in the same order as the JAX
 package, so one seed gives the same scene in both.
 
-Only procedural presets load here; imported meshes, habitat datasets,
-directories of scene JSONs and the dense-grid backend are not ported yet.
+``load_scenes_for_env`` builds an env's scene: a procedural preset packs
+into a ``PrimitiveScene``; a mesh file (OBJ, GLB) with ``backend: "grid"``
+bakes into a :class:`SceneData` (SDF grid plus the exact triangles), and
+``scene_kwargs["data"]`` hands over one already baked. Not ported yet, each
+raising ``NotImplementedError``: the default backend of a mesh file (box
+decomposition), habitat datasets and directories of scene JSONs.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, NamedTuple
 
 import numpy as np
+import torch
+from torch import Tensor
 
 from . import primitives as prim
 
@@ -233,19 +239,111 @@ def resolve_scene_path(path: str) -> str:
     return SCENE_PATH_ALIASES.get(base, base)
 
 
+# ---------------------------------------------------------------------------
+# baked scenes: dense grids plus the exact triangles
+# ---------------------------------------------------------------------------
+
+
+class SceneData(NamedTuple):
+    """Stacked multi-scene grids on the device.
+
+    sdf       (S, X, Y, Z) float32 signed distance
+    albedo    (S, X, Y, Z, 3) uint8 nearest-surface colour
+    semantic  (S, X, Y, Z) uint8 nearest-surface semantic id
+    origin    (3,) float32 grid frame origin, shared by the scenes
+    spacing   () float32 cell size
+    bbox      (2, 3) float32 world bounds (union)
+    triangles (S, T, 9) float32 zero-padded soup [a | b | c], or ``()``:
+              when present cameras trace the true mesh
+              (``render/tri_trace.py``) and collision queries answer exactly
+              (``queries.tri_closest_point``)
+    tri_uv, tri_rect, atlas   texture tables of the exact-triangle camera;
+              always ``()`` here (textures are not ported)
+    """
+
+    sdf: Tensor
+    albedo: Tensor
+    semantic: Tensor
+    origin: Tensor
+    spacing: Tensor
+    bbox: Tensor
+    triangles: Any = ()
+    tri_uv: Any = ()
+    tri_rect: Any = ()
+    atlas: Any = ()
+
+    @property
+    def num_scene(self) -> int:
+        return self.sdf.shape[0]
+
+    @property
+    def has_triangles(self) -> bool:
+        return isinstance(self.triangles, Tensor) and self.triangles.dim() == 3
+
+
+def scene_data_from_arrays(arrays: dict, device=None) -> SceneData:
+    """Numpy arrays (keys sdf, albedo, semantic, origin, spacing, bbox and,
+    optionally, triangles) → :class:`SceneData` on ``device``."""
+    def t(x, dtype):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    tris = arrays.get("triangles", ())
+    return SceneData(
+        sdf=t(arrays["sdf"], torch.float32),
+        albedo=t(arrays["albedo"], torch.uint8),
+        semantic=t(arrays["semantic"], torch.uint8),
+        origin=t(arrays["origin"], torch.float32),
+        spacing=t(arrays["spacing"], torch.float32),
+        bbox=t(arrays["bbox"], torch.float32),
+        triangles=t(tris, torch.float32) if getattr(tris, "ndim", 0) == 3 else (),
+    )
+
+
+def _tile_scene_data(data: SceneData, num_scene: int) -> SceneData:
+    """A single-scene SceneData repeated along the scene axis."""
+    def tile(x):
+        if not isinstance(x, Tensor) or x.dim() == 0:
+            return x
+        return x.repeat(num_scene, *([1] * (x.dim() - 1)))
+
+    return data._replace(sdf=tile(data.sdf), albedo=tile(data.albedo),
+                         semantic=tile(data.semantic), triangles=tile(data.triangles))
+
+
+_MESH_EXT = (".glb", ".gltf", ".obj")
+
+
 def load_scenes_for_env(env):
-    """Build the device scene from an env's ``scene_kwargs`` (procedural
-    presets only), one scene per ``env.num_scene`` with seeds
-    ``seed, seed + 1, ...``."""
+    """Build the device scene from an env's ``scene_kwargs``: a pre-baked
+    ``data``, a mesh file with ``backend: "grid"`` (one bake, repeated over
+    ``env.num_scene``), or a procedural preset, one scene per
+    ``env.num_scene`` with seeds ``seed, seed + 1, ...``."""
     kw = dict(env.scene_kwargs)
     path = kw.get("path", "box15_wall_empty")
     seed = kw.get("seed", env.seed)
-    if "data" in kw or (isinstance(path, str) and (
-            os.path.isfile(path) or os.path.isdir(path))):
+    if "data" in kw:
+        data = kw["data"]
+        if not isinstance(data, SceneData):
+            raise TypeError(f"scene_kwargs['data'] must be a SceneData; got {type(data).__name__}")
+        data = SceneData(*(x.to(env.device) if isinstance(x, Tensor) else x for x in data))
+        if data.num_scene == 1 and env.num_scene > 1:
+            data = _tile_scene_data(data, env.num_scene)
+        return data
+    if isinstance(path, str) and os.path.isfile(path) and path.lower().endswith(_MESH_EXT):
+        if kw.get("backend", "primitive") != "grid":
+            raise NotImplementedError(
+                "a mesh file loads with scene_kwargs backend='grid' only; the default, its "
+                "decomposition into boxes (scene/decompose.py), is not ported yet (ROADMAP: "
+                "Queue A item 18, imported meshes: decompose)")
+        from .mesh import bake_mesh_scene
+
+        data = bake_mesh_scene(path, spacing=kw.get("sdf_spacing", 0.1),
+                               margin=kw.get("margin", 0.5), device=env.device)
+        return _tile_scene_data(data, env.num_scene) if env.num_scene > 1 else data
+    if isinstance(path, str) and (os.path.isfile(path) or os.path.isdir(path)):
         raise NotImplementedError(
-            "only procedural scene presets are ported; pre-baked scenes, mesh "
-            "files, habitat datasets and scene directories are ROADMAP Queue A "
-            "items 18-20 (imported meshes)")
+            "habitat scene instances, dataset configs and directories of scene JSONs are not "
+            "ported yet (ROADMAP: Queue A item 20, habitat datasets and scene directories)")
     preset = resolve_scene_path(path)
     specs = [make_scene(preset, seed=seed + i, **kw.get("scene_gen_kwargs", {}))
              for i in range(env.num_scene)]
@@ -256,7 +354,8 @@ def _build_scene(env, specs):
     kw = dict(env.scene_kwargs)
     if kw.get("backend", "primitive") != "primitive":
         raise NotImplementedError(
-            "the dense-grid scene backend is ROADMAP Queue A item 18 (imported meshes)")
+            "baking a procedural preset into a dense grid (bake_scenes) is not ported yet "
+            "(ROADMAP: Queue A item 18, imported meshes: grids of presets)")
     from .prim_scene import pack_scenes
 
     return pack_scenes(specs, device=env.device)
