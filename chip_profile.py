@@ -6,7 +6,8 @@ for the device's busy time per step. The profiler about doubles the host
 time of a step, so the idle share is taken against the step time clocked
 without it.
 
-    python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [sv]     # default: A C
+    python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [sv] [probe] [floor]
+                                                                    # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
 and 3 times (360, 5,760 and 23,040 triangles); they also clock the parts of
@@ -22,6 +23,24 @@ reads the expanded coefficients of the JAX package's per-camera pages,
 ``g0 = b×c + o×(b − c)``, which multiply world coordinates before they
 subtract (``pages``: every triangle against every ray of a camera, in plain
 PyTorch); the port's bodies subtract the origin first.
+
+``E`` and ``F`` are the BPTT paths (``HoverEnv``, 128 agents, H = 32; visual
+``NavigationEnv2``, 64 agents, 64×64 depth, H = 8, in the primitive scene and
+in the 23,040-triangle garage with ``tri_variant: "merged"``): where an
+update's time goes, host-clocked and synchronised after each part (forward
+rollout, backward pass, clip and Adam step; mean of 3 updates after 1
+warm-up), then one ``torch.profiler`` window of one update for the device's
+busy time.
+
+``probe`` and ``floor`` are the triangle kernel's two diagnostics at 23,040
+triangles (the counterparts of ``examples/_tri_probe.py`` and
+``examples/_tri_kernel_exp.py``). ``probe``: stages executed per tile (mean,
+p50, p90, max) beside the blocks a tile sees, for the soup tier's walk of
+path D's 48×48 and 64×64 rays at the default cap and with lists of the whole
+mesh, with the sphere bound and with the exact box bound (``exact_aabb``).
+``floor``: the merged per-camera kernel's time with its body and its staging
+traffic knocked out, which splits it into launch and barrier floor, staging
+and arithmetic.
 
 Every line ends with the card's name and power limit.
 """
@@ -100,27 +119,122 @@ def profile(name, env, card):
         print(f"{name} | {part}: {ms:.3f} ms per call | {card}", flush=True)
 
     steps = 8
+
+    def window():
+        nonlocal state
+        for _ in range(steps):
+            state, _ = env.step(state, act())
+
+    report_busy(name, window, steps, "step", step_ms, card)
+
+
+def report_busy(name, fn, units, unit, unit_ms, card):
+    """One profiler window over ``fn()``, which runs ``units`` steps or
+    updates: the device's busy time a unit from the kernel rows, the idle
+    share against the unprofiled ``unit_ms``, and the six kernels that took
+    most of the window."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = env.step(state, act())
+        fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
     # kernel rows only: an operator row repeats the time of the kernels it launched
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    print(f"{name} | profiler: {steps} steps in {wall:.1f} ms with the profiler on, device busy "
-          f"{busy / steps:.3f} ms a step, idle share {1 - busy / steps / step_ms:.3f} of the "
-          f"{step_ms:.3f} ms step | {card}", flush=True)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    for e in top:
+    print(f"{name} | profiler: device busy {busy / units:.3f} ms per {unit} ({units} profiled), "
+          f"idle share {1 - busy / units / unit_ms:.3f} of the {unit_ms:.3f} ms {unit} | {card}",
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"{name} | profiler top: {e.key[:60]} x{e.count}: "
               f"{e.self_device_time_total / 1e3:.3f} ms | {card}", flush=True)
+
+
+def profile_bptt(name, trainer, card, n_updates=3):
+    """Where a BPTT update's time goes: forward rollout, backward pass, clip
+    and Adam step, each synchronised and host-clocked; then the device's busy
+    time over one update."""
+    def sync_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    st = trainer.init(torch.Generator(device=trainer.env.device).manual_seed(0))
+    st, _ = trainer.update(st)
+    parts = {"forward rollout": 0.0, "backward pass": 0.0, "clip and Adam step": 0.0}
+    for _ in range(n_updates):
+        trainer.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, (env_state, obs, hidden, _) = trainer._rollout_loss(st.env_state, st.obs, st.gen,
+                                                                  st.hidden)
+        parts["forward rollout"] += sync_ms(t0)
+        t0 = time.perf_counter()
+        loss.backward()
+        parts["backward pass"] += sync_ms(t0)
+        t0 = time.perf_counter()
+        trainer._clip_and_step()
+        parts["clip and Adam step"] += sync_ms(t0)
+        st = st._replace(env_state=trainer.env.detach(env_state),
+                         obs={k: v.detach() for k, v in obs.items()})
+    update_ms = sum(parts.values()) / n_updates
+    steps = trainer.H * trainer.env.num_envs
+    print(f"{name} | update ({trainer.env.num_envs} agents, H={trainer.H}): {update_ms:.1f} ms, "
+          f"{steps / update_ms * 1e3:.1f} agent steps/s | {card}", flush=True)
+    for part, ms in parts.items():
+        print(f"{name} | {part}: {ms / n_updates:.1f} ms an update, share "
+              f"{ms / n_updates / update_ms:.3f} | {card}", flush=True)
+    report_busy(name, lambda: trainer.update(st), 1, "update", update_ms, card)
+
+
+def probe(env, card):
+    """Stages executed per tile of the soup tier's walk (``stage_stats``)."""
+    from visfly_tpu_torch.render import default_tri_cap, stage_stats
+
+    state, _ = env.reset(torch.Generator(device=env.device).manual_seed(0))
+    tris = env.scene.triangles
+    T = tris.shape[1]
+    for sensor, spec in enumerate(env.sensor_kwargs):
+        o_c, d_c, img_w, _ = cs.mesh_camera_rays(env, state, sensor)
+        res = "x".join(str(r) for r in spec["resolution"])
+        for cap in (default_tri_cap(T), T):
+            for exact in (False, True):
+                st = stage_stats(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w, exact_aabb=exact)
+                ms = cs.cuda_ms(lambda: stage_stats(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w,
+                                                    exact_aabb=exact), reps=5, warmup=1)
+                print(f"probe | T={T} {res}, {o_c.shape[2] // 1024} tiles, cap {cap}, "
+                      f"{'exact box' if exact else 'sphere'} bound: stages executed a tile mean "
+                      f"{st['mean']:.2f} p50 {st['p50']:.0f} p90 {st['p90']:.0f} max {st['max']} "
+                      f"of {st['n_stage']}; blocks seen mean {st['visible_mean']:.2f}; hit "
+                      f"{st['hit_frac']:.4f}; prepass and kernel {ms:.3f} ms | {card}", flush=True)
+
+
+def floor(env, card):
+    """The merged per-camera kernel with its body and its staging knocked
+    out, on path D's 64×64 rays."""
+    from visfly_tpu_torch.render import default_tri_cap, knockout_trace
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    state, _ = env.reset(torch.Generator(device=env.device).manual_seed(0))
+    tris = env.scene.triangles
+    T = tris.shape[1]
+    o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, 0)
+    plan = plan_tiles(tris, o_c, d_c, cs.MAX_DEPTH, default_tri_cap(T), img_w, cam_rays,
+                      variant="merged")
+    for round_ in range(3):  # three rounds: a reading far from the others shows as such
+        ms = {}
+        for body in (True, False):
+            for pin in (False, True):
+                ms[(body, pin)] = cs.cuda_ms(lambda: knockout_trace(
+                    tris, o_c, d_c, body=body, pin_stage=pin, plan=plan))
+                print(f"floor | round {round_}, T={T} 64x64 at {o_c.shape[2]} rays, body "
+                      f"{'on' if body else 'off'}, stage {'pinned' if pin else 'walked'}: "
+                      f"{ms[(body, pin)]:.4f} ms | {card}", flush=True)
+        full, nobody, neither = ms[(True, False)], ms[(False, False)], ms[(False, True)]
+        print(f"floor | round {round_}, the kernel's {full:.4f} ms: launch, votes and barriers "
+              f"{neither:.4f} ms, staging the walked blocks {nobody - neither:.4f} ms, arithmetic "
+              f"{full - nobody:.4f} ms | {card}", flush=True)
 
 
 def page_algebra_t(tris, cam_o, dirs, max_depth, slab=2048):
@@ -201,10 +315,28 @@ def main(argv):
                 "B": lambda: cs.bench_env(dev, cs.SUITE), "C": lambda: cs.hover_env(dev),
                 "D0": lambda: garage_env(0), "D2": lambda: garage_env(2),
                 "D3": lambda: garage_env(3)}
+    from visfly_tpu_torch.algos import BPTT
+
     for name in argv or ["A", "C"]:
         if name == "sv":
             for level in (2, 3):
                 sv_rounding(level, garage_env(level), card)
+        elif name == "probe":
+            probe(garage_env(3), card)
+        elif name == "floor":
+            floor(garage_env(3), card)
+        elif name == "E":
+            profile_bptt("path E", BPTT(cs.hover_grad_env(dev), horizon=32), card)
+        elif name == "F":
+            for scene, env in (
+                    ("primitive scene", cs.visual_grad_env(
+                        dev, {"path": "garage_simple_l_medium", "trace_steps": cs.TRACE_STEPS},
+                        {"mean": [1.0, 0.0, 1.5], "half": [0.5, 2.0, 1.0]})),
+                    ("mesh, 23040 triangles, merged", cs.visual_grad_env(
+                        dev, {"data": garage_env(3).scene},
+                        {"mean": [8.0, 0.0, 1.75], "half": [7.0, 3.0, 0.5]}, "merged"))):
+                profile_bptt(f"path F ({scene})", BPTT(env, horizon=8,
+                                                        policy_kwargs=cs.VISUAL_POLICY), card)
         else:
             profile(f"path {name}", make_env[name](), card)
     mesh_dir.cleanup()

@@ -24,7 +24,18 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   whose tiles span cameras and take the Möller–Trumbore body), 5,760
   (subdivided twice: cluster lists) and 23,040 (three times: block lists into
   the soup, per-camera signed volumes for the 64×64 sensor and
-  Möller–Trumbore for the 48×48 one).
+  Möller–Trumbore for the 48×48 one); and once more at 23,040 triangles with
+  three 64×64 depth sensors that differ in ``tri_variant`` only (``merged``,
+  ``mx``, ``wl``: the variants of the per-camera tier);
+- path E, the gradient leg of ``bench.py``: ``HoverEnv``, 128 agents,
+  ``requires_grad=True``, ``BPTT(env, horizon=32)`` with the default actor,
+  one warm-up update and 5 timed ones. It uses no kernel;
+- path F, visual BPTT: ``NavigationEnv2``, 64 agents, one 64×64 depth sensor,
+  ``BPTT(env, horizon=8)`` with a CNN on the depth image, one warm-up and 2
+  timed updates, in ``garage_simple_l_medium`` (the analytic kernel forward,
+  the implicit-function rule backward) and in the 23,040-triangle garage with
+  ``tri_variant: "merged"`` (the merged per-camera kernel forward, the planar
+  rule backward). No kernel runs backward.
 
 Phases, one line each; any failure exits non-zero:
 
@@ -42,13 +53,25 @@ Phases, one line each; any failure exits non-zero:
    1,048,576 (64×64) and 589,824 (48×48) rays against its plain version (same
    limits, ids compared on hits), against the brute force on 8 cameras with
    lists that hold the whole mesh (ids compared where the two winners are
-   not tied), its gradient, and its time apart from the prepass's;
+   not tied), its gradient, and its time apart from the prepass's; the three
+   variants of the per-camera tier at 23,040 triangles against their plain
+   versions, against ``"scalar"`` and against the brute force (same limits;
+   the worklist at its default budget held to "no nearer hit"); the stages
+   executed per tile against the plain count, exactly; the four knock-out
+   combinations against their plain results, and the split of the
+   per-camera kernel's time they give;
 4. each path: reset, 1 warm-up chunk, timed chunks; every render must have
-   launched exactly its kernel mode, outputs finite and in range;
+   launched exactly its kernel mode, outputs finite and in range; the two
+   diagnostics through their library functions; paths E and F: loss and
+   gradient norm finite, gradient norm > 0, the carried state detached after
+   an update, launches equal to the renders;
 5. one step from the same state on the card and on the CPU plain path, for
    the depth leg and path D at 360 triangles (depth within 1e-3 m on all but
    ≤ 1e-5 of pixels) and for path A (colour equal on all but ≤ 1e-4 of
-   pixels, pad centre within 1e-3); state obs within 1e-4.
+   pixels, pad centre within 1e-3); state obs within 1e-4; one BPTT rollout
+   of path E at 8 agents, H = 4, from the same parameters, state and noise on
+   the card and on the CPU: loss within 1e-5, every parameter's gradient
+   within 1e-4 of its largest entry.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches in phase 4, error, times and bound; the last line is
@@ -88,10 +111,23 @@ OPS = {"box_hit": 100, "cap_hit": 185, "box_sdf": 41, "cap_sdf": 49}
 # cross and a dot product up to |det| (14), then one division, a difference, a
 # cross product, three dot products, three products and a sum (39).
 # Comparisons and selects are left out, as are a stage's empty slots.
+# The matrix form is the same function and is charged the same: the products
+# of its padded W = D.G with G's structural zeros and with the constant 1
+# (31 operations to the gate as the kernel does them) are overhead, not work
+# the function needs.
 TRI_OPS = {"sv_tile": (18, 11), "sv_cam": (18, 11), "mt": (14, 39)}
 # path D: subdivision level -> (triangles, the sensors' (uuid, resolution), the
 # kernel use each sensor must launch once per render)
 MESH_SENSORS = {"depth": (64, 64), "depth48": (48, 48)}
+# path D with the variants of the per-camera tier, at 23,040 triangles: sensor
+# -> (tri_variant, the kernel use it must launch once per render)
+VARIANT_SENSORS = {"depth": ("merged", "tri_trace_camsoup_merged"),
+                   "depth_mx": ("mx", "tri_trace_camsoup_mx"),
+                   "depth_wl": ("wl", "tri_trace_worklist")}
+# path F's policy (tests/test_pallas_kernel.py's visual BPTT, at 64 agents)
+VISUAL_POLICY = {"net_arch": {"depth": {"cnn": 32}, "state": {"mlp": [32]},
+                              "collision_vector": {"mlp": [16]}},
+                 "latent_dim": (32,)}
 PATH_D = {
     0: (360, {"depth": "tri_trace_tile_sv", "depth48": "tri_trace_tile_mt"}),
     2: (5760, {"depth": "tri_trace_tile_sv"}),
@@ -126,6 +162,15 @@ KERNELS = {
                        "visfly_tpu/render/tri_trace.py:809"),
     "tri_trace_camsoup": ("visfly_tpu_torch/csrc/tri_trace.cu",
                           "visfly_tpu/render/tri_trace.py:942"),
+    "tri_trace_camsoup_merged": ("visfly_tpu_torch/csrc/tri_trace.cu",
+                                 "visfly_tpu/render/tri_trace.py:999"),
+    "tri_trace_camsoup_mx": ("visfly_tpu_torch/csrc/tri_trace.cu",
+                             "visfly_tpu/render/tri_trace.py:1274"),
+    "tri_trace_worklist": ("visfly_tpu_torch/csrc/tri_trace.cu",
+                           "visfly_tpu/render/tri_trace.py:1454"),
+    "tri_trace_probe": ("visfly_tpu_torch/csrc/tri_trace.cu", "examples/_tri_probe.py:30"),
+    "tri_trace_knockout": ("visfly_tpu_torch/csrc/tri_trace.cu",
+                           "examples/_tri_kernel_exp.py:39"),
 }
 
 
@@ -205,7 +250,16 @@ def write_obj(path, verts, faces):
     return path
 
 
-def mesh_env(device, scene_kwargs, sensors, n=N_AGENTS):
+def mesh_sensor(uuid, variants=False):
+    """Path D's sensor spec: by resolution, or, of the variants' env, 64×64
+    with its ``tri_variant``."""
+    if variants:
+        return {"uuid": uuid, "sensor_type": "depth", "resolution": list(RES),
+                "tri_variant": VARIANT_SENSORS[uuid][0]}
+    return {"uuid": uuid, "sensor_type": "depth", "resolution": list(MESH_SENSORS[uuid])}
+
+
+def mesh_env(device, scene_kwargs, sensors, n=N_AGENTS, variants=False):
     """Path D's env: agents spawn all over the garage, at least 1 m from
     every surface of the baked grid."""
     from visfly_tpu_torch.envs import NavigationEnv
@@ -214,14 +268,114 @@ def mesh_env(device, scene_kwargs, sensors, n=N_AGENTS):
         num_agent_per_scene=n,
         visual=True,
         scene_kwargs=scene_kwargs,
-        sensor_kwargs=[{"uuid": u, "sensor_type": "depth", "resolution": list(MESH_SENSORS[u])}
-                       for u in sensors],
+        sensor_kwargs=[mesh_sensor(u, variants) for u in sensors],
         random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [
             {"position": {"mean": [8.0, 0.0, 1.75], "half": [7.0, 3.0, 0.5]}}]}},
         dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate"},
         max_episode_steps=256,
         device=device,
     )
+
+
+def hover_grad_env(device, n=128):
+    """Path E's env: the BPTT leg of ``bench.py``."""
+    from visfly_tpu_torch.envs import HoverEnv
+
+    return HoverEnv(num_agent_per_scene=n, visual=False, requires_grad=True,
+                    dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03}, max_episode_steps=256,
+                    device=device)
+
+
+def visual_grad_env(device, scene_kwargs, spawn, variant=None, n=64):
+    """Path F's env: one 64×64 depth camera an agent, differentiable."""
+    from visfly_tpu_torch.envs import NavigationEnv2
+
+    sensor = {"uuid": "depth", "sensor_type": "depth", "resolution": list(RES)}
+    if variant is not None:
+        sensor["tri_variant"] = variant
+    return NavigationEnv2(
+        num_agent_per_scene=n, visual=True, requires_grad=True, scene_kwargs=scene_kwargs,
+        sensor_kwargs=[sensor],
+        random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [{"position": spawn}]}},
+        dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03}, max_episode_steps=256, device=device)
+
+
+def tensors_of(x):
+    """Every tensor of a nested NamedTuple, tuple or dict."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from tensors_of(v)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from tensors_of(v)
+
+
+def drive_bptt(trainer, seed, n_updates, expect):
+    """``init``, one warm-up update, ``n_updates`` timed ones.
+    ``expect(steps)`` → {mode: launches} of the whole run, the reset's render
+    and the warm-up included; modes it leaves out must not launch. Returns
+    (ms an update, agent steps/s, launches by mode, the last metrics)."""
+    import torch
+
+    env = trainer.env
+    reset_launches()
+    st = trainer.init(torch.Generator(device=env.device).manual_seed(seed))
+    st, m = trainer.update(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_updates):
+        st, m = trainer.update(st)
+        for k in ("actor_loss", "grad_norm"):
+            check(bool(torch.isfinite(m[k])), f"{k} is not finite")
+        check(float(m["grad_norm"]) > 0, "the gradient is zero")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    want = {k: 0 for k in launches}
+    want.update(expect(trainer.H * (n_updates + 1)))
+    check(launches == want, f"kernel launches {launches} != expected {want}")
+    carried = list(tensors_of(st.env_state)) + list(tensors_of(st.obs))
+    check(len(carried) > 20 and not any(t.requires_grad or t.grad_fn is not None
+                                        for t in carried),
+          "the carried state still holds a graph after the update")
+    check(st.global_step == trainer.H * env.num_envs * (n_updates + 1), "global_step")
+    return dt / n_updates * 1e3, trainer.H * env.num_envs * n_updates / dt, launches, m
+
+
+def bptt_card_vs_cpu(dev):
+    """One H = 4 rollout of path E at 8 agents from the same parameters, state
+    and noise on the card and on the CPU → (|Δloss|, the largest gradient
+    difference relative to its parameter's largest gradient entry)."""
+    import torch
+
+    from visfly_tpu_torch.algos import BPTT
+
+    out = {}
+    tr = BPTT(hover_grad_env(dev, 8), horizon=4)
+    st = tr.init()
+    noise = torch.randn((4, 8, 4), generator=torch.Generator().manual_seed(7))
+    tr_cpu = BPTT(hover_grad_env("cpu", 8), horizon=4)
+    tr_cpu.build({k: v.cpu() for k, v in st.obs.items()})  # the same seed: the same policy
+    for name, t, state, obs, eps in (
+            ("card", tr, st.env_state, st.obs, noise.to(dev)),
+            ("cpu", tr_cpu, to_device(st.env_state, "cpu", torch.Generator().manual_seed(0)),
+             {k: v.cpu() for k, v in st.obs.items()}, noise)):
+        loss, (_, _, _, metrics) = t._rollout_loss(state, obs, None, (), eps)
+        loss.backward()
+        check(not bool(metrics[1].any()), f"{name}: an agent was done within the horizon")
+        out[name] = (float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                            t.actor.named_parameters()})
+    for (n_a, p_a), (n_b, p_b) in zip(tr.actor.named_parameters(),
+                                      tr_cpu.actor.named_parameters()):
+        check(n_a == n_b and torch.equal(p_a.detach().cpu(), p_b.detach()),
+              f"parameter {n_a} differs between the devices")
+    rel = max(float((g - out["cpu"][1][n]).abs().max() / out["cpu"][1][n].abs().max())
+              for n, g in out["card"][1].items())
+    return abs(out["card"][0] - out["cpu"][0]), rel
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -419,6 +573,199 @@ def not_tied(tris, o_c, d_c, gid_a, gid_b):
     return out
 
 
+def tri_bound_ms(ops_key, stats, n_rays, lists, per_ray_origins=False, out_bytes=9):
+    """The triangle kernel's bound on this run's data → (ms, by what, ms by
+    bytes). Bytes: directions in (and origins, for the per-ray body), the
+    outputs, the walked lists, and every staged triangle row once a tile;
+    operations: the tests on real triangles up to the body's gate, and the rest
+    of the test only for those past it."""
+    n_bytes = (n_rays * (12 + (12 if per_ray_origins else 0) + out_bytes)
+               + stats["real_tests"] / 1024 * 36
+               + stats["tests"] / 1024 * 4.0 / lists.block + lists.lb.numel() * 4
+               + lists.n_stage.numel() * 4 * (1 if lists.start is None else 2))
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    to_gate, past_gate = TRI_OPS[ops_key] if ops_key else (0, 0)
+    by_ops = (stats["real_tests"] * to_gate + stats["gated"] * past_gate) / PEAK_FP32_PER_S * 1e3
+    return (by_bytes, "bytes", by_bytes) if by_bytes >= by_ops else (by_ops, "operations",
+                                                                      by_bytes)
+
+
+def agree(name, a, b, tris=None, rays=None):
+    """Two (t, hit, gid) results of one ray set held to the smoke's limits →
+    max |Δt| where both hit. With ``tris`` and ``rays`` ids are compared where
+    the two winners are not tied, else wherever both hit."""
+    import torch
+
+    (t_a, hit_a, gid_a), (t_b, hit_b, gid_b) = a[:3], b[:3]
+    check(bool(torch.isfinite(t_a).all()), f"{name}: non-finite output")
+    both = hit_a & hit_b
+    err = float((t_a - t_b).abs()[both].max()) if bool(both.any()) else 0.0
+    flip = float((hit_a != hit_b).float().mean())
+    differ = (gid_a != gid_b) if tris is None else not_tied(tris, *rays, gid_a, gid_b)
+    gid_off = float((differ & both).float().mean())
+    print(f"phase 3 | {name}: hit={float(hit_a.float().mean()):.4f} max|dt|={err:.3e} m "
+          f"hit_mismatch={flip:.3e} {'untied ' if tris is not None else ''}"
+          f"id_mismatch={gid_off:.3e}", flush=True)
+    check(err <= T_TOL, f"{name}: max |dt| {err} > {T_TOL}")
+    check(flip <= HIT_TOL, f"{name}: hit mismatch {flip} > {HIT_TOL}")
+    check(gid_off <= HIT_TOL, f"{name}: id mismatch {gid_off} > {HIT_TOL}")
+    return err
+
+
+def variant_phase(env, state, card, errs, timing):
+    """Phase 3 for the variants of the per-camera tier and the two
+    diagnostics, on path D's camera rays at 23,040 triangles."""
+    import torch
+
+    from visfly_tpu_torch.render import (default_tri_cap, knockout_trace, stage_stats,
+                                         tri_first_hit, tri_first_hit_reference,
+                                         tri_trace_brute, tri_trace_tiled)
+    from visfly_tpu_torch.render.tri_kernel import count_name
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    tris = env.scene.triangles
+    T = tris.shape[1]
+    cap = default_tri_cap(T)
+    o_c, d_c, img_w, cam_rays = mesh_camera_rays(env, state, 0)  # the 64×64 sensor
+    n_rays = o_c.shape[2]
+
+    def plan_of(variant, cap_, budget=None):
+        return plan_tiles(tris, o_c, d_c, MAX_DEPTH, cap_, img_w, cam_rays, variant=variant,
+                          work_budget=budget)
+
+    def args_of(plan):
+        return (tris, plan.lists, plan.origins_c, plan.dirs_c, MAX_DEPTH, plan.form,
+                plan.origin_tiles)
+
+    # "scalar" with lists of the whole mesh and at the default cap: what every
+    # variant is held against beside its own plain version
+    full_s = plan_of("scalar", T)
+    rays = (full_s.origins_c, full_s.dirs_c)  # every variant repacks alike
+    out_full = tri_first_hit(*args_of(full_s))
+    base = plan_of("scalar", cap)
+    out_base = tri_first_hit(*args_of(base))
+    scalar_ms = cuda_ms(lambda: tri_first_hit(*args_of(base)))
+    r8 = 8 * cam_rays
+    o8, d8 = o_c[:, :, :r8].contiguous(), d_c[:, :, :r8].contiguous()
+    t_b, hit_b, _, gid_b = tri_trace_brute(tris, o8.permute(1, 2, 0), d8.permute(1, 2, 0),
+                                           MAX_DEPTH)
+    every = 10 ** 6  # a worklist budget that covers every stage
+    for variant in ("merged", "mx", "wl"):
+        plan = plan_of(variant, cap)
+        mode = count_name(plan.form, plan.lists.block, plan.mode, plan.lists.start is not None)
+        check(mode == VARIANT_SENSORS[{"merged": "depth", "mx": "depth_mx",
+                                       "wl": "depth_wl"}[variant]][1], f"{variant}: {mode}")
+        args = args_of(plan)
+        out_k = tri_first_hit(*args, mode=plan.mode)
+        stats = {}
+        out_p = tri_first_hit_reference(*args, stats=stats, mode=plan.mode)
+        torch.cuda.synchronize()
+        err = agree(f"{mode} T={T} vs its plain version at the default cap", out_k, out_p, tris,
+                    rays)
+        # against "scalar": the same lists for merged and mx, so at the default
+        # cap; the worklist culls 16-triangle clusters, so its lists and
+        # scalar's hold the same triangles only when they hold the whole mesh
+        if variant == "wl":
+            out_v = tri_first_hit(*args_of(plan_of("wl", T, every)))
+            agree(f"{mode} T={T} vs scalar, lists of the whole mesh, budget for every stage",
+                  out_v, out_full, tris, rays)
+            check(bool((out_k[0] >= out_full[0] - T_TOL).all()),
+                  f"{mode}: a nearer hit at the default cap and budget")
+            quota, need = plan.lists.n_stage, float(stats["stages"].float().mean())
+            print(f"phase 3 | {mode} default budget: {plan.lists.lb.shape[1]} stages for "
+                  f"{quota.numel()} tiles, quota mean {float(quota.float().mean()):.2f} max "
+                  f"{int(quota.max())}, executed mean {need:.2f}; far hits lost against the whole "
+                  f"mesh {float((out_full[1] & ~out_k[1]).float().mean()):.3e}", flush=True)
+        else:
+            agree(f"{mode} T={T} vs scalar at the default cap", out_k, out_base, tris, rays)
+        t_t, hit_t, _, gid_t = tri_trace_tiled(tris, o8, d8, MAX_DEPTH, T, img_w, cam_rays,
+                                               variant=variant, work_budget=every)
+        agree(f"{mode} T={T} vs brute force on 8 cameras, lists of the whole mesh",
+              (t_t, hit_t, gid_t), (t_b, hit_b, gid_b), tris, (o8, d8))
+        ms = cuda_ms(lambda: tri_first_hit(*args, mode=plan.mode))
+        prepass_ms = cuda_ms(lambda: plan_of(variant, cap), reps=10)
+        plain_ms = cuda_ms(lambda: tri_first_hit_reference(*args, mode=plan.mode), reps=3,
+                           warmup=1)
+        b_ms, b_by, by_bytes = tri_bound_ms(plan.form, stats, n_rays, plan.lists,
+                                            out_bytes=8 if variant == "merged" else 9)
+        print(f"phase 3 | {mode} T={T} 64x64 at {n_rays} rays: kernel {ms:.4f} ms (scalar "
+              f"{scalar_ms:.4f} ms), prepass {prepass_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} (bytes {by_bytes:.4f}), share of bound {b_ms / ms:.3f}; "
+              f"{stats['real_tests'] / n_rays:.1f} tests a ray on triangles, "
+              f"{stats['gated'] / n_rays:.2f} past the gate | {card}", flush=True)
+        errs[mode] = err
+        timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # stages executed: the kernel's count against the plain version's, exactly,
+    # on the 48×48 sensor's rays (the Moeller-Trumbore body over the soup, as
+    # the TPU probe) and on the per-camera tier
+    o48, d48, w48, cam48 = mesh_camera_rays(env, state, 1)
+    soup = plan_tiles(tris, o48, d48, MAX_DEPTH, cap, w48, cam48)
+    for name, plan in (("soup, 48x48", soup), ("per-camera, 64x64", base)):
+        args = args_of(plan)
+        t_k, hit_k, gid_k, cnt_k = tri_first_hit(*args, count_stages=True)
+        stats = {}
+        t_p, hit_p, gid_p = tri_first_hit_reference(*args, stats=stats)
+        torch.cuda.synchronize()
+        check(torch.equal(cnt_k, stats["stages"]), f"tri_trace_probe {name}: stage counts differ")
+        err = agree(f"tri_trace_probe T={T} {name} vs its plain version", (t_k, hit_k, gid_k),
+                    (t_p, hit_p, gid_p))
+        print(f"phase 3 | tri_trace_probe T={T} {name}: stages executed equal on "
+              f"{cnt_k.numel()} tiles, mean {float(cnt_k.float().mean()):.2f} of "
+              f"{plan.lists.lb.shape[2]}", flush=True)
+        if plan is soup:
+            ms = cuda_ms(lambda: tri_first_hit(*args, count_stages=True))
+            plain_ms = cuda_ms(lambda: tri_first_hit_reference(*args), reps=3, warmup=1)
+            b_ms, b_by, _ = tri_bound_ms("mt", stats, o48.shape[2], plan.lists, True, 9 + 4 / 1024)
+            errs["tri_trace_probe"] = err
+            timing["tri_trace_probe"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                             bound_by=b_by)
+    torch.cuda.synchronize()
+    reset_launches()
+    st = stage_stats(tris, o48, d48, MAX_DEPTH, cap, w48)
+    check(all_launches()["tri_trace_probe"] == 1, "stage_stats did not launch the probe")
+    print(f"phase 3 | stage_stats T={T} 48x48, cap {cap}: stages executed a tile mean "
+          f"{st['mean']:.2f} p50 {st['p50']:.0f} p90 {st['p90']:.0f} max {st['max']} of "
+          f"{st['n_stage']}, blocks seen mean {st['visible_mean']:.2f}, hit {st['hit_frac']:.4f} | "
+          f"{card}", flush=True)
+
+    # the knock-outs of the merged kernel against their plain results
+    merged = plan_of("merged", cap)
+    args = args_of(merged)
+    floor = {}
+    for body in (True, False):
+        for pin in (False, True):
+            t_k = knockout_trace(tris, o_c, d_c, body=body, pin_stage=pin, plan=merged)
+            stats = {}
+            t_p = tri_first_hit_reference(*args, stats=stats, mode="merged", body=body,
+                                          pin_stage=pin)[0]
+            torch.cuda.synchronize()
+            err = float((t_k - t_p).abs().max())
+            name = f"body {'on' if body else 'off'}, stage {'pinned' if pin else 'walked'}"
+            check(err <= T_TOL, f"tri_trace_knockout {name}: max |dt| {err} > {T_TOL}")
+            if not body:
+                check(bool((t_k == MAX_DEPTH).all()), f"tri_trace_knockout {name}: a hit")
+            floor[(body, pin)] = cuda_ms(
+                lambda: knockout_trace(tris, o_c, d_c, body=body, pin_stage=pin, plan=merged))
+            print(f"phase 3 | tri_trace_knockout T={T} {name}: max|dt|={err:.3e} m vs its plain "
+                  f"result, mean t {float(t_k.mean()):.3f} m, kernel {floor[(body, pin)]:.4f} ms | "
+                  f"{card}", flush=True)
+            if (body, pin) == (False, False):
+                plain_ms = cuda_ms(lambda: tri_first_hit_reference(
+                    *args, mode="merged", body=False), reps=3, warmup=1)
+                b_ms, b_by, _ = tri_bound_ms(None, dict(stats, gated=0), n_rays, merged.lists,
+                                             out_bytes=8)  # the real rows staged, no operation
+                errs["tri_trace_knockout"] = err
+                timing["tri_trace_knockout"] = dict(ms=floor[(body, pin)], plain_ms=plain_ms,
+                                                    bound_ms=b_ms, bound_by=b_by)
+    full, nobody, pinned, neither = (floor[k] for k in ((True, False), (False, False),
+                                                        (True, True), (False, True)))
+    print(f"phase 3 | the per-camera kernel's {full:.4f} ms split by the knock-outs: launch, "
+          f"votes and barriers {neither:.4f} ms; staging the walked blocks {nobody - neither:.4f} "
+          f"ms; arithmetic {full - nobody:.4f} ms (pinned stage with the body: {pinned:.4f} ms) | "
+          f"{card}", flush=True)
+
+
 def triangle_phase(level, env, state, card, errs, timing):
     """Phase 3 for one mesh size: each sensor's kernel use against its plain
     version on the same lists, at the full ray count; against the brute force
@@ -511,17 +858,7 @@ def triangle_phase(level, env, state, card, errs, timing):
         prepass_ms = cuda_ms(lambda: plan_tiles(tris, o_c, d_c, MAX_DEPTH, cap, img_w, cam_rays),
                              reps=10)
         plain_ms = cuda_ms(lambda: tri_first_hit_reference(*args), reps=3, warmup=1)
-        # bytes: directions in (and origins, for the per-ray body), t, hit and
-        # id out, the walked lists, and every staged triangle row once a tile
-        n_bytes = (n_rays * (12 + (12 if plan.form == "mt" else 0) + 9)
-                   + stats["real_tests"] / 1024 * 36
-                   + stats["tests"] / 1024 * 4.0 / lists.block + lists.lb.numel() * 4
-                   + lists.n_stage.numel() * 4)
-        by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-        to_gate, past_gate = TRI_OPS[plan.form]
-        by_ops = ((stats["real_tests"] * to_gate + stats["gated"] * past_gate)
-                  / PEAK_FP32_PER_S * 1e3)
-        b_ms, b_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        b_ms, b_by, by_bytes = tri_bound_ms(plan.form, stats, n_rays, lists, plan.form == "mt")
         print(f"phase 3 | {mode} T={T} {h}x{w} at {n_rays} rays: kernel {ms:.4f} ms, prepass "
               f"{prepass_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
               f"(bytes {by_bytes:.4f}); gradient max relative difference {rel:.3e} | {card}",
@@ -726,6 +1063,8 @@ def main():
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         state_m, _ = env_m.reset(torch.Generator(device=dev).manual_seed(0))
         triangle_phase(level, env_m, state_m, card, errs, timing)
+        if level == 3:
+            variant_phase(env_m, state_m, card, errs, timing)
     mesh_dir.cleanup()
 
     # 4. the paths
@@ -808,6 +1147,80 @@ def main():
                CHUNK * (n_chunks + 1), " + ".join(f"{h}x{w} depth" for h, w in
                                                   (MESH_SENSORS[u] for u in sensors)))
 
+    # path D with the variants of the per-camera tier: the 23,040-triangle
+    # scene again, three 64×64 sensors that differ in ``tri_variant`` only
+    env_v = mesh_env(dev, {"data": envs_d[3].scene}, VARIANT_SENSORS, variants=True)
+    n_chunks = 1
+    _, out, sps, counts, dt = drive(
+        env_v, 60, n_chunks, CHUNK,
+        lambda steps: {mode: 1 + steps for _, mode in VARIANT_SENSORS.values()})
+    depth = out.obs["depth"]
+    check(tuple(depth.shape) == (N_AGENTS, 1, *RES), f"variants depth {tuple(depth.shape)}")
+    check(float((depth < MAX_DEPTH).float().mean()) > 0.9, "variants: too much background")
+    report("path D (mesh, 23040 triangles, variants merged + mx + wl)", env_v, sps, counts, dt,
+           CHUNK * (n_chunks + 1), "3 sensors of 64x64 depth")
+
+    # the diagnostics, through the library functions chip_profile.py's `probe`
+    # and `floor` commands print from
+    from visfly_tpu_torch.render import default_tri_cap, knockout_trace, stage_stats
+
+    env_m, state_m = envs_d[3], states_d[3]
+    tris = env_m.scene.triangles
+    cap = default_tri_cap(tris.shape[1])
+    o48, d48, w48, _ = mesh_camera_rays(env_m, state_m, 1)
+    o64, d64, w64, cam64 = mesh_camera_rays(env_m, state_m, 0)
+    reset_launches()
+    st = stage_stats(tris, o48, d48, MAX_DEPTH, cap, w48)
+    for body in (True, False):
+        for pin in (False, True):
+            t = knockout_trace(tris, o64, d64, MAX_DEPTH, cap, w64, cam64, body=body,
+                               pin_stage=pin)
+            check(bool(torch.isfinite(t).all()), "knock-out output not finite")
+    torch.cuda.synchronize()
+    counts = all_launches()
+    want = {k: 0 for k in counts}
+    want.update({"tri_trace_probe": 1, "tri_trace_knockout": 3, "tri_trace_camsoup_merged": 1})
+    check(counts == want, f"diagnostics launched {counts}, expected {want}")
+    check(0 < st["mean"] <= st["n_stage"], f"stages executed {st['mean']}")
+    for k, v in counts.items():
+        launches[k] += v
+    print(f"phase 4 | diagnostics: { {k: v for k, v in counts.items() if v} } launches; stages "
+          f"executed a tile mean {st['mean']:.2f} of {st['n_stage']} | {card}", flush=True)
+
+    # path E: the gradient leg; no kernel
+    from visfly_tpu_torch.algos import BPTT
+
+    def report_bptt(name, trainer, ms, sps, counts, m, n_updates, what):
+        used = {k: v for k, v in counts.items() if v}
+        for k, v in counts.items():
+            launches[k] += v
+        print(f"phase 4 | {name}: {used or 'no kernel'} launches in {n_updates + 1} updates | "
+              f"{ms:.1f} ms an update, {sps:.1f} agent steps/s ({trainer.env.num_envs} agents, "
+              f"H={trainer.H}, {what}; loss {float(m['actor_loss']):.4f}, gradient norm "
+              f"{float(m['grad_norm']):.4f}) | {card}", flush=True)
+
+    tr_e = BPTT(hover_grad_env(dev), horizon=32)
+    ms, sps, counts, m = drive_bptt(tr_e, 70, 5, lambda steps: {})
+    report_bptt("path E (BPTT, hover)", tr_e, ms, sps, counts, m, 5, "state only")
+
+    # path F: visual BPTT, one render at the reset and one a step, through the
+    # analytic kernel in the primitive scene and the merged per-camera kernel
+    # in the 23,040-triangle mesh; the backward pass launches no kernel
+    for name, env_f, mode in (
+            ("primitive scene", visual_grad_env(
+                dev, {"path": "garage_simple_l_medium", "trace_steps": TRACE_STEPS},
+                {"mean": [1.0, 0.0, 1.5], "half": [0.5, 2.0, 1.0]}), "trace_analytic"),
+            ("mesh, 23040 triangles, merged", visual_grad_env(
+                dev, {"data": envs_d[3].scene}, {"mean": [8.0, 0.0, 1.75], "half": [7.0, 3.0, 0.5]},
+                "merged"), "tri_trace_camsoup_merged")):
+        tr_f = BPTT(env_f, horizon=8, policy_kwargs=VISUAL_POLICY)
+        ms, sps, counts, m = drive_bptt(tr_f, 80, 2, lambda steps: {mode: 1 + steps})
+        conv = tr_f.actor.extractor.extractors["depth_extractor"].conv[0].weight
+        check(conv.grad is not None and float(conv.grad.abs().max()) > 0,
+              f"path F ({name}): no gradient reached the CNN")
+        report_bptt(f"path F (visual BPTT, {name})", tr_f, ms, sps, counts, m, 2,
+                    "64x64 depth")
+
     # 5. one step from the same state, card vs CPU plain path
     out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
     # the two devices' float32 dynamics differ in the last ulps, so a pixel on
@@ -841,6 +1254,12 @@ def main():
     check(c_flip <= COLOR_TOL, f"colour card vs cpu differs on {c_flip} of pixels")
     check(t_err <= 1e-3, f"pad centre card vs cpu {t_err} > 1e-3")
 
+    d_loss, g_rel = bptt_card_vs_cpu(dev)
+    print(f"phase 5 | path E card vs cpu (8 agents, H=4, same parameters, state and noise): "
+          f"|d loss|={d_loss:.3e}, gradient max relative difference {g_rel:.3e}", flush=True)
+    check(d_loss <= 1e-5, f"BPTT loss card vs cpu {d_loss} > 1e-5")
+    check(g_rel <= GRAD_TOL, f"BPTT gradient card vs cpu {g_rel} > {GRAD_TOL}")
+
     for mode, n_launch in launches.items():
         check(n_launch > 0, f"no main path launched {mode}")
     print(json.dumps({
@@ -850,11 +1269,14 @@ def main():
             "max_abs_err": errs[mode], **timing[mode], "library_ms": None,
         } for mode in KERNELS],
         "note": "trace_march and trace_march_nocull are one kernel instantiation (the per-tile "
-                "cull is not ported): the launch count tells the cull settings apart; the four "
-                "tri_trace_* are one kernel (tile_sv and tile_mt the two bodies of B4, soup B5, "
-                "camsoup B6), timed without their prepass at 360 (tile) and 23,040 (soup) "
-                "triangles; library_ms is null because no single PyTorch call computes a first "
-                "hit"}),
+                "cull is not ported): the launch count tells the cull settings apart; the "
+                "tri_trace_* modes are flags and list modes of one source (tile_sv and tile_mt "
+                "the two bodies of B4, soup B5, camsoup B6, camsoup_merged B7a, camsoup_mx B7b "
+                "with a kernel of its own, worklist B7c, probe B8a, knockout B8b with body off "
+                "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
+                "(all others) triangles; launches add up the depth leg and paths A-F and the "
+                "diagnostics; library_ms is null because no single PyTorch call computes a "
+                "first hit"}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -184,9 +184,10 @@ def test_unported_branches_raise(tmp_path):
     glb = tmp_path / "stage.glb"
     glb.write_bytes(b"glTF")
     (tmp_path / "stage.scene_instance.json").write_text("{}")
+    # differentiable rollouts are ported: the flags are attributes
+    env = nav(requires_grad=True, grad_collision=True)
+    assert env.requires_grad and env.grad_collision and not nav().requires_grad
     for build in (
-        lambda: nav(requires_grad=True),
-        lambda: nav(grad_collision=True),
         lambda: nav(col_refine_steps=2),
         lambda: nav(latent_dim=8),
         lambda: nav(scene_kwargs=dict(scene, obj_settings={"path": "x"})),
@@ -216,7 +217,7 @@ def test_unported_branches_raise(tmp_path):
     assert torch.isfinite(images["depth"]).all() and torch.isfinite(images["refined"]).all()
     # on a mesh scene: the grid render opt-out, shadow rays, dynamic objects,
     # textures and the variants of the per-camera kernel
-    from visfly_tpu_torch.render import bake_lighting, render_camera, tri_trace_tiled
+    from visfly_tpu_torch.render import bake_lighting, render_camera
 
     mesh_env = nav(scene_kwargs={"path": obj, "backend": "grid", "sdf_spacing": 0.25})
     pos, q = st.dyn.pos, st.dyn.q
@@ -231,8 +232,6 @@ def test_unported_branches_raise(tmp_path):
         lambda: render_camera(mesh_env.scene, pos, q, spec, objects=ball),
         lambda: render_camera(textured, pos, q, spec),
         lambda: render_camera(mesh_env.scene._replace(triangles=()), pos, q, spec),
-        lambda: tri_trace_tiled(mesh_env.scene.triangles, torch.zeros(3, 1, 1024),
-                                torch.ones(3, 1, 1024), variant="mx"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render()

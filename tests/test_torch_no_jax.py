@@ -21,9 +21,13 @@ import visfly_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(visfly_tpu_torch.__path__, "visfly_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "visfly_tpu."))
-             or m == "visfly_tpu")
+import visfly_tpu_torch.policies, visfly_tpu_torch.algos
+for sub in ("policies.common", "policies.extractors", "policies.networks", "algos.bptt",
+            "algos.common", "algos.lr_scheduler"):
+    assert "visfly_tpu_torch." + sub in names, sub
+import chip_smoke, chip_profile
+banned = ("jax", "jaxlib", "flax", "optax", "visfly_tpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), bad)
 assert not bad, bad
 """
@@ -40,7 +44,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 24, proc.stdout  # mesh.py, tri_kernel.py and tri_trace.py included
+    assert n_modules >= 32, proc.stdout  # policies/ and algos/ included
 
 
 def _run_smoke(cwd):

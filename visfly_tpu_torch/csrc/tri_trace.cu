@@ -1,15 +1,22 @@
 // Exact ray-triangle first hit over per-tile triangle lists, for Hopper
 // (sm_90a).
 //
-// Replaces three TPU kernels of visfly_tpu/render/tri_trace.py:
-//   _tri_kernel          (tri_trace_pallas: per-tile culled lists, both bodies)
-//   _tri_kernel_soup     (_tri_trace_pallas_soup: block-id lists into the soup)
-//   _tri_kernel_camsoup  (_tri_trace_pallas_camsoup: per-camera signed volumes)
+// Replaces the TPU kernels of visfly_tpu/render/tri_trace.py
+//   _tri_kernel            (tri_trace_pallas: per-tile culled lists, both bodies)
+//   _tri_kernel_soup       (_tri_trace_pallas_soup: block-id lists into the soup)
+//   _tri_kernel_camsoup    (_tri_trace_pallas_camsoup: per-camera signed volumes)
+//   _tri_kernel_camsoup2   (..._camsoup_v2: one merged output block)
+//   _tri_kernel_camsoup_mx (..._camsoup_mx: the test as a matrix product)
+//   _tri_kernel_worklist   (_tri_trace_pallas_worklist: flattened worklist)
+// and the two diagnostic copies examples/_tri_probe.py::_probe_kernel (stages
+// executed per tile) and examples/_tri_kernel_exp.py::make_kernel (the body or
+// the page traffic knocked out).
 // For every ray they compute the smallest accepted t over the list of the
 // ray's 1,024-ray tile, the id of the triangle that gave it (the first strict
 // minimum in list order), t clipped to [0, max_depth] and hit = t < max_depth.
 //
-// One kernel serves all three; what differed on the TPU is data here:
+// One kernel, tri_trace_kernel, serves all but the matrix form; what differed
+// on the TPU is data or a flag here:
 //   * the list. `list` holds entry ids into the triangle soup (S, T, 9); an
 //     entry is `bs` consecutive triangles (bs = 1: a triangle id; bs = 64 or
 //     128: a Morton-ordered block). The TPU kernels read a compacted copy of
@@ -33,6 +40,41 @@
 //     distance from the origin (chip_profile.py sv reads it). Both tiers
 //     therefore subtract the origin first, in the operation order of the
 //     plain PyTorch version (render/tri_kernel.py).
+//
+//   * the list mode. Padded lists give every tile n_stage stages
+//     (`start` null). The worklist tier hands one flattened array a scene
+//     with, per tile, the offset `start` of its first stage and its quota of
+//     stages `nst` (a CSR list): a block walks its own entries, so the TPU's
+//     first/last bits, padding entries, sequential-grid carry and gathered
+//     pages have no counterpart. Its entries are 16-triangle clusters, eight
+//     to a stage, tested against the tile's origin (kSV, origin_tiles = 1).
+//   * the output, a template flag: MERGED writes one float32 block
+//     (tiles, 2, 1024) a scene holding t and the winning id as a float (exact
+//     below 2^24) and no hit flag; the wrapper derives hit = t < max_depth.
+//     On the TPU this variant exists to halve a per-grid-step prologue paid
+//     per operand; a GPU block has no such prologue.
+//   * stages executed: where `cnt_out` is given, thread 0 writes how many
+//     stages of the tile passed the count skip and the early-out vote.
+//   * two knock-outs for timing, template flags of the merged output: BODY
+//     off stages every triangle and touches one staged value but runs no
+//     test (every ray ends at max_depth); PIN makes every stage load the
+//     list's first stage. Together they split the kernel's time into launch
+//     and barrier floor, staging and arithmetic.
+//
+// tri_trace_mx_kernel is the per-camera test as a matrix product (the "mx"
+// variant): a stage's coefficients are staged as a 4 x (4*128) matrix
+// G = [g0 | g1 | g2 | kt] (rows x, y, z and the constant), the rays of the
+// tile are the 1,024 x 4 matrix D = [dx dy dz 1], and W = D.G gives the three
+// volumes and kt of all 1,024 x 128 tests. Each thread holds four rays and
+// accumulates a 4 x (4 triangles x 4 blocks) register tile of W over the
+// depth of 4, in float32 on the CUDA cores: Hopper's tensor cores have no
+// float32 path, and TF32's ten mantissa bits would move hits by centimetres.
+// The TPU keeps the running best as two (1024, 128) slabs reduced once a
+// tile (1 MB, no block's shared memory); here it is one best a ray, taken in
+// (stage, slot) order with a strict less-than, which picks the same winner
+// as the scalar body wherever t is unique. The coefficients subtract the
+// origin first, as kSV does; kt rides the product against the constant 1.
+// The zero rows of G add exact zeros, so W equals the scalar body's volumes.
 //
 // A block of 256 threads serves one tile, four rays a thread (ray k*256 +
 // thread of the tile, so loads and stores are coalesced, and one shared-memory
@@ -106,17 +148,26 @@ __device__ __forceinline__ void stage_triangle(float4* out, const float* __restr
   out[2] = make_float4(r.z, k, 0.f, 0.f);
 }
 
-template <int FORM>
+// Where a tile's stages begin, in stages from the start of `list` and `lb`:
+// padded lists give every tile n_stage of them; a CSR list (start given) holds
+// n_stage stages a scene and the tile's begin at start[tile].
+__device__ __forceinline__ size_t first_stage(const int* __restrict__ start, size_t tile_idx,
+                                              int s, int n_stage) {
+  return start ? (size_t)s * n_stage + start[tile_idx] : tile_idx * n_stage;
+}
+
+template <int FORM, bool MERGED, bool BODY, bool PIN>
 __global__ void __launch_bounds__(kThreads)
 tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
-                 const int* __restrict__ list,       // (S, tiles, n_stage*chunk/bs), -1: none
+                 const int* __restrict__ list,       // stages of chunk/bs entry ids, -1: none
                  const int* __restrict__ nst,        // (S, tiles) stages to walk
-                 const float* __restrict__ lb,       // (S, tiles, n_stage)
+                 const int* __restrict__ start,      // (S, tiles) first stage, or null
+                 const float* __restrict__ lb,       // a lower bound a stage
                  const float* __restrict__ origins,  // (3, S, R)
                  const float* __restrict__ dirs,     // (3, S, R)
                  float* __restrict__ t_out, bool* __restrict__ hit_out,
-                 int* __restrict__ gid_out, int S, int T, int R, int n_stage, int chunk,
-                 int bs, int origin_tiles, float max_depth) {
+                 int* __restrict__ gid_out, int* __restrict__ cnt_out, int S, int T, int R,
+                 int n_stage, int chunk, int bs, int origin_tiles, float max_depth) {
   __shared__ float4 rows[kMaxChunk * 3];
   __shared__ int row_gid[kMaxChunk];
 
@@ -125,9 +176,11 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
   const size_t plane = (size_t)S * R;
   const size_t ray0 = (size_t)s * R + (size_t)ti * kTile + threadIdx.x;
   const size_t tile_idx = (size_t)s * tiles + ti;
-  const int* tile_list = list + tile_idx * ((size_t)n_stage * chunk / bs);
-  const float* tile_lb = lb + tile_idx * n_stage;
-  const int n_walk = min(nst[tile_idx], n_stage);
+  const size_t stage0 = first_stage(start, tile_idx, s, n_stage);
+  const int* tile_list = list + stage0 * (chunk / bs);
+  const float* tile_lb = lb + stage0;
+  const int n_walk = start ? nst[tile_idx] : min(nst[tile_idx], n_stage);
+  int n_ran = 0;
 
   V3 o_shared = {0.f, 0.f, 0.f};
   if (FORM != kMT) {  // ray 0 of the tile, or of the camera the tile belongs to
@@ -160,10 +213,11 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
     for (int k = 0; k < kRays; ++k) open = open || (bound < fminf(tbest[k], max_depth));
     // a barrier as well: every thread is done with the previous stage's rows
     if (!__syncthreads_or(open)) continue;
+    ++n_ran;
 
     if (threadIdx.x < chunk) {
       const int j = threadIdx.x;
-      const int entry = tile_list[(ci * chunk + j) / bs];
+      const int entry = tile_list[((PIN ? 0 : ci) * chunk + j) / bs];
       const int gid = entry < 0 ? -1 : entry * bs + j % bs;
       const bool real = gid >= 0 && gid < T;
       row_gid[j] = real ? gid : 0;
@@ -172,6 +226,11 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
     }
     __syncthreads();
 
+    if (!BODY) {  // the stage is loaded and one value of it is read; no test
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) tbest[k] = fminf(tbest[k], kBig + fabsf(rows[0].x));
+      continue;
+    }
     for (int j = 0; j < chunk; ++j) {
       const float4 r0 = rows[3 * j], r1 = rows[3 * j + 1], r2 = rows[3 * j + 2];
       const int gid = row_gid[j];
@@ -219,34 +278,192 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
 
 #pragma unroll
   for (int k = 0; k < kRays; ++k) {
+    const float t = fminf(fmaxf(tbest[k], 0.0f), max_depth);
+    if (MERGED) {
+      const size_t idx = tile_idx * (2 * kTile) + k * kThreads + threadIdx.x;
+      t_out[idx] = t;
+      t_out[idx + kTile] = (float)gbest[k];
+    } else {
+      const size_t idx = ray0 + (size_t)k * kThreads;
+      t_out[idx] = t;
+      hit_out[idx] = t < max_depth;
+      gid_out[idx] = gbest[k];
+    }
+  }
+  if (cnt_out != nullptr && threadIdx.x == 0) cnt_out[tile_idx] = n_ran;
+}
+
+constexpr int kCol = 4 * kMaxChunk;  // columns of a staged G: [g0 | g1 | g2 | kt]
+
+__global__ void __launch_bounds__(kThreads)
+tri_trace_mx_kernel(const float* __restrict__ tris,     // (S, T, 9)
+                    const int* __restrict__ list,       // (S, tiles, n_stage) block ids
+                    const int* __restrict__ nst,        // (S, tiles)
+                    const float* __restrict__ lb,       // (S, tiles, n_stage)
+                    const float* __restrict__ origins,  // (3, S, R)
+                    const float* __restrict__ dirs,     // (3, S, R)
+                    float* __restrict__ t_out, bool* __restrict__ hit_out,
+                    int* __restrict__ gid_out, int* __restrict__ cnt_out, int S, int T, int R,
+                    int n_stage, int chunk, int origin_tiles, float max_depth) {
+  // G, row-major 4 x kCol: rows x, y, z of the three g (column blocks 0-2)
+  // and the constant row that carries kt (block 3)
+  __shared__ __align__(16) float G[4 * kCol];
+
+  const int tiles = R / kTile;
+  const int ti = blockIdx.x, s = blockIdx.y;
+  const size_t plane = (size_t)S * R;
+  const size_t ray0 = (size_t)s * R + (size_t)ti * kTile + threadIdx.x;
+  const size_t tile_idx = (size_t)s * tiles + ti;
+  const int* tile_list = list + tile_idx * n_stage;
+  const float* tile_lb = lb + tile_idx * n_stage;
+  const int n_walk = min(nst[tile_idx], n_stage);
+  int n_ran = 0;
+
+  const size_t r0 = (size_t)s * R + (size_t)(ti / origin_tiles) * origin_tiles * kTile;
+  const V3 o_cam = {origins[r0], origins[plane + r0], origins[2 * plane + r0]};
+
+  float D[kRays][4];  // the thread's rows of D = [dx dy dz 1]
+  float tbest[kRays];
+  int gbest[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const size_t idx = ray0 + (size_t)k * kThreads;
+    D[k][0] = dirs[idx];
+    D[k][1] = dirs[plane + idx];
+    D[k][2] = dirs[2 * plane + idx];
+    D[k][3] = 1.0f;
+    tbest[k] = kBig;
+    gbest[k] = 0;
+  }
+
+  for (int ci = 0; ci < n_walk; ++ci) {
+    const float bound = tile_lb[ci];
+    bool open = false;
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) open = open || (bound < fminf(tbest[k], max_depth));
+    if (!__syncthreads_or(open)) continue;
+    ++n_ran;
+
+    const int entry = tile_list[ci];
+    if (threadIdx.x < chunk) {
+      const int j = threadIdx.x;
+      const int gid = entry < 0 ? -1 : entry * chunk + j;
+      float4 c[3];
+      stage_triangle<kSV>(c, gid >= 0 && gid < T ? tris + ((size_t)s * T + gid) * 9 : nullptr,
+                          o_cam);
+      const float g[3][3] = {{c[0].x, c[0].y, c[0].z}, {c[0].w, c[1].x, c[1].y},
+                             {c[1].z, c[1].w, c[2].x}};
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) G[r * kCol + i * kMaxChunk + j] = g[i][r];
+        G[3 * kCol + i * kMaxChunk + j] = 0.0f;
+        G[i * kCol + 3 * kMaxChunk + j] = 0.0f;
+      }
+      G[3 * kCol + 3 * kMaxChunk + j] = c[2].y;
+    }
+    __syncthreads();
+
+    for (int j0 = 0; j0 < chunk; j0 += 4) {
+      float g[4][4][4];  // [row of G][column block][triangle of the four]
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(&G[r * kCol + i * kMaxChunk + j0]);
+          g[r][i][0] = v.x;
+          g[r][i][1] = v.y;
+          g[r][i][2] = v.z;
+          g[r][i][3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) {
+          float w[4];  // the ray's row of W at this triangle: w0, w1, w2, kt
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float acc = D[k][0] * g[0][i][jj];
+#pragma unroll
+            for (int r = 1; r < 4; ++r) acc = acc + D[k][r] * g[r][i][jj];
+            w[i] = acc;
+          }
+          if (w[0] * w[1] >= 0.0f && w[0] * w[2] >= 0.0f && w[1] * w[2] >= 0.0f) {
+            const float wsum = w[0] + w[1] + w[2];
+            const float tk = w[3] * (1.0f / wsum);
+            if (tk > 1e-4f && tk < tbest[k]) {
+              tbest[k] = tk;
+              gbest[k] = entry * chunk + j0 + jj;
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
     const size_t idx = ray0 + (size_t)k * kThreads;
     const float t = fminf(fmaxf(tbest[k], 0.0f), max_depth);
     t_out[idx] = t;
     hit_out[idx] = t < max_depth;
     gid_out[idx] = gbest[k];
   }
+  if (cnt_out != nullptr && threadIdx.x == 0) cnt_out[tile_idx] = n_ran;
 }
 
 }  // namespace
 
 // form: 0 Moller-Trumbore, 1 signed volumes against the origin of ray 0 of
 // every `origin_tiles` tiles. R must be a multiple of 1,024, chunk at most 128
-// and a multiple of bs. Returns the CUDA error of the launch (0: none).
+// and a multiple of bs. `start` null: padded lists of n_stage stages a tile;
+// else a CSR list of n_stage stages a scene. out: 0 t, hit and id; 1 the merged
+// block in t_out (signed volumes only). knock: bit 0 no body, bit 1 the stage
+// pinned (merged output only). cnt_out may be null. Returns the CUDA error of
+// the launch (0: none).
 extern "C" int tri_trace_launch(const float* tris, const int* list, const int* nst,
-                                const float* lb, const float* origins, const float* dirs,
-                                float* t_out, bool* hit_out, int* gid_out, int S, int T, int R,
-                                int n_stage, int chunk, int bs, int origin_tiles,
-                                float max_depth, int form, cudaStream_t stream) {
+                                const int* start, const float* lb, const float* origins,
+                                const float* dirs, float* t_out, bool* hit_out, int* gid_out,
+                                int* cnt_out, int S, int T, int R, int n_stage, int chunk,
+                                int bs, int origin_tiles, float max_depth, int form, int out,
+                                int knock, cudaStream_t stream) {
   if (R % kTile != 0 || chunk < 1 || chunk > kMaxChunk || bs < 1 || chunk % bs != 0 ||
-      origin_tiles < 1 || form < 0 || form > 1)
+      origin_tiles < 1 || form < 0 || form > 1 || out < 0 || out > 1 || knock < 0 ||
+      knock > 3 || (out == 1 && form != kSV) || (knock != 0 && out != 1))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(R / kTile, S);
-#define VF_LAUNCH(FORM)                                                                   \
-  tri_trace_kernel<FORM><<<grid, kThreads, 0, stream>>>(                                  \
-      tris, list, nst, lb, origins, dirs, t_out, hit_out, gid_out, S, T, R, n_stage,      \
-      chunk, bs, origin_tiles, max_depth)
-  if (form == kMT) VF_LAUNCH(kMT);
-  else VF_LAUNCH(kSV);
+#define VF_LAUNCH(FORM, MERGED, BODY, PIN)                                                \
+  tri_trace_kernel<FORM, MERGED, BODY, PIN><<<grid, kThreads, 0, stream>>>(               \
+      tris, list, nst, start, lb, origins, dirs, t_out, hit_out, gid_out, cnt_out, S, T,  \
+      R, n_stage, chunk, bs, origin_tiles, max_depth)
+  if (out == 0) {
+    if (form == kMT) VF_LAUNCH(kMT, false, true, false);
+    else VF_LAUNCH(kSV, false, true, false);
+  } else if (knock == 0) {
+    VF_LAUNCH(kSV, true, true, false);
+  } else if (knock == 1) {
+    VF_LAUNCH(kSV, true, false, false);
+  } else if (knock == 2) {
+    VF_LAUNCH(kSV, true, true, true);
+  } else {
+    VF_LAUNCH(kSV, true, false, true);
+  }
 #undef VF_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The per-camera test as a matrix product over padded lists of whole blocks
+// (bs == chunk, a multiple of 4 up to 128).
+extern "C" int tri_trace_mx_launch(const float* tris, const int* list, const int* nst,
+                                   const float* lb, const float* origins, const float* dirs,
+                                   float* t_out, bool* hit_out, int* gid_out, int* cnt_out,
+                                   int S, int T, int R, int n_stage, int chunk,
+                                   int origin_tiles, float max_depth, cudaStream_t stream) {
+  if (R % kTile != 0 || chunk < 4 || chunk > kMaxChunk || chunk % 4 != 0 || origin_tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  tri_trace_mx_kernel<<<dim3(R / kTile, S), kThreads, 0, stream>>>(
+      tris, list, nst, lb, origins, dirs, t_out, hit_out, gid_out, cnt_out, S, T, R, n_stage,
+      chunk, origin_tiles, max_depth);
   return (int)cudaGetLastError();
 }

@@ -14,10 +14,20 @@ Subclasses implement ``get_observation`` / ``get_reward`` / ``get_success``
 / ``get_failure``, and keep env-specific state in ``EnvState.aux`` through
 the hooks ``init_aux`` / ``reset_aux`` / ``step_aux`` /
 ``update_aux_from_sensors``. Not ported yet, and raising
-``NotImplementedError``: differentiable rollouts, dynamic objects
-(``obj_settings``), IMU and sensor noise, world-model latents,
-``terminal_obs_in_info``, wind functions and velocity sub-sampled collision
-checks.
+``NotImplementedError``: dynamic objects (``obj_settings``), IMU and sensor
+noise, world-model latents, ``terminal_obs_in_info``, wind functions and
+velocity sub-sampled collision checks.
+
+Gradients: with ``requires_grad=True`` a step is differentiable from the
+action and the carried state to ``obs`` and ``reward`` (through the dynamics,
+the reward and, on visual envs, the renderer's implicit-function rule);
+without it ``obs`` and ``reward`` leave ``step`` detached. The collision query
+sees a detached position unless ``grad_collision=True``, which keeps the
+closest point differentiable in position. Spawned and reset states carry no
+gradient, a done agent's gradient stops at its reset, ``info`` is always
+detached, and :meth:`DroneGymEnv.detach` cuts the carried state loose between
+updates. Autograd keeps every kernel's outputs and never replays a forward, so
+there is no rematerialisation policy to choose.
 
 The env runs on ``device``, by default the CUDA card; pass ``device="cpu"``
 to run on the CPU.
@@ -37,6 +47,18 @@ from . import randomization as rnd
 
 def _unported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+def _detach(x):
+    """Detach every tensor of a (nested) NamedTuple, tuple or dict."""
+    if isinstance(x, Tensor):
+        return x.detach()
+    if isinstance(x, tuple):
+        parts = [_detach(v) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    if isinstance(x, dict):
+        return {k: _detach(v) for k, v in x.items()}
+    return x
 
 
 class CollisionInfo(NamedTuple):
@@ -101,8 +123,6 @@ class DroneGymEnv:
         latent_dim: Optional[int] = None,
         dtype=torch.float32,
     ):
-        if requires_grad or grad_collision:
-            raise _unported("differentiable rollouts", "Queue A item 9, differentiable rollouts")
         if col_refine_steps:
             raise _unported("col_refine_steps > 0",
                             "Queue A item 8, velocity sub-sampled collisions")
@@ -115,6 +135,8 @@ class DroneGymEnv:
         self.seed = seed
         self.visual = visual
         self.max_episode_steps = int(max_episode_steps)
+        self.requires_grad = bool(requires_grad)
+        self.grad_collision = bool(grad_collision)
         self.is_collision_reset = is_collision_reset
         self.uav_radius = float(uav_radius)
         self.dtype = dtype
@@ -232,7 +254,7 @@ class DroneGymEnv:
         """Closest-point and bounds queries: the scene for visual envs (its
         SDF, or the exact triangles of a mesh scene), the nearest face of the
         bbox world otherwise."""
-        pos = dyn.pos.detach()
+        pos = dyn.pos if self.grad_collision else dyn.pos.detach()
         if self.scene is not None:
             from ..scene import closest_point_query
 
@@ -241,9 +263,8 @@ class DroneGymEnv:
             lo, hi = self.bbox[0], self.bbox[1]
             d = torch.cat([pos - lo, hi - pos], dim=-1)  # (N, 6)
             idx = torch.argmin(d, dim=-1)  # nearest face
-            point = pos.clone()
-            point[torch.arange(pos.shape[0], device=pos.device), idx % 3] = \
-                self.bbox.reshape(-1)[idx]
+            on_axis = torch.arange(3, device=pos.device) == (idx % 3)[:, None]
+            point = torch.where(on_axis, self.bbox.reshape(-1)[idx][:, None], pos)
             dis = torch.linalg.vector_norm(point - pos, dim=-1)
             out = torch.any(pos < lo, dim=-1) | torch.any(pos > hi, dim=-1)
         is_col = dis < self.uav_radius
@@ -310,7 +331,7 @@ class DroneGymEnv:
             "episode_done": episode_done,
             "is_success": success,
             "TimeLimit.truncated": truncated & ~episode_done,
-            "episode_return": returns,
+            "episode_return": returns.detach(),
             "episode_length": step_count,
             "episode_time": step_count.to(self.dtype) * self.dyn_config.ctrl_dt,
             "collision": once,
@@ -321,11 +342,21 @@ class DroneGymEnv:
         sensor_obs = self.sensor_observations(st)
         st = self.update_aux_from_sensors(st, sensor_obs)
         obs = self.get_observation(st, sensor_obs)
+        if not self.requires_grad:
+            obs = {k: v.detach() for k, v in obs.items()}
+            reward = reward.detach()
         return st, StepOutput(obs=obs, reward=reward, done=done, info=info)
 
+    def detach(self, state: EnvState) -> EnvState:
+        """The same state with no gradient history: what a trainer carries
+        from one update to the next."""
+        return _detach(state)
+
     def _auto_reset(self, st: EnvState, done: Tensor) -> EnvState:
-        """Masked respawn of done agents, with a random clock phase."""
-        pos, q, vel, omega = self._spawn(st.gen)
+        """Masked respawn of done agents, with a random clock phase. The
+        spawned states carry no gradient; the selects let a live agent's
+        gradient through and stop a done agent's."""
+        pos, q, vel, omega = (x.detach() for x in self._spawn(st.gen))
         dyn = dyn_mod.reset(self.dyn_config, self.params, st.dyn, mask=done, pos=pos, ori=q,
                             vel=vel, ori_vel=omega, generator=st.gen)
         collision, once = self._update_collision(dyn, st.once_collided & ~done)

@@ -17,6 +17,7 @@ from .dynamics.config import DroneParams
 from .dynamics.dynamics import DynState
 from .envs.base import CollisionInfo, EnvState
 from .envs.landing import LandingAux
+from .policies.extractors import MLP, GRUCell, ImageCNN
 from .render.sphere_trace import Lighting
 from .render.trace_kernel import KernelScene
 from .scene.prim_scene import PrimitiveScene, scene_from_arrays
@@ -125,3 +126,82 @@ def env_state_from_numpy(st, gen: Optional[torch.Generator] = None,
         returns=_t(st.returns, device),
         aux=aux_from_numpy(getattr(st, "aux", ()), device),
     )
+
+
+# ---------------------------------------------------------------------------
+# policies and trainers
+# ---------------------------------------------------------------------------
+
+
+def _load_dense(layer, p) -> None:
+    """A flax ``Dense`` {kernel (in, out), bias} into an ``nn.Linear``."""
+    layer.weight.copy_(_t(p["kernel"], layer.weight.device).T)
+    if layer.bias is not None:
+        layer.bias.copy_(_t(p["bias"], layer.bias.device))
+
+
+def _load_mlp(mlp: MLP, p) -> None:
+    for i, dense in enumerate(mlp.dense):
+        _load_dense(dense, p[f"dense_{i}"])
+    for i, norm in enumerate(mlp.norm or ()):
+        norm.weight.copy_(_t(p[f"LayerNorm_{i}"]["scale"], norm.weight.device))
+        norm.bias.copy_(_t(p[f"LayerNorm_{i}"]["bias"], norm.bias.device))
+
+
+def _load_cnn(cnn: ImageCNN, p) -> None:
+    for i, conv in enumerate(cnn.conv):  # HWIO → OIHW
+        conv.weight.copy_(_t(p[f"conv_{i}"]["kernel"], conv.weight.device).permute(3, 2, 0, 1))
+        conv.bias.copy_(_t(p[f"conv_{i}"]["bias"], conv.bias.device))
+    # flax flattens NHWC, so proj's kernel rows run (H, W, C); here (C, H, W)
+    c, h, w = cnn.feat_shape
+    kernel = _t(p["proj"]["kernel"], cnn.proj.weight.device)
+    cnn.proj.weight.copy_(kernel.reshape(h, w, c, -1).permute(3, 2, 0, 1).reshape(-1, c * h * w))
+    cnn.proj.bias.copy_(_t(p["proj"]["bias"], cnn.proj.bias.device))
+
+
+def _load_gru(gru: GRUCell, g) -> None:
+    """A flax ``GRUCell``'s six gates {ir, iz, in, hr, hz, hn} into ``x_proj``
+    [ir | iz | in], ``h_proj`` [hr | hz] and ``hn``."""
+    dev = gru.hn.weight.device
+    gru.x_proj.weight.copy_(torch.cat([_t(g[k]["kernel"], dev).T for k in ("ir", "iz", "in")]))
+    gru.x_proj.bias.copy_(torch.cat([_t(g[k]["bias"], dev) for k in ("ir", "iz", "in")]))
+    gru.h_proj.weight.copy_(torch.cat([_t(g[k]["kernel"], dev).T for k in ("hr", "hz")]))
+    _load_dense(gru.hn, g["hn"])
+
+
+def actor_params_from_flax(params, module):
+    """The parameters of a ``visfly_tpu.policies.networks`` ``Actor`` or
+    ``RecurrentActor`` (the flax dict of numpy arrays, with or without its
+    ``"params"`` level) into the port's module of the same architecture, in
+    place; returns the module. Dense kernels transpose, convolution kernels go
+    HWIO → OIHW, the image projection's rows go (H, W, C) → (C, H, W), and the
+    GRU's six gates stack into ``x_proj`` [ir | iz | in], ``h_proj`` [hr | hz]
+    and ``hn``."""
+    p = params.get("params", params)
+    with torch.no_grad():
+        for name, sub in module.extractor.extractors.items():
+            (_load_cnn if isinstance(sub, ImageCNN) else _load_mlp)(sub, p["extractor"][name])
+        _load_mlp(module.latent, p["latent"])
+        _load_dense(module.head.mu, p["mu"])
+        _load_dense(module.head.log_std, p["log_std"])
+        if hasattr(module, "gru"):
+            _load_gru(module.gru, p["gru"])
+    return module
+
+
+def bptt_state_from_jax(st, trainer, gen: Optional[torch.Generator] = None):
+    """``visfly_tpu.algos.BPTTState`` of numpy arrays → the port's
+    ``BPTTState`` for ``trainer`` (a ``visfly_tpu_torch.algos.BPTT`` over the
+    same env and policy settings): the env state, observation and hidden state
+    cross over, the actor is built for the observation and given the
+    parameters, and the optimiser starts fresh (Adam's moments do not cross).
+    ``gen`` takes the place of both PRNG keys."""
+    dev = trainer.env.device
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+    obs = {k: _t(v, dev) for k, v in st.obs.items()}
+    trainer.build(obs)
+    actor_params_from_flax(st.params, trainer.actor)
+    hidden = () if isinstance(st.hidden, tuple) else _t(st.hidden, dev)
+    return trainer._state(env_state_from_numpy(st.env_state, gen, dev), obs, gen,
+                          int(st.global_step), hidden)

@@ -18,7 +18,9 @@ per-pixel march, which then takes half the steps; march mode only).
 
 A mesh scene (``SceneData`` with triangles) renders its true triangles;
 its sensor-spec keys are ``tri_cap`` (per-tile list length, default by mesh
-size) and ``tri_backface``; colour and semantic ids come from the baked grids
+size), ``tri_backface`` and ``tri_variant`` ("scalar", the default, "merged",
+"mx" or "wl": how the per-camera tier of a dense mesh runs; nothing changes
+where a mesh or a ray set does not reach that tier); colour and semantic ids come from the baked grids
 at the exact hit. Not ported yet, each raising ``NotImplementedError``: the
 ``render_backend: "grid"`` opt-out (the trilinear SDF march), grid scenes
 without triangles, textures, shadow rays, dynamic objects in mesh scenes and
@@ -269,7 +271,8 @@ def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype
         tri, o_g3.permute(2, 0, 1).contiguous(), d_g3.permute(2, 0, 1).contiguous(),
         max_depth, int(spec.get("tri_cap", default_tri_cap(tri.shape[1]))),
         W if whole else None, tiled, H * W if whole else None,
-        bool(spec.get("tri_backface", False)))
+        bool(spec.get("tri_backface", False)),
+        variant=str(spec.get("tri_variant", "scalar")))
     if stype == "depth":
         depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f, max_depth)
         return {"depth": depth[:, None, :, :]}

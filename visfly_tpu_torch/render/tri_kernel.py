@@ -1,7 +1,10 @@
-"""First hit of rays on per-tile triangle lists: the CUDA kernel, its plain
-PyTorch version and the wrapper (counterpart of the three kernels
-``_tri_kernel``, ``_tri_kernel_soup`` and ``_tri_kernel_camsoup`` of
-``visfly_tpu/render/tri_trace.py``).
+"""First hit of rays on per-tile triangle lists: the CUDA kernels, their plain
+PyTorch version and the wrapper (counterpart of the kernels ``_tri_kernel``,
+``_tri_kernel_soup``, ``_tri_kernel_camsoup``, ``_tri_kernel_camsoup2``,
+``_tri_kernel_camsoup_mx`` and ``_tri_kernel_worklist`` of
+``visfly_tpu/render/tri_trace.py``, and of the two diagnostic copies
+``examples/_tri_probe.py::_probe_kernel`` and
+``examples/_tri_kernel_exp.py::make_kernel``).
 
 Rays come component-major ``(3, S, R)`` with ``R`` a multiple of ``TILE``
 (1,024); tile ``i`` of a scene is rays ``[i·1024, (i+1)·1024)``. Each tile has
@@ -31,6 +34,34 @@ subtracts: in float32, on a garage mesh moved 40 m from the origin, it
 moved t by up to 0.16 m (``chip_profile.py sv``). So ``"sv_cam"`` subtracts the origin first,
 as ``"sv_tile"`` does; the two differ in the origin and the lists.
 
+Variants of the per-camera use (``mode``, ``form="sv_cam"`` only):
+
+``"merged"``   the same lists, body and early-out; the kernel writes one
+               float32 block ``(S, tiles, 2, 1024)`` of t and the id as a float
+               (exact below 2²⁴) and no hit flag; the wrapper derives
+               ``hit = t < max_depth``. On the TPU this halves a per-grid-step
+               prologue paid per operand, which a GPU block does not have.
+``"mx"``       the test as a matrix product a stage, ``W = D · G`` with
+               ``D = [dx dy dz 1]`` (1,024 × 4) and ``G = [g0 | g1 | g2 | kt]``
+               (4 × 4·chunk), computed inside the kernel in float32 on the CUDA
+               cores from coefficients that subtract the origin first. One
+               running best a ray, taken in (stage, slot) order with a strict
+               less-than: the TPU kernel's per-lane slabs give "first in stage
+               order within a lane, then the smallest id across lanes", which
+               can differ from it only on exact ties of t. The plain version
+               takes the product with ``torch.matmul`` in full float32.
+
+The worklist tier is a list mode, not a body: :class:`TileLists` with
+``start`` set is a CSR list (one flattened array of stages a scene, per tile
+an offset and a quota), walked by the ``"sv_tile"`` body.
+
+Diagnostics: ``count_stages`` also returns, per tile, the stages that passed
+the count skip and the early-out vote; ``body=False`` (every stage is staged
+and one staged value read, no test runs: every ray ends at ``max_depth``) and
+``pin_stage=True`` (every stage loads the list's first stage) knock parts of
+the merged kernel out, to split its time into launch and barrier floor,
+staging and arithmetic.
+
 The acceptance rules are the TPU kernels' to the constant: ``|det| > 1e-9``,
 ``t > 1e-4``; the three pairwise products of the volumes ``>= 0`` and
 ``t = kt · (1 / wsum)``, so that ±inf and NaN fail the comparisons.
@@ -46,10 +77,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
+
+from ..core.math_utils import full_fp32_matmul
 
 TILE = 1024
 BIG = 1e9
@@ -57,8 +90,10 @@ MAX_CHUNK = 128  # triangles a stage: the kernel's staging buffer
 FORMS = {"mt": 0, "sv_tile": 1, "sv_cam": 1}  # the kernel's body: 0 kMT, 1 kSV
 # Launches of the CUDA kernel by the tier that asked for it, since the counts
 # were last set to 0. The wrapper adds one where it launches and nowhere else.
+MODES = ("scalar", "merged", "mx")
 LAUNCHES = {"tri_trace_tile_sv": 0, "tri_trace_tile_mt": 0, "tri_trace_soup": 0,
-            "tri_trace_camsoup": 0}
+            "tri_trace_camsoup": 0, "tri_trace_camsoup_merged": 0, "tri_trace_camsoup_mx": 0,
+            "tri_trace_worklist": 0, "tri_trace_probe": 0, "tri_trace_knockout": 0}
 # elements of the largest intermediate of the plain version
 _PLAIN_ELEMS = 1 << 24
 
@@ -68,9 +103,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def count_name(form: str, block: int) -> str:
-    """The entry of ``LAUNCHES`` for a body and an entry size: lists of
-    triangle ids are the tile tiers, lists of blocks the soup tiers."""
+def count_name(form: str, block: int, mode: str = "scalar", worklist: bool = False) -> str:
+    """The entry of ``LAUNCHES`` for a tier's launch: the worklist, the variant
+    of the per-camera body, or, by body and entry size, a tile tier (lists of
+    triangle ids) or a soup tier (lists of blocks). The two diagnostics count
+    apart from the tiers (:func:`tri_first_hit`)."""
+    if worklist:
+        return "tri_trace_worklist"
+    if mode != "scalar":
+        return f"tri_trace_camsoup_{mode}"
     if form == "sv_cam":
         return "tri_trace_camsoup"
     if form == "sv_tile":
@@ -89,6 +130,10 @@ class TileLists(NamedTuple):
              (the occlusion early-out)
     chunk    triangles a stage
     block    triangles an entry
+    start    None, or (S, tiles) int32: the lists are one flattened array a
+             scene (CSR), ``ids (S, NW · chunk // block)`` and ``lb (S, NW)``
+             over ``NW`` stages, of which a tile owns ``n_stage`` from
+             ``start`` on
     """
 
     ids: Tensor
@@ -96,6 +141,7 @@ class TileLists(NamedTuple):
     lb: Tensor
     chunk: int
     block: int
+    start: Optional[Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -147,32 +193,75 @@ def _test_mt(rows: Tensor, o, d) -> Tuple[Tensor, Tensor]:
     return torch.where(ok, tk, BIG), okd
 
 
-def _test_sv(coef, d) -> Tuple[Tensor, Tensor]:
-    """Signed-volume t of coefficients (g0, g1, g2 triples and kt, each
-    component (..., n, 1)) against ray directions (..., 1, r), BIG where a
-    test fails; and the tests past the sign gate, the only ones for which the
-    kernel divides."""
-    g0, g1, g2, kt = coef
-    w0, w1, w2 = _dot(d, g0), _dot(d, g1), _dot(d, g2)
+def _accept_sv(w0, w1, w2, kt) -> Tuple[Tensor, Tensor]:
+    """t of the volumes that share a sign, BIG elsewhere; and the tests past
+    that gate, the only ones for which the kernel divides."""
     ok = (w0 * w1 >= 0.0) & (w0 * w2 >= 0.0) & (w1 * w2 >= 0.0)
     tk = kt * (1.0 / (w0 + w1 + w2))
     return torch.where(ok & (tk > 1e-4), tk, BIG), ok
 
 
+def _test_sv(coef, d) -> Tuple[Tensor, Tensor]:
+    """Signed-volume t of coefficients (g0, g1, g2 triples and kt, each
+    component (..., n, 1)) against ray directions (..., 1, r), BIG where a
+    test fails; and the tests past the sign gate."""
+    g0, g1, g2, kt = coef
+    return _accept_sv(_dot(d, g0), _dot(d, g1), _dot(d, g2), kt)
+
+
+def _test_sv_mx(coef, d) -> Tuple[Tensor, Tensor]:
+    """The same test as one matrix product: ``W = D · G`` with
+    ``D = [dx dy dz 1]`` (..., r, 4) and ``G = [g0 | g1 | g2 | kt]``
+    (..., 4, 4n), whose column blocks are the three volumes and kt."""
+    g0, g1, g2, kt = coef
+    zero = torch.zeros_like(kt)
+    rows = [torch.cat([g0[r], g1[r], g2[r], zero], dim=-2) for r in range(3)]
+    rows.append(torch.cat([zero, zero, zero, kt], dim=-2))
+    G = torch.stack([x[..., 0] for x in rows], dim=-2)  # (..., 4, 4n)
+    D = torch.stack([d[0][..., 0, :], d[1][..., 0, :], d[2][..., 0, :],
+                     torch.ones_like(d[0][..., 0, :])], dim=-1)  # (..., r, 4)
+    full_fp32_matmul()
+    W = torch.matmul(D, G).transpose(-1, -2)  # (..., 4n, r)
+    n = kt.shape[-2]
+    return _accept_sv(*(W[..., i * n:(i + 1) * n, :] for i in range(4)))
+
+
+def padded_lists(lists: TileLists) -> TileLists:
+    """A CSR list as the padded lists it stands for: every tile gets as many
+    stages as the longest tile owns, the rest empty slots with bound BIG."""
+    if lists.start is None:
+        return lists
+    S, tiles = lists.n_stage.shape
+    per = lists.chunk // lists.block
+    dev = lists.ids.device
+    n_max = max(int(lists.n_stage.max()), 1)
+    own = torch.arange(n_max, device=dev) < lists.n_stage[..., None]  # (S, tiles, n_max)
+    stage = torch.where(own, lists.start.to(torch.int64)[..., None]
+                        + torch.arange(n_max, device=dev), 0)
+    lb = torch.gather(lists.lb, 1, stage.reshape(S, -1)).reshape(S, tiles, n_max)
+    slot = (stage[..., None] * per + torch.arange(per, device=dev)).reshape(S, -1)
+    ids = torch.gather(lists.ids, 1, slot).reshape(S, tiles, n_max, per)
+    ids = torch.where(own[..., None], ids, -1).reshape(S, tiles, n_max * per)
+    return TileLists(ids, lists.n_stage, torch.where(own, lb, BIG), lists.chunk, lists.block)
+
+
 def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor,
                             max_depth: float = 20.0, form: str = "mt", origin_tiles: int = 1,
-                            stats: dict = None) -> Tuple[Tensor, Tensor, Tensor]:
-    """Plain PyTorch version of the kernel → (t (S, R), hit (S, R), gid (S, R)
+                            stats: dict = None, mode: str = "scalar", body: bool = True,
+                            pin_stage: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of the kernels → (t (S, R), hit (S, R), gid (S, R)
     int32). A stage is taken in slices so that the (S, tiles, slice, 1024)
     intermediates stay bounded. ``stats`` gains, over the stages that ran:
     ``"tests"`` the ray–slot tests (empty slots of a stage included, as the
-    kernel stages them), ``"real_tests"`` those against a triangle, and
+    kernel stages them), ``"real_tests"`` those against a triangle,
     ``"gated"`` those of them past the body's gate (the sign test of the
     volumes, or ``|det| > 1e-9``), after which the division and the rest of
-    the test run."""
+    the test run, and ``"stages"`` the (S, tiles) int32 count of stages that
+    ran. ``mode``, ``body`` and ``pin_stage`` as in :func:`tri_first_hit`."""
     _, S, R = origins_c.shape
     tiles = R // TILE
     T = tris.shape[1]
+    lists = padded_lists(lists)
     chunk, bs = lists.chunk, lists.block
     n_stage = lists.lb.shape[2]
     dev = origins_c.device
@@ -187,15 +276,24 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
     gbest = torch.zeros((S, tiles, TILE), dtype=torch.int64, device=dev)
     step = max(1, min(chunk, _PLAIN_ELEMS // max(S * tiles * TILE, 1)))
     within = torch.arange(bs, device=dev)
+    ran = torch.zeros((S, tiles), dtype=torch.int32, device=dev)
+    test_sv = _test_sv_mx if mode == "mx" else _test_sv
     for ci in range(n_stage):
         worst = torch.clamp(tbest.amax(-1), max=max_depth)
         run = (ci < lists.n_stage) & (lists.lb[:, :, ci] < worst)  # (S, tiles)
+        ran = ran + run.to(torch.int32)
         if stats is not None:
             stats["tests"] = stats.get("tests", 0) + int(run.sum()) * chunk * TILE
-        entry = lists.ids[:, :, ci * chunk // bs:(ci + 1) * chunk // bs].to(torch.int64)
+        ce = 0 if pin_stage else ci
+        entry = lists.ids[:, :, ce * chunk // bs:(ce + 1) * chunk // bs].to(torch.int64)
         gid = torch.where(entry[..., None] < 0, -1, entry[..., None] * bs + within)
         gid = gid.reshape(S, tiles, chunk)
         real = (gid >= 0) & (gid < T)
+        if stats is not None:
+            stats["real_tests"] = (stats.get("real_tests", 0)
+                                   + int((real & run[..., None]).sum()) * TILE)
+        if not body:  # the knocked-out body stages its rows and accepts nothing
+            continue
         gid = torch.where(real, gid, 0)
         for j0 in range(0, chunk, step):
             g = gid[:, :, j0:j0 + step]
@@ -205,19 +303,24 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
                 tk, gate = _test_mt(rows, o, d)
             else:
                 g0, g1, g2, kt = sv_coefficients(rows, tuple(x[..., None] for x in o))
-                tk, gate = _test_sv((*(tuple(x[..., None] for x in g) for g in (g0, g1, g2)),
-                                     kt[..., None]), d)
+                tk, gate = test_sv((*(tuple(x[..., None] for x in g) for g in (g0, g1, g2)),
+                                    kt[..., None]), d)
             live = real[:, :, j0:j0 + step, None]
             if stats is not None:
-                live_run = live & run[:, :, None, None]
-                stats["real_tests"] = stats.get("real_tests", 0) + int(live_run.sum()) * TILE
-                stats["gated"] = stats.get("gated", 0) + int((gate & live_run).sum())
+                stats["gated"] = (stats.get("gated", 0)
+                                  + int((gate & live & run[:, :, None, None]).sum()))
             tk = torch.where(live, tk, BIG)
             best, j = torch.min(tk, dim=2)  # the first minimum of the slice
             better = (best < tbest) & run[..., None]
             gbest = torch.where(better, torch.gather(g, 2, j), gbest)
             tbest = torch.where(better, best, tbest)
-    t = torch.clamp(tbest, 0.0, max_depth).reshape(S, R)
+    if stats is not None:
+        stats["stages"] = ran
+    t = torch.clamp(tbest, 0.0, max_depth)
+    if mode == "merged":  # through the kernel's one block of t and the id as a float
+        block = torch.stack([t, gbest.to(t.dtype)], dim=2)  # (S, tiles, 2, 1024)
+        t, gbest = block[:, :, 0], block[:, :, 1]
+    t = t.reshape(S, R)
     return t, t < max_depth, gbest.reshape(S, R).to(torch.int32)
 
 
@@ -227,22 +330,36 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launchers():
     from ..build import load_library
 
-    fn = load_library("tri_trace").tri_trace_launch
+    lib = load_library("tri_trace")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # tris list nst lb origins dirs t hit gid | S T R n_stage chunk bs origin_tiles |
-    # max_depth | form stream
-    fn.argtypes = [p] * 9 + [i] * 7 + [f, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+    # tris list nst start lb origins dirs t hit gid cnt | S T R n_stage chunk bs
+    # origin_tiles | max_depth | form out knock | stream
+    lib.tri_trace_launch.argtypes = [p] * 11 + [i] * 7 + [f] + [i] * 3 + [p]
+    # tris list nst lb origins dirs t hit gid cnt | S T R n_stage chunk origin_tiles |
+    # max_depth | stream
+    lib.tri_trace_mx_launch.argtypes = [p] * 10 + [i] * 6 + [f, p]
+    for fn in (lib.tri_trace_launch, lib.tri_trace_mx_launch):
+        fn.restype = ctypes.c_int
+    return lib.tri_trace_launch, lib.tri_trace_mx_launch
 
 
 def _check(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor, form: str,
-           origin_tiles: int) -> Tuple[int, int]:
+           origin_tiles: int, mode: str = "scalar", knockout: bool = False) -> Tuple[int, int]:
     if form not in FORMS:
         raise ValueError(f"form must be one of {sorted(FORMS)}; got {form!r}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}; got {mode!r}")
+    if mode != "scalar" and (form != "sv_cam" or lists.start is not None
+                             or lists.chunk != lists.block):
+        raise ValueError(f"mode {mode!r} is a variant of the per-camera body over block lists "
+                         f"(form 'sv_cam', one block a stage); got form {form!r}, chunk "
+                         f"{lists.chunk}, block {lists.block}")
+    if knockout and mode != "merged":
+        raise ValueError("body=False and pin_stage=True knock out parts of the merged kernel "
+                         f"(mode 'merged'); got mode {mode!r}")
     if origins_c.dim() != 3 or origins_c.shape[0] != 3 or dirs_c.shape != origins_c.shape:
         raise ValueError(f"rays must be (3, S, R); got {tuple(origins_c.shape)} and "
                          f"{tuple(dirs_c.shape)}")
@@ -256,18 +373,24 @@ def _check(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor, fo
     if not (1 <= chunk <= MAX_CHUNK and bs >= 1 and chunk % bs == 0):
         raise ValueError(f"a stage takes 1..{MAX_CHUNK} triangles in whole entries; got "
                          f"chunk {chunk}, block {bs}")
+    if mode == "mx" and chunk % 4:
+        raise ValueError(f"the matrix form takes stages of a multiple of 4 triangles; got {chunk}")
     n_stage = lists.lb.shape[-1]
-    if (tuple(lists.lb.shape) != (S, tiles, n_stage)
+    lead = (S,) if lists.start is not None else (S, tiles)
+    if (tuple(lists.lb.shape) != (*lead, n_stage)
             or tuple(lists.n_stage.shape) != (S, tiles)
-            or tuple(lists.ids.shape) != (S, tiles, n_stage * chunk // bs)):
+            or tuple(lists.ids.shape) != (*lead, n_stage * chunk // bs)
+            or (lists.start is not None and tuple(lists.start.shape) != (S, tiles))):
         raise ValueError(f"lists do not fit {S} scenes of {tiles} tiles: ids "
                          f"{tuple(lists.ids.shape)}, n_stage {tuple(lists.n_stage.shape)}, lb "
                          f"{tuple(lists.lb.shape)}")
     if origin_tiles < 1 or tiles % origin_tiles:
         raise ValueError(f"{tiles} tiles are not whole cameras of {origin_tiles} tiles")
-    for x, want in ((tris, torch.float32), (origins_c, torch.float32), (dirs_c, torch.float32),
-                    (lists.lb, torch.float32), (lists.ids, torch.int32),
-                    (lists.n_stage, torch.int32)):
+    typed = [(tris, torch.float32), (origins_c, torch.float32), (dirs_c, torch.float32),
+             (lists.lb, torch.float32), (lists.ids, torch.int32), (lists.n_stage, torch.int32)]
+    if lists.start is not None:
+        typed.append((lists.start, torch.int32))
+    for x, want in typed:
         if x.dtype != want:
             raise TypeError(f"expected {want}, got {x.dtype}")
         if x.device != origins_c.device:
@@ -278,34 +401,65 @@ def _check(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor, fo
 
 
 def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor,
-                  max_depth: float = 20.0, form: str = "mt", origin_tiles: int = 1
-                  ) -> Tuple[Tensor, Tensor, Tensor]:
+                  max_depth: float = 20.0, form: str = "mt", origin_tiles: int = 1,
+                  mode: str = "scalar", count_stages: bool = False, body: bool = True,
+                  pin_stage: bool = False):
     """First hit of rays (3, S, R) over their tiles' lists → (t (S, R),
-    hit (S, R) bool, gid (S, R) int32). CUDA tensors go through the CUDA
-    kernel, CPU tensors through :func:`tri_first_hit_reference`. A launch
-    adds one to ``LAUNCHES[count_name(form, lists.block)]``."""
-    S, R = _check(tris, lists, origins_c, dirs_c, form, origin_tiles)
+    hit (S, R) bool, gid (S, R) int32), and with ``count_stages`` a fourth
+    tensor, the stages executed per tile (S, tiles) int32. CUDA tensors go
+    through a CUDA kernel, CPU tensors through :func:`tri_first_hit_reference`.
+    ``mode`` picks the variant of the per-camera body (module docstring);
+    ``body=False`` and ``pin_stage=True`` are the knock-outs of the merged
+    kernel. A launch adds one to ``LAUNCHES``: a knock-out to
+    ``tri_trace_knockout``, else a counting launch to ``tri_trace_probe``,
+    else to the tier's entry (:func:`count_name`)."""
+    knockout = not body or pin_stage
+    S, R = _check(tris, lists, origins_c, dirs_c, form, origin_tiles, mode, knockout)
     dev = origins_c.device
     if dev.type == "cpu":
-        return tri_first_hit_reference(tris, lists, origins_c, dirs_c, max_depth, form,
-                                       origin_tiles)
-    for x in (tris, lists.ids, lists.n_stage, lists.lb, origins_c, dirs_c):
+        stats = {}
+        out = tri_first_hit_reference(tris, lists, origins_c, dirs_c, max_depth, form,
+                                      origin_tiles, stats, mode, body, pin_stage)
+        return (*out, stats["stages"]) if count_stages else out
+    tensors = [tris, lists.ids, lists.n_stage, lists.lb, origins_c, dirs_c]
+    if lists.start is not None:
+        tensors.append(lists.start)
+    for x in tensors:
         if not x.is_contiguous():
             raise ValueError("the triangle kernel takes contiguous tensors")
-    t = torch.empty((S, R), dtype=torch.float32, device=dev)
-    hit = torch.empty((S, R), dtype=torch.bool, device=dev)
-    gid = torch.empty((S, R), dtype=torch.int32, device=dev)
+    tiles = R // TILE
+    merged = mode == "merged"
+    t = torch.empty((S, tiles, 2, TILE) if merged else (S, R), dtype=torch.float32, device=dev)
+    hit = None if merged else torch.empty((S, R), dtype=torch.bool, device=dev)
+    gid = None if merged else torch.empty((S, R), dtype=torch.int32, device=dev)
+    stages = torch.zeros((S, tiles), dtype=torch.int32, device=dev) if count_stages else None
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     if S and R:
-        launch = _launcher()
-        count = count_name(form, lists.block)
+        launch, launch_mx = _launchers()
+        count = ("tri_trace_knockout" if knockout else "tri_trace_probe" if count_stages
+                 else count_name(form, lists.block, mode, lists.start is not None))
         with torch.cuda.device(dev):
-            rc = launch(tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
-                        lists.lb.data_ptr(), origins_c.data_ptr(), dirs_c.data_ptr(),
-                        t.data_ptr(), hit.data_ptr(), gid.data_ptr(), S, tris.shape[1], R,
-                        lists.lb.shape[2], lists.chunk, lists.block, int(origin_tiles),
-                        float(max_depth), FORMS[form],
-                        torch.cuda.current_stream(dev).cuda_stream)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if mode == "mx":
+                rc = launch_mx(tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
+                               lists.lb.data_ptr(), origins_c.data_ptr(), dirs_c.data_ptr(),
+                               ptr(t), ptr(hit), ptr(gid), ptr(stages), S, tris.shape[1], R,
+                               lists.lb.shape[-1], lists.chunk, int(origin_tiles),
+                               float(max_depth), stream)
+            else:
+                rc = launch(tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
+                            ptr(lists.start), lists.lb.data_ptr(), origins_c.data_ptr(),
+                            dirs_c.data_ptr(), ptr(t), ptr(hit), ptr(gid), ptr(stages), S,
+                            tris.shape[1], R, lists.lb.shape[-1], lists.chunk, lists.block,
+                            int(origin_tiles), float(max_depth), FORMS[form], int(merged),
+                            int(not body) + 2 * int(pin_stage), stream)
             LAUNCHES[count] += 1
         if rc != 0:
             raise RuntimeError(f"{count} kernel launch failed with CUDA error {rc}")
-    return t, hit, gid
+    if merged:
+        t, gid = t[:, :, 0].reshape(S, R), t[:, :, 1].reshape(S, R).to(torch.int32)
+        hit = t < max_depth
+    return (t, hit, gid, stages) if count_stages else (t, hit, gid)

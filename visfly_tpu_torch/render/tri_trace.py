@@ -15,9 +15,17 @@ follow from the id by one gather.
   size: ``T ≤ 2,048`` per-triangle lists; up to ``soup_min_t`` lists of
   Morton-ordered 64-triangle clusters (both through the kernel's signed-volume
   body on camera tiles, Möller–Trumbore otherwise); above it lists of
-  128-triangle blocks, with per-camera signed volumes for whole cameras
-  (``variant="scalar"``) and Möller–Trumbore for other ray sets. Whole
-  cameras wider than 32 pixels are first repacked into 32×32-pixel tiles.
+  128-triangle blocks, with per-camera signed volumes for whole cameras and
+  Möller–Trumbore for other ray sets. Whole cameras wider than 32 pixels
+  are first repacked into 32×32-pixel tiles. ``variant`` picks how that
+  per-camera tier runs, and changes nothing on a mesh or a ray set that
+  does not reach it: ``"scalar"``; ``"merged"`` (one merged output block);
+  ``"mx"`` (the test as a matrix product); ``"wl"`` (16-triangle clusters on
+  a flattened worklist under a budget, against each tile's own origin). The
+  JAX package picks it with a module global; here it is an argument.
+* :func:`stage_stats` and :func:`knockout_trace` — the diagnostics: stages
+  executed per tile, and the per-camera kernel with its body or its staging
+  traffic knocked out.
 * :func:`tri_trace_diff` — differentiable in the rays: the hit surface is a
   plane, so ∂t/∂o = −n/(n·d) and ∂t/∂d = −t·n/(n·d) exactly; no kernel runs
   backward.
@@ -45,6 +53,8 @@ CLUSTER_CULL_MIN_T = 2048  # above: cull whole clusters, not triangles
 SHARED_SOUP_MIN_T = 16384  # above: lists of blocks into the shared soup
 STAGE = 64  # triangles a kernel stage for caps up to 1,024, twice that above
 VARIANTS = ("scalar", "merged", "mx", "wl")
+WL_CLUSTER = 16  # triangles a cull cluster of the worklist tier
+WL_CHUNK = 128  # triangles a worklist stage: eight clusters
 
 
 def default_tri_cap(n_tris: int) -> int:
@@ -382,6 +392,74 @@ def cull_stats(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float
             "overflow_frac": float((c > cap).mean())}
 
 
+def _exact_aabb_lists(tris: Tensor, origins_c: Tensor, lists: TileLists) -> TileLists:
+    """Block lists with each block's bound replaced by the distance from the
+    tile's apex to the block's box, written per axis, less the spread of the
+    tile's origins, and the list sorted again by that bound."""
+    S, T = tris.shape[0], tris.shape[1]
+    cluster = lists.block
+    n_tiles = origins_c.shape[2] // TILE
+    v = tris.reshape(S, T // cluster, cluster, 3, 3)
+    clo, chi = v.amin((2, 3)), v.amax((2, 3))
+    apex, spread = _apex_spread(origins_c, S, n_tiles)
+    cen, half = (clo + chi) * 0.5, (chi - clo) * 0.5
+    dd = torch.clamp((cen[:, None] - apex[:, :, None]).abs() - half[:, None], min=0.0)
+    lb_all = torch.clamp(_norm3(dd) - spread[..., None], min=0.0)
+    ids = lists.ids.to(torch.int64)
+    lb = torch.where(lists.lb < BIG, torch.gather(lb_all, 2, ids), BIG)  # unseen blocks stay last
+    order = torch.argsort(lb, dim=-1, stable=True)
+    return lists._replace(ids=torch.gather(ids, 2, order).to(torch.int32).contiguous(),
+                          lb=torch.gather(lb, 2, order).contiguous())
+
+
+def stage_stats(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
+                cap: Optional[int] = None, img_w: Optional[int] = None,
+                exact_aabb: bool = False) -> dict:
+    """How well the occlusion early-out works on block lists into the soup:
+    mean, p50, p90 and max of the stages a tile executes, beside the mean of
+    the blocks it sees, and the share of rays that hit (the counterpart of
+    ``examples/_tri_probe.py::probe``: the Möller–Trumbore body over 64- or
+    128-triangle blocks, ``cap`` by default the whole mesh). ``exact_aabb``
+    swaps in the per-axis box distance as the bound and sorts by it. Also
+    returns ``"stages"`` (S, tiles) int32, ``"t"`` and ``"hit"``."""
+    T = tris.shape[1]
+    o_c, d_c = origins_c.detach().contiguous(), dirs_c.detach().contiguous()
+    prepass = _cluster_ids_prepass(tris, o_c, d_c, max_depth, T if cap is None else min(cap, T),
+                                   img_w)
+    lists, visible = _as_block_lists(*prepass), prepass[1]
+    if exact_aabb:
+        lists = _exact_aabb_lists(tris, o_c, lists)
+    t, hit, _, stages = tri_first_hit(tris, lists, o_c, d_c, max_depth, "mt", 1,
+                                      count_stages=True)
+    c = stages.cpu().numpy()
+    return {"mean": float(c.mean()), "p50": float(np.percentile(c, 50)),
+            "p90": float(np.percentile(c, 90)), "max": int(c.max()),
+            "visible_mean": float(visible.float().mean()), "n_stage": int(lists.lb.shape[2]),
+            "hit_frac": float(hit.float().mean()), "stages": stages, "t": t, "hit": hit}
+
+
+def knockout_trace(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
+                   cap: int = 256, img_w: Optional[int] = None, cam_rays: Optional[int] = None,
+                   backface: bool = False, body: bool = True, pin_stage: bool = False,
+                   plan: Optional[TilePlan] = None) -> Tensor:
+    """t (S, R), in tile order, of the merged per-camera kernel with parts
+    knocked out (the counterpart of ``examples/_tri_kernel_exp.py::
+    camsoup_exp``): ``body=False`` keeps the guard and the staging and removes
+    the tests, so every ray ends at ``max_depth``; ``pin_stage=True`` makes
+    every stage load the list's first block, so t is the first hit over that
+    block alone. The rays must be whole cameras on a mesh of whole
+    64-triangle clusters (the per-camera tier is forced, whatever the mesh
+    size); ``plan`` reuses a prepass."""
+    if plan is None:
+        plan = plan_tiles(tris, origins_c, dirs_c, max_depth, cap, img_w, cam_rays, backface,
+                          soup_min_t=0, variant="merged")
+    if plan.form != "sv_cam":
+        raise ValueError("the knock-outs belong to the per-camera tier: rays must be whole "
+                         f"cameras and the mesh whole {CLUSTER}-triangle clusters")
+    return tri_first_hit(tris, plan.lists, plan.origins_c, plan.dirs_c, max_depth, plan.form,
+                         plan.origin_tiles, "merged", body=body, pin_stage=pin_stage)[0]
+
+
 # ---------------------------------------------------------------------------
 # the tiers
 # ---------------------------------------------------------------------------
@@ -409,12 +487,73 @@ def tile_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float
 def block_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float, cap: int,
                 img_w: Optional[int], backface: bool) -> TileLists:
     """The dense tiers' prepass as the kernel takes it: one block a stage."""
-    cids, counts, lb_c, cluster = _cluster_ids_prepass(tris, origins_c, dirs_c, max_depth, cap,
-                                                       img_w, backface)
+    return _as_block_lists(*_cluster_ids_prepass(tris, origins_c, dirs_c, max_depth, cap, img_w,
+                                                 backface))
+
+
+def _as_block_lists(cids: Tensor, counts: Tensor, lb_c: Tensor, cluster: int) -> TileLists:
     if cluster > MAX_CHUNK:
         raise ValueError(f"blocks of {cluster} triangles exceed a stage of {MAX_CHUNK}")
     nst = torch.clamp(counts, 1, cids.shape[2]).to(torch.int32)
     return TileLists(cids.contiguous(), nst, lb_c.contiguous(), cluster, cluster)
+
+
+def worklist_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float, cap: int,
+                   img_w: Optional[int], backface: bool,
+                   work_budget: Optional[int] = None) -> TileLists:
+    """The worklist tier's prepass (plain PyTorch, as it is plain XLA in
+    ``_tri_trace_pallas_worklist``) → a CSR :class:`TileLists`.
+
+    Clusters of ``WL_CLUSTER`` triangles are culled per tile and kept nearest
+    first, eight to a stage of ``WL_CHUNK``; a stage's bound is the least of
+    its clusters'. A scene has ``tiles · W`` stages to give out, ``W`` the
+    budget ``work_budget`` (default a third of a tile's cap in stages, at
+    least 8): every tile gets one stage and, of the stages it still needs, the
+    share ``min(1, free / needed)`` rounded down, so an over-budget scene drops
+    each tile's farthest stages (far geometry turns into background, never the
+    reverse). ``start`` is the prefix sum of the quotas. Slots past a tile's
+    count of visible clusters are empty (−1). The JAX function splits a scene's
+    tiles into groups that fit its scalar memory and budgets each group on
+    its own; here a scene is one group."""
+    S, T = tris.shape[0], tris.shape[1]
+    tiles = origins_c.shape[2] // TILE
+    cluster, per = WL_CLUSTER, WL_CHUNK // WL_CLUSTER
+    C = T // cluster
+    dev = tris.device
+    lo, hi = _tile_aabb(origins_c, dirs_c, max_depth)
+    active, dist, lb_all = _cluster_activity(tris, origins_c, dirs_c, lo, hi, img_w,
+                                             cluster=cluster, backface=backface)
+    cap_c = max(1, min(cap, T) // cluster)
+    cap_c = min(-(-cap_c // per) * per, -(-C // per) * per)
+    n_chunks = cap_c // per
+    cids = _nearest_first(active, dist, min(cap_c, C))
+    if cap_c > C:  # the cap holds more clusters than the mesh has
+        cids = torch.nn.functional.pad(cids, (0, cap_c - C))
+    counts = torch.clamp(active.sum(-1), max=cap_c)  # (S, tiles)
+    in_count = torch.arange(cap_c, device=dev) < counts[..., None]
+    lb_c = torch.where(in_count, torch.gather(lb_all, 2, cids), BIG)
+    cids = torch.where(in_count, cids, -1)
+    lb_ch = lb_c.reshape(S, tiles, n_chunks, per).amin(-1)
+    cnt_ch = torch.clamp(-(-counts // per), 1, n_chunks)
+
+    W = min(work_budget or max(8, n_chunks // 3), n_chunks)
+    NW = tiles * W
+    extra = (cnt_ch - 1).to(torch.float32)
+    scale = torch.clamp((NW - tiles) / torch.clamp(extra.sum(-1, keepdim=True), min=1.0), max=1.0)
+    quota = 1 + torch.floor(extra * scale).to(torch.int64)  # (S, tiles)
+    start = torch.cumsum(quota, dim=-1) - quota
+    total = start[:, -1] + quota[:, -1]  # (S,)
+    e = torch.arange(NW, device=dev).expand(S, NW)
+    tile_of = torch.searchsorted(start, e.contiguous(), right=True) - 1
+    within = e - torch.gather(start, 1, tile_of)
+    valid = e < total[:, None]
+    stage = tile_of * n_chunks + torch.clamp(within, max=n_chunks - 1)  # into (tiles, n_chunks)
+    lb_w = torch.where(valid, torch.gather(lb_ch.reshape(S, -1), 1, stage), BIG)
+    slot = (stage[..., None] * per + torch.arange(per, device=dev)).reshape(S, NW * per)
+    ids_w = torch.gather(cids.reshape(S, -1), 1, slot)
+    ids_w = torch.where(valid.repeat_interleave(per, dim=-1), ids_w, -1)
+    return TileLists(ids_w.to(torch.int32).contiguous(), quota.to(torch.int32).contiguous(),
+                     lb_w.contiguous(), WL_CHUNK, cluster, start.to(torch.int32).contiguous())
 
 
 class TilePlan(NamedTuple):
@@ -428,12 +567,16 @@ class TilePlan(NamedTuple):
     form: str  # "mt" | "sv_tile" | "sv_cam"
     origin_tiles: int  # tiles that share one origin
     unpack: Optional[Callable[[Tensor], Tensor]]  # (S, R, ...) tile order → caller's order
+    mode: str = "scalar"  # the variant of the per-camera body: "scalar" | "merged" | "mx"
 
 
 def plan_tiles(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
                cap: int = 256, img_w: Optional[int] = None, cam_rays: Optional[int] = None,
-               backface: bool = False, soup_min_t: int = SHARED_SOUP_MIN_T) -> TilePlan:
+               backface: bool = False, soup_min_t: int = SHARED_SOUP_MIN_T,
+               variant: str = "scalar", work_budget: Optional[int] = None) -> TilePlan:
     """The repack, the tier and its cull prepass for rays (3, S, R)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}; got {variant!r}")
     _, S, R = origins_c.shape
     if R % TILE:
         raise ValueError(f"rays per scene ({R}) must be a multiple of {TILE}")
@@ -458,9 +601,12 @@ def plan_tiles(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float
 
     o_c, d_c = o_c.contiguous(), d_c.contiguous()
     if T > soup_min_t and T % CLUSTER == 0:
+        if whole_cams and variant == "wl":
+            lists = worklist_lists(tris, o_c, d_c, max_depth, cap, img_w, backface, work_budget)
+            return TilePlan(o_c, d_c, lists, "sv_tile", 1, unpack)
         lists = block_lists(tris, o_c, d_c, max_depth, cap, img_w, backface)
         if whole_cams:
-            return TilePlan(o_c, d_c, lists, "sv_cam", cam_rays // TILE, unpack)
+            return TilePlan(o_c, d_c, lists, "sv_cam", cam_rays // TILE, unpack, variant)
         return TilePlan(o_c, d_c, lists, "mt", 1, unpack)
     lists = tile_lists(tris, o_c, d_c, max_depth, cap, img_w, backface)
     if img_w is not None:  # camera tiles have one origin each
@@ -471,25 +617,21 @@ def plan_tiles(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float
 def tri_trace_tiled(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
                     cap: int = 256, img_w: Optional[int] = None,
                     cam_rays: Optional[int] = None, backface: bool = False,
-                    soup_min_t: int = SHARED_SOUP_MIN_T, variant: str = "scalar"
+                    soup_min_t: int = SHARED_SOUP_MIN_T, variant: str = "scalar",
+                    work_budget: Optional[int] = None
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """(S, T, 9) × (3, S, R) → (t (S, R), hit (S, R), normal (S, R, 3),
     id (S, R) int32); R a multiple of 1,024. ``img_w`` says that a tile is
     whole rows of one camera (wedge cull, one origin a tile); ``cam_rays``
     (H·W, rays arriving as whole row-major cameras) unlocks the 32×32-pixel
     repack and, above ``soup_min_t``, the per-camera signed volumes.
-    ``variant`` picks the body of that last tier; only ``"scalar"`` exists
-    here."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}; got {variant!r}")
-    if variant != "scalar":
-        raise NotImplementedError(
-            f"the {variant!r} body of the dense camera tier is not ported yet (ROADMAP: "
-            "Queue B rows B7a-c, variants of the per-camera kernel)")
+    ``variant`` picks how that last tier runs (module docstring) and
+    ``work_budget`` the stages a tile of its ``"wl"`` variant gets on
+    average."""
     plan = plan_tiles(tris, origins_c, dirs_c, max_depth, cap, img_w, cam_rays, backface,
-                      soup_min_t)
+                      soup_min_t, variant, work_budget)
     t, hit, gid = tri_first_hit(tris, plan.lists, plan.origins_c, plan.dirs_c, max_depth,
-                                plan.form, plan.origin_tiles)
+                                plan.form, plan.origin_tiles, plan.mode)
     out = (t, hit, normals_from_gid(tris, gid, plan.dirs_c.permute(1, 2, 0), hit), gid)
     return out if plan.unpack is None else tuple(plan.unpack(y) for y in out)
 
@@ -507,8 +649,9 @@ class _TriTraceIFT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, origins_c, dirs_c, tris, kw):
         if kw["tiled"]:
-            out = tri_trace_tiled(tris, origins_c, dirs_c, kw["max_depth"], kw["cap"], kw["img_w"],
-                            kw["cam_rays"], kw["backface"], kw["soup_min_t"], kw["variant"])
+            out = tri_trace_tiled(tris, origins_c, dirs_c, kw["max_depth"], kw["cap"],
+                                  kw["img_w"], kw["cam_rays"], kw["backface"], kw["soup_min_t"],
+                                  kw["variant"], kw["work_budget"])
         else:
             out = tri_trace_brute(tris, origins_c.permute(1, 2, 0), dirs_c.permute(1, 2, 0),
                                   kw["max_depth"])
@@ -529,12 +672,14 @@ class _TriTraceIFT(torch.autograd.Function):
 def tri_trace_diff(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
                    cap: int = 256, img_w: Optional[int] = None, tiled: bool = True,
                    cam_rays: Optional[int] = None, backface: bool = False,
-                   soup_min_t: int = SHARED_SOUP_MIN_T, variant: str = "scalar"
+                   soup_min_t: int = SHARED_SOUP_MIN_T, variant: str = "scalar",
+                   work_budget: Optional[int] = None
                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Differentiable trace → (t, hit, normal, id), the counterpart of
     ``tri_trace_diff`` (``tiled`` is its ``use_pallas``). Gradients reach
     ``origins_c`` and ``dirs_c`` through t: ∂t/∂o = −n/(n·d),
     ∂t/∂d = −t·n/(n·d), zero where the ray missed or |n·d| ≤ 1e-3."""
     kw = dict(max_depth=max_depth, cap=cap, img_w=img_w, tiled=tiled, cam_rays=cam_rays,
-              backface=backface, soup_min_t=soup_min_t, variant=variant)
+              backface=backface, soup_min_t=soup_min_t, variant=variant,
+              work_budget=work_budget)
     return _TriTraceIFT.apply(origins_c, dirs_c, tris, kw)

@@ -65,13 +65,15 @@ def sample_sdf(data, sid: Tensor, p: Tensor) -> Tensor:
 
 def sdf_normal(data, sid: Tensor, p: Tensor, eps: float = None) -> Tensor:
     """Outward unit normal: the autograd gradient of the SDF for a
-    PrimitiveScene (no gradient history on the result), central differences
+    PrimitiveScene (differentiable in ``p`` where ``p`` asks for gradients,
+    else with no gradient history), central differences
     of the trilinear field, half a cell wide unless ``eps`` says otherwise,
     for a SceneData."""
     if isinstance(data, PrimitiveScene):
         with torch.enable_grad():
-            q = p.detach().requires_grad_(True)
-            (g,) = torch.autograd.grad(torch.sum(sample_sdf(data, sid, q)), q)
+            q = p if p.requires_grad else p.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(torch.sum(sample_sdf(data, sid, q)), q,
+                                       create_graph=p.requires_grad)
         return g / (torch.linalg.vector_norm(g, dim=-1, keepdim=True) + 1e-9)
     h = data.spacing * 0.5 if eps is None else eps
     n = []
