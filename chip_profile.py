@@ -7,7 +7,7 @@ time of a step, so the idle share is taken against the step time clocked
 without it.
 
     python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [sv] [probe] [floor]
-                                                                    # default: A C
+                            [split]                                 # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
 and 3 times (360, 5,760 and 23,040 triangles); they also clock the parts of
@@ -41,6 +41,19 @@ mesh, with the sphere bound and with the exact box bound (``exact_aabb``).
 ``floor``: the merged per-camera kernel's time with its body and its staging
 traffic knocked out, which splits it into launch and barrier floor, staging
 and arithmetic.
+
+``split`` is the evidence for the triangle kernel's split of a tile over a
+cluster of k blocks, for every use of it on path D: B4 at 360 and 5,760
+triangles, and at 23,040 the soup tier B5 (48×48 rays), the per-camera tier
+B6 and its variants B7a (merged) and B7c (the worklist) on 64×64 rays. Per
+use: the kernel's time at each k up to 8 beside the k the wrapper picks, the
+stages executed per tile (mean, p90, max, summed over a tile's blocks; k = 1
+is the B8a count), every k held to k = 1 to the bit (ids where the ray hits).
+Besides: the registers and blocks an SM of each instantiation, what the
+compiler made of the bodies (``cuobjdump -sass``: instructions, branches,
+reciprocals), and the kernel's fused per-test products beside the unfused
+plain version, each against a float64 brute force on 8 cameras with lists of
+the whole mesh, the garage moved 0, 20 and 40 m from the origin.
 
 Every line ends with the card's name and power limit.
 """
@@ -237,6 +250,143 @@ def floor(env, card):
               f"{full - nobody:.4f} ms | {card}", flush=True)
 
 
+# the instantiations of tri_trace_kernel: (form, mode, knock-out bits)
+INSTANTIATIONS = {"kMT (B4 mt, B5, B8a)": ("mt", "scalar", 0),
+                  "kSV (B4 sv, B6, B7c)": ("sv_cam", "scalar", 0),
+                  "kSV merged (B7a)": ("sv_cam", "merged", 0),
+                  "kSV merged, body off (B8b)": ("sv_cam", "merged", 1),
+                  "kSV merged, stage pinned (B8b)": ("sv_cam", "merged", 2),
+                  "kSV merged, both (B8b)": ("sv_cam", "merged", 3)}
+
+
+def build_report(card):
+    """The ptxas register counts of the triangle library, and per
+    instantiation of tri_trace_kernel: SASS instructions, branches,
+    predicated instructions, reciprocals, and the float32 multiplies, adds
+    and fused multiply-adds."""
+    from visfly_tpu_torch.build import library_path, nvcc_path
+
+    with open(os.path.join(os.path.dirname(library_path("tri_trace")), "build.log")) as f:
+        regs = [ln.split("Used")[1].split(",")[0].strip() for ln in f if "Used" in ln]
+    print(f"split | ptxas: {', '.join(regs)} | {card}", flush=True)
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library_path("tri_trace")],
+                          capture_output=True, text=True, check=True).stdout
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        if "tri_trace_kernel" not in name:
+            continue
+        ins = [ln.split("*/", 1)[1].strip() for ln in block.splitlines()
+               if ln.strip().startswith("/*") and "*/" in ln and ";" in ln]
+        ops = [x.split()[1] if x.startswith("@") else x.split()[0] for x in ins]
+        n = {k: sum(o.startswith(k) for o in ops) for k in
+             ("BRA", "BSSY", "MUFU.RCP", "FFMA", "FMUL", "FADD", "FSETP")}
+        pred = sum(x.startswith("@") for x in ins)
+        args = name.split("tri_trace_kernel")[1][:24]
+        print(f"split | sass tri_trace_kernel{args}: {len(ins)} instructions, {pred} predicated, "
+              + ", ".join(f"{k} {v}" for k, v in n.items()) + f" | {card}", flush=True)
+
+
+def split_sweep(use, args, plan, stats, n_rays, card):
+    """One kernel use at every k the wrapper could take, each held to k = 1
+    (``chip_smoke.same_result``): the kernel's time, its share of the bound and
+    the stages executed a tile, summed over its blocks."""
+    from visfly_tpu_torch.render import tri_first_hit
+    from visfly_tpu_torch.render import tri_kernel as tk
+
+    lists, mode = plan.lists, plan.mode
+    b_ms, b_by, _ = cs.tri_bound_ms(plan.form, stats, n_rays, lists, plan.form == "mt",
+                                    8 if mode == "merged" else 9)
+    chosen = tk.default_split(lists, plan.form, mode, plan.dirs_c.device)
+    tiles, n_stage = lists.n_stage.numel(), lists.lb.shape[-1]
+    if lists.start is not None:
+        n_stage = max(1, n_stage // tiles)
+    print(f"split | {use} at {n_rays} rays: {tiles} tiles of up to {lists.lb.shape[-1]} stages"
+          f"{' (CSR)' if lists.start is not None else ''}, bound {b_ms:.4f} ms by {b_by}, the "
+          f"wrapper picks k = {chosen} | {card}", flush=True)
+    base = tri_first_hit(*args, mode=mode, split=1, count_stages=True)
+    for k in range(1, min(tk.MAX_SPLIT, n_stage) + 1):
+        out = tri_first_hit(*args, mode=mode, split=k, count_stages=True)
+        cs.check(cs.same_result(out, base), f"{use}: k = {k} differs from k = 1")
+        c = out[3].float()
+        ms = cs.cuda_ms(lambda: tri_first_hit(*args, mode=mode, split=k))
+        print(f"split | {use} k={k}{' (picked)' if k == chosen else ''}: kernel {ms:.4f} ms, "
+              f"share of bound {b_ms / ms:.3f}; stages executed a tile, summed over its blocks: "
+              f"mean {float(c.mean()):.2f} p90 {float(c.quantile(0.9)):.0f} max {int(c.max())} "
+              f"(k = 1: mean {float(base[3].float().mean()):.2f}); equal to k = 1 | {card}",
+              flush=True)
+
+
+def split(envs, card):
+    """The triangle kernel's split of a tile over a cluster of k blocks, for
+    every use of it on path D (``envs``: subdivision level -> env); and the
+    fused per-test products against the unfused plain version and a float64
+    brute force."""
+    from visfly_tpu_torch.render import (default_tri_cap, tri_first_hit, tri_first_hit_reference,
+                                         tri_trace_brute)
+    from visfly_tpu_torch.render import tri_kernel as tk
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    for name, (form, mode, knock) in INSTANTIATIONS.items():
+        occ = tk.occupancy(form, mode, knock)
+        print(f"split | {name}: {occ['regs']} registers, {occ['threads']} threads a block, "
+              f"{occ['blocks_per_sm']} blocks an SM of {occ['sms']}; resident blocks by k "
+              f"{occ['slots']} | {card}", flush=True)
+    build_report(card)
+
+    for level, env in envs.items():
+        dev = env.device
+        state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
+        tris = env.scene.triangles
+        T = tris.shape[1]
+        cap = default_tri_cap(T)
+        sensors = [(i, None) for i in range(len(env.sensor_kwargs))]
+        if level == 3:  # B7a and B7c on the 64×64 rays
+            sensors += [(0, "merged"), (0, "wl")]
+        for sensor, variant in sensors:
+            o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, sensor)
+            plan = plan_tiles(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w, cam_rays,
+                              variant=variant or "scalar")
+            args = (tris, plan.lists, plan.origins_c, plan.dirs_c, cs.MAX_DEPTH, plan.form,
+                    plan.origin_tiles)
+            use = tk.count_name(plan.form, plan.lists.block, plan.mode,
+                                plan.lists.start is not None)
+            stats = {}
+            tri_first_hit_reference(*args, stats=stats, mode=plan.mode)
+            split_sweep(f"{use} T={T}", args, plan, stats, o_c.shape[2], card)
+
+    # the fused kernel and its unfused plain version against a float64 brute
+    # force, on 8 cameras with lists of the whole mesh
+    env = envs[3]
+    state, _ = env.reset(torch.Generator(device=env.device).manual_seed(0))
+    tris = env.scene.triangles
+    T = tris.shape[1]
+    for sensor in (1, 0):  # B5 on the 48×48 rays, B6 on the 64×64 ones
+        o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, sensor)
+        r8 = 8 * (cam_rays or 48 * 48)
+        o8, d8 = o_c[:, :, :r8].contiguous(), d_c[:, :, :r8].contiguous()
+        for off in (0.0, 20.0, 40.0):
+            shift = torch.tensor([off, off, 0.0], device=env.device)
+            tr = (tris.reshape(1, T, 3, 3) + shift).reshape(1, T, 9).contiguous()
+            oc = (o8 + shift[:, None, None]).contiguous()
+            t64, hit64, _, _ = tri_trace_brute(tr.double(), oc.double().permute(1, 2, 0),
+                                               d8.double().permute(1, 2, 0), cs.MAX_DEPTH,
+                                               max_elems=1 << 22)
+            p8 = plan_tiles(tr, oc, d8, cs.MAX_DEPTH, T, img_w, cam_rays)
+            a8 = (tr, p8.lists, p8.origins_c, p8.dirs_c, cs.MAX_DEPTH, p8.form, p8.origin_tiles)
+            unpack = p8.unpack or (lambda y: y)
+            line = []
+            for who, fn in (("kernel (fused)", tri_first_hit),
+                            ("plain version (unfused)", tri_first_hit_reference)):
+                t, hit = (unpack(x) for x in fn(*a8)[:2])
+                e = (t.double() - t64).abs()[hit & hit64]
+                line.append(f"{who} max|dt|={float(e.max()):.3e} m, mean {float(e.mean()):.3e} "
+                            f"m, hit flags differ on {float((hit != hit64).double().mean()):.3e}")
+            print(f"split | {tk.count_name(p8.form, p8.lists.block)} T={T} offset {off:.0f} m vs "
+                  f"float64 brute force on 8 cameras, lists of the whole mesh: {'; '.join(line)} | "
+                  f"{card}", flush=True)
+
+
 def page_algebra_t(tris, cam_o, dirs, max_depth, slab=2048):
     """First hit by signed volumes with the expanded per-camera coefficients
     ``g0 = b×c + o×(b − c)``, ``g1``, ``g2`` alike, ``kt = (a − o)·g0``, every
@@ -325,6 +475,8 @@ def main(argv):
             probe(garage_env(3), card)
         elif name == "floor":
             floor(garage_env(3), card)
+        elif name == "split":
+            split({level: garage_env(level) for level in (0, 2, 3)}, card)
         elif name == "E":
             profile_bptt("path E", BPTT(cs.hover_grad_env(dev), horizon=32), card)
         elif name == "F":

@@ -53,7 +53,11 @@ Phases, one line each; any failure exits non-zero:
    1,048,576 (64×64) and 589,824 (48×48) rays against its plain version (same
    limits, ids compared on hits), against the brute force on 8 cameras with
    lists that hold the whole mesh (ids compared where the two winners are
-   not tied), its gradient, and its time apart from the prepass's; the three
+   not tied), its gradient, and its time apart from the prepass's; at 23,040
+   triangles the soup (B5) and per-camera (B6) tiers at the split k the
+   wrapper picks (a tile's stages over a cluster of k blocks) against k = 1
+   (same limits), the time at both, the stages executed a tile summed over
+   its blocks and the blocks an SM of the occupancy query; the three
    variants of the per-camera tier at 23,040 triangles against their plain
    versions, against ``"scalar"`` and against the brute force (same limits;
    the worklist at its default budget held to "no nearer hit"); the stages
@@ -104,18 +108,21 @@ PEAK_FP32_PER_S = 67e12
 # float32 operations of one row, a division or square root counted as the
 # 8-instruction sequence it compiles to, everything else as 1
 OPS = {"box_hit": 100, "cap_hit": 185, "box_sdf": 41, "cap_sdf": 49}
-# float32 arithmetic of one ray-triangle test, in two parts: what every test
-# against a triangle needs to reach its gate, and what only a test past the
-# gate needs. Signed volumes: three dot products and the three sign products
-# (18), then the sum, one division (counted as 8) and one product (11). Moeller-Trumbore: a
-# cross and a dot product up to |det| (14), then one division, a difference, a
-# cross product, three dot products, three products and a sum (39).
+# float32 arithmetic of one ray-triangle test, in three parts: what every
+# test against a triangle needs to reach its first gate, what a test past that
+# gate needs to reach its division, and what only a test that divides needs.
+# Signed volumes: three dot products and the three sign products (18), then
+# the sum, one division (counted as 8) and one product (11); the sign test is
+# the gate of the division. Moeller-Trumbore: a cross and a dot product up to
+# |det| (14); then a difference, a cross product, two dot products and the
+# two products of the sign test of u and v (24); then one division, three
+# products, a dot product and a sum (17).
 # Comparisons and selects are left out, as are a stage's empty slots.
 # The matrix form is the same function and is charged the same: the products
 # of its padded W = D.G with G's structural zeros and with the constant 1
 # (31 operations to the gate as the kernel does them) are overhead, not work
 # the function needs.
-TRI_OPS = {"sv_tile": (18, 11), "sv_cam": (18, 11), "mt": (14, 39)}
+TRI_OPS = {"sv_tile": (18, 0, 11), "sv_cam": (18, 0, 11), "mt": (14, 24, 17)}
 # path D: subdivision level -> (triangles, the sensors' (uuid, resolution), the
 # kernel use each sensor must launch once per render)
 MESH_SENSORS = {"depth": (64, 64), "depth48": (48, 48)}
@@ -577,15 +584,18 @@ def tri_bound_ms(ops_key, stats, n_rays, lists, per_ray_origins=False, out_bytes
     """The triangle kernel's bound on this run's data → (ms, by what, ms by
     bytes). Bytes: directions in (and origins, for the per-ray body), the
     outputs, the walked lists, and every staged triangle row once a tile;
-    operations: the tests on real triangles up to the body's gate, and the rest
-    of the test only for those past it."""
+    operations: the tests on real triangles up to the body's gate, the next
+    part for those past it, and the division and the rest only for those that
+    divide (``TRI_OPS``)."""
     n_bytes = (n_rays * (12 + (12 if per_ray_origins else 0) + out_bytes)
                + stats["real_tests"] / 1024 * 36
                + stats["tests"] / 1024 * 4.0 / lists.block + lists.lb.numel() * 4
                + lists.n_stage.numel() * 4 * (1 if lists.start is None else 2))
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    to_gate, past_gate = TRI_OPS[ops_key] if ops_key else (0, 0)
-    by_ops = (stats["real_tests"] * to_gate + stats["gated"] * past_gate) / PEAK_FP32_PER_S * 1e3
+    to_gate, past_gate, divide = TRI_OPS[ops_key] if ops_key else (0, 0, 0)
+    ops = (stats["real_tests"] * to_gate + stats["gated"] * past_gate
+           + stats["divided"] * divide)
+    by_ops = ops / PEAK_FP32_PER_S * 1e3
     return (by_bytes, "bytes", by_bytes) if by_bytes >= by_ops else (by_ops, "operations",
                                                                       by_bytes)
 
@@ -693,6 +703,8 @@ def variant_phase(env, state, card, errs, timing):
               f"{b_ms:.4f} ms by {b_by} (bytes {by_bytes:.4f}), share of bound {b_ms / ms:.3f}; "
               f"{stats['real_tests'] / n_rays:.1f} tests a ray on triangles, "
               f"{stats['gated'] / n_rays:.2f} past the gate | {card}", flush=True)
+        if variant != "mx":  # the matrix form walks a tile as one block
+            split_report(mode, f"T={T} 64x64", args, plan, ms, b_ms, card)
         errs[mode] = err
         timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -753,7 +765,7 @@ def variant_phase(env, state, card, errs, timing):
             if (body, pin) == (False, False):
                 plain_ms = cuda_ms(lambda: tri_first_hit_reference(
                     *args, mode="merged", body=False), reps=3, warmup=1)
-                b_ms, b_by, _ = tri_bound_ms(None, dict(stats, gated=0), n_rays, merged.lists,
+                b_ms, b_by, _ = tri_bound_ms(None, stats, n_rays, merged.lists,
                                              out_bytes=8)  # the real rows staged, no operation
                 errs["tri_trace_knockout"] = err
                 timing["tri_trace_knockout"] = dict(ms=floor[(body, pin)], plain_ms=plain_ms,
@@ -764,6 +776,36 @@ def variant_phase(env, state, card, errs, timing):
           f"votes and barriers {neither:.4f} ms; staging the walked blocks {nobody - neither:.4f} "
           f"ms; arithmetic {full - nobody:.4f} ms (pinned stage with the body: {pinned:.4f} ms) | "
           f"{card}", flush=True)
+
+
+def same_result(a, b):
+    """Two (t, hit, gid) results equal as the split promises: t and hit to
+    the bit, ids where the ray hits (a miss's id is whatever its walk kept)."""
+    import torch
+
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and torch.equal(a[2][b[1]], b[2][b[1]]))
+
+
+def split_report(mode, case, args, plan, ms, b_ms, card):
+    """The wrapper's split k of one kernel use against k = 1: equal to it
+    (:func:`same_result`), their times, the stages executed a tile summed over
+    its blocks, and the blocks an SM the occupancy query gives."""
+    from visfly_tpu_torch.render import tri_first_hit
+    from visfly_tpu_torch.render.tri_kernel import default_split, occupancy
+
+    k = default_split(plan.lists, plan.form, plan.mode, args[2].device)
+    occ = occupancy(plan.form, plan.mode)
+    one = tri_first_hit(*args, mode=plan.mode, split=1, count_stages=True)
+    at_k = tri_first_hit(*args, mode=plan.mode, split=k, count_stages=True)
+    check(same_result(at_k, one), f"{mode} {case}: k = {k} differs from k = 1")
+    ms_1 = cuda_ms(lambda: tri_first_hit(*args, mode=plan.mode, split=1))
+    print(f"phase 3 | {mode} {case} split: k = {k} blocks a tile, {occ['blocks_per_sm']} blocks "
+          f"an SM of {occ['sms']} ({occ['regs']} registers); kernel {ms:.4f} ms at k = {k}, "
+          f"{ms_1:.4f} ms at k = 1; stages executed a tile summed over its blocks mean "
+          f"{float(at_k[3].float().mean()):.2f} (k = 1: {float(one[3].float().mean()):.2f}); "
+          f"share of bound {b_ms / ms:.3f} (k = 1: {b_ms / ms_1:.3f}); equal to k = 1 | {card}",
+          flush=True)
 
 
 def triangle_phase(level, env, state, card, errs, timing):
@@ -804,8 +846,8 @@ def triangle_phase(level, env, state, card, errs, timing):
               f"stages<= {lists.lb.shape[2]} of {lists.chunk} hit={float(hit_k.float().mean()):.4f} "
               f"max|dt|={err:.3e} m hit_mismatch={flip:.3e} id_mismatch={gid_off:.3e} | "
               f"{stats['tests'] / n_rays:.1f} slots a ray staged, {stats['real_tests'] / n_rays:.1f} "
-              f"tests a ray on triangles, {stats['gated'] / n_rays:.2f} past the gate, tiles at "
-              f"their cap {overflow:.4f}",
+              f"tests a ray on triangles, {stats['gated'] / n_rays:.2f} past the gate, "
+              f"{stats['divided'] / n_rays:.2f} divide, tiles at their cap {overflow:.4f}",
               flush=True)
         check(err <= T_TOL, f"{mode} T={T}: max |dt| {err} > {T_TOL}")
         check(flip <= HIT_TOL, f"{mode} T={T}: hit mismatch {flip} > {HIT_TOL}")
@@ -854,7 +896,7 @@ def triangle_phase(level, env, state, card, errs, timing):
               f"{mode} T={T}: gradient zero or not finite")
         check(rel <= GRAD_TOL, f"{mode} T={T}: gradient differs by {rel} > {GRAD_TOL}")
 
-        ms = cuda_ms(lambda: tri_first_hit(*args))
+        ms = cuda_ms(lambda: tri_first_hit(*args))  # at the split the wrapper picks
         prepass_ms = cuda_ms(lambda: plan_tiles(tris, o_c, d_c, MAX_DEPTH, cap, img_w, cam_rays),
                              reps=10)
         plain_ms = cuda_ms(lambda: tri_first_hit_reference(*args), reps=3, warmup=1)
@@ -863,6 +905,8 @@ def triangle_phase(level, env, state, card, errs, timing):
               f"{prepass_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
               f"(bytes {by_bytes:.4f}); gradient max relative difference {rel:.3e} | {card}",
               flush=True)
+        # a tile's stages split over a cluster of k blocks, against one block
+        split_report(mode, f"T={T} {h}x{w}", args, plan, ms, b_ms, card)
         errs[mode] = max(errs.get(mode, 0.0), err)
         if level in (0, 3):  # the sizes whose numbers stand in the kernels line
             timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -1274,7 +1318,8 @@ def main():
                 "the two bodies of B4, soup B5, camsoup B6, camsoup_merged B7a, camsoup_mx B7b "
                 "with a kernel of its own, worklist B7c, probe B8a, knockout B8b with body off "
                 "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
-                "(all others) triangles; launches add up the depth leg and paths A-F and the "
+                "(all others) triangles, at the split the wrapper picks (the diagnostics "
+                "and mx at 1 block a tile); launches add up the depth leg and paths A-F and the "
                 "diagnostics; library_ms is null because no single PyTorch call computes a "
                 "first hit"}),
         flush=True)

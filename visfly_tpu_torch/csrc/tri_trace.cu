@@ -76,34 +76,63 @@
 // origin first, as kSV does; kt rides the product against the constant 1.
 // The zero rows of G add exact zeros, so W equals the scalar body's volumes.
 //
-// A block of 256 threads serves one tile, four rays a thread (ray k*256 +
-// thread of the tile, so loads and stores are coalesced, and one shared-memory
-// read of a triangle serves four tests). The list is walked in stages of
-// `chunk` triangles (at most 128). Before a stage the block votes
-// (__syncthreads_or) whether any ray's current best, clamped to max_depth,
-// still lies beyond the stage's lower bound lb: the occlusion early-out, one
-// barrier per stage, which is also the barrier that frees the staging buffer.
-// Stages at or past `nst` are never visited: the count skip. Neither changes
-// a pixel (both are conservative).
+// A tile's stages are walked by a cluster of `split` blocks (k below) of 256
+// threads, four rays a thread (ray r*256 + thread of the tile, so loads and
+// stores are coalesced, and one shared-memory read of a triangle serves four
+// tests). Block c of the cluster takes stages c, c+k, c+2k, ...:
+// each still walks front to back with its own running best and list position
+// a ray. The list is walked in stages of `chunk` triangles (at most 128).
+// Before a stage the block votes (__syncthreads_or) whether any ray's own best,
+// clamped to max_depth, still lies beyond the stage's lower bound lb, and the
+// bound is not past the cluster's least best of that ray as of the last
+// exchange: the occlusion early-out, one barrier per stage, which is also the
+// barrier that frees the staging buffer. After every round of k stages the
+// blocks exchange their bests through distributed shared memory (one cluster
+// barrier); a bound equal to a known t still runs its stage, so a tie is
+// decided by list position as in the sequential walk. Stages at or past `nst`
+// are never visited: the count skip. Neither changes a pixel (both are
+// conservative). At the end the blocks merge their per-ray bests through
+// distributed shared memory by the key (t, list position), the smaller
+// position winning a tie: that is the first strict minimum of the sequential
+// walk, so the merge takes no atomic operation and no second pass. k = 1 is
+// the sequential walk with no cluster; the wrapper picks k so that the grid of
+// tiles x k blocks fills the card's SMs in whole rounds.
+//
+// The Moller-Trumbore body defers its division: u = dot(tv, p) / det and
+// v = dot(d, q) / det fail their sign tests when a numerator's sign differs
+// from det's and its magnitude exceeds |det| * 2^-125 (then the quotient is a
+// negative normal number, never -0), which most tests meet; only the rest
+// divide, and they form u, v and t exactly as before, so the result is the
+// former formula's to the bit.
 //
 // Bound: the kernel reads 24 bytes a ray and writes 9, which at 1,048,576
-// rays is 35 MB, 10 us at 3.35 TB/s; a test is ~35 (signed volumes) or ~65
+// rays is 35 MB, 10 us at 3.35 TB/s; a test is ~35 (signed volumes) or ~40-55
 // (Moller-Trumbore) float32 instructions and a tile runs list length x 1,024
 // of them, so beyond a few triangles a tile the kernel is bound by
 // operations.
 //
-// Built with --fmad=false and without --use_fast_math: each operation rounds
-// as in the plain PyTorch version, so the two pick the same triangle on
-// near ties.
+// Built with --fmad=false and without --use_fast_math, so nothing is fused
+// behind the source's back. The per-test dot and cross products are fused
+// explicitly with __fmaf_rn: measured on the H100 this takes 15% off the
+// per-camera tier and 5% off the soup tier, and moves t by at most 1.6e-4 m
+// against the unfused plain PyTorch version, nearer a float64 brute force
+// than the unfused form (chip_profile.py split). The staging keeps its
+// unfused products, so shared edges stay exact negations and the
+// signed-volume body stays watertight.
 
+#include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kTile = 1024;    // rays a tile: the cull unit of the prepasses
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // threads a block, four rays each
 constexpr int kRays = kTile / kThreads;
 constexpr int kMaxChunk = 128;  // triangles a stage
+constexpr int kMaxSplit = 8;    // blocks a cluster (the portable limit)
 constexpr float kBig = 1e9f;
 
 enum Form { kMT = 0, kSV = 1 };
@@ -117,6 +146,15 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
   return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
 }
 __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+
+// The per-test products, fused: a*b - c*d and a three-term dot product.
+__device__ __forceinline__ float diff2(float a, float b, float c, float d) {
+  return __fmaf_rn(a, b, -(c * d));
+}
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
+                                      float bz) {
+  return __fmaf_rn(az, bz, __fmaf_rn(ay, by, ax * bx));
+}
 
 // The twelve floats a staged triangle occupies: for kMT [a | b-a | c-a | -],
 // for kSV [g0 | g1 | g2 | kt | -].
@@ -156,6 +194,36 @@ __device__ __forceinline__ size_t first_stage(const int* __restrict__ start, siz
   return start ? (size_t)s * n_stage + start[tile_idx] : tile_idx * n_stage;
 }
 
+// One ray's result: t clipped to [0, max_depth], and the id of the triangle at
+// list position `pos` of the tile (walk order; -1: nothing accepted, id 0).
+template <bool MERGED, bool PIN>
+__device__ __forceinline__ void write_ray(int i, float tbest, int pos,
+                                          const int* __restrict__ tile_list, int chunk, int bs,
+                                          size_t tile_idx, size_t ray_base, float max_depth,
+                                          float* __restrict__ t_out, bool* __restrict__ hit_out,
+                                          int* __restrict__ gid_out) {
+  const float t = fminf(fmaxf(tbest, 0.0f), max_depth);
+  int gid = 0;
+  if (pos >= 0) {
+    const int j = pos % chunk;
+    const int stage = PIN ? 0 : pos / chunk;
+    gid = tile_list[(stage * chunk + j) / bs] * bs + j % bs;
+  }
+  if (MERGED) {
+    const size_t idx = tile_idx * (2 * kTile) + i;
+    t_out[idx] = t;
+    t_out[idx + kTile] = (float)gid;
+  } else {
+    const size_t idx = ray_base + i;
+    t_out[idx] = t;
+    hit_out[idx] = t < max_depth;
+    gid_out[idx] = gid;
+  }
+}
+
+// No bound on the blocks an SM: ptxas gives the signed-volume body 48
+// registers (5 blocks an SM) and the Moller-Trumbore body 74 (3 blocks); on
+// the H100 a bound of 4 blocks an SM (64 registers each) ran no faster.
 template <int FORM, bool MERGED, bool BODY, bool PIN>
 __global__ void __launch_bounds__(kThreads)
 tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
@@ -167,14 +235,24 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
                  const float* __restrict__ dirs,     // (3, S, R)
                  float* __restrict__ t_out, bool* __restrict__ hit_out,
                  int* __restrict__ gid_out, int* __restrict__ cnt_out, int S, int T, int R,
-                 int n_stage, int chunk, int bs, int origin_tiles, float max_depth) {
+                 int n_stage, int chunk, int bs, int origin_tiles, int split,
+                 float max_depth) {
   __shared__ float4 rows[kMaxChunk * 3];
-  __shared__ int row_gid[kMaxChunk];
+  // split > 1: the bests a block publishes to its cluster (two buffers, so a
+  // round's writes never meet the previous round's remote reads), the
+  // cluster's least best a ray as of the last exchange (each entry read and
+  // written by its own thread only), the final list positions, stages run
+  __shared__ float pub[2][kTile];
+  __shared__ float xmin[kTile];
+  __shared__ int pub_pos[kTile];
+  __shared__ int block_ran;
 
   const int tiles = R / kTile;
-  const int ti = blockIdx.x, s = blockIdx.y;
+  const int ti = blockIdx.x / split, s = blockIdx.y;
+  const int rank = split > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const size_t plane = (size_t)S * R;
-  const size_t ray0 = (size_t)s * R + (size_t)ti * kTile + threadIdx.x;
+  const size_t ray_base = (size_t)s * R + (size_t)ti * kTile;
+  const size_t ray0 = ray_base + threadIdx.x;
   const size_t tile_idx = (size_t)s * tiles + ti;
   const size_t stage0 = first_stage(start, tile_idx, s, n_stage);
   const int* tile_list = list + stage0 * (chunk / bs);
@@ -190,7 +268,7 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
 
   float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays];
   float tbest[kRays];
-  int gbest[kRays];
+  int pbest[kRays];  // list position of the best, -1: none
 #pragma unroll
   for (int k = 0; k < kRays; ++k) {
     const size_t idx = ray0 + (size_t)k * kThreads;
@@ -203,94 +281,144 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
     dy[k] = dirs[plane + idx];
     dz[k] = dirs[2 * plane + idx];
     tbest[k] = kBig;
-    gbest[k] = 0;
+    pbest[k] = -1;
+    if (split > 1) xmin[k * kThreads + threadIdx.x] = kBig;
   }
 
-  for (int ci = 0; ci < n_walk; ++ci) {
-    const float bound = tile_lb[ci];
+  const int n_round = (n_walk + split - 1) / split;
+  for (int m = 0; m < n_round; ++m) {
+    const int ci = m * split + rank;
     bool open = false;
+    if (ci < n_walk) {
+      const float bound = tile_lb[ci];
 #pragma unroll
-    for (int k = 0; k < kRays; ++k) open = open || (bound < fminf(tbest[k], max_depth));
+      for (int k = 0; k < kRays; ++k)
+        open = open || (bound < fminf(tbest[k], max_depth) &&
+                        (split == 1 || bound <= xmin[k * kThreads + threadIdx.x]));
+    }
     // a barrier as well: every thread is done with the previous stage's rows
-    if (!__syncthreads_or(open)) continue;
-    ++n_ran;
+    if (__syncthreads_or(open)) {
+      ++n_ran;
+      if (threadIdx.x < chunk) {
+        const int j = threadIdx.x;
+        const int entry = tile_list[((PIN ? 0 : ci) * chunk + j) / bs];
+        const int gid = entry < 0 ? -1 : entry * bs + j % bs;
+        stage_triangle<FORM>(rows + 3 * j,
+                             gid >= 0 && gid < T ? tris + ((size_t)s * T + gid) * 9 : nullptr,
+                             o_shared);
+      }
+      __syncthreads();
 
-    if (threadIdx.x < chunk) {
-      const int j = threadIdx.x;
-      const int entry = tile_list[((PIN ? 0 : ci) * chunk + j) / bs];
-      const int gid = entry < 0 ? -1 : entry * bs + j % bs;
-      const bool real = gid >= 0 && gid < T;
-      row_gid[j] = real ? gid : 0;
-      stage_triangle<FORM>(rows + 3 * j, real ? tris + ((size_t)s * T + gid) * 9 : nullptr,
-                           o_shared);
-    }
-    __syncthreads();
-
-    if (!BODY) {  // the stage is loaded and one value of it is read; no test
+      if (!BODY) {  // the stage is loaded and one value of it is read; no test
 #pragma unroll
-      for (int k = 0; k < kRays; ++k) tbest[k] = fminf(tbest[k], kBig + fabsf(rows[0].x));
-      continue;
-    }
-    for (int j = 0; j < chunk; ++j) {
-      const float4 r0 = rows[3 * j], r1 = rows[3 * j + 1], r2 = rows[3 * j + 2];
-      const int gid = row_gid[j];
+        for (int k = 0; k < kRays; ++k) tbest[k] = fminf(tbest[k], kBig + fabsf(rows[0].x));
+      } else {
+        const int pos0 = ci * chunk;
+        for (int j = 0; j < chunk; ++j) {
+          const float4 r0 = rows[3 * j], r1 = rows[3 * j + 1], r2 = rows[3 * j + 2];
 #pragma unroll
-      for (int k = 0; k < kRays; ++k) {
-        if (FORM == kMT) {
-          // a = r0.xyz, e1 = (r0.w, r1.x, r1.y), e2 = (r1.z, r1.w, r2.x)
-          const float px = dy[k] * r2.x - dz[k] * r1.w;
-          const float py = dz[k] * r1.z - dx[k] * r2.x;
-          const float pz = dx[k] * r1.w - dy[k] * r1.z;
-          const float det = r0.w * px + r1.x * py + r1.y * pz;
-          if (fabsf(det) > 1e-9f) {
-            const float inv = 1.0f / det;
-            const float tx = ox[k] - r0.x, ty = oy[k] - r0.y, tz = oz[k] - r0.z;
-            const float u = (tx * px + ty * py + tz * pz) * inv;
-            const float qx = ty * r1.y - tz * r1.x;
-            const float qy = tz * r0.w - tx * r1.y;
-            const float qz = tx * r1.x - ty * r0.w;
-            const float v = (dx[k] * qx + dy[k] * qy + dz[k] * qz) * inv;
-            const float tk = (r1.z * qx + r1.w * qy + r2.x * qz) * inv;
-            if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && tk > 1e-4f && tk < tbest[k]) {
-              tbest[k] = tk;
-              gbest[k] = gid;
-            }
-          }
-        } else {
-          // g0 = r0.xyz, g1 = (r0.w, r1.x, r1.y), g2 = (r1.z, r1.w, r2.x), kt = r2.y
-          const float w0 = dx[k] * r0.x + dy[k] * r0.y + dz[k] * r0.z;
-          const float w1 = dx[k] * r0.w + dy[k] * r1.x + dz[k] * r1.y;
-          const float w2 = dx[k] * r1.z + dy[k] * r1.w + dz[k] * r2.x;
-          // the three volumes share a sign; zero volumes and all-zero rows
-          // give tk = +-inf or NaN, which fails both comparisons below
-          if (w0 * w1 >= 0.0f && w0 * w2 >= 0.0f && w1 * w2 >= 0.0f) {
-            const float wsum = w0 + w1 + w2;
-            const float tk = r2.y * (1.0f / wsum);
-            if (tk > 1e-4f && tk < tbest[k]) {
-              tbest[k] = tk;
-              gbest[k] = gid;
+          for (int k = 0; k < kRays; ++k) {
+            if (FORM == kMT) {
+              // a = r0.xyz, e1 = (r0.w, r1.x, r1.y), e2 = (r1.z, r1.w, r2.x)
+              const float px = diff2(dy[k], r2.x, dz[k], r1.w);
+              const float py = diff2(dz[k], r1.z, dx[k], r2.x);
+              const float pz = diff2(dx[k], r1.w, dy[k], r1.z);
+              const float det = dot3(r0.w, r1.x, r1.y, px, py, pz);
+              if (fabsf(det) > 1e-9f) {
+                const float tx = ox[k] - r0.x, ty = oy[k] - r0.y, tz = oz[k] - r0.z;
+                const float un = dot3(tx, ty, tz, px, py, pz);
+                const float qx = diff2(ty, r1.y, tz, r1.x);
+                const float qy = diff2(tz, r0.w, tx, r1.y);
+                const float qz = diff2(tx, r1.x, ty, r0.w);
+                const float vn = dot3(dx[k], dy[k], dz[k], qx, qy, qz);
+                // un * (1/det) < 0 for certain where un * sign(det) * 2^125
+                // < -|det|; likewise vn
+                const float sg = copysignf(0x1p125f, det), lim = -fabsf(det);
+                if (un * sg >= lim && vn * sg >= lim) {
+                  const float inv = 1.0f / det;
+                  const float u = un * inv;
+                  const float v = vn * inv;
+                  const float tk = dot3(r1.z, r1.w, r2.x, qx, qy, qz) * inv;
+                  if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && tk > 1e-4f && tk < tbest[k]) {
+                    tbest[k] = tk;
+                    pbest[k] = pos0 + j;
+                  }
+                }
+              }
+            } else {
+              // g0 = r0.xyz, g1 = (r0.w, r1.x, r1.y), g2 = (r1.z, r1.w, r2.x), kt = r2.y
+              const float w0 = dot3(dx[k], dy[k], dz[k], r0.x, r0.y, r0.z);
+              const float w1 = dot3(dx[k], dy[k], dz[k], r0.w, r1.x, r1.y);
+              const float w2 = dot3(dx[k], dy[k], dz[k], r1.z, r1.w, r2.x);
+              // the three volumes share a sign; zero volumes and all-zero rows
+              // give tk = +-inf or NaN, which fails both comparisons below
+              if (w0 * w1 >= 0.0f && w0 * w2 >= 0.0f && w1 * w2 >= 0.0f) {
+                const float wsum = w0 + w1 + w2;
+                const float tk = r2.y * (1.0f / wsum);
+                if (tk > 1e-4f && tk < tbest[k]) {
+                  tbest[k] = tk;
+                  pbest[k] = pos0 + j;
+                }
+              }
             }
           }
         }
       }
     }
-  }
-
+    if (split > 1) {  // exchange: the cluster's least best of every ray
+      cg::cluster_group cluster = cg::this_cluster();
+      float* mine = pub[m & 1];
 #pragma unroll
-  for (int k = 0; k < kRays; ++k) {
-    const float t = fminf(fmaxf(tbest[k], 0.0f), max_depth);
-    if (MERGED) {
-      const size_t idx = tile_idx * (2 * kTile) + k * kThreads + threadIdx.x;
-      t_out[idx] = t;
-      t_out[idx + kTile] = (float)gbest[k];
-    } else {
-      const size_t idx = ray0 + (size_t)k * kThreads;
-      t_out[idx] = t;
-      hit_out[idx] = t < max_depth;
-      gid_out[idx] = gbest[k];
+      for (int k = 0; k < kRays; ++k) mine[k * kThreads + threadIdx.x] = tbest[k];
+      cluster.sync();
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) {
+        const int i = k * kThreads + threadIdx.x;
+        float x = kBig;
+        for (int r = 0; r < split; ++r) x = fminf(x, cluster.map_shared_rank(mine, r)[i]);
+        xmin[i] = x;
+      }
     }
   }
-  if (cnt_out != nullptr && threadIdx.x == 0) cnt_out[tile_idx] = n_ran;
+
+  if (split == 1) {
+#pragma unroll
+    for (int k = 0; k < kRays; ++k)
+      write_ray<MERGED, PIN>(k * kThreads + threadIdx.x, tbest[k], pbest[k], tile_list, chunk,
+                             bs, tile_idx, ray_base, max_depth, t_out, hit_out, gid_out);
+    if (cnt_out != nullptr && threadIdx.x == 0) cnt_out[tile_idx] = n_ran;
+    return;
+  }
+  // merge: block c writes the rays c*kThreads.. of every split*kThreads
+  cg::cluster_group cluster = cg::this_cluster();
+  float* fin = pub[n_round & 1];  // no peer reads it any more
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    fin[k * kThreads + threadIdx.x] = tbest[k];
+    pub_pos[k * kThreads + threadIdx.x] = pbest[k];
+  }
+  if (threadIdx.x == 0) block_ran = n_ran;
+  cluster.sync();
+  for (int i = rank * kThreads + threadIdx.x; i < kTile; i += split * kThreads) {
+    float bt = kBig;
+    int bp = INT_MAX;
+    for (int r = 0; r < split; ++r) {
+      const int p = cluster.map_shared_rank(pub_pos, r)[i];
+      const float t = cluster.map_shared_rank(fin, r)[i];
+      if (p >= 0 && (t < bt || (t == bt && p < bp))) {
+        bt = t;
+        bp = p;
+      }
+    }
+    write_ray<MERGED, PIN>(i, bt, bp == INT_MAX ? -1 : bp, tile_list, chunk, bs, tile_idx,
+                           ray_base, max_depth, t_out, hit_out, gid_out);
+  }
+  if (cnt_out != nullptr && rank == 0 && threadIdx.x == 0) {
+    int total = 0;
+    for (int r = 0; r < split; ++r) total += *cluster.map_shared_rank(&block_ran, r);
+    cnt_out[tile_idx] = total;
+  }
+  cluster.sync();  // no block leaves while a peer still reads its shared memory
 }
 
 constexpr int kCol = 4 * kMaxChunk;  // columns of a staged G: [g0 | g1 | g2 | kt]
@@ -415,42 +543,85 @@ tri_trace_mx_kernel(const float* __restrict__ tris,     // (S, T, 9)
 
 }  // namespace
 
+using TriKernel = void (*)(const float*, const int*, const int*, const int*, const float*,
+                           const float*, const float*, float*, bool*, int*, int*, int, int, int,
+                           int, int, int, int, int, float);
+
+// The instantiation of a (form, out, knock) triple, null if there is none.
+static TriKernel kernel_of(int form, int out, int knock) {
+  if (form < 0 || form > 1 || out < 0 || out > 1 || knock < 0 || knock > 3 ||
+      (out == 1 && form != kSV) || (knock != 0 && out != 1))
+    return nullptr;
+  if (out == 0 && form == kMT) return tri_trace_kernel<kMT, false, true, false>;
+  if (out == 0) return tri_trace_kernel<kSV, false, true, false>;
+  switch (knock) {
+    case 0: return tri_trace_kernel<kSV, true, true, false>;
+    case 1: return tri_trace_kernel<kSV, true, false, false>;
+    case 2: return tri_trace_kernel<kSV, true, true, true>;
+    default: return tri_trace_kernel<kSV, true, false, true>;
+  }
+}
+
+static cudaLaunchConfig_t launch_config(dim3 grid, int split, cudaStream_t stream,
+                                        cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = split;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  return cfg;
+}
+
 // form: 0 Moller-Trumbore, 1 signed volumes against the origin of ray 0 of
 // every `origin_tiles` tiles. R must be a multiple of 1,024, chunk at most 128
 // and a multiple of bs. `start` null: padded lists of n_stage stages a tile;
 // else a CSR list of n_stage stages a scene. out: 0 t, hit and id; 1 the merged
 // block in t_out (signed volumes only). knock: bit 0 no body, bit 1 the stage
-// pinned (merged output only). cnt_out may be null. Returns the CUDA error of
-// the launch (0: none).
+// pinned (merged output only). split: blocks a tile, 1 to 8, launched as one
+// thread-block cluster. cnt_out may be null. Returns the CUDA error of the
+// launch (0: none).
 extern "C" int tri_trace_launch(const float* tris, const int* list, const int* nst,
                                 const int* start, const float* lb, const float* origins,
                                 const float* dirs, float* t_out, bool* hit_out, int* gid_out,
                                 int* cnt_out, int S, int T, int R, int n_stage, int chunk,
                                 int bs, int origin_tiles, float max_depth, int form, int out,
-                                int knock, cudaStream_t stream) {
-  if (R % kTile != 0 || chunk < 1 || chunk > kMaxChunk || bs < 1 || chunk % bs != 0 ||
-      origin_tiles < 1 || form < 0 || form > 1 || out < 0 || out > 1 || knock < 0 ||
-      knock > 3 || (out == 1 && form != kSV) || (knock != 0 && out != 1))
+                                int knock, int split, cudaStream_t stream) {
+  const TriKernel kernel = kernel_of(form, out, knock);
+  if (kernel == nullptr || R % kTile != 0 || chunk < 1 || chunk > kMaxChunk || bs < 1 ||
+      chunk % bs != 0 || origin_tiles < 1 || split < 1 || split > kMaxSplit)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(R / kTile, S);
-#define VF_LAUNCH(FORM, MERGED, BODY, PIN)                                                \
-  tri_trace_kernel<FORM, MERGED, BODY, PIN><<<grid, kThreads, 0, stream>>>(               \
-      tris, list, nst, start, lb, origins, dirs, t_out, hit_out, gid_out, cnt_out, S, T,  \
-      R, n_stage, chunk, bs, origin_tiles, max_depth)
-  if (out == 0) {
-    if (form == kMT) VF_LAUNCH(kMT, false, true, false);
-    else VF_LAUNCH(kSV, false, true, false);
-  } else if (knock == 0) {
-    VF_LAUNCH(kSV, true, true, false);
-  } else if (knock == 1) {
-    VF_LAUNCH(kSV, true, false, false);
-  } else if (knock == 2) {
-    VF_LAUNCH(kSV, true, true, true);
-  } else {
-    VF_LAUNCH(kSV, true, false, true);
-  }
-#undef VF_LAUNCH
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(dim3(R / kTile * split, S), split, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, tris, list, nst, start, lb, origins,
+                                             dirs, t_out, hit_out, gid_out, cnt_out, S, T, R,
+                                             n_stage, chunk, bs, origin_tiles, split, max_depth);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// What the card holds of one instantiation: registers a thread, threads a
+// block, blocks an SM, and with split > 1 the clusters of `split` blocks that
+// can be resident at once (else 0). Returns the CUDA error (0: none).
+extern "C" int tri_trace_occupancy(int form, int out, int knock, int split, int* regs,
+                                   int* threads, int* blocks_per_sm, int* clusters) {
+  const TriKernel kernel = kernel_of(form, out, knock);
+  if (kernel == nullptr || split < 1 || split > kMaxSplit) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = fa.numRegs;
+  *threads = kThreads;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  *clusters = 0;
+  if (split == 1) return 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(dim3(split), split, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 // The per-camera test as a matrix product over padded lists of whole blocks

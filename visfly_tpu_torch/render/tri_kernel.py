@@ -70,8 +70,21 @@ The acceptance rules are the TPU kernels' to the constant: ``|det| > 1e-9``,
 first use, bound with ctypes) or raises, and runs
 :func:`tri_first_hit_reference` on CPU tensors. The plain version does the
 kernel's arithmetic in the kernel's order, stage by stage with the same count
-skip and occlusion early-out per tile, so on one device the two agree to the
-bit.
+skip and occlusion early-out per tile, except that the kernel fuses the
+per-test dot and cross products (``__fmaf_rn``): the two agree within the
+smoke's limits (1.6e-4 m at most on path D's 23,040 triangles).
+
+The split: on the card a tile's stages are walked by a cluster of ``split``
+blocks (:func:`pick_split`), block ``c`` taking stages ``c, c + split, …``
+with its own running best and list position a ray. After every round of
+``split`` stages the blocks exchange their bests, and a block skips a stage
+whose bound lies past every ray's best in its own walk or past the cluster's
+least best (a bound equal to it still runs, so a tie goes to the earlier list
+position). At the end the blocks merge by (t, list position). That is the
+sequential walk's first strict minimum: t and hit are those of ``split = 1``
+to the bit, and so is the id of every ray that hits (a miss's id is whatever
+its walk last kept). The Möller–Trumbore body tests the signs of u and v
+before it divides (:func:`_mt_signs_pass`), which changes no result.
 """
 from __future__ import annotations
 
@@ -87,6 +100,8 @@ from ..core.math_utils import full_fp32_matmul
 TILE = 1024
 BIG = 1e9
 MAX_CHUNK = 128  # triangles a stage: the kernel's staging buffer
+MAX_SPLIT = 8  # blocks a tile: a thread-block cluster's portable limit
+SPLIT_ROUNDS = 2  # rounds of resident blocks the split aims at (pick_split)
 FORMS = {"mt": 0, "sv_tile": 1, "sv_cam": 1}  # the kernel's body: 0 kMT, 1 kSV
 # Launches of the CUDA kernel by the tier that asked for it, since the counts
 # were last set to 0. The wrapper adds one where it launches and nowhere else.
@@ -173,43 +188,61 @@ def sv_coefficients(rows: Tensor, o):
     return g0, g1, g2, _dot(a_, g0)
 
 
-def _test_mt(rows: Tensor, o, d) -> Tuple[Tensor, Tensor]:
+def _mt_signs_pass(un: Tensor, vn: Tensor, det: Tensor) -> Tensor:
+    """False where ``un / det`` or ``vn / det`` is negative for certain: the
+    numerator's sign is not det's and its magnitude exceeds |det|·2⁻¹²⁵, so
+    the quotient ``un · (1/det)`` is a negative normal number, never −0. The
+    kernel divides only where this holds, and it rejects nothing that
+    ``u >= 0`` and ``v >= 0`` accept."""
+    sg = torch.copysign(torch.full_like(det, 2.0 ** 125), det)
+    lim = -det.abs()
+    return (un * sg >= lim) & (vn * sg >= lim)
+
+
+def _test_mt(rows: Tensor, o, d) -> Tuple[Tensor, Tensor, Tensor]:
     """Möller–Trumbore t of rows (..., n, 1, 9-split) against rays (..., 1, r),
-    BIG where a test fails; and the tests past the determinant gate, the only
-    ones for which the kernel divides."""
+    BIG where a test fails; the tests past the determinant gate; and those of
+    them past the sign test of u and v, the only ones for which the kernel
+    divides. Every operation in the kernel's order: the division deferred
+    changes no result."""
     a = tuple(rows[..., i, None] for i in (0, 1, 2))
     e1 = tuple(rows[..., i + 3, None] - rows[..., i, None] for i in range(3))
     e2 = tuple(rows[..., i + 6, None] - rows[..., i, None] for i in range(3))
     p = _cross(d, e2)
     det = _dot(e1, p)
     okd = det.abs() > 1e-9
-    inv = 1.0 / torch.where(okd, det, 1.0)
     tv = _sub(o, a)
-    u = _dot(tv, p) * inv
+    un = _dot(tv, p)
     q = _cross(tv, e1)
-    v = _dot(d, q) * inv
+    vn = _dot(d, q)
+    divide = okd & _mt_signs_pass(un, vn, det)
+    inv = 1.0 / torch.where(okd, det, 1.0)
+    u = un * inv
+    v = vn * inv
     tk = _dot(e2, q) * inv
-    ok = okd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (tk > 1e-4)
-    return torch.where(ok, tk, BIG), okd
+    ok = divide & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (tk > 1e-4)
+    return torch.where(ok, tk, BIG), okd, divide
 
 
 def _accept_sv(w0, w1, w2, kt) -> Tuple[Tensor, Tensor]:
     """t of the volumes that share a sign, BIG elsewhere; and the tests past
-    that gate, the only ones for which the kernel divides."""
+    that gate, twice: the gate and the tests for which the kernel divides are
+    the same."""
     ok = (w0 * w1 >= 0.0) & (w0 * w2 >= 0.0) & (w1 * w2 >= 0.0)
     tk = kt * (1.0 / (w0 + w1 + w2))
-    return torch.where(ok & (tk > 1e-4), tk, BIG), ok
+    return torch.where(ok & (tk > 1e-4), tk, BIG), ok, ok
 
 
-def _test_sv(coef, d) -> Tuple[Tensor, Tensor]:
+def _test_sv(coef, d) -> Tuple[Tensor, Tensor, Tensor]:
     """Signed-volume t of coefficients (g0, g1, g2 triples and kt, each
     component (..., n, 1)) against ray directions (..., 1, r), BIG where a
-    test fails; and the tests past the sign gate."""
+    test fails; and the tests past the sign gate (twice, as
+    :func:`_accept_sv`)."""
     g0, g1, g2, kt = coef
     return _accept_sv(_dot(d, g0), _dot(d, g1), _dot(d, g2), kt)
 
 
-def _test_sv_mx(coef, d) -> Tuple[Tensor, Tensor]:
+def _test_sv_mx(coef, d) -> Tuple[Tensor, Tensor, Tensor]:
     """The same test as one matrix product: ``W = D · G`` with
     ``D = [dx dy dz 1]`` (..., r, 4) and ``G = [g0 | g1 | g2 | kt]``
     (..., 4, 4n), whose column blocks are the three volumes and kt."""
@@ -248,16 +281,23 @@ def padded_lists(lists: TileLists) -> TileLists:
 def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor,
                             max_depth: float = 20.0, form: str = "mt", origin_tiles: int = 1,
                             stats: dict = None, mode: str = "scalar", body: bool = True,
-                            pin_stage: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+                            pin_stage: bool = False, split: int = 1
+                            ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the kernels → (t (S, R), hit (S, R), gid (S, R)
-    int32). A stage is taken in slices so that the (S, tiles, slice, 1024)
-    intermediates stay bounded. ``stats`` gains, over the stages that ran:
+    int32), walked as the kernel walks it with ``split`` blocks a tile: block
+    ``c`` takes stages ``c, c + split, …`` with its own running best, the
+    blocks exchange their bests after every round of ``split`` stages, and
+    their results merge by (t, list position) (module docstring). A stage is
+    taken in slices so that the (S, tiles, slice, 1024) intermediates stay
+    bounded. ``stats`` gains, over the stages that ran in all blocks:
     ``"tests"`` the ray–slot tests (empty slots of a stage included, as the
     kernel stages them), ``"real_tests"`` those against a triangle,
     ``"gated"`` those of them past the body's gate (the sign test of the
-    volumes, or ``|det| > 1e-9``), after which the division and the rest of
-    the test run, and ``"stages"`` the (S, tiles) int32 count of stages that
-    ran. ``mode``, ``body`` and ``pin_stage`` as in :func:`tri_first_hit`."""
+    volumes, or ``|det| > 1e-9``), ``"divided"`` those for which the kernel
+    divides (past the sign test of the volumes, or of u and v), and
+    ``"stages"`` the (S, tiles) int32 count of stages that ran, summed over a
+    tile's blocks. ``mode``, ``body`` and ``pin_stage`` as in
+    :func:`tri_first_hit`."""
     _, S, R = origins_c.shape
     tiles = R // TILE
     T = tris.shape[1]
@@ -272,56 +312,101 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
     else:  # ray 0 of the tile, or of the camera the tile belongs to
         src = torch.arange(tiles, device=dev) // origin_tiles * origin_tiles
         o = tuple(o4[:, :, src, 0, 0])  # each (S, tiles)
-    tbest = torch.full((S, tiles, TILE), BIG, dtype=origins_c.dtype, device=dev)
-    gbest = torch.zeros((S, tiles, TILE), dtype=torch.int64, device=dev)
+    # per block: the running best and its list position (−1: none)
+    tbest = torch.full((split, S, tiles, TILE), BIG, dtype=origins_c.dtype, device=dev)
+    pbest = torch.full((split, S, tiles, TILE), -1, dtype=torch.int64, device=dev)
+    xmin = torch.full((S, tiles, TILE), BIG, dtype=origins_c.dtype, device=dev)  # exchanged
     step = max(1, min(chunk, _PLAIN_ELEMS // max(S * tiles * TILE, 1)))
     within = torch.arange(bs, device=dev)
     ran = torch.zeros((S, tiles), dtype=torch.int32, device=dev)
+    count = {"tests": 0, "real_tests": 0, "gated": 0, "divided": 0}
     test_sv = _test_sv_mx if mode == "mx" else _test_sv
-    for ci in range(n_stage):
-        worst = torch.clamp(tbest.amax(-1), max=max_depth)
-        run = (ci < lists.n_stage) & (lists.lb[:, :, ci] < worst)  # (S, tiles)
-        ran = ran + run.to(torch.int32)
-        if stats is not None:
-            stats["tests"] = stats.get("tests", 0) + int(run.sum()) * chunk * TILE
-        ce = 0 if pin_stage else ci
-        entry = lists.ids[:, :, ce * chunk // bs:(ce + 1) * chunk // bs].to(torch.int64)
-        gid = torch.where(entry[..., None] < 0, -1, entry[..., None] * bs + within)
-        gid = gid.reshape(S, tiles, chunk)
-        real = (gid >= 0) & (gid < T)
-        if stats is not None:
-            stats["real_tests"] = (stats.get("real_tests", 0)
-                                   + int((real & run[..., None]).sum()) * TILE)
-        if not body:  # the knocked-out body stages its rows and accepts nothing
-            continue
-        gid = torch.where(real, gid, 0)
-        for j0 in range(0, chunk, step):
-            g = gid[:, :, j0:j0 + step]
-            rows = torch.gather(tris, 1, g.reshape(S, -1, 1).expand(S, -1, 9))
-            rows = rows.reshape(S, tiles, -1, 9)
-            if form == "mt":
-                tk, gate = _test_mt(rows, o, d)
+    for m in range(-(-n_stage // split)):
+        for c in range(split):
+            ci = m * split + c
+            if ci >= n_stage:
+                break
+            bound = lists.lb[:, :, ci]
+            if split == 1:
+                run = bound < torch.clamp(tbest[c].amax(-1), max=max_depth)
             else:
-                g0, g1, g2, kt = sv_coefficients(rows, tuple(x[..., None] for x in o))
-                tk, gate = test_sv((*(tuple(x[..., None] for x in g) for g in (g0, g1, g2)),
-                                    kt[..., None]), d)
-            live = real[:, :, j0:j0 + step, None]
-            if stats is not None:
-                stats["gated"] = (stats.get("gated", 0)
-                                  + int((gate & live & run[:, :, None, None]).sum()))
-            tk = torch.where(live, tk, BIG)
-            best, j = torch.min(tk, dim=2)  # the first minimum of the slice
-            better = (best < tbest) & run[..., None]
-            gbest = torch.where(better, torch.gather(g, 2, j), gbest)
-            tbest = torch.where(better, best, tbest)
+                run = ((bound[..., None] < torch.clamp(tbest[c], max=max_depth))
+                       & (bound[..., None] <= xmin)).any(-1)
+            run = run & (ci < lists.n_stage)  # (S, tiles)
+            ran = ran + run.to(torch.int32)
+            count["tests"] += int(run.sum()) * chunk * TILE
+            ce = 0 if pin_stage else ci
+            entry = lists.ids[:, :, ce * chunk // bs:(ce + 1) * chunk // bs].to(torch.int64)
+            gid = torch.where(entry[..., None] < 0, -1, entry[..., None] * bs + within)
+            gid = gid.reshape(S, tiles, chunk)
+            real = (gid >= 0) & (gid < T)
+            count["real_tests"] += int((real & run[..., None]).sum()) * TILE
+            if not body:  # the knocked-out body stages its rows and accepts nothing
+                continue
+            gid = torch.where(real, gid, 0)
+            for j0 in range(0, chunk, step):
+                g = gid[:, :, j0:j0 + step]
+                rows = torch.gather(tris, 1, g.reshape(S, -1, 1).expand(S, -1, 9))
+                rows = rows.reshape(S, tiles, -1, 9)
+                if form == "mt":
+                    tk, gate, divide = _test_mt(rows, o, d)
+                else:
+                    g0, g1, g2, kt = sv_coefficients(rows, tuple(x[..., None] for x in o))
+                    tk, gate, divide = test_sv(
+                        (*(tuple(x[..., None] for x in g) for g in (g0, g1, g2)), kt[..., None]),
+                        d)
+                live = real[:, :, j0:j0 + step, None] & run[:, :, None, None]
+                count["gated"] += int((gate & live).sum())
+                count["divided"] += int((divide & live).sum())
+                tk = torch.where(live, tk, BIG)
+                best, j = torch.min(tk, dim=2)  # the first minimum of the slice
+                better = best < tbest[c]
+                pbest[c] = torch.where(better, ci * chunk + j0 + j, pbest[c])
+                tbest[c] = torch.where(better, best, tbest[c])
+        if split > 1:
+            xmin = tbest.amin(0)
+    if split > 1:  # merge by (t, list position)
+        live = pbest >= 0
+        t_best = torch.where(live, tbest, BIG).amin(0)
+        last = n_stage * chunk
+        pos = torch.where(live & (tbest == t_best), pbest, last).amin(0)
+        pos = torch.where(pos == last, -1, pos)
+    else:
+        t_best, pos = tbest[0], pbest[0]
     if stats is not None:
+        for key, v in count.items():
+            stats[key] = stats.get(key, 0) + v
         stats["stages"] = ran
-    t = torch.clamp(tbest, 0.0, max_depth)
+    # the id of the winning list position (the pinned stage's slots for pin_stage)
+    at = torch.clamp(pos, min=0)
+    j = at % chunk
+    slot = ((0 if pin_stage else at // chunk) * chunk + j) // bs
+    entry = torch.gather(lists.ids.to(torch.int64), 2, slot.reshape(S, tiles, TILE))
+    gbest = torch.where(pos >= 0, entry * bs + j % bs, 0)
+    t = torch.clamp(t_best, 0.0, max_depth)
     if mode == "merged":  # through the kernel's one block of t and the id as a float
         block = torch.stack([t, gbest.to(t.dtype)], dim=2)  # (S, tiles, 2, 1024)
         t, gbest = block[:, :, 0], block[:, :, 1]
     t = t.reshape(S, R)
     return t, t < max_depth, gbest.reshape(S, R).to(torch.int32)
+
+
+def pick_split(n_tiles: int, n_stage: int, slots: dict) -> int:
+    """Blocks a tile for a grid of ``n_tiles`` tiles of up to ``n_stage``
+    stages: the least ``k`` whose ``n_tiles · k`` blocks fill the card's
+    resident blocks ``slots[k]`` (SMs × blocks an SM; with clusters of ``k``,
+    resident clusters × ``k``) at least :data:`SPLIT_ROUNDS` times, so that the
+    last round is a small share of the work; else the largest ``k`` allowed,
+    at most :data:`MAX_SPLIT` and ``n_stage``. The rule sees the padded list
+    length, not the stages each tile owns (those live on the card): where most
+    tiles own a stage or two of a short list, the blocks past them only wait
+    at the cluster's barriers (B4's signed-volume lists at 360 triangles,
+    ``PERF.md``)."""
+    k_max = max(1, min(MAX_SPLIT, n_stage))
+    for k in range(1, k_max + 1):
+        if n_tiles * k >= SPLIT_ROUNDS * slots[k]:
+            return k
+    return k_max
 
 
 # ---------------------------------------------------------------------------
@@ -331,19 +416,62 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
 
 @functools.lru_cache(maxsize=None)
 def _launchers():
+    """(tri_trace_launch, tri_trace_mx_launch, tri_trace_occupancy) of the
+    built library."""
     from ..build import load_library
 
     lib = load_library("tri_trace")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # tris list nst start lb origins dirs t hit gid cnt | S T R n_stage chunk bs
-    # origin_tiles | max_depth | form out knock | stream
-    lib.tri_trace_launch.argtypes = [p] * 11 + [i] * 7 + [f] + [i] * 3 + [p]
+    # origin_tiles | max_depth | form out knock split | stream
+    lib.tri_trace_launch.argtypes = [p] * 11 + [i] * 7 + [f] + [i] * 4 + [p]
     # tris list nst lb origins dirs t hit gid cnt | S T R n_stage chunk origin_tiles |
     # max_depth | stream
     lib.tri_trace_mx_launch.argtypes = [p] * 10 + [i] * 6 + [f, p]
-    for fn in (lib.tri_trace_launch, lib.tri_trace_mx_launch):
+    # form out knock split | regs threads blocks_per_sm clusters
+    lib.tri_trace_occupancy.argtypes = [i] * 4 + [p] * 4
+    fns = (lib.tri_trace_launch, lib.tri_trace_mx_launch, lib.tri_trace_occupancy)
+    for fn in fns:
         fn.restype = ctypes.c_int
-    return lib.tri_trace_launch, lib.tri_trace_mx_launch
+    return fns
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(device_index: int, form_id: int, out: int, knock: int) -> dict:
+    query = _launchers()[2]
+    regs, threads, per_sm, clusters = (ctypes.c_int() for _ in range(4))
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    slots = {}
+    with torch.cuda.device(device_index):
+        for k in range(1, MAX_SPLIT + 1):
+            rc = query(form_id, out, knock, k, *(ctypes.addressof(x) for x in
+                                                 (regs, threads, per_sm, clusters)))
+            if rc != 0:
+                raise RuntimeError(f"the occupancy query failed with CUDA error {rc}")
+            slots[k] = per_sm.value * sms if k == 1 else clusters.value * k
+    return {"regs": regs.value, "threads": threads.value, "blocks_per_sm": per_sm.value,
+            "sms": sms, "slots": slots}
+
+
+def occupancy(form: str = "mt", mode: str = "scalar", knock: int = 0, device=None) -> dict:
+    """What the card holds of the instantiation of ``tri_trace_kernel`` that a
+    call with ``form``, ``mode`` and knock-out bits ``knock`` launches:
+    ``regs`` a thread, ``threads`` a block, ``blocks_per_sm``, ``sms`` and
+    ``slots`` {k: blocks resident at once with clusters of k}."""
+    dev = torch.device("cuda" if device is None else device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _occupancy(index, FORMS[form], int(mode == "merged"), knock)
+
+
+def default_split(lists: TileLists, form: str, mode: str, device) -> int:
+    """The blocks a tile the wrapper picks on the card (:func:`pick_split`):
+    from the tiles of the call, its list length (for a CSR list the mean
+    quota) and the card's resident blocks."""
+    S, tiles = lists.n_stage.shape
+    n_stage = lists.lb.shape[-1]
+    if lists.start is not None:
+        n_stage = max(1, n_stage // max(tiles, 1))
+    return pick_split(S * tiles, n_stage, occupancy(form, mode, 0, device)["slots"])
 
 
 def _check(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor, form: str,
@@ -403,24 +531,36 @@ def _check(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor, fo
 def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor,
                   max_depth: float = 20.0, form: str = "mt", origin_tiles: int = 1,
                   mode: str = "scalar", count_stages: bool = False, body: bool = True,
-                  pin_stage: bool = False):
+                  pin_stage: bool = False, split: Optional[int] = None):
     """First hit of rays (3, S, R) over their tiles' lists → (t (S, R),
     hit (S, R) bool, gid (S, R) int32), and with ``count_stages`` a fourth
-    tensor, the stages executed per tile (S, tiles) int32. CUDA tensors go
-    through a CUDA kernel, CPU tensors through :func:`tri_first_hit_reference`.
-    ``mode`` picks the variant of the per-camera body (module docstring);
-    ``body=False`` and ``pin_stage=True`` are the knock-outs of the merged
-    kernel. A launch adds one to ``LAUNCHES``: a knock-out to
-    ``tri_trace_knockout``, else a counting launch to ``tri_trace_probe``,
-    else to the tier's entry (:func:`count_name`)."""
+    tensor, the stages executed per tile (S, tiles) int32, summed over its
+    blocks. CUDA tensors go through a CUDA kernel, CPU tensors through
+    :func:`tri_first_hit_reference`. ``mode`` picks the variant of the
+    per-camera body (module docstring); ``body=False`` and ``pin_stage=True``
+    are the knock-outs of the merged kernel. ``split`` (1 to
+    :data:`MAX_SPLIT`) is the blocks that walk a tile; ``None`` picks it: on
+    the card :func:`default_split`, except for the two diagnostics and the
+    matrix form, which walk a tile as one block; on the CPU 1. Any ``split``
+    gives the same t and hit to the bit and the same ids where a ray hits. A
+    launch adds one to ``LAUNCHES``: a knock-out to ``tri_trace_knockout``,
+    else a counting launch to ``tri_trace_probe``, else to the tier's entry
+    (:func:`count_name`)."""
     knockout = not body or pin_stage
     S, R = _check(tris, lists, origins_c, dirs_c, form, origin_tiles, mode, knockout)
+    if split is not None and not 1 <= split <= MAX_SPLIT:
+        raise ValueError(f"split must be 1..{MAX_SPLIT} blocks a tile; got {split}")
+    if mode == "mx" and split not in (None, 1):
+        raise ValueError(f"the matrix form walks a tile as one block; got split {split}")
     dev = origins_c.device
     if dev.type == "cpu":
         stats = {}
         out = tri_first_hit_reference(tris, lists, origins_c, dirs_c, max_depth, form,
-                                      origin_tiles, stats, mode, body, pin_stage)
+                                      origin_tiles, stats, mode, body, pin_stage, split or 1)
         return (*out, stats["stages"]) if count_stages else out
+    if split is None:
+        split = (1 if count_stages or knockout or mode == "mx"
+                 else default_split(lists, form, mode, dev))
     tensors = [tris, lists.ids, lists.n_stage, lists.lb, origins_c, dirs_c]
     if lists.start is not None:
         tensors.append(lists.start)
@@ -438,7 +578,7 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
         return None if x is None else x.data_ptr()
 
     if S and R:
-        launch, launch_mx = _launchers()
+        launch, launch_mx, _ = _launchers()
         count = ("tri_trace_knockout" if knockout else "tri_trace_probe" if count_stages
                  else count_name(form, lists.block, mode, lists.start is not None))
         with torch.cuda.device(dev):
@@ -455,7 +595,7 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
                             dirs_c.data_ptr(), ptr(t), ptr(hit), ptr(gid), ptr(stages), S,
                             tris.shape[1], R, lists.lb.shape[-1], lists.chunk, lists.block,
                             int(origin_tiles), float(max_depth), FORMS[form], int(merged),
-                            int(not body) + 2 * int(pin_stage), stream)
+                            int(not body) + 2 * int(pin_stage), int(split), stream)
             LAUNCHES[count] += 1
         if rc != 0:
             raise RuntimeError(f"{count} kernel launch failed with CUDA error {rc}")
