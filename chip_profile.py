@@ -7,7 +7,7 @@ time of a step, so the idle share is taken against the step time clocked
 without it.
 
     python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [sv] [probe] [floor]
-                            [split]                                 # default: A C
+                            [split] [march]                         # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
 and 3 times (360, 5,760 and 23,040 triangles); they also clock the parts of
@@ -54,6 +54,19 @@ compiler made of the bodies (``cuobjdump -sass``: instructions, branches,
 reciprocals), and the kernel's fused per-test products beside the unfused
 plain version, each against a float64 brute force on 8 cameras with lists of
 the whole mesh, the garage moved 0, 20 and 40 m from the origin.
+
+``march`` is the evidence for the march kernel's design (``csrc/trace_march.cu``)
+on path B's camera rays (256 agents, 64×64): for each of its three modes, the
+culled march B2 (with the frustum planes of the 64-wide cameras), the
+over-relaxed un-culled march B3a and the packed warm-started march B3b, the
+kernel's time against the plain version's result, its bound and share, the
+SDF evaluations a ray and the rows an evaluation; the share of tiles whose
+culled rows fit the compacted block; and from the plain version's per-ray
+evaluation counts the issued-lane efficiency (the evaluations the rays need
+over 32 × the warp's longest lane) of two ways to give a warp its rays:
+32 × 1 strips of an image row and 8 × 4 patches (the kernel's), with the
+kernel's time in both (B3a and B3b; B2's cull needs the image width that
+the patches come from) and the registers and spills of each instantiation.
 
 Every line ends with the card's name and power limit.
 """
@@ -446,6 +459,97 @@ def sv_rounding(level, env, card):
                   f"{float((hit != hit64).double().mean()):.3e} | {card}", flush=True)
 
 
+def lane_efficiency(ev, H, W):
+    """Issued-lane efficiency of two ray-to-lane mappings over camera images
+    of H × W rays (``ev`` (S, R): evaluations each ray needs, images one
+    after another): the evaluations needed over 32 × the sum of each warp's
+    longest lane, for 32 × 1 strips of an image row and 8 × 4 patches."""
+    e = ev.reshape(-1).double()
+    strips = e.reshape(-1, 32).amax(1).sum()
+    patches = (e.reshape(-1, H // 4, 4, W // 8, 8).permute(0, 1, 3, 2, 4)
+               .reshape(-1, 32).amax(1).sum())
+    return {k: float(e.sum()) / (32 * float(v)) for k, v in
+            (("strips 32x1", strips), ("patches 8x4", patches))}
+
+
+def march(env, card):
+    """The march kernel's three modes on path B's camera rays: time, error
+    against the plain version, bound, evaluations, the cull's fit share and
+    the lane efficiency of two ray mappings."""
+    from visfly_tpu_torch.render import cone_warm_start, prepare_kernel_scene, trace_march
+    from visfly_tpu_torch.render import trace_kernel as tk
+    from visfly_tpu_torch.build import build
+
+    with open(os.path.join(os.path.dirname(build("trace_march")), "build.log")) as f:
+        log = f.read()
+    # per instantiation (trace_march_kernel<PACKED, RELAXED, CULL>, mangled)
+    for entry in log.split("Compiling entry function '")[1:]:
+        name, rest = entry.split("'", 1)
+        regs = rest.split("Used ", 1)[1].split(",")[0]
+        spill = rest.split(" bytes spill stores")[0].rsplit(" ", 1)[-1]
+        print(f"march | ptxas {name.split('trace_march_kernel')[1].split('EEv')[0]}: {regs}, "
+              f"{spill} bytes spilled | {card}", flush=True)
+    dev = torch.device("cuda", 0)
+    state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
+    ks = prepare_kernel_scene(env.scene)
+    o, d = cs.camera_rays_of(env, state)
+    H, W = cs.RES
+    spec = env.sensor_kwargs[3]
+    ti = cone_warm_start(env.scene, spec, spec["tile"], o[:, 0, ::H * W].T.contiguous(),
+                         state.dyn.q, 1, None, cs.TRACE_STEPS, cs.MAX_DEPTH)
+    n = o.shape[2]
+    plan = tk.cull_rows(ks, o, d, cs.MAX_DEPTH, W)
+    act_b, act_c = ks.boxes[..., 11] > 0.5, ks.capsules[..., 7] > 0.5
+    rows_b = (plan.box_rows & act_b[:, None]).sum(-1).double()
+    rows_c = (plan.cap_rows & act_c[:, None]).sum(-1).double()
+    print(f"march | cull on {plan.fits.numel()} tiles: rows fit on "
+          f"{float(plan.fits.double().mean()):.4f}; culled-in boxes "
+          f"{float(plan.nb.double().mean()):.2f}, capsules {float(plan.nc.double().mean()):.2f}; "
+          f"rows evaluated boxes {float(rows_b.mean()):.2f} of {int(act_b.sum())}, capsules "
+          f"{float(rows_c.mean()):.2f} of {int(act_c.sum())} | {card}", flush=True)
+    op, dp = cs.packed(o), cs.packed(d)
+    half = max(8, cs.TRACE_STEPS // 2)
+    modes = cs.kernel_modes(lambda _: ti, W)  # their plain versions
+    # each mode as the main path calls it, and (patches=False) with its
+    # warps on 32 x 1 strips: the culled march without the image width would
+    # lose its frustum planes, so it has no such form
+    calls = {
+        ("trace_march", True): lambda: trace_march(ks, o, d, None, cs.TRACE_STEPS, cs.MAX_DEPTH,
+                                                   img_w=W),
+        ("trace_march_nocull", True): lambda: trace_march(
+            ks, o, d, None, cs.TRACE_STEPS, cs.MAX_DEPTH, omega=1.5, cull=False, img_w=W),
+        ("trace_march_nocull", False): lambda: trace_march(
+            ks, o, d, None, cs.TRACE_STEPS, cs.MAX_DEPTH, omega=1.5, cull=False),
+        ("trace_march_packed", True): lambda: trace_march(ks, op, dp, ti, half, cs.MAX_DEPTH,
+                                                          packed=True, img_w=W),
+        ("trace_march_packed", False): lambda: trace_march(ks, op, dp, ti, half, cs.MAX_DEPTH,
+                                                           packed=True)}
+    ref = {}
+    for mode in ("trace_march", "trace_march_nocull", "trace_march_packed"):
+        stats = {}
+        t_p, hit_p = modes[mode][1](ks, o, d, stats=stats)
+        b_ms, b_by = cs.bound_ms(mode, ks, n, stats, plan if mode == "trace_march" else None)
+        ref[mode] = (t_p, hit_p, b_ms)
+        eff = lane_efficiency(stats["ray_evals"], H, W)
+        print(f"march | {mode}: {stats['sdf_evals'] / n:.2f} SDF evaluations a ray, bound "
+              f"{b_ms:.4f} ms by {b_by}; lane efficiency "
+              + ", ".join(f"{k} {v:.4f}" for k, v in eff.items()) + f" | {card}", flush=True)
+    # in turns, forwards then backwards
+    for order in (list(calls), list(calls)[::-1]):
+        for mode, patches in order:
+            call = calls[(mode, patches)]
+            t_p, hit_p, b_ms = ref[mode]
+            t_k, hit_k = call()
+            torch.cuda.synchronize()
+            both = hit_k & hit_p
+            err = float((t_k - t_p).abs()[both].max())
+            flip = float((hit_k != hit_p).double().mean())
+            ms = cs.cuda_ms(call)
+            print(f"march | {mode}, {'8x4 patches' if patches else '32x1 strips'}: kernel "
+                  f"{ms:.4f} ms, {b_ms / ms:.4f} of the bound; vs plain max|dt| {err:.3e} m, "
+                  f"hit flags differ on {flip:.3e} | {card}", flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_profile.py needs one CUDA card", file=sys.stderr)
@@ -477,6 +581,8 @@ def main(argv):
             floor(garage_env(3), card)
         elif name == "split":
             split({level: garage_env(level) for level in (0, 2, 3)}, card)
+        elif name == "march":
+            march(make_env["B"](), card)
         elif name == "E":
             profile_bptt("path E", BPTT(cs.hover_grad_env(dev), horizon=32), card)
         elif name == "F":

@@ -44,8 +44,11 @@ Phases, one line each; any failure exits non-zero:
    sources in the checkout, the compilers side by side;
 3. every kernel mode vs its plain PyTorch version on the card at the
    main-path shapes (the reset agents' camera rays of paths A and B, 1 M
-   random rays, a scene with 256 dynamic capsules): max |Δt| ≤ 1e-3 m on
+   random rays, a scene with 256 dynamic capsules), the culled march with
+   the 64-wide cameras' frustum planes on camera rays: max |Δt| ≤ 1e-3 m on
    rays that both hit, hit and winning-id disagreeing on ≤ 1e-5 of rays;
+   the culled march's per-tile row counts equal to the plain cull's on
+   every tile of path B's cameras (with and without the dynamic capsules);
    both timed with CUDA events (median of 20; 3 for the plain march);
    then the implicit-function-theorem gradient through the kernel forward
    against the same rule on the plain forward, within 1e-4 relative; the
@@ -106,8 +109,11 @@ COLOR_TOL = 1e-4  # share of pixels: a silhouette pixel flips a whole uint8 trip
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # float32 operations of one row, a division or square root counted as the
-# 8-instruction sequence it compiles to, everything else as 1
-OPS = {"box_hit": 100, "cap_hit": 185, "box_sdf": 41, "cap_sdf": 49}
+# 8-instruction sequence it compiles to, everything else as 1. A capsule's
+# distance needs its axis ba and 1/(ba·ba + 1e-9) (17 operations): row
+# constants, "cap_row", which a march forms once a row, not at every
+# evaluation ("cap_sdf": the other 32).
+OPS = {"box_hit": 100, "cap_hit": 185, "box_sdf": 41, "cap_sdf": 32, "cap_row": 17}
 # float32 arithmetic of one ray-triangle test, in three parts: what every
 # test against a triangle needs to reach its first gate, what a test past that
 # gate needs to reach its division, and what only a test that divides needs.
@@ -417,9 +423,12 @@ def packed(x):
     return x.permute(1, 2, 0).contiguous()
 
 
-def kernel_modes(t_init):
+def kernel_modes(t_init, img_w=None):
     """name → (kernel call, plain call) on (kscene, o, d), with the arguments
-    the main paths give each mode. ``t_init`` warm-starts the packed march."""
+    the main paths give each mode. ``t_init`` warm-starts the packed march;
+    ``img_w`` is the width of the camera whose rays o and d are (None for
+    rays of no camera): the culled march's frustum planes take it, and the
+    march kernel its warps' patches of pixels."""
     from visfly_tpu_torch.render import (trace_analytic, trace_analytic_reference, trace_march,
                                          trace_march_reference)
 
@@ -432,20 +441,54 @@ def kernel_modes(t_init):
             lambda ks, o, d: trace_analytic(ks, o, d, MAX_DEPTH, want_kid=True),
             lambda ks, o, d, **kw: trace_analytic_reference(ks, o, d, MAX_DEPTH, want_kid=True)),
         "trace_march": (
-            lambda ks, o, d: trace_march(ks, o, d, None, TRACE_STEPS, MAX_DEPTH),
+            lambda ks, o, d: trace_march(ks, o, d, None, TRACE_STEPS, MAX_DEPTH, img_w=img_w),
             lambda ks, o, d, **kw: trace_march_reference(ks, o, d, None, TRACE_STEPS,
-                                                         MAX_DEPTH, **kw)),
+                                                         MAX_DEPTH, cull=True, img_w=img_w,
+                                                         **kw)),
         "trace_march_nocull": (
             lambda ks, o, d: trace_march(ks, o, d, None, TRACE_STEPS, MAX_DEPTH, omega=1.5,
-                                         cull=False),
+                                         cull=False, img_w=img_w),
             lambda ks, o, d, **kw: trace_march_reference(ks, o, d, None, TRACE_STEPS,
                                                          MAX_DEPTH, omega=1.5, **kw)),
         "trace_march_packed": (
             lambda ks, o, d: trace_march(ks, packed(o), packed(d), t_init(o), half, MAX_DEPTH,
-                                         packed=True),
+                                         packed=True, img_w=img_w),
             lambda ks, o, d, **kw: trace_march_reference(ks, o, d, t_init(o), half, MAX_DEPTH,
                                                          **kw)),
     }
+
+
+def cull_counts(case, ks, o, d, img_w, card):
+    """The culled march kernel's per-tile (nb, nc) against the plain cull's
+    on every tile, exactly; a tile that differs is printed with the margins
+    of its rows against the four frustum planes. → the share of tiles whose
+    rows fit the compacted block."""
+    import torch
+
+    from visfly_tpu_torch.render import trace_march
+    from visfly_tpu_torch.render.trace_kernel import cull_rows
+
+    counts = trace_march(ks, o, d, None, TRACE_STEPS, MAX_DEPTH, img_w=img_w,
+                         want_counts=True)[2]
+    plan = cull_rows(ks, o, d, MAX_DEPTH, img_w)
+    want = torch.stack([plan.nb, plan.nc], -1).to(torch.int32)
+    bad = (counts != want).any(-1).nonzero().tolist()
+    for s, tile in bad[:8]:
+        margins = "none (no frustum)"
+        if plan.box_margin is not None:  # per plane, the least |margin| of a box / capsule row
+            margins = [f"{float(plan.box_margin[s, tile, q].abs().min()):.3e}/"
+                       f"{float(plan.cap_margin[s, tile, q].abs().min()):.3e}" for q in range(4)]
+        print(f"phase 3 | cull counts on {case}, scene {s} tile {tile}: kernel "
+              f"{counts[s, tile].tolist()}, plain {want[s, tile].tolist()}; plane margins "
+              f"{margins}", flush=True)
+    fits = float(plan.fits.double().mean())
+    print(f"phase 3 | cull counts on {case}: {counts.shape[0] * counts.shape[1]} tiles, "
+          f"{len(bad)} differ; rows fit the compacted block on {fits:.4f} of the tiles; "
+          f"culled-in rows a tile: boxes {float(plan.nb.double().mean()):.2f} of "
+          f"{ks.boxes.shape[1]}, capsules {float(plan.nc.double().mean()):.2f} of "
+          f"{ks.capsules.shape[1]} | {card}", flush=True)
+    check(not bad, f"cull counts differ on {len(bad)} tiles of {case}")
+    return fits
 
 
 def compare(mode, case, kernel, plain, kscene, o, d):
@@ -474,19 +517,51 @@ def compare(mode, case, kernel, plain, kscene, o, d):
     return err
 
 
-def bound_ms(mode, kscene, n_rays, sdf_evals):
+def march_ops(kscene, stats, plan=None, per_eval_rows=False):
+    """Float32 operations of a march (OPS): each ray's evaluations
+    (``stats["ray_evals"]`` of the plain version) times the active rows its
+    tile evaluates, all of them, or with ``plan`` (``cull_rows``) the culled
+    function's; and each capsule row's constants once for each tile that
+    evaluates it (``per_eval_rows``: at every evaluation instead, as the
+    march kernel did before it staged them)."""
+    import torch
+
+    act_b = kscene.boxes[..., 11] > 0.5  # (S, KB)
+    act_c = kscene.capsules[..., 7] > 0.5
+    evals = stats["ray_evals"]
+    n_tiles = -(-evals.shape[1] // 1024)
+    if plan is None:
+        n_box = act_b.sum(-1)[:, None].expand(-1, n_tiles)
+        n_cap = act_c.sum(-1)[:, None].expand(-1, n_tiles)
+    else:
+        n_box = (plan.box_rows & act_b[:, None]).sum(-1)  # (S, T)
+        n_cap = (plan.cap_rows & act_c[:, None]).sum(-1)
+    cap_eval = OPS["cap_sdf"] + OPS["cap_row"] * per_eval_rows
+    per_tile = (n_box * OPS["box_sdf"] + n_cap * cap_eval).double()
+    tile_evals = torch.zeros(evals.shape[0], n_tiles * 1024, dtype=torch.float64,
+                             device=evals.device)
+    tile_evals[:, :evals.shape[1]] = evals.double()
+    tile_evals = tile_evals.reshape(evals.shape[0], n_tiles, 1024).sum(-1)
+    rows = 0.0 if per_eval_rows else float(n_cap.double().sum()) * OPS["cap_row"]
+    return float((tile_evals * per_tile).sum()) + rows
+
+
+def bound_ms(mode, kscene, n_rays, stats=None, plan=None):
     """The least time the card could take: the larger of the bytes the
     function must move over the memory rate and its float32 operations, on
-    this run's data, over the float32 peak → (ms, "bytes" | "operations")."""
-    nb = int((kscene.boxes[0, :, 11] > 0.5).sum())
-    nc = int((kscene.capsules[0, :, 7] > 0.5).sum())
+    this run's data, over the float32 peak → (ms, "bytes" | "operations").
+    A march's operations are :func:`march_ops` of the plain version's
+    ``stats``; the culled march's (``plan``) count the rows each tile
+    evaluates."""
     if mode.startswith("trace_analytic"):
+        nb = int((kscene.boxes[0, :, 11] > 0.5).sum())
+        nc = int((kscene.capsules[0, :, 7] > 0.5).sum())
         # six ray components in, t and hit (and the id) out
         n_bytes = n_rays * (6 * 4 + 4 + 1 + (4 if mode.endswith("kid") else 0))
         ops = n_rays * (nb * OPS["box_hit"] + nc * OPS["cap_hit"])
     else:
         n_bytes = n_rays * (6 * 4 + 4 + 4 + 1)  # and t_init in
-        ops = sdf_evals * (nb * OPS["box_sdf"] + nc * OPS["cap_sdf"])
+        ops = march_ops(kscene, stats, plan)
     by_bytes, by_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -505,7 +580,8 @@ def gradient_phase(kscene, o, d, gen):
         t = trace_diff(kscene, o_in, d_in, None, TRACE_STEPS, MAX_DEPTH,
                        packed=layout == "packed")[0]
         g_o, g_d = torch.autograd.grad((t * g_t).sum(), (o_in, d_in))
-        t_p, hit_p = trace_march_reference(kscene, o, d, None, TRACE_STEPS, MAX_DEPTH)
+        t_p, hit_p = trace_march_reference(kscene, o, d, None, TRACE_STEPS, MAX_DEPTH,
+                                           cull=layout == "component")
         r_o, r_d = trace_ift_backward(kscene, o_in.detach(), d_in.detach(), t_p, hit_p, g_t,
                                       layout == "packed")
         torch.cuda.synchronize()
@@ -1048,16 +1124,21 @@ def main():
                                           generator=torch.Generator(device=dev).manual_seed(2))
                                * 2.0)
     cases = [
-        ("path B camera rays of 256 reset agents", ks_b, o_b, d_b, cone_t_init(None)),
-        ("path A camera rays of 256 reset agents", ks_a, o_a, d_a, random_t_init),
-        ("1M random rays", ks_b, o_rand, d_rand, random_t_init),
+        ("path B camera rays of 256 reset agents", ks_b, o_b, d_b, cone_t_init(None), RES[1]),
+        ("path A camera rays of 256 reset agents", ks_a, o_a, d_a, random_t_init, RES[1]),
+        ("1M random rays", ks_b, o_rand, d_rand, random_t_init, None),
         ("path B camera rays with 256 dynamic capsules", ks_dyn, o_b, d_b,
-         cone_t_init(objects)),
+         cone_t_init(objects), RES[1]),
     ]
     errs = {m: 0.0 for m in KERNELS}
-    for case, ks, o, d, t_init in cases:
-        for mode, (kernel, plain) in kernel_modes(t_init).items():
+    for case, ks, o, d, t_init, img_w in cases:
+        for mode, (kernel, plain) in kernel_modes(t_init, img_w).items():
             errs[mode] = max(errs[mode], compare(mode, case, kernel, plain, ks, o, d))
+    # the culled march's rows on every tile of path B's cameras
+    from visfly_tpu_torch.render.trace_kernel import cull_rows
+
+    for case, ks, o, d, _, img_w in (cases[0], cases[3]):
+        cull_counts(case, ks, o, d, img_w, card)
 
     # times at the shapes and arguments the main path gives each mode: B1 and
     # the marches on path B's rays, the id kernel on path A's
@@ -1066,12 +1147,13 @@ def main():
     timing = {}
     ti_b = cone_t_init(None)(o_b)  # the prepass is plain PyTorch, not the kernel: outside
     op_b, dp_b = packed(o_b), packed(d_b)  # and so is the layout change
-    modes_b = kernel_modes(lambda o: ti_b)
+    modes_b = kernel_modes(lambda o: ti_b, RES[1])
+    plan_b = cull_rows(ks_b, o_b, d_b, MAX_DEPTH, RES[1])
     for mode, (kernel, plain) in modes_b.items():
         ks, o, d = (ks_a, o_a, d_a) if mode == "trace_analytic_kid" else (ks_b, o_b, d_b)
         if mode == "trace_march_packed":
             ms = cuda_ms(lambda: trace_march(ks, op_b, dp_b, ti_b, max(8, TRACE_STEPS // 2),
-                                             MAX_DEPTH, packed=True))
+                                             MAX_DEPTH, packed=True, img_w=RES[1]))
         else:
             ms = cuda_ms(lambda: kernel(ks, o, d))
         march = "march" in mode
@@ -1080,9 +1162,15 @@ def main():
         stats = {}
         if march:
             plain(ks, o, d, stats=stats)
-        b_ms, b_by = bound_ms(mode, ks, o.shape[2], stats.get("sdf_evals", 0))
+        b_ms, b_by = bound_ms(mode, ks, o.shape[2], stats,
+                              plan_b if mode == "trace_march" else None)
         timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        evals = f", {stats['sdf_evals'] / o.shape[2]:.2f} SDF evaluations a ray" if march else ""
+        evals = ""
+        if march:
+            plan = plan_b if mode == "trace_march" else None
+            old_ms = march_ops(ks, stats, plan, per_eval_rows=True) / PEAK_FP32_PER_S * 1e3
+            evals = (f", {stats['sdf_evals'] / o.shape[2]:.2f} SDF evaluations a ray (bound with "
+                     f"the row constants at every evaluation: {old_ms:.4f} ms)")
         print(f"phase 3 | {mode} at {o.shape[2]} rays: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, bound {b_ms:.4f} ms by {b_by}{evals} | {card}", flush=True)
     # the id's cost beside B1 on the same rays (path B's semantic sensor)
@@ -1312,8 +1400,9 @@ def main():
             "replaces": KERNELS[mode][1], "launches": launches[mode],
             "max_abs_err": errs[mode], **timing[mode], "library_ms": None,
         } for mode in KERNELS],
-        "note": "trace_march and trace_march_nocull are one kernel instantiation (the per-tile "
-                "cull is not ported): the launch count tells the cull settings apart; the "
+        "note": "trace_march (the per-tile cull, B2), trace_march_nocull (B3a) and "
+                "trace_march_packed (B3b) are instantiations of one march kernel, timed on path "
+                "B's camera rays; B2's bound counts the rows its tiles evaluate; the "
                 "tri_trace_* modes are flags and list modes of one source (tile_sv and tile_mt "
                 "the two bodies of B4, soup B5, camsoup B6, camsoup_merged B7a, camsoup_mx B7b "
                 "with a kernel of its own, worklist B7c, probe B8a, knockout B8b with body off "

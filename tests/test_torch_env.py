@@ -187,7 +187,15 @@ def test_unported_branches_raise(tmp_path):
     # differentiable rollouts are ported: the flags are attributes
     env = nav(requires_grad=True, grad_collision=True)
     assert env.requires_grad and env.grad_collision and not nav().requires_grad
+    # keywords that only set attributes in the JAX package do so here
+    env = nav(tensor_output=False, is_train=True, sensitive_radius=6.0, multi_drone=True)
+    assert (not env.tensor_output and env.is_train and env.sensitive_radius == 6.0
+            and env.is_multi_drone)
+    env = nav()
+    assert env.tensor_output and not env.is_train and not env.is_multi_drone
+    assert env.sensitive_radius == 10.0
     for build in (
+        lambda: nav(indiv_reward=True),
         lambda: nav(col_refine_steps=2),
         lambda: nav(latent_dim=8),
         lambda: nav(scene_kwargs=dict(scene, obj_settings={"path": "x"})),
@@ -396,7 +404,9 @@ def test_hover_bbox_collision_resets():
 def test_sensor_suite_matches_jax():
     """``NavigationEnv`` with the four sensors of the sensor-suite path at
     16×64. The JAX CPU march defaults to bfloat16, so its specs ask for
-    float32; its march runs with no per-tile cull, like the port's."""
+    float32; it runs with no per-tile cull, while the port's culled march
+    (``depth_march``) computes the TPU kernel's culled function, which stays
+    within the same 1e-3 m of the un-culled one here."""
     sensors = [
         {"uuid": "semantic", "sensor_type": "semantic"},
         {"uuid": "depth_march", "sensor_type": "depth", "trace_mode": "march"},

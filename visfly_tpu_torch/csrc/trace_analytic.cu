@@ -85,8 +85,7 @@ __global__ void trace_analytic_kernel(const float* __restrict__ boxes,
   if (KID) kid_out[idx] = best < max_depth ? kbest : -1.0f;
   float t = fminf(best, max_depth);
   if (REFINE) {
-    t = march<false>(sb, KB, sc, KC, ox, oy, oz, dx, dy, dz, t, n_refine, max_depth, eps,
-                     1.0f, 0.0f);
+    t = march(sb, KB, sc, KC, ox, oy, oz, dx, dy, dz, t, n_refine, max_depth, eps);
     t = final_eval(sb, KB, sc, KC, ox, oy, oz, dx, dy, dz, t, max_depth);
   } else {
     t = fminf(fmaxf(t, 0.0f), max_depth);

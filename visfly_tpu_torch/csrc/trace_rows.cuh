@@ -1,6 +1,7 @@
 // Per-row arithmetic shared by the ray-trace kernels (trace_analytic.cu,
 // trace_march.cu): the closed-form first hit of one packed scene row, the
-// signed distance of one row, and the scene SDF a marching ray evaluates.
+// signed distance of one row (box_sdf_of, axis_distance: the forms both
+// kernels' row layouts call), and the scene SDF the analytic refine marches.
 // It is the counterpart of the one tile body that all modes of the TPU
 // kernel share, visfly_tpu/render/pallas_trace.py::_trace_tile.
 //
@@ -103,15 +104,28 @@ __device__ __forceinline__ float cap_sphere_hit(float ex, float ey, float ez, fl
   return (dd > 0.0f && ti >= 0.0f) ? ti : kBig;
 }
 
+// 1 / (ba·ba + 1e-9) of a capsule's axis ba: a row constant, which the march
+// stages once (trace_march.cu) and the analytic refine forms per evaluation.
+__device__ __forceinline__ float capsule_inv_denom(float bax, float bay, float baz) {
+  return 1.0f / (bax * bax + bay * bay + baz * baz + 1e-9f);
+}
+
+// Distance from p to the axis segment from a along ba.
+__device__ __forceinline__ float axis_distance(float ax, float ay, float az, float bax,
+                                               float bay, float baz, float inv_denom,
+                                               float px, float py, float pz) {
+  const float pax = px - ax, pay = py - ay, paz = pz - az;
+  const float h = fminf(fmaxf((pax * bax + pay * bay + paz * baz) * inv_denom, 0.0f), 1.0f);
+  const float ex = pax - bax * h, ey = pay - bay * h, ez = paz - baz * h;
+  return sqrtf(ex * ex + ey * ey + ez * ez + 1e-12f);
+}
+
 // Distance from p to the capsule's axis segment.
 __device__ __forceinline__ float capsule_axis_distance(const float* c, float px, float py,
                                                        float pz) {
   const float bax = c[3] - c[0], bay = c[4] - c[1], baz = c[5] - c[2];
-  const float pax = px - c[0], pay = py - c[1], paz = pz - c[2];
-  const float inv_denom = 1.0f / (bax * bax + bay * bay + baz * baz + 1e-9f);
-  const float h = fminf(fmaxf((pax * bax + pay * bay + paz * baz) * inv_denom, 0.0f), 1.0f);
-  const float ex = pax - bax * h, ey = pay - bay * h, ez = paz - baz * h;
-  return sqrtf(ex * ex + ey * ey + ez * ez + 1e-12f);
+  return axis_distance(c[0], c[1], c[2], bax, bay, baz, capsule_inv_denom(bax, bay, baz),
+                       px, py, pz);
 }
 
 // True where the capsule, grown by 5 cm, holds the point.
@@ -152,17 +166,24 @@ __device__ __forceinline__ float capsule_hit(const float* c, float ox, float oy,
 // signed distance of one row, and of the scene
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float box_sdf(const float* b, float px, float py, float pz) {
-  const float cyaw = b[7], syaw = b[8];
-  const float rx = px - b[0], ry = py - b[1];
+// Signed distance of the box of centre c, half sizes h, rounding radius rad,
+// yaw (cos, sin) and sign (−1: a hollow room).
+__device__ __forceinline__ float box_sdf_of(float cx, float cy, float cz, float hx, float hy,
+                                            float hz, float rad, float cyaw, float syaw,
+                                            float sign, float px, float py, float pz) {
+  const float rx = px - cx, ry = py - cy;
   const float x = cyaw * rx + syaw * ry;
   const float y = -syaw * rx + cyaw * ry;
-  const float z = pz - b[2];
-  const float qx = fabsf(x) - b[3], qy = fabsf(y) - b[4], qz = fabsf(z) - b[5];
+  const float z = pz - cz;
+  const float qx = fabsf(x) - hx, qy = fabsf(y) - hy, qz = fabsf(z) - hz;
   const float ex = fmaxf(qx, 0.0f), ey = fmaxf(qy, 0.0f), ez = fmaxf(qz, 0.0f);
   const float outside = sqrtf(ex * ex + ey * ey + ez * ez + 1e-12f);
   const float inside = fminf(fmaxf(qx, fmaxf(qy, qz)), 0.0f);
-  return (outside + inside - b[6]) * b[9];
+  return (outside + inside - rad) * sign;
+}
+
+__device__ __forceinline__ float box_sdf(const float* b, float px, float py, float pz) {
+  return box_sdf_of(b[0], b[1], b[2], b[3], b[4], b[5], b[6], b[7], b[8], b[9], px, py, pz);
 }
 
 // Scene SDF at p for the ray whose origin is o. Inactive rows are skipped
@@ -192,31 +213,17 @@ __device__ __forceinline__ float scene_sdf(const float* sb, int KB, const float*
 
 // Sphere-trace march of n_steps from t: t += d while d >= eps and
 // t < max_depth. A ray that is done leaves the loop, since its t no longer
-// changes. RELAXED steps omega*d (omega > 1) with the safeguard of Keinert
-// et al.: when the safe spheres of two consecutive samples stop overlapping
-// the ray steps back inside the previous one and marches plainly from then on.
-template <bool RELAXED>
+// changes. (The analytic kernel's residual refine; trace_march.cu marches
+// its own staged rows.)
 __device__ __forceinline__ float march(const float* sb, int KB, const float* sc, int KC,
                                        float ox, float oy, float oz,
                                        float dx, float dy, float dz, float t, int n_steps,
-                                       float max_depth, float eps, float omega,
-                                       float one_minus_omega) {
-  float prev_r = 0.0f, step_len = 0.0f, om = omega;
+                                       float max_depth, float eps) {
   for (int i = 0; i < n_steps; ++i) {
     const float r = scene_sdf(sb, KB, sc, KC, ox + dx * t, oy + dy * t, oz + dz * t,
                               ox, oy, oz);
-    if (!RELAXED) {
-      if (r < eps || t >= max_depth) break;
-      t = t + r;
-    } else {
-      const bool fail = om > 1.0f && (r + prev_r < step_len);
-      if ((!fail && r < eps) || t >= max_depth) break;
-      const float new_step = fail ? step_len * one_minus_omega : r * om;
-      if (fail) om = 1.0f;
-      t = t + new_step;
-      prev_r = r;
-      step_len = new_step;
-    }
+    if (r < eps || t >= max_depth) break;
+    t = t + r;
   }
   return t;
 }

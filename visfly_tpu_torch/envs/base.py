@@ -116,10 +116,14 @@ class DroneGymEnv:
         scene_kwargs: Optional[dict] = None,
         sensor_kwargs: Optional[Sequence[dict]] = None,
         device: Any = "cuda",
+        tensor_output: bool = True,
         is_collision_reset: bool = True,
+        is_train: bool = False,
         uav_radius: float = 0.1,
+        sensitive_radius: float = 10.0,
         col_refine_steps: int = 0,
         grad_collision: bool = False,
+        multi_drone: bool = False,
         latent_dim: Optional[int] = None,
         dtype=torch.float32,
     ):
@@ -139,6 +143,11 @@ class DroneGymEnv:
         self.grad_collision = bool(grad_collision)
         self.is_collision_reset = is_collision_reset
         self.uav_radius = float(uav_radius)
+        # attributes only, as in the JAX package: nothing reads them yet
+        self.tensor_output = tensor_output
+        self.is_train = is_train
+        self.sensitive_radius = float(sensitive_radius)
+        self.is_multi_drone = multi_drone
         self.dtype = dtype
         self.max_sense_radius = 10.0
         self.scene_ids = torch.arange(self.num_scene, device=self.device).repeat_interleave(

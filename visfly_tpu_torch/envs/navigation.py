@@ -10,7 +10,7 @@ from torch import Tensor
 
 from ..core.math_utils import safe_norm
 from ..dynamics import dynamics as dyn_mod
-from .base import DroneGymEnv, EnvState
+from .base import DroneGymEnv, EnvState, _unported
 
 
 def get_along_vertical_vector(base: Tensor, obj: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -42,6 +42,12 @@ class _TargetEnv(DroneGymEnv):
 
 class NavigationEnv(_TargetEnv):
     """Depth + state + target navigation."""
+
+    def __init__(self, *args, indiv_reward: bool = False, **kwargs):
+        if indiv_reward:
+            raise _unported("per-term reward telemetry (indiv_reward)",
+                            "Queue A item 8, the rest of envs/base.py")
+        super().__init__(*args, **kwargs)
 
     def get_observation(self, state: EnvState, sensor_obs) -> Dict[str, Tensor]:
         obs = {"state": self.state_obs(state), "target": self.target}

@@ -12,7 +12,9 @@ semantic ``(N, 1, H, W)`` uint8.
 Sensor-spec keys beyond the camera's: ``trace_mode`` ("analytic", the
 default: closed-form first hit; or "march": the sphere trace),
 ``analytic_refine`` (residual march steps after the analytic candidate),
-``cull``, ``march_omega`` (over-relaxed march), ``trace_steps_override`` and
+``cull`` (march mode: each 1,024-ray tile marches over the rows whose bounds
+meet it, as the JAX kernel does; default on), ``march_omega`` (over-relaxed
+march), ``trace_steps_override`` and
 ``tile`` (> 1: one conservative cone per tile of pixels warm-starts the
 per-pixel march, which then takes half the steps; march mode only).
 
@@ -342,7 +344,7 @@ def render_camera(
         t_init = cone_warm_start(data, spec, tile, origins, q, S, objects, n_steps, max_depth)
         pixel_steps = n_steps if t_init is None else max(8, n_steps // 2)
         t, hit, _ = trace_diff(kscene, o_pm, d_pm, t_init, pixel_steps, max_depth,
-                               packed=True)
+                               packed=True, img_w=W if (H * W) % TILE == 0 else None)
         cos_f = cos_f[:1]
     else:
         # component-major: rays never exist as (R, 3) tensors on the way in
@@ -351,10 +353,15 @@ def render_camera(
         d_full = d_c.reshape(3, S, R).contiguous()
         # the winning row's id is produced only when shading needs it
         want_kid = stype != "depth" and analytic
+        # the per-tile cull takes whole 1,024-ray tiles (the JAX package takes
+        # its un-culled path otherwise), and frustum planes only where a tile
+        # never spans two cameras
         out = trace_diff(kscene, o_full, d_full, None,
                          int(spec.get("trace_steps_override", n_steps)), max_depth,
-                         float(spec.get("march_omega", 1.0)), bool(spec.get("cull", True)),
-                         analytic, int(spec.get("analytic_refine", 0)), want_kid)
+                         float(spec.get("march_omega", 1.0)),
+                         bool(spec.get("cull", True)) and R % TILE == 0, analytic,
+                         int(spec.get("analytic_refine", 0)), want_kid,
+                         img_w=W if (H * W) % TILE == 0 else None)
         t, hit = out[0], out[1]
         kid = out[2] if want_kid else None
         cos_f = cos_f.reshape(1, H, W)

@@ -15,10 +15,18 @@ version on CPU tensors:
     component-major ``(3, S, R)`` or packed ``(S, R, 3)`` rays.
 
 Both return ``t (S, R)`` float32 and ``hit (S, R)`` bool, ``hit = t <
-max_depth``; ``kid (S, R)`` is float32 as the JAX entries return it. The
-per-tile cull of the TPU kernel is not ported: the analytic trace is the same
-function with and without it, and the march evaluates every active row for
-both values of ``cull`` (the un-culled entry's function).
+max_depth``; ``kid (S, R)`` is float32 as the JAX entries return it.
+
+The march with ``cull`` computes ``_trace_kernel_culled``: each 1,024-ray tile
+marches over the rows :func:`cull_rows` picks, the port of ``cull_compact``.
+The rows whose bounds meet the tile's reachable region come first in stable
+order; when both families' counts fit the compacted block (``kb_c``, ``kc_c``
+of :func:`cull_capacity`) the tile evaluates the first ``kb_c`` box and
+``kc_c`` capsule rows of that order, culled-in rows followed by culled-out
+*filler* rows in scene order, and otherwise every row. The filler rows are
+part of the function: a ray that runs out of steps ends where this row set
+puts it. The analytic trace takes no cull (its closed-form first hit is the
+same over the culled rows).
 
 ``trace_diff`` is the differentiable entry over either wrapper: its backward
 is the implicit-function-theorem rule in plain PyTorch, so no kernel runs
@@ -39,14 +47,13 @@ BIG = 1e9
 BOX_COLS = 13
 CAP_COLS = 9
 EPS = 0.01  # the march's hit epsilon
+TILE = 1024  # rays of a culled tile, the TPU kernel's (8, 128) block
 # Launches of each CUDA kernel mode since the counts were last set to 0. A
 # wrapper adds one to its mode where it launches and nowhere else.
-# "trace_march" and "trace_march_nocull" are the same kernel: the count tells
-# the two settings of ``cull`` apart.
+# "trace_march" (culled), "trace_march_nocull" and "trace_march_packed" are
+# instantiations of one march kernel.
 LAUNCHES = {"trace_analytic": 0, "trace_analytic_kid": 0, "trace_march": 0,
             "trace_march_nocull": 0, "trace_march_packed": 0}
-# static shared memory of the packed march kernel (a block's staged rays)
-_PACKED_RAY_BYTES = 2 * 3 * 256 * 4
 
 
 def reset_launches() -> None:
@@ -206,11 +213,15 @@ def _box_sdf(b: Tensor, p) -> Tensor:
     return (outside + inside - b[:, 6]) * b[:, 9]
 
 
-def _ray_sdf(boxes: Tensor, caps: Tensor, o, d):
+def _ray_sdf(boxes: Tensor, caps: Tensor, o, d, rows=None):
     """The scene SDF a marching ray evaluates, as a function of t (r,):
-    inactive rows and dynamic capsules that hold the ray's origin are out."""
+    inactive rows and dynamic capsules that hold the ray's origin are out,
+    and with ``rows`` ((r, KB), (r, KC) bool: the rows each ray's tile
+    evaluates) every other row too."""
     box_off = ~(boxes[:, 11] > 0.5)
     cap_off = ~(caps[:, 7] > 0.5) | ((caps[:, 7] > 1.5) & _capsule_holds(caps, o))
+    if rows is not None:
+        box_off, cap_off = box_off | ~rows[0], cap_off | ~rows[1]
 
     def sdf(t: Tensor) -> Tensor:
         p = tuple(oi + di * t[:, None] for oi, di in zip(o, d))
@@ -223,17 +234,17 @@ def _ray_sdf(boxes: Tensor, caps: Tensor, o, d):
 
 
 def _march(sdf, t: Tensor, n_steps: int, max_depth: float, eps: float, omega: float,
-           stats: Optional[dict]) -> Tensor:
+           evals: Optional[Tensor]) -> Tensor:
     """``n_steps`` of the march from t, mirroring ``_march`` of the JAX tile
-    step by step; ``stats["sdf_evals"]`` gains the evaluations that rays not
-    yet done needed."""
+    step by step; ``evals`` (r,) gains, in place, the evaluations each ray
+    needed while not yet done."""
     done = torch.zeros_like(t, dtype=torch.bool)
     prev_r = torch.zeros_like(t)
     step_len = torch.zeros_like(t)
     om = torch.full_like(t, omega)
     for _ in range(n_steps):
-        if stats is not None:
-            stats["sdf_evals"] = stats.get("sdf_evals", 0) + int((~done).sum())
+        if evals is not None:
+            evals += ~done
         r = sdf(t)
         if omega <= 1.0:
             done = done | (r < eps) | (t >= max_depth)
@@ -251,9 +262,9 @@ def _march(sdf, t: Tensor, n_steps: int, max_depth: float, eps: float, omega: fl
     return t
 
 
-def _final_eval(sdf, t: Tensor, max_depth: float, stats: Optional[dict]) -> Tensor:
-    if stats is not None:
-        stats["sdf_evals"] = stats.get("sdf_evals", 0) + t.numel()
+def _final_eval(sdf, t: Tensor, max_depth: float, evals: Optional[Tensor]) -> Tensor:
+    if evals is not None:
+        evals += 1
     return torch.clamp(t + sdf(t), 0.0, max_depth)
 
 
@@ -267,6 +278,116 @@ def _chunks(origins_c: Tensor, dirs_c: Tensor, chunk: int):
                    tuple(dirs_c[i, s, sl, None] for i in range(3)))
 
 
+class CullRows(NamedTuple):
+    """The per-tile cull of :func:`cull_rows`: the rows that meet each tile,
+    counted per family ``nb``, ``nc`` (S, T) int64; whether both counts fit
+    the compacted block, ``fits`` (S, T) bool; and the rows the culled march
+    evaluates in each tile, ``box_rows`` (S, T, KB) and ``cap_rows``
+    (S, T, KC) bool. With the frustum planes, each row's margin against
+    each plane, ``box_margin`` (S, T, 4, KB) and ``cap_margin``
+    (S, T, 4, KC): the row is on the inner side of a plane where its
+    margin is ≥ 0; else None."""
+
+    nb: Tensor
+    nc: Tensor
+    fits: Tensor
+    box_rows: Tensor
+    cap_rows: Tensor
+    box_margin: Optional[Tensor] = None
+    cap_margin: Optional[Tensor] = None
+
+
+def cull_capacity(k: int) -> int:
+    """Rows of one family that a tile's compacted block holds: half of
+    them, at least 4 (``pallas_trace_c``)."""
+    return min(k, max(4, k // 2))
+
+
+def _dot3(n: Tensor, v: Tensor) -> Tensor:
+    """n·v over the last axis as (n0·v0 + n1·v1) + n2·v2, the kernel's order."""
+    return n[..., 0] * v[..., 0] + n[..., 1] * v[..., 1] + n[..., 2] * v[..., 2]
+
+
+def _cross(a: Tensor, b: Tensor) -> Tensor:
+    """a × b over the last axis, each component as ``jnp.cross`` forms it."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1)
+
+
+def _first_in_order(inside: Tensor, k_c: int, fits: Tensor) -> Tensor:
+    """Rows among the first ``k_c`` of the stable order that puts the rows
+    ``inside`` (S, T, K) first, where ``fits``; every row elsewhere."""
+    n = inside.sum(-1, keepdim=True)
+    before = torch.cumsum(inside, -1) - inside.long()  # inside rows ahead of each row
+    k = torch.arange(inside.shape[-1], device=inside.device)
+    rank = torch.where(inside, before, n + k - before)
+    return (rank < k_c) | ~fits[..., None]
+
+
+def cull_rows(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor, max_depth: float,
+              img_w: Optional[int] = None) -> CullRows:
+    """The per-tile cull of ``cull_compact`` for rays (3, S, R), R a multiple
+    of 1,024. A tile may reach the box from o.min + max_depth·min(d.min, 0)
+    to o.max + max_depth·max(d.max, 0); a row is in where its bounds meet
+    that box (a box's: |R(yaw)|·half + r about its centre; a capsule's: its
+    endpoints' box grown by r), where it is active, and, with ``img_w``
+    dividing 1,024 (each tile rows of one pinhole camera), where it lies on
+    the inner side of the four planes through the tile's first origin and
+    consecutive corner rays 0, img_w − 1, 1023, 1024 − img_w. Active hollow
+    rooms (sign < 0) are always in. Sums of three products run in the
+    kernel's order (:func:`_dot3`)."""
+    boxes, caps = kscene.boxes, kscene.capsules
+    _, S, R = origins_c.shape
+    if R % TILE:
+        raise ValueError(f"the per-tile cull takes whole tiles of {TILE} rays; got {R} a scene")
+    T = R // TILE
+    o = origins_c.reshape(3, S, T, TILE)
+    d = dirs_c.reshape(3, S, T, TILE)
+    lo = (o.amin(-1) + max_depth * torch.clamp(d.amin(-1), max=0.0)).permute(1, 2, 0)
+    hi = (o.amax(-1) + max_depth * torch.clamp(d.amax(-1), min=0.0)).permute(1, 2, 0)
+    lo, hi = lo[:, :, None], hi[:, :, None]  # (S, T, 1, 3)
+
+    c, h, rad = boxes[..., 0:3], boxes[..., 3:6], boxes[..., 6]
+    acy, asy = boxes[..., 7].abs(), boxes[..., 8].abs()
+    hw = torch.stack([acy * h[..., 0] + asy * h[..., 1], asy * h[..., 0] + acy * h[..., 1],
+                      h[..., 2]], -1) + rad[..., None]  # (S, KB, 3)
+    room = (boxes[..., 9] < 0.0)[:, None]
+    in_b = ((lo <= (c + hw)[:, None]) & (hi >= (c - hw)[:, None])).all(-1)  # (S, T, KB)
+    in_b = (in_b | room) & (boxes[..., 11] > 0.5)[:, None]
+
+    a, b, r = caps[..., 0:3], caps[..., 3:6], caps[..., 6:7]
+    clo, chi = torch.minimum(a, b) - r, torch.maximum(a, b) + r
+    in_c = ((lo <= chi[:, None]) & (hi >= clo[:, None])).all(-1)
+    in_c = in_c & (caps[..., 7] > 0.5)[:, None]  # (S, T, KC)
+
+    if img_w is not None and TILE % img_w == 0:
+        corners = torch.stack([d[..., 0], d[..., img_w - 1], d[..., TILE - 1],
+                               d[..., TILE - img_w]], -1).permute(1, 2, 3, 0)  # (S, T, 4, 3)
+        planes = _cross(corners, torch.roll(corners, -1, dims=2))
+        centre = corners[:, :, 0] + corners[:, :, 1] + corners[:, :, 2] + corners[:, :, 3]
+        side = torch.sign(_dot3(planes, centre[:, :, None]))
+        planes = planes * torch.where(side == 0, 1.0, side)[..., None]
+        apex = o[..., 0].permute(1, 2, 0)[:, :, None, None]  # (S, T, 1, 1, 3)
+        n = planes[:, :, :, None]  # (S, T, 4, 1, 3)
+        r_box = _dot3(n.abs(), hw[:, None, None])
+        margin_b = _dot3(n, c[:, None, None] - apex) + r_box  # (S, T, 4, KB)
+        in_b = in_b & ((margin_b >= 0.0).all(2) | room)
+        r_cap = caps[..., 6][:, None, None] * torch.sqrt(_dot3(planes, planes))[..., None]
+        d_a = _dot3(n, a[:, None, None] - apex)
+        d_b = _dot3(n, b[:, None, None] - apex)
+        margin_c = torch.maximum(d_a, d_b) + r_cap
+        in_c = in_c & (margin_c >= 0.0).all(2)
+    else:
+        margin_b = margin_c = None
+
+    nb, nc = in_b.sum(-1), in_c.sum(-1)
+    fits = (nb <= cull_capacity(boxes.shape[1])) & (nc <= cull_capacity(caps.shape[1]))
+    return CullRows(nb, nc, fits, _first_in_order(in_b, cull_capacity(boxes.shape[1]), fits),
+                    _first_in_order(in_c, cull_capacity(caps.shape[1]), fits), margin_b,
+                    margin_c)
+
+
 def trace_analytic_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
                              max_depth: float = 20.0, chunk: int = 1 << 18,
                              want_kid: bool = False, n_refine: int = 0, eps: float = EPS,
@@ -278,6 +399,8 @@ def trace_analytic_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Ten
     _, S, R = origins_c.shape
     t = torch.empty((S, R), dtype=origins_c.dtype, device=origins_c.device)
     kid = torch.empty_like(t) if want_kid else None
+    evals = (torch.zeros((S, R), dtype=torch.int32, device=t.device)
+             if stats is not None and n_refine > 0 else None)
     for s, sl, o, d in _chunks(origins_c, dirs_c, chunk):
         boxes, caps = kscene.boxes[s], kscene.capsules[s]
         tk = torch.cat([_box_t(boxes, o, d), _capsule_t(caps, o, d)], dim=1)
@@ -290,10 +413,13 @@ def trace_analytic_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Ten
         t0 = torch.clamp(best, max=max_depth)
         if n_refine > 0:
             sdf = _ray_sdf(boxes, caps, o, d)
-            t0 = _march(sdf, t0, n_refine, max_depth, eps, 1.0, stats)
-            t[s, sl] = _final_eval(sdf, t0, max_depth, stats)
+            ev = None if evals is None else evals[s, sl]
+            t0 = _march(sdf, t0, n_refine, max_depth, eps, 1.0, ev)
+            t[s, sl] = _final_eval(sdf, t0, max_depth, ev)
         else:
             t[s, sl] = torch.clamp(t0, 0.0, max_depth)
+    if evals is not None:
+        stats.update(ray_evals=evals, sdf_evals=int(evals.sum()))
     hit = t < max_depth
     return (t, hit, kid) if want_kid else (t, hit)
 
@@ -301,17 +427,33 @@ def trace_analytic_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Ten
 def trace_march_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
                           t_init: Optional[Tensor] = None, n_steps: int = 40,
                           max_depth: float = 20.0, eps: float = EPS, omega: float = 1.0,
-                          chunk: int = 1 << 18, stats: Optional[dict] = None
+                          chunk: int = 1 << 18, stats: Optional[dict] = None,
+                          cull: bool = False, img_w: Optional[int] = None
                           ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of the march kernel on component-major rays
-    (3, S, R), float32 step by step as the JAX tile marches."""
+    (3, S, R), float32 step by step as the JAX tile marches. With ``cull``
+    each tile evaluates only the rows of :func:`cull_rows` (R a multiple of
+    1,024; ``chunk`` is rounded down to whole tiles). ``stats`` receives the
+    evaluations each ray needed, ``"ray_evals"`` (S, R), and their sum,
+    ``"sdf_evals"``."""
     _, S, R = origins_c.shape
     t = torch.empty((S, R), dtype=origins_c.dtype, device=origins_c.device)
+    evals = None if stats is None else torch.zeros((S, R), dtype=torch.int32, device=t.device)
+    plan = cull_rows(kscene, origins_c, dirs_c, max_depth, img_w) if cull else None
+    if cull:
+        chunk = max(TILE, chunk // TILE * TILE)
     for s, sl, o, d in _chunks(origins_c, dirs_c, chunk):
-        sdf = _ray_sdf(kscene.boxes[s], kscene.capsules[s], o, d)
+        rows = None
+        if cull:
+            tiles = torch.arange(sl.start, min(sl.stop, R), device=t.device) // TILE
+            rows = (plan.box_rows[s, tiles], plan.cap_rows[s, tiles])
+        sdf = _ray_sdf(kscene.boxes[s], kscene.capsules[s], o, d, rows)
         t0 = torch.zeros_like(o[0][:, 0]) if t_init is None else t_init[s, sl]
-        t0 = _march(sdf, t0, n_steps, max_depth, eps, omega, stats)
-        t[s, sl] = _final_eval(sdf, t0, max_depth, stats)
+        ev = None if evals is None else evals[s, sl]
+        t0 = _march(sdf, t0, n_steps, max_depth, eps, omega, ev)
+        t[s, sl] = _final_eval(sdf, t0, max_depth, ev)
+    if stats is not None:
+        stats.update(ray_evals=evals, sdf_evals=int(evals.sum()))
     return t, t < max_depth
 
 
@@ -329,9 +471,9 @@ def _launcher(name: str):
     fn.argtypes = {
         # boxes caps origins dirs t hit kid | S R KB KC | max_depth n_refine eps stream
         "trace_analytic": [p] * 7 + [i] * 4 + [f, i, f, p],
-        # boxes caps origins dirs t_init t hit | S R KB KC n_steps | max_depth eps
-        # omega 1-omega | packed stream
-        "trace_march": [p] * 7 + [i] * 5 + [f] * 4 + [i, p],
+        # boxes caps origins dirs t_init t hit counts | S R KB KC kb_c kc_c img_w
+        # n_steps | max_depth eps omega 1-omega | packed cull stream
+        "trace_march": [p] * 8 + [i] * 8 + [f] * 4 + [i, i, p],
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -364,15 +506,29 @@ def _check(kscene: KernelScene, origins: Tensor, dirs: Tensor, packed: bool = Fa
     return S, R
 
 
-def _check_cuda(kscene: KernelScene, tensors, extra_smem: int = 0) -> None:
-    """What only the kernels need: contiguity and rows that fit shared memory."""
+def _check_cuda(kscene: KernelScene, tensors, smem: Optional[int] = None) -> None:
+    """What only the kernels need: contiguity and rows that fit shared
+    memory (``smem`` bytes; by default the analytic kernel's raw rows)."""
     for x in (kscene.boxes, kscene.capsules, *tensors):
         if not x.is_contiguous():
             raise ValueError("the trace kernels take contiguous tensors")
-    smem = (kscene.boxes.shape[1] * BOX_COLS + kscene.capsules.shape[1] * CAP_COLS) * 4
-    if smem + extra_smem > 48 * 1024:
-        raise ValueError(f"scene rows need {smem} bytes of shared memory; the kernel "
-                         f"takes at most {48 * 1024 - extra_smem}")
+    KB, KC = kscene.boxes.shape[1], kscene.capsules.shape[1]
+    if smem is None:
+        smem = (KB * BOX_COLS + KC * CAP_COLS) * 4
+    if smem > 48 * 1024:
+        raise ValueError(f"{KB} box and {KC} capsule rows need {smem} bytes of shared memory; "
+                         f"the kernel takes at most {48 * 1024}")
+
+
+@functools.lru_cache(maxsize=None)
+def _march_smem():
+    """``trace_march_smem(KB, KC, cull)`` of the march kernel's library: the
+    shared memory one block takes, in bytes, as its launch reckons it."""
+    from ..build import load_library
+
+    fn = load_library("trace_march").trace_march_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return fn
 
 
 def trace_analytic(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
@@ -408,40 +564,61 @@ def trace_analytic(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
 def trace_march(kscene: KernelScene, origins: Tensor, dirs: Tensor,
                 t_init: Optional[Tensor] = None, n_steps: int = 40,
                 max_depth: float = 20.0, eps: float = EPS, omega: float = 1.0,
-                cull: bool = True, packed: bool = False) -> Tuple[Tensor, Tensor]:
+                cull: bool = True, packed: bool = False, img_w: Optional[int] = None,
+                want_counts: bool = False) -> Tuple[Tensor, ...]:
     """Sphere-trace march → (t (S, R), hit (S, R)). Rays are (3, S, R), or
-    (S, R, 3) with ``packed`` (which has no over-relaxed form). ``cull`` is
-    recorded in the launch counts and changes nothing else (module note).
-    CUDA tensors go through the CUDA kernel, CPU tensors through
-    :func:`trace_march_reference`."""
+    (S, R, 3) with ``packed`` (which has no over-relaxed form and no cull,
+    as the TPU's packed entry). ``cull`` marches each 1,024-ray tile over
+    the rows of :func:`cull_rows`, as ``pallas_trace_c(cull=True)``: R must
+    be a multiple of 1,024. ``img_w``, where it divides 1,024, says the rays
+    are images of a camera that many pixels wide, each tile whole rows of
+    one image: the cull then takes its frustum planes, and in every mode
+    the kernel hands a warp 8 × 4 patches of pixels (which changes no
+    result). ``want_counts`` (with ``cull``) also returns each tile's
+    (nb, nc) of :func:`cull_rows`, (S, T, 2) int32. CUDA tensors go through
+    the CUDA kernel, CPU tensors through :func:`trace_march_reference`."""
     S, R = _check(kscene, origins, dirs, packed, t_init)
     if packed and omega > 1.0:
         raise ValueError("the packed march has no over-relaxed form (omega > 1)")
+    cull = cull and not packed
+    if cull and R % TILE:
+        raise ValueError(f"rays per scene ({R}) must be a multiple of {TILE} for the "
+                         "per-tile cull")
+    if want_counts and not cull:
+        raise ValueError("want_counts needs the per-tile cull")
     dev = origins.device
     if dev.type == "cpu":
         if packed:
             origins, dirs = origins.permute(2, 0, 1), dirs.permute(2, 0, 1)
-        return trace_march_reference(kscene, origins, dirs, t_init, n_steps, max_depth, eps,
-                                     omega)
-    if t_init is None:
-        t_init = torch.zeros((S, R), dtype=torch.float32, device=dev)
-    _check_cuda(kscene, (origins, dirs, t_init), _PACKED_RAY_BYTES if packed else 0)
+        out = trace_march_reference(kscene, origins, dirs, t_init, n_steps, max_depth, eps,
+                                    omega, cull=cull, img_w=img_w)
+        if want_counts:
+            plan = cull_rows(kscene, origins, dirs, max_depth, img_w)
+            out = (*out, torch.stack([plan.nb, plan.nc], -1).to(torch.int32))
+        return out
+    tensors = (origins, dirs) if t_init is None else (origins, dirs, t_init)
+    KB, KC = kscene.boxes.shape[1], kscene.capsules.shape[1]
+    _check_cuda(kscene, tensors, _march_smem()(KB, KC, int(cull)))
     boxes, caps = kscene.boxes, kscene.capsules
     t = torch.empty((S, R), dtype=torch.float32, device=dev)
     hit = torch.empty((S, R), dtype=torch.bool, device=dev)
+    counts = (torch.empty((S, R // TILE, 2), dtype=torch.int32, device=dev)
+              if want_counts else None)
     if S and R:
         launch = _launcher("trace_march")
         mode = "trace_march_packed" if packed else "trace_march" if cull else "trace_march_nocull"
+        camera_w = img_w if img_w is not None and TILE % img_w == 0 else 0
         with torch.cuda.device(dev):
             rc = launch(boxes.data_ptr(), caps.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
-                        t_init.data_ptr(), t.data_ptr(), hit.data_ptr(), S, R, boxes.shape[1],
-                        caps.shape[1], int(n_steps), float(max_depth), float(eps),
-                        float(omega), 1.0 - float(omega), int(packed),
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        None if t_init is None else t_init.data_ptr(), t.data_ptr(),
+                        hit.data_ptr(), None if counts is None else counts.data_ptr(), S, R,
+                        KB, KC, cull_capacity(KB), cull_capacity(KC), camera_w, int(n_steps),
+                        float(max_depth), float(eps), float(omega), 1.0 - float(omega),
+                        int(packed), int(cull), torch.cuda.current_stream(dev).cuda_stream)
             LAUNCHES[mode] += 1
         if rc != 0:
             raise RuntimeError(f"{mode} kernel launch failed with CUDA error {rc}")
-    return t, hit
+    return (t, hit, counts) if want_counts else (t, hit)
 
 
 # ---------------------------------------------------------------------------
@@ -504,7 +681,7 @@ class _TraceIFT(torch.autograd.Function):
                                  kw["n_refine"])
         else:
             out = trace_march(kscene, origins, dirs, t_init, kw["n_steps"], kw["max_depth"],
-                              EPS, kw["omega"], kw["cull"], packed)
+                              EPS, kw["omega"], kw["cull"], packed, kw["img_w"])
             if want_kid:  # a march does not track the winner: −1 is "unknown"
                 out = (*out, torch.full_like(out[0], -1.0))
         ctx.kscene, ctx.packed = kscene, packed
@@ -522,13 +699,15 @@ class _TraceIFT(torch.autograd.Function):
 def trace_diff(kscene: KernelScene, origins: Tensor, dirs: Tensor,
                t_init: Optional[Tensor] = None, n_steps: int = 40, max_depth: float = 20.0,
                omega: float = 1.0, cull: bool = True, analytic: bool = False,
-               n_refine: int = 2, want_kid: bool = True, packed: bool = False
-               ) -> Tuple[Tensor, ...]:
+               n_refine: int = 2, want_kid: bool = True, packed: bool = False,
+               img_w: Optional[int] = None) -> Tuple[Tensor, ...]:
     """Differentiable trace → (t, hit[, kid]), the counterpart of
     ``pallas_trace_diff_c`` (component-major rays) and, with ``packed``, of
     ``pallas_trace_diff`` (march only). Gradients reach ``origins`` and
-    ``dirs`` through t by the implicit function theorem."""
+    ``dirs`` through t by the implicit function theorem, at the full scene's
+    SDF whatever the forward culled, as the JAX backward takes it."""
     if packed and analytic:
         raise ValueError("packed rays take the march only")
-    kw = dict(n_steps=n_steps, max_depth=max_depth, omega=omega, cull=cull, n_refine=n_refine)
+    kw = dict(n_steps=n_steps, max_depth=max_depth, omega=omega, cull=cull, n_refine=n_refine,
+              img_w=img_w)
     return _TraceIFT.apply(origins, dirs, t_init, kscene, packed, analytic, want_kid, kw)
