@@ -7,7 +7,7 @@ time of a step, so the idle share is taken against the step time clocked
 without it.
 
     python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [sv] [probe] [floor]
-                            [split] [march]                         # default: A C
+                            [split] [march] [analytic]              # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
 and 3 times (360, 5,760 and 23,040 triangles); they also clock the parts of
@@ -68,8 +68,21 @@ over 32 × the warp's longest lane) of two ways to give a warp its rays:
 kernel's time in both (B3a and B3b; B2's cull needs the image width that
 the patches come from) and the registers and spills of each instantiation.
 
+``analytic`` is the evidence for the analytic kernel's launch bounds
+(``csrc/trace_analytic.cu``, 256 threads of four rays a block): copies of
+the source at 2, 3, 4 (the source's own) and 8 blocks an SM
+(``kMinBlocks``), built side by side under ``build/profile/`` with each
+instantiation's registers and spills from ``ptxas -v``; then in turns,
+forwards and backwards, each copy's device time (``torch.profiler``) on the
+main path's uses, each held equal to its plain version: B1 culled on path
+B's camera rays, B1-kid culled on path A's and on path B's, and B1 culled on
+1 M random rays (no shared origin: every term per ray), with the bound and
+the share of it; beside them the package's kernel un-culled on path B's
+rays.
+
 Every line ends with the card's name and power limit.
 """
+import contextlib
 import os
 import subprocess
 import sys
@@ -480,15 +493,7 @@ def march(env, card):
     from visfly_tpu_torch.render import trace_kernel as tk
     from visfly_tpu_torch.build import build
 
-    with open(os.path.join(os.path.dirname(build("trace_march")), "build.log")) as f:
-        log = f.read()
-    # per instantiation (trace_march_kernel<PACKED, RELAXED, CULL>, mangled)
-    for entry in log.split("Compiling entry function '")[1:]:
-        name, rest = entry.split("'", 1)
-        regs = rest.split("Used ", 1)[1].split(",")[0]
-        spill = rest.split(" bytes spill stores")[0].rsplit(" ", 1)[-1]
-        print(f"march | ptxas {name.split('trace_march_kernel')[1].split('EEv')[0]}: {regs}, "
-              f"{spill} bytes spilled | {card}", flush=True)
+    ptxas_report(build("trace_march"), "march", card)  # <PACKED, RELAXED, CULL>, mangled
     dev = torch.device("cuda", 0)
     state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
     ks = prepare_kernel_scene(env.scene)
@@ -550,6 +555,137 @@ def march(env, card):
                   f"hit flags differ on {flip:.3e} | {card}", flush=True)
 
 
+ANALYTIC_MIN_BLOCKS = (2, 3, 4, 8)  # blocks an SM of the copies chip_profile.py analytic builds
+
+
+def analytic_copy(min_blocks):
+    """The library of ``csrc/trace_analytic.cu`` with ``kMinBlocks`` set to
+    ``min_blocks``: the package's own where the source has that value, else a
+    copy built under ``build/profile/`` with the package's flags."""
+    import re
+
+    from visfly_tpu_torch import build as vb
+
+    with open(os.path.join(vb.CSRC, "trace_analytic.cu")) as f:
+        src = f.read()
+    line = re.search(r"constexpr int kMinBlocks = (\d+);", src)
+    cs.check(line is not None, "trace_analytic.cu has no kMinBlocks constant")
+    if int(line.group(1)) == min_blocks:
+        return vb.build("trace_analytic")
+    out = os.path.join(os.path.dirname(vb.BUILD_ROOT), "profile", f"trace_analytic-{min_blocks}")
+    os.makedirs(out, exist_ok=True)
+    cu, lib = os.path.join(out, "trace_analytic.cu"), os.path.join(out, "libtrace_analytic.so")
+    with open(cu, "w") as f:
+        f.write(src.replace(line.group(0), f"constexpr int kMinBlocks = {min_blocks};"))
+    proc = subprocess.run([vb.nvcc_path(), *vb.NVCC_FLAGS, "-I", vb.CSRC, "-o", lib, cu],
+                          capture_output=True, text=True)
+    cs.check(proc.returncode == 0, f"nvcc failed for {cu}:\n{proc.stdout}{proc.stderr}")
+    with open(os.path.join(out, "build.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    return lib
+
+
+@contextlib.contextmanager
+def analytic_library(lib):
+    """``trace_analytic`` launches the kernel of the library ``lib`` inside
+    the block: the wrapper's own checks and arguments, another build."""
+    import ctypes
+
+    from visfly_tpu_torch.render import trace_kernel as tk
+
+    own = tk._launcher
+    fn = ctypes.CDLL(lib).trace_analytic_launch
+    fn.argtypes, fn.restype = own("trace_analytic").argtypes, own("trace_analytic").restype
+    tk._launcher = lambda name: fn if name == "trace_analytic" else own(name)
+    try:
+        yield
+    finally:
+        tk._launcher = own
+
+
+def ptxas_report(lib, label, card):
+    """Registers and spill bytes of each kernel instantiation (its template
+    flags, mangled) in a library's build log."""
+    with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
+        log = f.read()
+    for entry in log.split("Compiling entry function '")[1:]:
+        name, rest = entry.split("'", 1)
+        regs = rest.split("Used ", 1)[1].split(",")[0]
+        spill = rest.split(" bytes spill stores")[0].rsplit(" ", 1)[-1]
+        print(f"{label} | ptxas {name.split('_kernel')[1].split('EEv')[0]}: {regs}, "
+              f"{spill} bytes spilled | {card}", flush=True)
+
+
+def analytic(env_b, env_a, card):
+    """The analytic kernel at each of ANALYTIC_MIN_BLOCKS on the main path's
+    uses: device time, equality with the plain version, bound and share."""
+    import concurrent.futures
+
+    from visfly_tpu_torch.render import (prepare_kernel_scene, trace_analytic,
+                                         trace_analytic_reference)
+    from visfly_tpu_torch.render import trace_kernel as tk
+
+    with concurrent.futures.ThreadPoolExecutor(len(ANALYTIC_MIN_BLOCKS)) as pool:
+        built = pool.map(analytic_copy, ANALYTIC_MIN_BLOCKS)
+        libs = {f"256 threads x 4 rays, {n} blocks an SM": lib
+                for n, lib in zip(ANALYTIC_MIN_BLOCKS, built)}
+    for label, lib in libs.items():
+        ptxas_report(lib, f"analytic | {label}", card)
+    dev = torch.device("cuda", 0)
+    W = cs.RES[1]
+    rays = {}
+    for name, env in (("path B", env_b), ("path A", env_a)):
+        state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
+        rays[name] = (prepare_kernel_scene(env.scene), *cs.camera_rays_of(env, state), W)
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = 1 << 20
+    o_r = (torch.rand((3, 1, n), generator=g, device=dev)
+           * torch.tensor([19.0, 11.0, 4.5], device=dev)[:, None, None]
+           + torch.tensor([-1.5, -5.5, 0.25], device=dev)[:, None, None]).contiguous()
+    d_r = torch.randn((3, 1, n), generator=g, device=dev)
+    d_r = (d_r / torch.linalg.vector_norm(d_r, dim=0, keepdim=True)).contiguous()
+    rays["1M random rays"] = (rays["path B"][0], o_r, d_r, None)
+    uses = [("trace_analytic", "path B"), ("trace_analytic_kid", "path A"),
+            ("trace_analytic_kid", "path B"), ("trace_analytic", "1M random rays")]
+    ref = {}
+    for mode, where in uses:
+        ks, o, d, img_w = rays[where]
+        kid = mode.endswith("kid")
+        plan = tk.cull_rows(ks, o, d, cs.MAX_DEPTH, img_w)
+        ref[mode, where] = trace_analytic_reference(ks, o, d, cs.MAX_DEPTH, want_kid=kid,
+                                                    cull=True, img_w=img_w)
+        b_ms, b_by = cs.bound_ms(mode, ks, o.shape[2], plan=plan, o=o)
+        old_ms, _ = cs.bound_ms(mode, ks, o.shape[2], o=o, old=True)
+        one = cs.one_origin_tiles(o)
+        print(f"analytic | {mode} on {where}: bound {b_ms:.4f} ms by {b_by} (old yardstick "
+              f"{old_ms:.4f}); one origin on {float(one.double().mean()):.4f} of the tiles; a "
+              f"ray tests {float(plan.box_in.sum(-1).double().mean()):.2f} box and "
+              f"{float(plan.cap_in.sum(-1).double().mean()):.2f} capsule rows | {card}",
+              flush=True)
+        ref[mode, where] = (ref[mode, where], b_ms)
+    for order in (list(libs), list(libs)[::-1]):
+        for label in order:
+            for mode, where in uses:
+                ks, o, d, img_w = rays[where]
+                call = lambda: trace_analytic(  # noqa: E731
+                    ks, o, d, cs.MAX_DEPTH, want_kid=mode.endswith("kid"), cull=True,
+                    img_w=img_w)
+                with analytic_library(libs[label]):
+                    out = call()
+                    torch.cuda.synchronize()
+                    ms = cs.device_ms(call, "trace_analytic_kernel")
+                (plain, b_ms) = ref[mode, where]
+                equal = all(torch.equal(a, b) for a, b in zip(out, plain))
+                print(f"analytic | {label} | {mode} on {where}: kernel {ms:.4f} ms on the device, "
+                      f"{b_ms / ms:.4f} of the bound, equal to the plain version {equal} | "
+                      f"{card}", flush=True)
+                cs.check(equal, f"{label}: {mode} on {where} differs from its plain version")
+    ks, o, d, _ = rays["path B"]
+    ms = cs.device_ms(lambda: trace_analytic(ks, o, d, cs.MAX_DEPTH), "trace_analytic_kernel")
+    print(f"analytic | the package's kernel, trace_analytic on path B without the cull: "
+          f"{ms:.4f} ms on the device | {card}", flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_profile.py needs one CUDA card", file=sys.stderr)
@@ -583,6 +719,8 @@ def main(argv):
             split({level: garage_env(level) for level in (0, 2, 3)}, card)
         elif name == "march":
             march(make_env["B"](), card)
+        elif name == "analytic":
+            analytic(make_env["B"](), make_env["A"](), card)
         elif name == "E":
             profile_bptt("path E", BPTT(cs.hover_grad_env(dev), horizon=32), card)
         elif name == "F":

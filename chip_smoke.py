@@ -44,12 +44,18 @@ Phases, one line each; any failure exits non-zero:
    sources in the checkout, the compilers side by side;
 3. every kernel mode vs its plain PyTorch version on the card at the
    main-path shapes (the reset agents' camera rays of paths A and B, 1 M
-   random rays, a scene with 256 dynamic capsules), the culled march with
-   the 64-wide cameras' frustum planes on camera rays: max |Δt| ≤ 1e-3 m on
-   rays that both hit, hit and winning-id disagreeing on ≤ 1e-5 of rays;
-   the culled march's per-tile row counts equal to the plain cull's on
-   every tile of path B's cameras (with and without the dynamic capsules);
-   both timed with CUDA events (median of 20; 3 for the plain march);
+   random rays, a scene with 256 dynamic capsules), the culled march and
+   the culled analytic modes with the 64-wide cameras' frustum planes on
+   camera rays: max |Δt| ≤ 1e-3 m on rays that both hit, hit and
+   winning-id disagreeing on ≤ 1e-5 of rays (and whether every output is
+   equal); the culled analytic modes also against the un-culled plain
+   version and without the frustum planes, the un-culled ones also on
+   ragged ray counts, with the share of one-origin tiles and the rows a ray
+   tests; the culled march's per-tile row counts equal to the plain cull's
+   on every tile of path B's cameras (with and without the dynamic
+   capsules); each kernel and plain version timed with CUDA events around
+   the call (median of 20; 3 for the plain march), each trace kernel's own
+   time on the card beside it (``torch.profiler``, 20 calls);
    then the implicit-function-theorem gradient through the kernel forward
    against the same rule on the plain forward, within 1e-4 relative; the
    triangle kernel in each of its four uses on path D's camera rays at
@@ -109,11 +115,25 @@ COLOR_TOL = 1e-4  # share of pixels: a silhouette pixel flips a whole uint8 trip
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # float32 operations of one row, a division or square root counted as the
-# 8-instruction sequence it compiles to, everything else as 1. A capsule's
-# distance needs its axis ba and 1/(ba·ba + 1e-9) (17 operations): row
-# constants, "cap_row", which a march forms once a row, not at every
-# evaluation ("cap_sdf": the other 32).
-OPS = {"box_hit": 100, "cap_hit": 185, "box_sdf": 41, "cap_sdf": 32, "cap_row": 17}
+# 8-instruction sequence it compiles to, a minimum or maximum as 1, everything
+# else as 1 but comparisons, selects and sign or magnitude modifiers. A
+# capsule's distance needs its axis ba and 1/(ba·ba + 1e-9) (17 operations):
+# row constants, "cap_row", which a kernel forms once a row a tile, not at
+# every evaluation ("cap_sdf": the other 32). The closed-form first hit splits
+# the same way, and further at the ray's origin: "*_origin" are the terms of
+# the origin alone, which a tile whose rays share one origin needs once a row
+# (box: rotated origin 9, slab numerators 6; sphere: rotated origin 9, cs 7;
+# capsule: the inside test 32, oa, ba·oa, |oa|², Cq, |oa|² − r², o − b and its
+# cc 31), "*_ray" the rest, per ray (box: rotated direction 6, three slabs
+# of two divisions, a minimum and a maximum 54, entry and exit 4, clamp 1;
+# sphere: rotated direction 6, b 5, discriminant 2, its root 9, tin and tout
+# 2; capsule: ba·d and oa·d 10, the cylinder's quadratic, root and division
+# 29, two end spheres 13 and 18), each with the minimum over rows (1); a
+# box's h + r (3) is a row constant. "box_hit" and "cap_hit" are the old
+# yardstick, every term of every active row per ray.
+OPS = {"box_hit": 100, "cap_hit": 185, "box_sdf": 41, "cap_sdf": 32, "cap_row": 17,
+       "box_row": 3, "box_origin": 15, "box_ray": 66, "sphere_origin": 16, "sphere_ray": 25,
+       "cap_origin": 63, "cap_ray": 71}
 # float32 arithmetic of one ray-triangle test, in three parts: what every
 # test against a triangle needs to reach its first gate, what a test past that
 # gate needs to reach its division, and what only a test that divides needs.
@@ -156,6 +176,11 @@ SUITE = [
 # the kernel mode each sensor of path B must launch, once per render
 SUITE_MODES = {"semantic": "trace_analytic_kid", "depth_march": "trace_march",
                "depth_nocull": "trace_march_nocull", "depth_tile": "trace_march_packed"}
+# the CUDA function each trace mode launches, as the profiler names it
+KERNEL_NAMES = {"trace_analytic": "trace_analytic_kernel<false",
+                "trace_analytic_kid": "trace_analytic_kernel<true",
+                "trace_march": "trace_march_kernel", "trace_march_nocull": "trace_march_kernel",
+                "trace_march_packed": "trace_march_kernel"}
 KERNELS = {
     "trace_analytic": ("visfly_tpu_torch/csrc/trace_analytic.cu",
                        "visfly_tpu/render/pallas_trace.py:385"),
@@ -392,7 +417,9 @@ def bptt_card_vs_cpu(dev):
 
 
 def cuda_ms(fn, reps=20, warmup=3):
-    """Median milliseconds of ``fn()`` between CUDA events."""
+    """Median milliseconds of ``fn()`` between CUDA events: the whole call,
+    with the host time of its Python while the card waits (every ``ms`` of
+    the kernels line; the kernel alone is :func:`device_ms`)."""
     import torch
 
     for _ in range(warmup):
@@ -406,6 +433,29 @@ def cuda_ms(fn, reps=20, warmup=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, name, reps=20, warmup=3):
+    """Milliseconds the card spends per call of ``fn`` in the kernels whose
+    name holds ``name``, from ``torch.profiler``'s trace of ``reps`` calls:
+    the kernel alone. CUDA events around a call also hold the wrapper's host
+    time while the card waits (0.03-0.08 ms a call), which is most of a
+    kernel as short as B1."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without the kernel's rows
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(r, "device_time_total", 0) or getattr(r, "cuda_time_total", 0)
+                 for r in prof.key_averages() if name in r.key)
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError(f"FAILED: three profiler traces saw no kernel named {name}")
 
 
 def camera_rays_of(env, state, sensor=0):
@@ -427,19 +477,23 @@ def kernel_modes(t_init, img_w=None):
     """name → (kernel call, plain call) on (kscene, o, d), with the arguments
     the main paths give each mode. ``t_init`` warm-starts the packed march;
     ``img_w`` is the width of the camera whose rays o and d are (None for
-    rays of no camera): the culled march's frustum planes take it, and the
-    march kernel its warps' patches of pixels."""
+    rays of no camera): the culls' frustum planes take it, and the march
+    kernel its warps' patches of pixels. The analytic modes cull, as the
+    render does on whole 1,024-ray tiles."""
     from visfly_tpu_torch.render import (trace_analytic, trace_analytic_reference, trace_march,
                                          trace_march_reference)
 
     half = max(8, TRACE_STEPS // 2)
     return {
         "trace_analytic": (
-            lambda ks, o, d: trace_analytic(ks, o, d, MAX_DEPTH),
-            lambda ks, o, d, **kw: trace_analytic_reference(ks, o, d, MAX_DEPTH)),
+            lambda ks, o, d: trace_analytic(ks, o, d, MAX_DEPTH, cull=True, img_w=img_w),
+            lambda ks, o, d, **kw: trace_analytic_reference(ks, o, d, MAX_DEPTH, cull=True,
+                                                            img_w=img_w)),
         "trace_analytic_kid": (
-            lambda ks, o, d: trace_analytic(ks, o, d, MAX_DEPTH, want_kid=True),
-            lambda ks, o, d, **kw: trace_analytic_reference(ks, o, d, MAX_DEPTH, want_kid=True)),
+            lambda ks, o, d: trace_analytic(ks, o, d, MAX_DEPTH, want_kid=True, cull=True,
+                                            img_w=img_w),
+            lambda ks, o, d, **kw: trace_analytic_reference(ks, o, d, MAX_DEPTH, want_kid=True,
+                                                            cull=True, img_w=img_w)),
         "trace_march": (
             lambda ks, o, d: trace_march(ks, o, d, None, TRACE_STEPS, MAX_DEPTH, img_w=img_w),
             lambda ks, o, d, **kw: trace_march_reference(ks, o, d, None, TRACE_STEPS,
@@ -494,7 +548,8 @@ def cull_counts(case, ks, o, d, img_w, card):
 def compare(mode, case, kernel, plain, kscene, o, d):
     """Kernel vs plain version on the same card tensors → max |Δt| on rays
     that both hit. Fails on non-finite output, |Δt| > T_TOL, or hit flags or
-    ids that differ on more than HIT_TOL of the rays."""
+    ids that differ on more than HIT_TOL of the rays; prints whether every
+    output is equal."""
     import torch
 
     out_k, out_p = kernel(kscene, o, d), plain(kscene, o, d)
@@ -504,8 +559,10 @@ def compare(mode, case, kernel, plain, kscene, o, d):
     both = hit_k & hit_p
     err = float((t_k - t_p).abs()[both].max()) if bool(both.any()) else 0.0
     flip = float((hit_k != hit_p).float().mean())
+    equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
     msg = (f"phase 3 | {mode} on {case}: rays={o.shape[1] * o.shape[2]} "
-           f"hit={float(hit_k.float().mean()):.4f} max|dt|={err:.3e} m hit_mismatch={flip:.3e}")
+           f"hit={float(hit_k.float().mean()):.4f} max|dt|={err:.3e} m hit_mismatch={flip:.3e} "
+           f"equal={equal}")
     if len(out_k) > 2:
         kid_off = float((out_k[2] != out_p[2]).float().mean())
         msg += f" kid_mismatch={kid_off:.3e} kid>=0 on {float((out_k[2] >= 0).float().mean()):.4f}"
@@ -515,6 +572,111 @@ def compare(mode, case, kernel, plain, kscene, o, d):
     check(err <= T_TOL, f"{mode} on {case}: max |dt| {err} > {T_TOL}")
     check(flip <= HIT_TOL, f"{mode} on {case}: hit mismatch {flip} > {HIT_TOL}")
     return err
+
+
+def one_origin_tiles(o):
+    """(S, T) True where every ray of a 1,024-ray tile of the rays o
+    (3, S, R), R a multiple of 1,024, has the tile's first origin, bit for
+    bit."""
+    import torch
+
+    bits = o.contiguous().view(torch.int32).reshape(3, o.shape[1], -1, 1024)
+    return (bits == bits[..., :1]).all(-1).all(0)
+
+
+def analytic_ops(kscene, o, plan=None, old=False):
+    """Float32 operations of the analytic trace of the rays o (3, S, R), R a
+    multiple of 1,024 (OPS): per tile, each row that meets it (``plan``:
+    ``cull_rows``'s ``box_in``, ``cap_in``; else every active row) charged its
+    per-ray terms for every ray, its origin terms once where the tile's rays
+    share one origin (``one_origin_tiles``) and for every ray elsewhere, and
+    its row constants once. ``old``: the old yardstick, every active row's
+    ``box_hit`` or ``cap_hit`` for every ray."""
+    act_b = kscene.boxes[..., 11] > 0.5  # (S, KB)
+    act_c = kscene.capsules[..., 7] > 0.5
+    n_rays = o.shape[1] * o.shape[2]
+    if old:
+        return n_rays / o.shape[1] * float(act_b.sum() * OPS["box_hit"]
+                                           + act_c.sum() * OPS["cap_hit"])
+    T = o.shape[2] // 1024
+    box_in = act_b[:, None].expand(-1, T, -1) if plan is None else plan.box_in
+    cap_in = act_c[:, None].expand(-1, T, -1) if plan is None else plan.cap_in
+    b = kscene.boxes
+    sphere = (b[..., 9] >= 0.0) & (b[..., 3] + b[..., 4] + b[..., 5] < 1e-6)
+    n_sph = (box_in & sphere[:, None]).sum(-1).double()  # (S, T)
+    n_slab = box_in.sum(-1).double() - n_sph
+    n_cap = cap_in.sum(-1).double()
+    ray = n_slab * OPS["box_ray"] + n_sph * OPS["sphere_ray"] + n_cap * OPS["cap_ray"]
+    origin = n_slab * OPS["box_origin"] + n_sph * OPS["sphere_origin"] + n_cap * OPS["cap_origin"]
+    rows = (n_slab + n_sph) * OPS["box_row"] + n_cap * OPS["cap_row"]
+    per_origin = one_origin_tiles(o).double() * (1 - 1024) + 1024  # 1 or 1,024
+    return float((1024 * ray + per_origin * origin + rows).sum())
+
+
+def analytic_phase(case, ks, o, d, img_w, errs, card):
+    """The analytic modes beyond :func:`kernel_modes`' comparison, on one
+    case: the culled kernel against the un-culled plain version (each ray
+    that differs printed with its winning row's margins against the frustum
+    planes), the culled kernel without the frustum planes and the un-culled
+    kernel each against its plain version, the last also on rays that end in
+    a ragged tile; all within the smoke's limits.
+    Prints the share of tiles whose rays share one origin and the rows a ray
+    tests."""
+    import torch
+
+    from visfly_tpu_torch.render import trace_analytic, trace_analytic_reference
+    from visfly_tpu_torch.render import trace_kernel as tk
+
+    plan = tk.cull_rows(ks, o, d, MAX_DEPTH, img_w)
+    for kid in (False, True):
+        mode = "trace_analytic_kid" if kid else "trace_analytic"
+        culled = lambda ks_, o_, d_, w=img_w: trace_analytic(  # noqa: E731
+            ks_, o_, d_, MAX_DEPTH, want_kid=kid, cull=True, img_w=w)
+        unculled = lambda ks_, o_, d_: trace_analytic(ks_, o_, d_, MAX_DEPTH,  # noqa: E731
+                                                      want_kid=kid)
+        plain_all = lambda ks_, o_, d_: trace_analytic_reference(  # noqa: E731
+            ks_, o_, d_, MAX_DEPTH, want_kid=kid)
+        calls = [(f"{mode} (culled) vs the un-culled plain version", culled, plain_all),
+                 (f"{mode} (cull=False)", unculled, plain_all)]
+        if img_w is not None:
+            calls.append((f"{mode} (culled, no frustum planes)",
+                          lambda ks_, o_, d_: culled(ks_, o_, d_, None),
+                          lambda ks_, o_, d_: trace_analytic_reference(
+                              ks_, o_, d_, MAX_DEPTH, want_kid=kid, cull=True)))
+        for name, kernel, plain in calls:
+            errs[mode] = max(errs[mode], compare(name, case, kernel, plain, ks, o, d))
+        for cut in (1500, 1028):  # a ragged last tile, R % 4 != 0 and == 0
+            o_r, d_r = o[:, :, :-cut].contiguous(), d[:, :, :-cut].contiguous()
+            errs[mode] = max(errs[mode], compare(
+                f"{mode} (cull=False, {o_r.shape[2]} rays)", case, unculled, plain_all, ks, o_r,
+                d_r))
+        t_k, hit_k = culled(ks, o, d)[:2]
+        t_p, hit_p = plain_all(ks, o, d)[:2]
+        bad = ((t_k != t_p) | (hit_k != hit_p)).nonzero().tolist()
+        for s, r in bad[:8]:
+            tile = r // 1024
+            oi = tuple(o[i, s, r:r + 1, None] for i in range(3))
+            di = tuple(d[i, s, r:r + 1, None] for i in range(3))
+            cand = torch.cat([tk._box_t(ks.boxes[s], oi, di),
+                              tk._capsule_t(ks.capsules[s], oi, di)], dim=1)[0]
+            k = int(cand.argmin())
+            kb = ks.boxes.shape[1]
+            cull_in = bool(plan.box_in[s, tile, k] if k < kb else plan.cap_in[s, tile, k - kb])
+            margin = plan.box_margin if k < kb else plan.cap_margin
+            margins = ("none" if margin is None else
+                       [f"{float(margin[s, tile, q, k % kb if k < kb else k - kb]):.3e}"
+                        for q in range(4)])
+            print(f"phase 3 | {mode} culled vs un-culled on {case}, scene {s} ray {r}: t "
+                  f"{float(t_k[s, r]):.6f} / {float(t_p[s, r]):.6f}, winning row {k} culled in "
+                  f"{cull_in}, its plane margins {margins}", flush=True)
+    one = one_origin_tiles(o)
+    rays_b = float(plan.box_in.sum(-1).double().mean())
+    rays_c = float(plan.cap_in.sum(-1).double().mean())
+    print(f"phase 3 | analytic cull on {case}: {one.numel()} tiles, one origin on "
+          f"{float(one.double().mean()):.4f}; a ray tests {rays_b:.2f} of "
+          f"{int((ks.boxes[..., 11] > 0.5).sum()) // ks.boxes.shape[0]} box and {rays_c:.2f} of "
+          f"{int((ks.capsules[..., 7] > 0.5).sum()) // ks.capsules.shape[0]} capsule rows | "
+          f"{card}", flush=True)
 
 
 def march_ops(kscene, stats, plan=None, per_eval_rows=False):
@@ -546,19 +708,18 @@ def march_ops(kscene, stats, plan=None, per_eval_rows=False):
     return float((tile_evals * per_tile).sum()) + rows
 
 
-def bound_ms(mode, kscene, n_rays, stats=None, plan=None):
+def bound_ms(mode, kscene, n_rays, stats=None, plan=None, o=None, old=False):
     """The least time the card could take: the larger of the bytes the
     function must move over the memory rate and its float32 operations, on
     this run's data, over the float32 peak → (ms, "bytes" | "operations").
     A march's operations are :func:`march_ops` of the plain version's
     ``stats``; the culled march's (``plan``) count the rows each tile
-    evaluates."""
+    evaluates. The analytic trace's are :func:`analytic_ops` of the origins
+    ``o`` and the cull ``plan`` (``old``: on the old yardstick)."""
     if mode.startswith("trace_analytic"):
-        nb = int((kscene.boxes[0, :, 11] > 0.5).sum())
-        nc = int((kscene.capsules[0, :, 7] > 0.5).sum())
         # six ray components in, t and hit (and the id) out
         n_bytes = n_rays * (6 * 4 + 4 + 1 + (4 if mode.endswith("kid") else 0))
-        ops = n_rays * (nb * OPS["box_hit"] + nc * OPS["cap_hit"])
+        ops = analytic_ops(kscene, o, plan, old)
     else:
         n_bytes = n_rays * (6 * 4 + 4 + 4 + 1)  # and t_init in
         ops = march_ops(kscene, stats, plan)
@@ -1134,6 +1295,7 @@ def main():
     for case, ks, o, d, t_init, img_w in cases:
         for mode, (kernel, plain) in kernel_modes(t_init, img_w).items():
             errs[mode] = max(errs[mode], compare(mode, case, kernel, plain, ks, o, d))
+        analytic_phase(case, ks, o, d, img_w, errs, card)
     # the culled march's rows on every tile of path B's cameras
     from visfly_tpu_torch.render.trace_kernel import cull_rows
 
@@ -1149,34 +1311,53 @@ def main():
     op_b, dp_b = packed(o_b), packed(d_b)  # and so is the layout change
     modes_b = kernel_modes(lambda o: ti_b, RES[1])
     plan_b = cull_rows(ks_b, o_b, d_b, MAX_DEPTH, RES[1])
+    plan_a = cull_rows(ks_a, o_a, d_a, MAX_DEPTH, RES[1])
     for mode, (kernel, plain) in modes_b.items():
-        ks, o, d = (ks_a, o_a, d_a) if mode == "trace_analytic_kid" else (ks_b, o_b, d_b)
+        ks, o, d, plan = ((ks_a, o_a, d_a, plan_a) if mode == "trace_analytic_kid"
+                          else (ks_b, o_b, d_b, plan_b))
         if mode == "trace_march_packed":
-            ms = cuda_ms(lambda: trace_march(ks, op_b, dp_b, ti_b, max(8, TRACE_STEPS // 2),
-                                             MAX_DEPTH, packed=True, img_w=RES[1]))
+            call = lambda: trace_march(ks, op_b, dp_b, ti_b, max(8, TRACE_STEPS // 2),  # noqa
+                                       MAX_DEPTH, packed=True, img_w=RES[1])
         else:
-            ms = cuda_ms(lambda: kernel(ks, o, d))
+            call = lambda: kernel(ks, o, d)  # noqa: E731
+        ms = cuda_ms(call)
+        dev_ms = device_ms(call, KERNEL_NAMES[mode])
         march = "march" in mode
         plain_ms = cuda_ms(lambda: plain(ks, o, d), reps=3 if march else 20,
                            warmup=1 if march else 3)
         stats = {}
         if march:
             plain(ks, o, d, stats=stats)
+        analytic = mode.startswith("trace_analytic")
         b_ms, b_by = bound_ms(mode, ks, o.shape[2], stats,
-                              plan_b if mode == "trace_march" else None)
-        timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                              plan if mode in ("trace_march", "trace_analytic",
+                                               "trace_analytic_kid") else None, o)
+        timing[mode] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by)
         evals = ""
+        if analytic:
+            old_ms, old_by = bound_ms(mode, ks, o.shape[2], o=o, old=True)
+            evals = f" (old yardstick: {old_ms:.4f} ms by {old_by})"
         if march:
             plan = plan_b if mode == "trace_march" else None
             old_ms = march_ops(ks, stats, plan, per_eval_rows=True) / PEAK_FP32_PER_S * 1e3
             evals = (f", {stats['sdf_evals'] / o.shape[2]:.2f} SDF evaluations a ray (bound with "
                      f"the row constants at every evaluation: {old_ms:.4f} ms)")
-        print(f"phase 3 | {mode} at {o.shape[2]} rays: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms by {b_by}{evals} | {card}", flush=True)
+        print(f"phase 3 | {mode} at {o.shape[2]} rays: kernel {ms:.4f} ms (CUDA events around "
+              f"the call; on the device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}{evals}, share {b_ms / ms:.4f} (device {b_ms / dev_ms:.4f})"
+              f" | {card}", flush=True)
     # the id's cost beside B1 on the same rays (path B's semantic sensor)
-    kid_b = cuda_ms(lambda: modes_b["trace_analytic_kid"][0](ks_b, o_b, d_b))
-    print(f"phase 3 | trace_analytic_kid on path B's rays: kernel {kid_b:.4f} ms beside "
-          f"trace_analytic's {timing['trace_analytic']['ms']:.4f} ms | {card}", flush=True)
+    kid_call = lambda: modes_b["trace_analytic_kid"][0](ks_b, o_b, d_b)  # noqa: E731
+    kid_b = cuda_ms(kid_call)
+    kid_dev = device_ms(kid_call, KERNEL_NAMES["trace_analytic_kid"])
+    kb_ms, kb_by = bound_ms("trace_analytic_kid", ks_b, o_b.shape[2], plan=plan_b, o=o_b)
+    old_ms, old_by = bound_ms("trace_analytic_kid", ks_b, o_b.shape[2], o=o_b, old=True)
+    print(f"phase 3 | trace_analytic_kid on path B's rays: kernel {kid_b:.4f} ms (on the device "
+          f"{kid_dev:.4f} ms) beside trace_analytic's {timing['trace_analytic']['ms']:.4f} ms "
+          f"({timing['trace_analytic']['device_ms']:.4f}), bound {kb_ms:.4f} ms by {kb_by} "
+          f"(old yardstick: {old_ms:.4f} ms by {old_by}), share {kb_ms / kid_b:.4f} (device "
+          f"{kb_ms / kid_dev:.4f}) | {card}", flush=True)
     gradient_phase(ks_b, o_b, d_b, g)
 
     # the triangle kernel on path D's meshes: one OBJ per size, loaded as a
@@ -1400,7 +1581,13 @@ def main():
             "replaces": KERNELS[mode][1], "launches": launches[mode],
             "max_abs_err": errs[mode], **timing[mode], "library_ms": None,
         } for mode in KERNELS],
-        "note": "trace_march (the per-tile cull, B2), trace_march_nocull (B3a) and "
+        "note": "ms is CUDA events around each kernel's call (median of 20), as in every "
+                "earlier run; device_ms (trace modes only) is the kernel's own time on the "
+                "card from torch.profiler; trace_analytic (B1, "
+                "path B's camera rays) and trace_analytic_kid (B1-kid, path A's) cull each "
+                "tile, and their bounds count the rows that meet a tile and a one-origin "
+                "tile's origin terms once; "
+                "trace_march (the per-tile cull, B2), trace_march_nocull (B3a) and "
                 "trace_march_packed (B3b) are instantiations of one march kernel, timed on path "
                 "B's camera rays; B2's bound counts the rows its tiles evaluate; the "
                 "tri_trace_* modes are flags and list modes of one source (tile_sv and tile_mt "

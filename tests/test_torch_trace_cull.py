@@ -9,7 +9,7 @@ Tolerances, each beside its reason:
   step by step in another op order, so |Δt| ≤ 1e-4 with hit flags equal, at
   8 steps (rays run out of steps, and the culled-out filler rows of a tile
   that fits decide where they end) and at 40;
-- the analytic refine vs the culled analytic tile: the same bound.
+- the un-culled analytic refine vs the culled analytic tile: the same bound.
 """
 from unittest import mock
 
@@ -99,8 +99,11 @@ def test_culled_march_matches_culled_tile(interpret_pallas, name, n_steps):
 
 
 def test_analytic_refine_matches_culled_tile(interpret_pallas):
-    """The analytic trace takes no cull: with two refine steps it equals the
-    culled analytic tile, whose refine marches the compacted rows."""
+    """The un-culled analytic trace with two refine steps stays within 1e-4
+    of the culled analytic tile, whose refine marches the compacted rows: on
+    these rays the refine barely moves an exact candidate. The culled trace,
+    which marches the tile's rows too, is held to the tile in
+    ``test_torch_trace_analytic_cull.py``."""
     jks, ks, (joc, jdc), (oc, dc), img_w = _cull_case("camera_frustum")
     t_ref, hit_ref = pallas_trace_c(jks, joc, jdc, None, analytic=True, n_refine=2, cull=True,
                                     img_w=img_w, want_kid=False)

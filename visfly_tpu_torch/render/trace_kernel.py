@@ -25,8 +25,11 @@ of :func:`cull_capacity`) the tile evaluates the first ``kb_c`` box and
 ``kc_c`` capsule rows of that order, culled-in rows followed by culled-out
 *filler* rows in scene order, and otherwise every row. The filler rows are
 part of the function: a ray that runs out of steps ends where this row set
-puts it. The analytic trace takes no cull (its closed-form first hit is the
-same over the culled rows).
+puts it. The analytic trace with ``cull`` computes the same kernel's analytic
+mode: the closed-form first hit runs over the rows that meet the tile only (a
+row the cull keeps out has no hit nearer than ``max_depth``, so t, hit and the
+id are the TPU tile's), and the refine marches the tile's rows, filler rows
+included.
 
 ``trace_diff`` is the differentiable entry over either wrapper: its backward
 is the implicit-function-theorem rule in plain PyTorch, so no kernel runs
@@ -280,19 +283,21 @@ def _chunks(origins_c: Tensor, dirs_c: Tensor, chunk: int):
 
 class CullRows(NamedTuple):
     """The per-tile cull of :func:`cull_rows`: the rows that meet each tile,
-    counted per family ``nb``, ``nc`` (S, T) int64; whether both counts fit
-    the compacted block, ``fits`` (S, T) bool; and the rows the culled march
-    evaluates in each tile, ``box_rows`` (S, T, KB) and ``cap_rows``
-    (S, T, KC) bool. With the frustum planes, each row's margin against
-    each plane, ``box_margin`` (S, T, 4, KB) and ``cap_margin``
-    (S, T, 4, KC): the row is on the inner side of a plane where its
-    margin is ≥ 0; else None."""
+    ``box_in`` (S, T, KB) and ``cap_in`` (S, T, KC) bool, counted per family
+    ``nb``, ``nc`` (S, T) int64; whether both counts fit the compacted block,
+    ``fits`` (S, T) bool; and the rows the culled march evaluates in each
+    tile, ``box_rows`` (S, T, KB) and ``cap_rows`` (S, T, KC) bool. With the
+    frustum planes, each row's margin against each plane, ``box_margin``
+    (S, T, 4, KB) and ``cap_margin`` (S, T, 4, KC): the row is on the inner
+    side of a plane where its margin is ≥ 0; else None."""
 
     nb: Tensor
     nc: Tensor
     fits: Tensor
     box_rows: Tensor
     cap_rows: Tensor
+    box_in: Tensor
+    cap_in: Tensor
     box_margin: Optional[Tensor] = None
     cap_margin: Optional[Tensor] = None
 
@@ -384,26 +389,46 @@ def cull_rows(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor, max_depth:
     nb, nc = in_b.sum(-1), in_c.sum(-1)
     fits = (nb <= cull_capacity(boxes.shape[1])) & (nc <= cull_capacity(caps.shape[1]))
     return CullRows(nb, nc, fits, _first_in_order(in_b, cull_capacity(boxes.shape[1]), fits),
-                    _first_in_order(in_c, cull_capacity(caps.shape[1]), fits), margin_b,
-                    margin_c)
+                    _first_in_order(in_c, cull_capacity(caps.shape[1]), fits), in_b, in_c,
+                    margin_b, margin_c)
+
+
+def _tiles_of(sl: slice, R: int, device) -> Tensor:
+    """The tile of each ray of the chunk ``sl``."""
+    return torch.arange(sl.start, min(sl.stop, R), device=device) // TILE
 
 
 def trace_analytic_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
                              max_depth: float = 20.0, chunk: int = 1 << 18,
                              want_kid: bool = False, n_refine: int = 0, eps: float = EPS,
-                             stats: Optional[dict] = None) -> Tuple[Tensor, ...]:
+                             stats: Optional[dict] = None, cull: bool = False,
+                             img_w: Optional[int] = None) -> Tuple[Tensor, ...]:
     """Plain PyTorch version of the analytic kernel: the same formulas in the
     same order, broadcast over (rays, rows). Rays go in chunks of ``chunk``
     to bound the (r, K) intermediates. ``kid`` is the id column of the first
-    minimum in row order (boxes, then capsules), −1 on a miss."""
+    minimum in row order (boxes, then capsules), −1 on a miss. With ``cull``
+    (R a multiple of 1,024; ``chunk`` is rounded down to whole tiles) the
+    closed form of each tile's rays runs over the rows :func:`cull_rows`
+    finds to meet the tile, and the refine marches the rows the tile
+    evaluates."""
     _, S, R = origins_c.shape
     t = torch.empty((S, R), dtype=origins_c.dtype, device=origins_c.device)
     kid = torch.empty_like(t) if want_kid else None
     evals = (torch.zeros((S, R), dtype=torch.int32, device=t.device)
              if stats is not None and n_refine > 0 else None)
+    plan = cull_rows(kscene, origins_c, dirs_c, max_depth, img_w) if cull else None
+    if cull:
+        chunk = max(TILE, chunk // TILE * TILE)
     for s, sl, o, d in _chunks(origins_c, dirs_c, chunk):
         boxes, caps = kscene.boxes[s], kscene.capsules[s]
-        tk = torch.cat([_box_t(boxes, o, d), _capsule_t(caps, o, d)], dim=1)
+        t_box, t_cap = _box_t(boxes, o, d), _capsule_t(caps, o, d)
+        rows = None
+        if cull:
+            tiles = _tiles_of(sl, R, t.device)
+            t_box = t_box.masked_fill(~plan.box_in[s, tiles], BIG)
+            t_cap = t_cap.masked_fill(~plan.cap_in[s, tiles], BIG)
+            rows = (plan.box_rows[s, tiles], plan.cap_rows[s, tiles])
+        tk = torch.cat([t_box, t_cap], dim=1)
         if want_kid:
             best, k = torch.min(tk, dim=1)  # the index of the first minimum
             ids = torch.cat([boxes[:, 12], caps[:, 8]])
@@ -412,7 +437,7 @@ def trace_analytic_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Ten
             best = torch.amin(tk, dim=1)
         t0 = torch.clamp(best, max=max_depth)
         if n_refine > 0:
-            sdf = _ray_sdf(boxes, caps, o, d)
+            sdf = _ray_sdf(boxes, caps, o, d, rows)
             ev = None if evals is None else evals[s, sl]
             t0 = _march(sdf, t0, n_refine, max_depth, eps, 1.0, ev)
             t[s, sl] = _final_eval(sdf, t0, max_depth, ev)
@@ -445,7 +470,7 @@ def trace_march_reference(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor
     for s, sl, o, d in _chunks(origins_c, dirs_c, chunk):
         rows = None
         if cull:
-            tiles = torch.arange(sl.start, min(sl.stop, R), device=t.device) // TILE
+            tiles = _tiles_of(sl, R, t.device)
             rows = (plan.box_rows[s, tiles], plan.cap_rows[s, tiles])
         sdf = _ray_sdf(kscene.boxes[s], kscene.capsules[s], o, d, rows)
         t0 = torch.zeros_like(o[0][:, 0]) if t_init is None else t_init[s, sl]
@@ -469,8 +494,9 @@ def _launcher(name: str):
     fn = getattr(load_library(name), f"{name}_launch")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = {
-        # boxes caps origins dirs t hit kid | S R KB KC | max_depth n_refine eps stream
-        "trace_analytic": [p] * 7 + [i] * 4 + [f, i, f, p],
+        # boxes caps origins dirs t hit kid | S R KB KC kb_c kc_c img_w | max_depth
+        # n_refine eps | cull stream
+        "trace_analytic": [p] * 7 + [i] * 7 + [f, i, f, i, p],
         # boxes caps origins dirs t_init t hit counts | S R KB KC kb_c kc_c img_w
         # n_steps | max_depth eps omega 1-omega | packed cull stream
         "trace_march": [p] * 8 + [i] * 8 + [f] * 4 + [i, i, p],
@@ -506,43 +532,58 @@ def _check(kscene: KernelScene, origins: Tensor, dirs: Tensor, packed: bool = Fa
     return S, R
 
 
-def _check_cuda(kscene: KernelScene, tensors, smem: Optional[int] = None) -> None:
+def _check_cuda(kscene: KernelScene, tensors, smem: int) -> None:
     """What only the kernels need: contiguity and rows that fit shared
-    memory (``smem`` bytes; by default the analytic kernel's raw rows)."""
+    memory (``smem`` bytes, as the kernel's launch reckons them)."""
     for x in (kscene.boxes, kscene.capsules, *tensors):
         if not x.is_contiguous():
             raise ValueError("the trace kernels take contiguous tensors")
     KB, KC = kscene.boxes.shape[1], kscene.capsules.shape[1]
-    if smem is None:
-        smem = (KB * BOX_COLS + KC * CAP_COLS) * 4
     if smem > 48 * 1024:
         raise ValueError(f"{KB} box and {KC} capsule rows need {smem} bytes of shared memory; "
                          f"the kernel takes at most {48 * 1024}")
 
 
 @functools.lru_cache(maxsize=None)
-def _march_smem():
-    """``trace_march_smem(KB, KC, cull)`` of the march kernel's library: the
-    shared memory one block takes, in bytes, as its launch reckons it."""
+def _smem(name: str):
+    """``<name>_smem(KB, KC, flag)`` of a kernel's library: the shared memory
+    one block takes, in bytes, as its launch reckons it (the march's flag is
+    the cull, the analytic kernel's the refine)."""
     from ..build import load_library
 
-    fn = load_library("trace_march").trace_march_smem
+    fn = getattr(load_library(name), f"{name}_smem")
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     return fn
 
 
+def _camera_width(img_w: Optional[int]) -> int:
+    """The ``img_w`` a kernel takes: the camera's width where it divides a
+    tile, else 0 (no frustum planes)."""
+    return img_w if img_w is not None and TILE % img_w == 0 else 0
+
+
 def trace_analytic(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
                    max_depth: float = 20.0, want_kid: bool = False, n_refine: int = 0,
-                   eps: float = EPS) -> Tuple[Tensor, ...]:
+                   eps: float = EPS, cull: bool = False,
+                   img_w: Optional[int] = None) -> Tuple[Tensor, ...]:
     """First hit of rays (3, S, R) against each scene's rows → (t (S, R),
-    hit (S, R)[, kid (S, R)]). CUDA tensors go through the CUDA kernel, CPU
-    tensors through :func:`trace_analytic_reference`."""
+    hit (S, R)[, kid (S, R)]). ``cull`` culls each 1,024-ray tile, as
+    ``pallas_trace_c(analytic=True, cull=True)``: R must be a multiple of
+    1,024, and ``img_w``, where it divides 1,024, gives the cull the frustum
+    planes of a camera that many pixels wide. CUDA tensors go through the
+    CUDA kernel, CPU tensors through :func:`trace_analytic_reference`."""
     S, R = _check(kscene, origins_c, dirs_c)
+    if cull and R % TILE:
+        raise ValueError(f"rays per scene ({R}) must be a multiple of {TILE} for the "
+                         "per-tile cull")
     dev = origins_c.device
     if dev.type == "cpu":
         return trace_analytic_reference(kscene, origins_c, dirs_c, max_depth,
-                                        want_kid=want_kid, n_refine=n_refine, eps=eps)
-    _check_cuda(kscene, (origins_c, dirs_c))
+                                        want_kid=want_kid, n_refine=n_refine, eps=eps,
+                                        cull=cull, img_w=img_w)
+    KB, KC = kscene.boxes.shape[1], kscene.capsules.shape[1]
+    _check_cuda(kscene, (origins_c, dirs_c),
+                _smem("trace_analytic")(KB, KC, int(n_refine > 0)))
     boxes, caps = kscene.boxes, kscene.capsules
     t = torch.empty((S, R), dtype=torch.float32, device=dev)
     hit = torch.empty((S, R), dtype=torch.bool, device=dev)
@@ -552,8 +593,9 @@ def trace_analytic(kscene: KernelScene, origins_c: Tensor, dirs_c: Tensor,
         with torch.cuda.device(dev):
             rc = launch(boxes.data_ptr(), caps.data_ptr(), origins_c.data_ptr(),
                         dirs_c.data_ptr(), t.data_ptr(), hit.data_ptr(),
-                        kid.data_ptr() if want_kid else None, S, R, boxes.shape[1],
-                        caps.shape[1], float(max_depth), int(n_refine), float(eps),
+                        kid.data_ptr() if want_kid else None, S, R, KB, KC, cull_capacity(KB),
+                        cull_capacity(KC), _camera_width(img_w), float(max_depth),
+                        int(n_refine), float(eps), int(cull),
                         torch.cuda.current_stream(dev).cuda_stream)
             LAUNCHES["trace_analytic_kid" if want_kid else "trace_analytic"] += 1
         if rc != 0:
@@ -598,7 +640,7 @@ def trace_march(kscene: KernelScene, origins: Tensor, dirs: Tensor,
         return out
     tensors = (origins, dirs) if t_init is None else (origins, dirs, t_init)
     KB, KC = kscene.boxes.shape[1], kscene.capsules.shape[1]
-    _check_cuda(kscene, tensors, _march_smem()(KB, KC, int(cull)))
+    _check_cuda(kscene, tensors, _smem("trace_march")(KB, KC, int(cull)))
     boxes, caps = kscene.boxes, kscene.capsules
     t = torch.empty((S, R), dtype=torch.float32, device=dev)
     hit = torch.empty((S, R), dtype=torch.bool, device=dev)
@@ -607,12 +649,12 @@ def trace_march(kscene: KernelScene, origins: Tensor, dirs: Tensor,
     if S and R:
         launch = _launcher("trace_march")
         mode = "trace_march_packed" if packed else "trace_march" if cull else "trace_march_nocull"
-        camera_w = img_w if img_w is not None and TILE % img_w == 0 else 0
         with torch.cuda.device(dev):
             rc = launch(boxes.data_ptr(), caps.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
                         None if t_init is None else t_init.data_ptr(), t.data_ptr(),
                         hit.data_ptr(), None if counts is None else counts.data_ptr(), S, R,
-                        KB, KC, cull_capacity(KB), cull_capacity(KC), camera_w, int(n_steps),
+                        KB, KC, cull_capacity(KB), cull_capacity(KC), _camera_width(img_w),
+                        int(n_steps),
                         float(max_depth), float(eps), float(omega), 1.0 - float(omega),
                         int(packed), int(cull), torch.cuda.current_stream(dev).cuda_stream)
             LAUNCHES[mode] += 1
@@ -678,7 +720,7 @@ class _TraceIFT(torch.autograd.Function):
     def forward(ctx, origins, dirs, t_init, kscene, packed, analytic, want_kid, kw):
         if analytic:
             out = trace_analytic(kscene, origins, dirs, kw["max_depth"], want_kid,
-                                 kw["n_refine"])
+                                 kw["n_refine"], cull=kw["cull"], img_w=kw["img_w"])
         else:
             out = trace_march(kscene, origins, dirs, t_init, kw["n_steps"], kw["max_depth"],
                               EPS, kw["omega"], kw["cull"], packed, kw["img_w"])
