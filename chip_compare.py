@@ -13,13 +13,18 @@ side the median and range of the milliseconds a step took and the operators
 a step dispatched (counted by ``torch.profiler``, free of the clock's noise).
 ``CHANGE_DIR`` defaults to the checkout this script lies in.
 
-With ``--kernels`` each process measures instead the analytic trace kernel
-(B1, B1-kid) as each checkout's render launches it: the card's milliseconds
-in ``trace_analytic_kernel`` per render (``torch.profiler``, 20 renders after
-3), of the depth leg's 64×64 depth camera, path A's colour camera and path
-B's four-sensor suite (its semantic camera; the marches are not counted), all
-at 256 agents. The kernel's device time, not CUDA events around a call, which
-hold the wrapper's host time too.
+With ``--kernels`` each process measures instead the kernels as each
+checkout's render launches them: the card's milliseconds per render
+(``torch.profiler``, 20 renders after 3) in ``trace_analytic_kernel`` (B1,
+B1-kid) of the depth leg's 64×64 depth camera, path A's colour camera and
+path B's four-sensor suite (its semantic camera; the marches are not
+counted), and at 23,040 triangles of path D's garage in
+``tri_trace_mx_kernel`` (B7b) of one 64×64 ``tri_variant: "mx"`` camera and
+in ``tri_trace_kernel`` (B6) of one plain 64×64 camera, all at 256 agents.
+The kernel's device time, not CUDA events around a call, which hold the
+wrapper's host time too: the mean over the launches a trace holds, printed
+beside each time, and taken only from a trace that holds at least 18 of the
+20 (``traced_ms``).
 """
 import argparse
 import os
@@ -71,39 +76,79 @@ def run(checkout):
     print(f"{ms:.3f} {ops:.1f}")
 
 
-KERNEL_ENVS = ("depth", "A", "B")
+# column -> the kernel it reads, by the profiler's name: the analytic kernel in
+# the depth leg's render, path A's and path B's; at 23,040 triangles B7b in
+# path D's render of one 64×64 mx sensor and B6 in its render of one plain one
+KERNEL_ENVS = {"depth": "trace_analytic_kernel", "A": "trace_analytic_kernel",
+               "B": "trace_analytic_kernel", "D_mx": "tri_trace_mx_kernel",
+               "D_camsoup": "tri_trace_kernel"}
+
+
+def kernel_envs(dev, mesh_dir):
+    """The envs of KERNEL_ENVS, as each checkout's chip_smoke.py builds them."""
+    import chip_smoke as cs
+
+    obj = cs.write_obj(os.path.join(mesh_dir, "garage_3.obj"), *cs.garage_mesh(3))
+    camsoup = cs.mesh_env(dev, {"path": obj, "backend": "grid"}, ["depth"])
+    return {"depth": cs.bench_env(dev), "A": cs.landing_env(dev),
+            "B": cs.bench_env(dev, cs.SUITE), "D_camsoup": camsoup,
+            "D_mx": cs.mesh_env(dev, {"data": camsoup.scene}, ["depth_mx"], variants=True)}
+
+
+def traced_ms(fn, kernel, name, reps=20):
+    """The card's ms per launch of ``kernel`` over ``reps`` calls of ``fn``,
+    one launch each, from a ``torch.profiler`` trace → (ms, launches the
+    trace held). A trace can miss the first kernels it should hold, so eight
+    small kernels go first in each (as in ``chip_smoke.device_ms``). The mean
+    is taken over the launches the trace holds, only if they are at least 90%
+    of ``reps``; a trace with fewer is taken again, and the third such
+    fails."""
+    import torch
+
+    pad = torch.zeros(1, device="cuda")
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in prof.key_averages() if kernel in r.key]
+        us = sum(getattr(r, "device_time_total", 0) or getattr(r, "cuda_time_total", 0)
+                 for r in rows)
+        n = sum(r.count for r in rows)
+        if us > 0 and 0.9 * reps <= n <= reps:
+            return us / n / 1e3, n
+        print(f"{name}: the trace held {n} of {reps} launches of {kernel}; traced again",
+              file=sys.stderr, flush=True)
+    raise RuntimeError(f"{name}: three traces held under 90% of {reps} launches of {kernel}")
 
 
 def run_kernels(checkout):
     """One process's kernel measurement of ``checkout`` → prints the ms per
-    render of each of KERNEL_ENVS."""
+    render of each of KERNEL_ENVS, then the launches each trace held."""
+    import tempfile
+
     checkout = os.path.abspath(checkout)
     sys.path.insert(0, checkout)
     os.chdir(checkout)
     import torch
 
-    import chip_smoke as cs
     from visfly_tpu_torch.render import render_sensors
 
     dev = torch.device("cuda", 0)
-    envs = {"depth": cs.bench_env(dev), "A": cs.landing_env(dev), "B": cs.bench_env(dev, cs.SUITE)}
     out = []
-    for name in KERNEL_ENVS:
-        env = envs[name]
-        state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
-        for _ in range(3):
-            render_sensors(env, state)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
+    with tempfile.TemporaryDirectory(prefix="visfly_garage_") as mesh_dir:
+        envs = kernel_envs(dev, mesh_dir)
+        for name, kernel in KERNEL_ENVS.items():
+            env = envs[name]
+            state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
+            for _ in range(3):
                 render_sensors(env, state)
             torch.cuda.synchronize()
-        us = sum(getattr(r, "device_time_total", 0) or getattr(r, "cuda_time_total", 0)
-                 for r in prof.key_averages() if "trace_analytic_kernel" in r.key)
-        if us <= 0:
-            raise RuntimeError(f"{name}: the profiler saw no analytic kernel")
-        out.append(us / 20 / 1e3)
-    print(" ".join(f"{x:.5f}" for x in out))
+            out.append(traced_ms(lambda: render_sensors(env, state), kernel, name))
+    print(" ".join(f"{x[0]:.5f}" for x in out), " ".join(str(x[1]) for x in out))
 
 
 def main():
@@ -113,7 +158,7 @@ def main():
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--run", action="store_true", help="measure PARENT in this process")
     ap.add_argument("--kernels", action="store_true",
-                    help="the analytic kernel's device time a render, not the depth leg's step")
+                    help="the kernels' device time a render, not the depth leg's step")
     args = ap.parse_args()
     if args.run:
         (run_kernels if args.kernels else run)(args.parent)
@@ -131,9 +176,11 @@ def main():
                                  + (["--kernels"] if args.kernels else []),
                                  capture_output=True, text=True, check=True).stdout.split()
             if args.kernels:
-                results[s].append([float(x) for x in out[-len(KERNEL_ENVS):]])
-                print(f"pair {i + 1} | {s}: analytic kernel ms a render "
-                      + ", ".join(f"{e} {x}" for e, x in zip(KERNEL_ENVS, out[-len(KERNEL_ENVS):]))
+                k = len(KERNEL_ENVS)
+                ms, held = out[-2 * k:-k], out[-k:]
+                results[s].append([float(x) for x in ms])
+                print(f"pair {i + 1} | {s}: kernel ms a render (launches traced of 20) "
+                      + ", ".join(f"{e} {x} ({n})" for e, x, n in zip(KERNEL_ENVS, ms, held))
                       + f" | {card}", flush=True)
                 continue
             results[s].append((float(out[-2]), float(out[-1])))
@@ -141,7 +188,7 @@ def main():
                   flush=True)
     if args.kernels:
         for s, rows in results.items():
-            print(f"{s}: analytic kernel ms a render, median (range) "
+            print(f"{s}: kernel ms a render, median (range) "
                   + ", ".join(f"{e} {statistics.median(col):.5f} ({min(col):.5f}-{max(col):.5f})"
                               for e, col in zip(KERNEL_ENVS, zip(*rows)))
                   + f", {len(rows)} runs | {card}", flush=True)

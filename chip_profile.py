@@ -7,7 +7,7 @@ time of a step, so the idle share is taken against the step time clocked
 without it.
 
     python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [sv] [probe] [floor]
-                            [split] [march] [analytic]              # default: A C
+                            [split] [march] [analytic] [mx]         # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
 and 3 times (360, 5,760 and 23,040 triangles); they also clock the parts of
@@ -18,11 +18,13 @@ exact closest-point query and the spawn rejection on the baked grid.
 the triangle kernel, against a float64 brute force on the same float32
 geometry, with lists that hold the whole mesh: 8 cameras of 64×64 in the
 garage at 5,760 and 23,040 triangles, the mesh and the cameras moved together
-0, 20 and 40 m away from the coordinates' origin. Beside the port's bodies it
-reads the expanded coefficients of the JAX package's per-camera pages,
-``g0 = b×c + o×(b − c)``, which multiply world coordinates before they
-subtract (``pages``: every triangle against every ray of a camera, in plain
-PyTorch); the port's bodies subtract the origin first.
+0, 20 and 40 m away from the coordinates' origin. Beside the port's bodies
+(``sv_cam``, ``sv_tile``, ``mt``, and ``mx``, the per-camera test as a matrix
+product on the tensor cores in split TF32) it reads the expanded coefficients
+of the JAX package's per-camera pages, ``g0 = b×c + o×(b − c)``, which
+multiply world coordinates before they subtract (``pages``: every triangle
+against every ray of a camera, in plain PyTorch); the port's bodies subtract
+the origin first.
 
 ``E`` and ``F`` are the BPTT paths (``HoverEnv``, 128 agents, H = 32; visual
 ``NavigationEnv2``, 64 agents, 64×64 depth, H = 8, in the primitive scene and
@@ -68,6 +70,19 @@ over 32 × the warp's longest lane) of two ways to give a warp its rays:
 kernel's time in both (B3a and B3b; B2's cull needs the image width that
 the patches come from) and the registers and spills of each instantiation.
 
+``mx`` is the evidence for the matrix-form kernel's design
+(``tri_trace_mx_kernel`` of ``csrc/tri_trace.cu``, on the tensor cores): the
+copies of ``MX_COPIES`` (block shapes of 128, 256 and 512 threads, the vote
+on each ray's best, the least of its quad's, instead of each lane's own, and
+two knock-outs: one product a row block, and the products with no gate: a
+test that never passes), built side by side under
+``build/profile/`` with each one's registers and spills from ``ptxas -v``;
+then in turns, forwards and backwards, each copy's device time on path D's
+64×64 rays at 23,040 triangles, its shares of the bound and of its design's
+floor, the stages executed a tile, its result against the package's kernel,
+and on rays through the midpoints of the mesh's flat shared edges the rays
+that land past 1e-3 m of the plain version and of a float64 brute force.
+
 ``analytic`` is the evidence for the analytic kernel's launch bounds
 (``csrc/trace_analytic.cu``, 256 threads of four rays a block): copies of
 the source at 2, 3, 4 (the source's own) and 8 blocks an SM
@@ -84,6 +99,7 @@ Every line ends with the card's name and power limit.
 """
 import contextlib
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -447,8 +463,9 @@ def sv_rounding(level, env, card):
     tris = env.scene.triangles
     T = tris.shape[1]
     never, always = 1 << 30, 0  # thresholds of the block-list tiers
-    bodies = {"sv_cam": (img_w, cam_rays, always), "sv_tile": (img_w, cam_rays, never),
-              "mt": (None, None, never)}
+    bodies = {"sv_cam": (img_w, cam_rays, always, "scalar"),
+              "mx": (img_w, cam_rays, always, "mx"),
+              "sv_tile": (img_w, cam_rays, never, "scalar"), "mt": (None, None, never, "scalar")}
     for off in (0.0, 20.0, 40.0):
         shift = torch.tensor([off, off, 0.0], device=env.device)
         tr = (tris.reshape(1, T, 3, 3) + shift).reshape(1, T, 9).contiguous()
@@ -457,8 +474,8 @@ def sv_rounding(level, env, card):
                                            d_c.double().permute(1, 2, 0), cs.MAX_DEPTH,
                                            max_elems=1 << 22)
         out = {body: tri_trace_tiled(tr, oc, d_c, cs.MAX_DEPTH, T, w, cam,
-                                     soup_min_t=soup_min_t)[:2]
-               for body, (w, cam, soup_min_t) in bodies.items()}
+                                     soup_min_t=soup_min_t, variant=variant)[:2]
+               for body, (w, cam, soup_min_t, variant) in bodies.items()}
         t_pg, hit_pg = page_algebra_t(tr[0], oc[:, 0, ::cam_rays].T,
                                       d_c[:, 0].T.reshape(cams, cam_rays, 3), cs.MAX_DEPTH)
         out["pages"] = (t_pg.reshape(1, -1), hit_pg.reshape(1, -1))
@@ -555,34 +572,176 @@ def march(env, card):
                   f"hit flags differ on {flip:.3e} | {card}", flush=True)
 
 
-ANALYTIC_MIN_BLOCKS = (2, 3, 4, 8)  # blocks an SM of the copies chip_profile.py analytic builds
+# the copies of csrc/tri_trace.cu that chip_profile.py mx builds: label ->
+# ({line of the source: its replacement}, whether the copy must give the
+# package's result to the bit)
+MX_COPIES = {
+    "256 threads: 2 warpgroups x 512 rays, 2 blocks an SM (the package's)": ({}, True),
+    "256 threads, 3 blocks an SM": ({"kMxMinBlocks = 2;": "kMxMinBlocks = 3;"}, True),
+    "512 threads: 4 warpgroups x 256 rays, 1 block an SM": (
+        {"kMxThreads = 256;": "kMxThreads = 512;", "kMxMinBlocks = 2;": "kMxMinBlocks = 1;"},
+        True),
+    "128 threads: 1 warpgroup x 1024 rays, 3 blocks an SM": (
+        {"kMxThreads = 256;": "kMxThreads = 128;", "kMxMinBlocks = 2;": "kMxMinBlocks = 3;"},
+        True),
+    "256 threads, the quad's vote (each ray's best, the least of its quad's)": (
+        {"    if (!__syncthreads_or(tile_lb[ci] < fminf(far, max_depth))) continue;\n":
+         "    unsigned open = 0;\n"
+         "#pragma unroll\n"
+         "    for (int m = 0; m < kMxRows; ++m) {\n"
+         "#pragma unroll\n"
+         "      for (int h = 0; h < 2; ++h) {\n"
+         "        const unsigned v = __ballot_sync(0xffffffffu, tile_lb[ci] < fminf(tb[m][h], "
+         "max_depth));\n"
+         "        open |= v & (v >> 1) & (v >> 2) & (v >> 3) & 0x11111111u;\n"
+         "      }\n"
+         "    }\n"
+         "    if (!__syncthreads_or(open != 0)) continue;\n"}, True),
+    # knock-outs, for where the time goes (results differ)
+    "knock-out: one product a row block (d_hi.g_lo dropped)": (
+        {"  wgmma_n96<false>(d, a, b_lo);\n  wgmma_n96<true>(d, a, b_hi);\n":
+         "  wgmma_n96<false>(d, a, b_hi);\n"}, False),
+    "knock-out: products, no gate": (
+        {"least[4 * u + e] = fminf(fminf(w0 * w1, w0 * w2), w1 * w2);":
+         "least[4 * u + e] = w0 + w1 - w2 - 1e30f;"}, False),
+}
 
 
-def analytic_copy(min_blocks):
-    """The library of ``csrc/trace_analytic.cu`` with ``kMinBlocks`` set to
-    ``min_blocks``: the package's own where the source has that value, else a
-    copy built under ``build/profile/`` with the package's flags."""
-    import re
-
+def source_copy(name, label, edits):
+    """The library of ``csrc/<name>.cu`` with ``edits`` (text: replacement)
+    applied, built under ``build/profile/`` with the package's flags; the
+    package's own library where there is no edit."""
     from visfly_tpu_torch import build as vb
 
-    with open(os.path.join(vb.CSRC, "trace_analytic.cu")) as f:
+    if not edits:
+        return vb.build(name)
+    with open(os.path.join(vb.CSRC, f"{name}.cu")) as f:
         src = f.read()
-    line = re.search(r"constexpr int kMinBlocks = (\d+);", src)
-    cs.check(line is not None, "trace_analytic.cu has no kMinBlocks constant")
-    if int(line.group(1)) == min_blocks:
-        return vb.build("trace_analytic")
-    out = os.path.join(os.path.dirname(vb.BUILD_ROOT), "profile", f"trace_analytic-{min_blocks}")
+    for a, b in edits.items():
+        cs.check(a in src, f"{name}.cu has no {a!r}")
+        src = src.replace(a, b)
+    out = os.path.join(os.path.dirname(vb.BUILD_ROOT), "profile",
+                       f"{name}-{re.sub(r'[^a-z0-9]+', '-', label.lower())[:48]}")
     os.makedirs(out, exist_ok=True)
-    cu, lib = os.path.join(out, "trace_analytic.cu"), os.path.join(out, "libtrace_analytic.so")
+    cu, lib = os.path.join(out, f"{name}.cu"), os.path.join(out, f"lib{name}.so")
     with open(cu, "w") as f:
-        f.write(src.replace(line.group(0), f"constexpr int kMinBlocks = {min_blocks};"))
+        f.write(src)
     proc = subprocess.run([vb.nvcc_path(), *vb.NVCC_FLAGS, "-I", vb.CSRC, "-o", lib, cu],
                           capture_output=True, text=True)
     cs.check(proc.returncode == 0, f"nvcc failed for {cu}:\n{proc.stdout}{proc.stderr}")
     with open(os.path.join(out, "build.log"), "w") as f:
         f.write(proc.stdout + proc.stderr)
     return lib
+
+
+@contextlib.contextmanager
+def mx_library(lib):
+    """``mode="mx"`` launches the matrix-form kernel of the library ``lib``
+    inside the block: the wrapper's own checks and arguments, another build."""
+    import ctypes
+
+    from visfly_tpu_torch.render import tri_kernel as tk
+
+    own = tk._launchers
+    fn = ctypes.CDLL(lib).tri_trace_mx_launch
+    fn.argtypes, fn.restype = own()[1].argtypes, own()[1].restype
+    tk._launchers = lambda: (own()[0], fn, own()[2])
+    try:
+        yield
+    finally:
+        tk._launchers = own
+
+
+def mx(env, card):
+    """The matrix-form kernel's block shape, vote and canonical signs
+    (MX_COPIES), on path D's 64×64 rays at 23,040 triangles: per copy its
+    registers and spills, then in turns, forwards and backwards, its device
+    time (``torch.profiler``), the stages executed a tile, its share of the
+    bound and of its design's floor, whether it gives the package's result to
+    the bit, and on rays through every shared edge's midpoint the rays whose
+    t lies past 1e-3 m of the plain version's and of a float64 brute force's."""
+    import concurrent.futures
+
+    from visfly_tpu_torch.render import (default_tri_cap, tri_first_hit, tri_first_hit_reference,
+                                         tri_trace_brute)
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    with concurrent.futures.ThreadPoolExecutor(len(MX_COPIES)) as pool:
+        libs = dict(zip(MX_COPIES, pool.map(lambda kv: source_copy("tri_trace", kv[0], kv[1][0]),
+                                            MX_COPIES.items())))
+    for label, lib in libs.items():
+        ptxas_report(lib, f"mx | {label}", card, only="tri_trace_mx_kernel")
+    state, _ = env.reset(torch.Generator(device=env.device).manual_seed(0))
+    tris = env.scene.triangles
+    o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, 0)
+    plan = plan_tiles(tris, o_c, d_c, cs.MAX_DEPTH, default_tri_cap(tris.shape[1]), img_w,
+                      cam_rays, variant="mx")
+    args = (tris, plan.lists, plan.origins_c, plan.dirs_c, cs.MAX_DEPTH, plan.form,
+            plan.origin_tiles)
+    stats = {}
+    tri_first_hit_reference(*args, stats=stats, mode="mx")
+    n_rays = o_c.shape[2]
+    b_ms, b_by, _ = cs.tri_bound_ms("mx", stats, n_rays, plan.lists)
+    old_ms = cs.tri_bound_ms(plan.form, stats, n_rays, plan.lists)[0]
+    floor_ms = cs.mx_floor_ms(stats)[0]
+    ref = tri_first_hit(*args, mode="mx", count_stages=True)
+    print(f"mx | path D 64x64 at {n_rays} rays, 23040 triangles: bound {b_ms:.4f} ms by {b_by} "
+          f"(old yardstick, the float32 body on the CUDA cores: {old_ms:.4f}), floor of the "
+          f"design {floor_ms:.4f} ms; {stats['tests'] / n_rays:.1f} slots a ray staged | {card}",
+          flush=True)
+    # shared edges: rays through every shared edge's midpoint from 4 cameras,
+    # the plain version against float64 once, each copy against the plain version
+    T = tris.shape[1]
+    per_cam = -(-(3 * T // 2) // 1024) * 1024
+    o_w, d_w, n_edges, _ = cs.shared_edge_rays(tris, o_c[:, 0, ::cam_rays][:, :4], per_cam)
+    lists_w = cs.whole_mesh_lists(T, o_w.shape[2] // 1024, plan.lists.block, o_w.device)
+    w_args = (tris, lists_w, o_w, d_w, cs.MAX_DEPTH, "sv_cam", per_cam // 1024)
+    plain_w = tri_first_hit_reference(*w_args, mode="mx")
+    t64, hit64, _, _ = tri_trace_brute(tris.double(), o_w.double().permute(1, 2, 0),
+                                       d_w.double().permute(1, 2, 0), cs.MAX_DEPTH,
+                                       max_elems=1 << 24)
+
+    def deep(out, ref_t, ref_hit):
+        both = out[1] & ref_hit
+        return int(((out[0].double() - ref_t).abs() > cs.T_TOL)[both].sum())
+
+    print(f"mx | watertight: {n_edges} flat shared edges, {o_w.shape[2]} rays; the plain version "
+          f"(torch.matmul, float32) against float64: {deep(plain_w, t64, hit64)} rays past "
+          f"{cs.T_TOL} m | {card}", flush=True)
+    for order in (list(libs), list(libs)[::-1]):
+        for label in order:
+            with mx_library(libs[label]):
+                out = tri_first_hit(*args, mode="mx", count_stages=True)
+                out_w = tri_first_hit(*w_args, mode="mx")
+                torch.cuda.synchronize()
+                ms, held = cs.device_ms(lambda: tri_first_hit(*args, mode="mx"),
+                                        "tri_trace_mx_kernel")
+            equal = all(torch.equal(a, b) for a, b in zip(out[:3], ref[:3]))
+            print(f"mx | {label}: kernel {ms:.4f} ms on the device ({held} of 20 launches "
+                  f"traced), {b_ms / ms:.4f} of the bound, "
+                  f"{floor_ms / ms:.4f} of the floor; stages executed a tile mean "
+                  f"{float(out[3].float().mean()):.2f}; equal to the package's kernel {equal}; "
+                  f"watertight: rays past {cs.T_TOL} m of the plain version "
+                  f"{deep(out_w, plain_w[0].double(), plain_w[1])}, of float64 "
+                  f"{deep(out_w, t64, hit64)} | {card}", flush=True)
+            cs.check(equal or not MX_COPIES[label][1],
+                     f"{label}: differs from the package's kernel")
+
+
+ANALYTIC_MIN_BLOCKS = (2, 3, 4, 8)  # blocks an SM of the copies chip_profile.py analytic builds
+
+
+def analytic_copy(min_blocks):
+    """The library of ``csrc/trace_analytic.cu`` with ``kMinBlocks`` set to
+    ``min_blocks`` (:func:`source_copy`)."""
+    from visfly_tpu_torch import build as vb
+
+    with open(os.path.join(vb.CSRC, "trace_analytic.cu")) as f:
+        line = re.search(r"constexpr int kMinBlocks = (\d+);", f.read())
+    cs.check(line is not None, "trace_analytic.cu has no kMinBlocks constant")
+    edits = ({} if int(line.group(1)) == min_blocks
+             else {line.group(0): f"constexpr int kMinBlocks = {min_blocks};"})
+    return source_copy("trace_analytic", f"kMinBlocks {min_blocks}", edits)
 
 
 @contextlib.contextmanager
@@ -603,17 +762,17 @@ def analytic_library(lib):
         tk._launcher = own
 
 
-def ptxas_report(lib, label, card):
-    """Registers and spill bytes of each kernel instantiation (its template
-    flags, mangled) in a library's build log."""
-    with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
-        log = f.read()
-    for entry in log.split("Compiling entry function '")[1:]:
-        name, rest = entry.split("'", 1)
-        regs = rest.split("Used ", 1)[1].split(",")[0]
-        spill = rest.split(" bytes spill stores")[0].rsplit(" ", 1)[-1]
-        print(f"{label} | ptxas {name.split('_kernel')[1].split('EEv')[0]}: {regs}, "
-              f"{spill} bytes spilled | {card}", flush=True)
+def ptxas_report(lib, label, card, only=""):
+    """Registers and spill bytes of each kernel instantiation of a library
+    (named by its function and template flags, mangled), or of those whose
+    mangled name holds ``only``."""
+    for name, regs, stores, _ in cs.ptxas_entries(lib):
+        if only not in name:
+            continue
+        m = re.search(r"\d+([a-z_]+_kernel)(I\w*?EE)?", name)
+        which = m.group(1) + (m.group(2) or "") if m else name
+        print(f"{label} | ptxas {which}: {regs} registers, {stores} bytes spilled | {card}",
+              flush=True)
 
 
 def analytic(env_b, env_a, card):
@@ -673,17 +832,19 @@ def analytic(env_b, env_a, card):
                 with analytic_library(libs[label]):
                     out = call()
                     torch.cuda.synchronize()
-                    ms = cs.device_ms(call, "trace_analytic_kernel")
+                    ms, held = cs.device_ms(call, "trace_analytic_kernel")
                 (plain, b_ms) = ref[mode, where]
                 equal = all(torch.equal(a, b) for a, b in zip(out, plain))
-                print(f"analytic | {label} | {mode} on {where}: kernel {ms:.4f} ms on the device, "
+                print(f"analytic | {label} | {mode} on {where}: kernel {ms:.4f} ms on the device "
+                      f"({held} of 20 launches traced), "
                       f"{b_ms / ms:.4f} of the bound, equal to the plain version {equal} | "
                       f"{card}", flush=True)
                 cs.check(equal, f"{label}: {mode} on {where} differs from its plain version")
     ks, o, d, _ = rays["path B"]
-    ms = cs.device_ms(lambda: trace_analytic(ks, o, d, cs.MAX_DEPTH), "trace_analytic_kernel")
+    ms, held = cs.device_ms(lambda: trace_analytic(ks, o, d, cs.MAX_DEPTH),
+                            "trace_analytic_kernel")
     print(f"analytic | the package's kernel, trace_analytic on path B without the cull: "
-          f"{ms:.4f} ms on the device | {card}", flush=True)
+          f"{ms:.4f} ms on the device ({held} of 20 launches traced) | {card}", flush=True)
 
 
 def main(argv):
@@ -717,6 +878,8 @@ def main(argv):
             floor(garage_env(3), card)
         elif name == "split":
             split({level: garage_env(level) for level in (0, 2, 3)}, card)
+        elif name == "mx":
+            mx(garage_env(3), card)
         elif name == "march":
             march(make_env["B"](), card)
         elif name == "analytic":

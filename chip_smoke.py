@@ -69,7 +69,13 @@ Phases, one line each; any failure exits non-zero:
    its blocks and the blocks an SM of the occupancy query; the three
    variants of the per-camera tier at 23,040 triangles against their plain
    versions, against ``"scalar"`` and against the brute force (same limits;
-   the worklist at its default budget held to "no nearer hit"); the stages
+   the worklist at its default budget held to "no nearer hit"); the matrix
+   form on the tensor cores besides against its TF32 split's model, on rays
+   through the midpoints of the mesh's flat shared edges (hit flags equal to
+   the plain version's, no ray past 1e-3 m of it) and on the mesh twice over
+   (every id equal to the plain version's), with its device time, its SASS
+   (TF32 tensor instructions), registers and the floor of its design; the
+   stages
    executed per tile against the plain count, exactly; the four knock-out
    combinations against their plain results, and the split of the
    per-camera kernel's time they give;
@@ -114,6 +120,7 @@ COLOR_TOL = 1e-4  # share of pixels: a silhouette pixel flips a whole uint8 trip
 # the card's peaks the bounds are held against (H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12  # dense, on the tensor cores
 # float32 operations of one row, a division or square root counted as the
 # 8-instruction sequence it compiles to, a minimum or maximum as 1, everything
 # else as 1 but comparisons, selects and sign or magnitude modifiers. A
@@ -144,11 +151,21 @@ OPS = {"box_hit": 100, "cap_hit": 185, "box_sdf": 41, "cap_sdf": 32, "cap_row": 
 # two products of the sign test of u and v (24); then one division, three
 # products, a dot product and a sum (17).
 # Comparisons and selects are left out, as are a stage's empty slots.
-# The matrix form is the same function and is charged the same: the products
-# of its padded W = D.G with G's structural zeros and with the constant 1
-# (31 operations to the gate as the kernel does them) are overhead, not work
-# the function needs.
-TRI_OPS = {"sv_tile": (18, 0, 11), "sv_cam": (18, 0, 11), "mt": (14, 24, 17)}
+# The matrix form (B7b, "mx") computes the same function with its products on
+# the tensor cores in TF32, each factor split in two and three of the four
+# products kept, the counterpart of the TPU kernel's Precision.HIGHEST: on a
+# real triangle three passes of the three volumes' 9 multiply-adds (54 TF32
+# flops a test, TRI_TC_FLOPS) at the TF32 tensor rate, and on the CUDA cores
+# the three sign products of the gate (3) and the sum, division and product of
+# those that divide (11). The bound is the larger of the two pipes' times (and
+# the bytes); "sv_cam" on the CUDA cores, the yardstick before the kernel moved
+# to the tensor cores, is printed beside it.
+TRI_OPS = {"sv_tile": (18, 0, 11), "sv_cam": (18, 0, 11), "mt": (14, 24, 17), "mx": (3, 0, 11)}
+TRI_TC_FLOPS = {"mx": 54}
+# The floor of the matrix form's own design: every staged slot, padding
+# included, on the tensor cores as products of depth 8 + 8 over three columns
+# (96 TF32 flops a test), the gate as in the bound.
+MX_TC_FLOPS = 96
 # path D: subdivision level -> (triangles, the sensors' (uuid, resolution), the
 # kernel use each sensor must launch once per render)
 MESH_SENSORS = {"depth": (64, 64), "depth48": (48, 48)}
@@ -437,26 +454,39 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 def device_ms(fn, name, reps=20, warmup=3):
     """Milliseconds the card spends per call of ``fn`` in the kernels whose
-    name holds ``name``, from ``torch.profiler``'s trace of ``reps`` calls:
-    the kernel alone. CUDA events around a call also hold the wrapper's host
-    time while the card waits (0.03-0.08 ms a call), which is most of a
-    kernel as short as B1."""
+    name holds ``name``, from ``torch.profiler``'s trace of ``reps`` calls,
+    one launch each → (ms, launches the trace held): the kernel alone. CUDA
+    events around a call also hold the wrapper's host time while the card
+    waits (0.03-0.08 ms a call), which is most of a kernel as short as B1. A
+    trace can miss the first kernels it should hold (in this script's process
+    two, at the matrix form), so eight small kernels go first in each. The
+    mean is taken over the launches a trace holds, only if they are at least
+    90% of ``reps``; a trace with fewer is taken again, and the third such
+    fails."""
     import torch
 
     for _ in range(warmup):
         fn()
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without the kernel's rows
+    for _ in range(3):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        rows = [r for r in prof.key_averages() if name in r.key]
         us = sum(getattr(r, "device_time_total", 0) or getattr(r, "cuda_time_total", 0)
-                 for r in prof.key_averages() if name in r.key)
-        if us > 0:
-            return us / reps / 1e3
-    raise RuntimeError(f"FAILED: three profiler traces saw no kernel named {name}")
-
+                 for r in rows)
+        n = sum(r.count for r in rows)
+        if us > 0 and 0.9 * reps <= n <= reps:
+            return us / n / 1e3, n
+        print(f"device_ms | {name}: the trace held {n} of {reps} launches; traced again",
+              flush=True)
+    raise RuntimeError(f"FAILED: three profiler traces held under 90% of {reps} launches "
+                       f"of {name}")
 
 def camera_rays_of(env, state, sensor=0):
     """The component-major rays (3, 1, N·H·W) the render gives the kernels."""
@@ -823,7 +853,8 @@ def tri_bound_ms(ops_key, stats, n_rays, lists, per_ray_origins=False, out_bytes
     outputs, the walked lists, and every staged triangle row once a tile;
     operations: the tests on real triangles up to the body's gate, the next
     part for those past it, and the division and the rest only for those that
-    divide (``TRI_OPS``)."""
+    divide (``TRI_OPS``), at the float32 rate; for "mx" the larger of that and
+    its TF32 products (``TRI_TC_FLOPS``) at the tensor cores' rate."""
     n_bytes = (n_rays * (12 + (12 if per_ray_origins else 0) + out_bytes)
                + stats["real_tests"] / 1024 * 36
                + stats["tests"] / 1024 * 4.0 / lists.block + lists.lb.numel() * 4
@@ -832,10 +863,21 @@ def tri_bound_ms(ops_key, stats, n_rays, lists, per_ray_origins=False, out_bytes
     to_gate, past_gate, divide = TRI_OPS[ops_key] if ops_key else (0, 0, 0)
     ops = (stats["real_tests"] * to_gate + stats["gated"] * past_gate
            + stats["divided"] * divide)
-    by_ops = ops / PEAK_FP32_PER_S * 1e3
+    tc_flops = stats["real_tests"] * TRI_TC_FLOPS.get(ops_key, 0)
+    by_ops = max(ops / PEAK_FP32_PER_S, tc_flops / PEAK_TF32_PER_S) * 1e3
     return (by_bytes, "bytes", by_bytes) if by_bytes >= by_ops else (by_ops, "operations",
                                                                       by_bytes)
 
+
+
+def mx_floor_ms(stats):
+    """The floor of the matrix form's design on this run's data → (ms, its
+    products' ms at the TF32 tensor rate, its gate's ms at the float32 rate):
+    every staged slot's ``MX_TC_FLOPS``, and the gate as the bound counts it."""
+    tc_ms = stats["tests"] * MX_TC_FLOPS / PEAK_TF32_PER_S * 1e3
+    to_gate, _, divide = TRI_OPS["mx"]
+    gate_ms = (stats["real_tests"] * to_gate + stats["divided"] * divide) / PEAK_FP32_PER_S * 1e3
+    return max(tc_ms, gate_ms), tc_ms, gate_ms
 
 def agree(name, a, b, tris=None, rays=None):
     """Two (t, hit, gid) results of one ray set held to the smoke's limits →
@@ -858,6 +900,207 @@ def agree(name, a, b, tris=None, rays=None):
     check(gid_off <= HIT_TOL, f"{name}: id mismatch {gid_off} > {HIT_TOL}")
     return err
 
+
+def sass_of(lib, kernel):
+    """The SASS instructions of the function whose mangled name holds
+    ``kernel`` in the built library ``lib`` (``cuobjdump -sass``)."""
+    from visfly_tpu_torch.build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    for block in sass.split("Function : ")[1:]:
+        if kernel in block.split()[0]:
+            return [ln.split("*/", 1)[1].strip().rstrip(" ;") for ln in block.splitlines()
+                    if ln.strip().startswith("/*") and "*/" in ln and ";" in ln]
+    raise RuntimeError(f"FAILED: no function {kernel} in {lib}")
+
+
+def ptxas_entries(lib):
+    """[(mangled name, registers, spill store bytes, spill load bytes)] of every
+    function ptxas compiled into the built library ``lib``, from the build log
+    beside it."""
+    with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
+        log = f.read()
+    out = []
+    for entry in log.split("Compiling entry function '")[1:]:
+        name, rest = entry.split("'", 1)
+        regs = int(rest.split("Used ", 1)[1].split(" registers")[0])
+        stores = int(rest.split(" bytes spill stores")[0].rsplit(" ", 1)[-1])
+        loads = int(rest.split(" bytes spill loads")[0].rsplit(" ", 1)[-1])
+        out.append((name, regs, stores, loads))
+    return out
+
+
+def ptxas_entry(lib, kernel):
+    """(registers, spill store bytes, spill load bytes) of the function of
+    ``lib`` whose mangled name holds ``kernel``."""
+    for name, *counts in ptxas_entries(lib):
+        if kernel in name:
+            return tuple(counts)
+    raise RuntimeError(f"FAILED: ptxas reported no function {kernel} for {lib}")
+
+
+def shared_edge_rays(tris, o_cams, per_cam):
+    """Rays from each camera origin of ``o_cams`` (3, n) through the float32
+    midpoint of every edge that two coplanar triangles of the mesh share (a
+    flat surface's inner edges, where a ray can only slip through by rounding;
+    a box's corner edges are silhouettes, where float32 and float64 rightly
+    disagree), ``per_cam`` (a multiple of 1,024) a camera, the list repeated
+    to fill → (o_c, d_c) (3, 1, n · per_cam), the edges' count and the
+    distances to the midpoints (1, n · per_cam)."""
+    import numpy as np
+    import torch
+
+    v = tris[0].reshape(-1, 3, 3).cpu().numpy()
+    p, q = v.reshape(-1, 3), v[:, [1, 2, 0]].reshape(-1, 3)
+    swap = ((p[:, 0] > q[:, 0]) | ((p[:, 0] == q[:, 0]) & (
+        (p[:, 1] > q[:, 1]) | ((p[:, 1] == q[:, 1]) & (p[:, 2] > q[:, 2])))))[:, None]
+    key = np.concatenate([np.where(swap, q, p), np.where(swap, p, q)], 1)
+    order = np.lexsort(key.T[::-1])
+    same = np.all(key[order[1:]] == key[order[:-1]], axis=1)
+    pad = np.concatenate([[False], same, [False]])
+    first = np.nonzero(pad[1:-1] & ~pad[:-2] & ~pad[2:])[0]  # edges shared exactly twice
+    vd = v.astype(np.float64)
+    n = np.cross(vd[:, 1] - vd[:, 0], vd[:, 2] - vd[:, 0])
+    na, nb = n[order[first] // 3], n[order[first + 1] // 3]
+    flat = ((np.linalg.norm(np.cross(na, nb), axis=1)
+             <= 1e-6 * np.linalg.norm(na, axis=1) * np.linalg.norm(nb, axis=1))
+            & ((na * nb).sum(1) > 0))
+    edges = key[order[first[flat]]]
+    mid = ((edges[:, :3] + edges[:, 3:]) * np.float32(0.5)).astype(np.float32)
+    mid = np.resize(mid, (per_cam, 3))
+    dev = o_cams.device
+    m = torch.from_numpy(mid).to(dev).T[:, None, :]  # (3, 1, per_cam)
+    o_c = o_cams[:, :, None].expand(3, o_cams.shape[1], per_cam).reshape(3, 1, -1)
+    d = m.expand(3, o_cams.shape[1], per_cam).reshape(3, 1, -1) - o_c
+    dist = torch.linalg.vector_norm(d, dim=0)
+    return o_c.contiguous(), (d / dist).contiguous(), len(edges), dist
+
+
+def whole_mesh_lists(T, tiles, block, dev):
+    """Every tile's list is every block of the mesh in order, bounds 0."""
+    import torch
+
+    from visfly_tpu_torch.render.tri_kernel import TileLists
+
+    n = T // block
+    ids = torch.arange(n, dtype=torch.int32, device=dev).expand(1, tiles, n).contiguous()
+    return TileLists(ids, torch.full((1, tiles), n, dtype=torch.int32, device=dev),
+                     torch.zeros((1, tiles, n), device=dev), block, block)
+
+
+def mx_phase(tris, o8, d8, img_w, cam_rays, args, plan, stats, n_rays, ms, b_ms, card, timing):
+    """The matrix form on the tensor cores, beyond what every variant is held
+    to: its time on the device, its distance from the TF32 split's model,
+    shared edges (on rays through every flat shared edge's midpoint, hit
+    flags equal to the plain version's and t within 1e-3 m of it on every
+    ray; a float64 brute force beside them), exact ties (the mesh twice over: every id
+    equal to the plain version's), its SASS (HMMA, no float32 product loop),
+    registers, and the floor of its design beside the bound."""
+    import torch
+
+    from visfly_tpu_torch.build import library_path
+    from visfly_tpu_torch.render import (tri_first_hit, tri_first_hit_reference, tri_trace_brute,
+                                         tri_trace_tiled)
+    from visfly_tpu_torch.render.tri_kernel import sv_first_hit_tf32
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    mode = "tri_trace_camsoup_mx"
+    T = tris.shape[1]
+    dev_ms, held = device_ms(lambda: tri_first_hit(*args, mode="mx"), "tri_trace_mx_kernel")
+    timing["device_ms"] = dev_ms
+
+    # the kernel against its split's model on 8 cameras, lists of the whole mesh
+    t_k, hit_k = tri_trace_tiled(tris, o8, d8, MAX_DEPTH, T, img_w, cam_rays, variant="mx")[:2]
+    t_m, hit_m = [], []
+    for cam in range(o8.shape[2] // cam_rays):
+        sl = slice(cam * cam_rays, (cam + 1) * cam_rays)
+        t, hit = sv_first_hit_tf32(tris[0], tuple(o8[:, 0, sl.start]), d8[:, 0, sl].T, MAX_DEPTH,
+                                   slab=2048)
+        t_m.append(t)
+        hit_m.append(hit)
+    t_m, hit_m = torch.cat(t_m)[None], torch.cat(hit_m)[None]
+    both = hit_k & hit_m
+    print(f"phase 3 | {mode} T={T} vs its TF32 split's model (tf32_split, three passes summed "
+          f"in float64) on 8 cameras, lists of the whole mesh: max|dt|="
+          f"{float((t_k - t_m).abs()[both].max()):.3e} m, hit flags differ on "
+          f"{float((hit_k != hit_m).float().mean()):.3e}", flush=True)
+
+    # shared edges: rays from 4 cameras through every flat shared edge's
+    # midpoint, held to the plain version's hit flags and t (a ray that slips
+    # between two triangles ends metres deeper); beside them a float64 brute
+    # force's, from which float32 grazing rays differ by about 1e-3 m
+    cams = 4
+    per_cam = -(-(3 * T // 2) // 1024) * 1024
+    o_w, d_w, n_edges, dist = shared_edge_rays(tris, o8[:, 0, ::cam_rays][:, :cams], per_cam)
+    lists = whole_mesh_lists(T, o_w.shape[2] // 1024, plan.lists.block, o_w.device)
+    w_args = (tris, lists, o_w, d_w, MAX_DEPTH, "sv_cam", per_cam // 1024)
+    out_k = tri_first_hit(*w_args, mode="mx")
+    out_p = tri_first_hit_reference(*w_args, mode="mx")
+    t64, hit64, _, _ = tri_trace_brute(tris.double(), o_w.double().permute(1, 2, 0),
+                                       d_w.double().permute(1, 2, 0), MAX_DEPTH,
+                                       max_elems=1 << 24)
+    torch.cuda.synchronize()
+    flips = int((out_k[1] != out_p[1]).sum())
+    dt = (out_k[0] - out_p[0]).abs()[out_k[1] & out_p[1]]
+    past = [int(((out[0].double() - t64).abs() > T_TOL)[out[1] & hit64].sum())
+            for out in (out_k, out_p)]
+    err64 = [float((out[0].double() - t64).abs()[out[1] & hit64].max()) for out in (out_k, out_p)]
+    edge_seen = float(((t64 - dist).abs() <= T_TOL).double().mean())
+    print(f"phase 3 | {mode} T={T} watertight: {n_edges} flat shared edges, {o_w.shape[2]} rays "
+          f"through their float32 midpoints from {cams} cameras, {edge_seen:.4f} of them end at "
+          f"the edge; against the plain version hit flags differ on {flips} rays, max|dt|="
+          f"{float(dt.max()):.3e} m, rays past {T_TOL} m {int((dt > T_TOL).sum())}; against "
+          f"float64 hit flags differ on {int((out_k[1] != hit64).sum())} rays, "
+          f"max|dt|={err64[0]:.3e}"
+          f" m, rays past {T_TOL} m {past[0]} (the plain version, torch.matmul in float32: "
+          f"{err64[1]:.3e} m, {past[1]})", flush=True)
+    check(flips == 0, f"{mode} watertight: hit flags differ on {flips} rays")
+    check(float(dt.max()) <= T_TOL, f"{mode} watertight: max |dt| {float(dt.max())} > {T_TOL}")
+
+    # exact ties: the mesh twice over, so that every hit ties with its copy
+    tris2 = torch.cat([tris, tris], 1).contiguous()
+    p2 = plan_tiles(tris2, o8, d8, MAX_DEPTH, 2 * T, img_w, cam_rays, variant="mx")
+    a2 = (tris2, p2.lists, p2.origins_c, p2.dirs_c, MAX_DEPTH, p2.form, p2.origin_tiles)
+    out_k = tri_first_hit(*a2, mode="mx")
+    out_p = tri_first_hit_reference(*a2, mode="mx")
+    torch.cuda.synchronize()
+    bb = out_k[1] & out_p[1]
+    dt = float((out_k[0] - out_p[0]).abs()[bb].max())
+    id_off = int((out_k[2] != out_p[2])[bb].sum())
+    copy_off = int(((out_k[2] != out_p[2]) & (out_k[2] % T == out_p[2] % T))[bb].sum())
+    print(f"phase 3 | {mode} ties: the mesh twice over ({2 * T} triangles), 8 cameras: hit "
+          f"{float(bb.float().mean()):.4f}, max|dt|={dt:.3e}"
+          f" m, hit flags differ on {int((out_k[1] != out_p[1]).sum())} rays, ids differ on "
+          f"{id_off} hit rays ({copy_off} of them between a triangle and its copy); first copy "
+          f"wins on {float((out_k[2] < T)[bb].float().mean()):.4f}", flush=True)
+    check(bool(torch.equal(out_k[1], out_p[1])), f"{mode} ties: hit flags differ")
+    check(id_off == 0, f"{mode} ties: ids differ on {id_off} hit rays")
+
+    # what the compiler made of it
+    lib = library_path("tri_trace")
+    ins = sass_of(lib, "tri_trace_mx_kernel")
+    ops = [x.split()[1] if x.startswith("@") else x.split()[0] for x in ins]
+    # the tensor cores' instructions: HMMA (mma.sync) and HGMMA (wgmma)
+    mma = sorted({o for o in ops if o.startswith(("HMMA", "HGMMA"))})
+    n = {k: sum(o.startswith(k) for o in ops) for k in ("HGMMA", "HMMA", "FMUL", "FFMA", "FADD")}
+    regs, st, ld = ptxas_entry(lib, "tri_trace_mx_kernel")
+    print(f"phase 3 | {mode} SASS: {len(ins)} instructions, " + ", ".join(
+        f"{k} {v}" for k, v in n.items()) + f" ({', '.join(mma)}); ptxas {regs} registers, "
+          f"{st} bytes spill stores, {ld} bytes spill loads | {card}", flush=True)
+    check(mma and all("TF32" in o for o in mma), f"{mode}: no TF32 tensor instruction: {mma}")
+
+    floor_ms, tc_ms, gate_ms = mx_floor_ms(stats)
+    old_ms = tri_bound_ms("sv_cam", stats, n_rays, plan.lists)[0]
+    print(f"phase 3 | {mode} T={T} 64x64 at {n_rays} rays: kernel {ms:.4f} ms (CUDA events "
+          f"around the call), on the device {dev_ms:.4f} ms ({held} of 20 launches traced); "
+          f"bound {b_ms:.4f} ms (the function's products, 3 TF32 passes, at the tensor rate; its "
+          f"gate at the float32 rate), share {b_ms / ms:.4f} (device {b_ms / dev_ms:.4f}); old "
+          f"yardstick {old_ms:.4f} ms (the float32 body on the CUDA cores, as B6); floor of this "
+          f"design {floor_ms:.4f} ms (every staged slot's 96 TF32 flops {tc_ms:.4f}, gate "
+          f"{gate_ms:.4f}), share {floor_ms / dev_ms:.4f} on the device | {card}",
+          flush=True)
 
 def variant_phase(env, state, card, errs, timing):
     """Phase 3 for the variants of the per-camera tier and the two
@@ -933,17 +1176,21 @@ def variant_phase(env, state, card, errs, timing):
         prepass_ms = cuda_ms(lambda: plan_of(variant, cap), reps=10)
         plain_ms = cuda_ms(lambda: tri_first_hit_reference(*args, mode=plan.mode), reps=3,
                            warmup=1)
-        b_ms, b_by, by_bytes = tri_bound_ms(plan.form, stats, n_rays, plan.lists,
+        b_ms, b_by, by_bytes = tri_bound_ms("mx" if variant == "mx" else plan.form, stats,
+                                            n_rays, plan.lists,
                                             out_bytes=8 if variant == "merged" else 9)
         print(f"phase 3 | {mode} T={T} 64x64 at {n_rays} rays: kernel {ms:.4f} ms (scalar "
               f"{scalar_ms:.4f} ms), prepass {prepass_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
               f"{b_ms:.4f} ms by {b_by} (bytes {by_bytes:.4f}), share of bound {b_ms / ms:.3f}; "
               f"{stats['real_tests'] / n_rays:.1f} tests a ray on triangles, "
               f"{stats['gated'] / n_rays:.2f} past the gate | {card}", flush=True)
-        if variant != "mx":  # the matrix form walks a tile as one block
-            split_report(mode, f"T={T} 64x64", args, plan, ms, b_ms, card)
         errs[mode] = err
         timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        if variant == "mx":  # a kernel of its own, on the tensor cores, one block a tile
+            mx_phase(tris, o8, d8, img_w, cam_rays, args, plan, stats, n_rays, ms, b_ms, card,
+                     timing[mode])
+        else:
+            split_report(mode, f"T={T} 64x64", args, plan, ms, b_ms, card)
 
     # stages executed: the kernel's count against the plain version's, exactly,
     # on the 48×48 sensor's rays (the Moeller-Trumbore body over the soup, as
@@ -1321,7 +1568,7 @@ def main():
         else:
             call = lambda: kernel(ks, o, d)  # noqa: E731
         ms = cuda_ms(call)
-        dev_ms = device_ms(call, KERNEL_NAMES[mode])
+        dev_ms, held = device_ms(call, KERNEL_NAMES[mode])
         march = "march" in mode
         plain_ms = cuda_ms(lambda: plain(ks, o, d), reps=3 if march else 20,
                            warmup=1 if march else 3)
@@ -1344,17 +1591,17 @@ def main():
             evals = (f", {stats['sdf_evals'] / o.shape[2]:.2f} SDF evaluations a ray (bound with "
                      f"the row constants at every evaluation: {old_ms:.4f} ms)")
         print(f"phase 3 | {mode} at {o.shape[2]} rays: kernel {ms:.4f} ms (CUDA events around "
-              f"the call; on the device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"the call; on the device {dev_ms:.4f} ms, {held} of 20 launches traced), plain {plain_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}{evals}, share {b_ms / ms:.4f} (device {b_ms / dev_ms:.4f})"
               f" | {card}", flush=True)
     # the id's cost beside B1 on the same rays (path B's semantic sensor)
     kid_call = lambda: modes_b["trace_analytic_kid"][0](ks_b, o_b, d_b)  # noqa: E731
     kid_b = cuda_ms(kid_call)
-    kid_dev = device_ms(kid_call, KERNEL_NAMES["trace_analytic_kid"])
+    kid_dev, held = device_ms(kid_call, KERNEL_NAMES["trace_analytic_kid"])
     kb_ms, kb_by = bound_ms("trace_analytic_kid", ks_b, o_b.shape[2], plan=plan_b, o=o_b)
     old_ms, old_by = bound_ms("trace_analytic_kid", ks_b, o_b.shape[2], o=o_b, old=True)
     print(f"phase 3 | trace_analytic_kid on path B's rays: kernel {kid_b:.4f} ms (on the device "
-          f"{kid_dev:.4f} ms) beside trace_analytic's {timing['trace_analytic']['ms']:.4f} ms "
+          f"{kid_dev:.4f} ms, {held} of 20 launches traced) beside trace_analytic's {timing['trace_analytic']['ms']:.4f} ms "
           f"({timing['trace_analytic']['device_ms']:.4f}), bound {kb_ms:.4f} ms by {kb_by} "
           f"(old yardstick: {old_ms:.4f} ms by {old_by}), share {kb_ms / kid_b:.4f} (device "
           f"{kb_ms / kid_dev:.4f}) | {card}", flush=True)
@@ -1592,7 +1839,10 @@ def main():
                 "B's camera rays; B2's bound counts the rows its tiles evaluate; the "
                 "tri_trace_* modes are flags and list modes of one source (tile_sv and tile_mt "
                 "the two bodies of B4, soup B5, camsoup B6, camsoup_merged B7a, camsoup_mx B7b "
-                "with a kernel of its own, worklist B7c, probe B8a, knockout B8b with body off "
+                "with a kernel of its own on the tensor cores (its device_ms from "
+                "torch.profiler; its bound counts its TF32 products at the tensor rate), "
+                "worklist B7c, probe B8a, "
+                "knockout B8b with body off "
                 "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
                 "(all others) triangles, at the split the wrapper picks (the diagnostics "
                 "and mx at 1 block a tile); launches add up the depth leg and paths A-F and the "

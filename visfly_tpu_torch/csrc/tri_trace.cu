@@ -62,19 +62,51 @@
 //     and barrier floor, staging and arithmetic.
 //
 // tri_trace_mx_kernel is the per-camera test as a matrix product (the "mx"
-// variant): a stage's coefficients are staged as a 4 x (4*128) matrix
-// G = [g0 | g1 | g2 | kt] (rows x, y, z and the constant), the rays of the
-// tile are the 1,024 x 4 matrix D = [dx dy dz 1], and W = D.G gives the three
-// volumes and kt of all 1,024 x 128 tests. Each thread holds four rays and
-// accumulates a 4 x (4 triangles x 4 blocks) register tile of W over the
-// depth of 4, in float32 on the CUDA cores: Hopper's tensor cores have no
-// float32 path, and TF32's ten mantissa bits would move hits by centimetres.
-// The TPU keeps the running best as two (1024, 128) slabs reduced once a
-// tile (1 MB, no block's shared memory); here it is one best a ray, taken in
-// (stage, slot) order with a strict less-than, which picks the same winner
-// as the scalar body wherever t is unique. The coefficients subtract the
-// origin first, as kSV does; kt rides the product against the constant 1.
-// The zero rows of G add exact zeros, so W equals the scalar body's volumes.
+// variant), on the tensor cores. The TPU kernel forms W = D.G a stage on the
+// MXU, D the tile's 1,024 ray directions and G the stage's coefficients
+// [g0 | g1 | g2 | kt], with Precision.HIGHEST: a multi-pass split that keeps
+// float32's accuracy (one TF32 pass moves hits by metres). Here the product
+// is wgmma (m64n96k8, TF32 in, float32 accumulated), split three ways:
+// x = hi + lo with hi = rna(x), lo = rna(x - hi) (cvt.rna.tf32, both TF32;
+// |x - hi - lo| <= 2^-22 |x|), and
+//   d.g ~ [d_hi | d_lo].[g_lo ; 0] + [d_hi | d_lo].[g_hi ; g_hi]
+// (two products of depth 8 into one accumulator), which drops only
+// d_lo.g_lo. The split works on the magnitude, so it is odd in x to the bit
+// and a shared edge's negated coefficients stay exact negations, which the
+// H100's tensor cores sum as exact negations too: rays through the midpoints
+// of the garage's flat shared edges land where the plain version's do, and an
+// earlier mma.sync form that staged every coefficient vector times a
+// canonical sign (g and -g as one vector) changed no bit of path D's result.
+//
+// A block is one tile of 1,024 rays and two warpgroups. A (64 rays x depth 8)
+// is the tile's [d_hi | d_lo], split once into shared memory; B (depth 8 x 96)
+// is 32 triangles of the stage: the three volumes are three n8 blocks over
+// the same eight triangles, so a lane's accumulators hold all three volumes
+// of its (ray, triangle) pairs (rays g and g+8 of its warp's 16, triangles
+// 2c and 2c+1 of every eight) and the gate runs on the CUDA cores straight
+// from them: the least of the three sign products, one test's minimum, and
+// the largest of those over the lane's 16 tests, without a predicate a test;
+// only the rare tests past it divide. kt is read from shared memory, never
+// multiplied: the TPU's constant row only adds exact zeros to it. The
+// reciprocal of the volumes' sum is the hardware's approximation with one
+// Newton step: IEEE division compiles to a call, and a call anywhere in the
+// kernel makes ptxas serialize every wgmma. A ray's running best is spread
+// over the four lanes of a quad, each over its own columns in (stage, slot)
+// order with a strict less-than; the occlusion vote runs a stage while any
+// lane's own best lies beyond its bound (conservative: a lane's best is never
+// below its ray's), and at the end the quad merges by (t, list position),
+// the smaller position winning a tie: the sequential walk's first strict
+// minimum, as the cluster merge below. The coefficients subtract the origin
+// first, as kSV does.
+//
+// What bounds it (chip_profile.py mx reads each part on the card): the
+// products take 96 TF32 flops a test on the tensor cores, the gate 6
+// instructions a test on the CUDA cores. A warpgroup waits for its product
+// before it gates it; the other three warpgroups of the SM keep the tensor
+// cores busy meanwhile (two blocks an SM, at most 128 registers). mma.sync,
+// tried first, runs at a little over half of wgmma's TF32 rate (the same
+// script's probe) and left the kernel slower; so did accumulators
+// double-buffered within a warpgroup (one block an SM).
 //
 // A tile's stages are walked by a cluster of `split` blocks (k below) of 256
 // threads, four rays a thread (ray r*256 + thread of the tile, so loads and
@@ -121,6 +153,7 @@
 // signed-volume body stays watertight.
 
 #include <climits>
+#include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -421,9 +454,140 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
   cluster.sync();  // no block leaves while a peer still reads its shared memory
 }
 
-constexpr int kCol = 4 * kMaxChunk;  // columns of a staged G: [g0 | g1 | g2 | kt]
+constexpr int kMxThreads = 256;                           // threads a block: 2 warpgroups
+constexpr int kMxMinBlocks = 2;                           // blocks an SM: at most 128 registers
+constexpr int kMxGroupRays = kTile / (kMxThreads / 128);  // rays a warpgroup
+constexpr int kMxRows = kMxGroupRays / 64;                // m64 row blocks a warpgroup
+constexpr int kMxCols = 32;  // triangles a product: N = 96 columns, three volumes of 32
 
-__global__ void __launch_bounds__(kThreads)
+// The operands in shared memory, K-major TF32 without swizzle: core matrices
+// of 8 rows x 16 bytes (4 of the depth), the next along the depth 128 bytes
+// on, the next 8 rows 256 bytes on.
+struct MxShared {
+  // A of the tile, row block m (rays 64m..64m+63): [d_hi | d_lo] of each ray,
+  // component 3 zero
+  float4 a[kTile / 64][8][2][8];
+  // B of a stage: for each 32-triangle chunk, pass 0 [g_hi ; g_hi] and pass 1
+  // [g_lo ; 0], each 12 n8 blocks (n8 block 3u + v: volume v of triangles
+  // 8u..8u+7) x 2 depth halves, row i = triangle 8u + i: {x, y, z, 0}; the
+  // depth half 1 of pass 1 is zero, written once
+  float4 b[kMaxChunk / kMxCols][2][12][2][8];
+  float kt[kMaxChunk];
+  int pbest[2 * kMxRows][kMxThreads];  // the list position of each lane's best of each ray
+};
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|), both TF32; lo is rna of |x| - |hi| (exact)
+// with x's sign, so the split of -x is that of x negated, to the bit
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  const uint32_t h = tf32_rna(x);
+  const float r = fabsf(x) - fabsf(__uint_as_float(h));
+  hi = __uint_as_float(h);
+  lo = __uint_as_float(
+      tf32_rna(__uint_as_float(__float_as_uint(r) ^ (__float_as_uint(x) & 0x80000000u))));
+}
+
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)(128 >> 4) << 16 | (uint64_t)(256 >> 4) << 32;
+}
+
+// D (64 x 96) = A.B (ACC false) or D + A.B (ACC true), A 64 x 8 and B 8 x 96
+// from shared memory; D per warp of the warpgroup: its 16 rows, d[4j..4j+3]
+// the n8 block j (rows g, g, g+8, g+8; cols 8j + 2c, 8j + 2c + 1, ...).
+// Asynchronous: the registers of D hold the result after the wait in
+// mx_product.
+template <bool ACC>
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "n"(int(ACC)));
+}
+
+// One row block's product with one chunk of triangles: d_hi.g_lo, then
+// [d_hi | d_lo].[g_hi ; g_hi] added; waits for it and reads d after the wait.
+__device__ __forceinline__ void mx_product(float (&d)[48], uint64_t a, uint64_t b_lo,
+                                           uint64_t b_hi) {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+  wgmma_n96<false>(d, a, b_lo);
+  wgmma_n96<true>(d, a, b_hi);
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 1/x to within a unit in the last place: the hardware's approximation and
+// one Newton step. IEEE division compiles to a call, and a call anywhere in a
+// kernel makes ptxas serialize all its wgmma. 0, +-inf and the subnormals
+// give NaN, which fails both of the gate's comparisons, as IEEE division's
+// +-inf, NaN or 0 fail them.
+__device__ __forceinline__ float rcp_newton(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return __fmaf_rn(r, __fmaf_rn(-x, r, 1.0f), r);
+}
+
+// The gate of the kSV body on a lane's 16 tests of a row block's product w
+// with a chunk: test (u, e) is ray g + 8 (e >> 1) of the warp's 16 and
+// triangle 8u + 2c + (e & 1) of the chunk, its volume v in w[12u + 4v + e].
+// The least of a test's three products is >= 0 where they all are (its
+// volumes share a sign); a NaN product is passed over there, but then a
+// volume is infinite or NaN and t is 0 or NaN, which fails t > 1e-4 as it
+// fails in the kSV body. So the gate is branch-free and without a predicate
+// a test, and only the rare tests past it divide and keep the lane's best of
+// each of its two rays (tb, and its list position in pb0, pb1).
+__device__ __forceinline__ void mx_gate(const float (&w)[48], const float* __restrict__ kts,
+                                        int c, int pos0, float (&tb)[2], int* pb0, int* pb1) {
+  float least[16];
+  float most = -1.0f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float w0 = w[12 * u + e], w1 = w[12 * u + 4 + e], w2 = w[12 * u + 8 + e];
+      least[4 * u + e] = fminf(fminf(w0 * w1, w0 * w2), w1 * w2);
+      most = fmaxf(most, least[4 * u + e]);
+    }
+  }
+  if (!(most >= 0.0f)) return;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 kt = *reinterpret_cast<const float2*>(&kts[8 * u + 2 * c]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!(least[4 * u + e] >= 0.0f)) continue;
+      const float tk = (e & 1 ? kt.y : kt.x) *
+                       rcp_newton(w[12 * u + e] + w[12 * u + 4 + e] + w[12 * u + 8 + e]);
+      const int h = e >> 1;
+      if (tk > 1e-4f && tk < tb[h]) {
+        tb[h] = tk;
+        (h ? pb1 : pb0)[0] = pos0 + 8 * u + (e & 1);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMxThreads, kMxMinBlocks)
 tri_trace_mx_kernel(const float* __restrict__ tris,     // (S, T, 9)
                     const int* __restrict__ list,       // (S, tiles, n_stage) block ids
                     const int* __restrict__ nst,        // (S, tiles)
@@ -433,14 +597,15 @@ tri_trace_mx_kernel(const float* __restrict__ tris,     // (S, T, 9)
                     float* __restrict__ t_out, bool* __restrict__ hit_out,
                     int* __restrict__ gid_out, int* __restrict__ cnt_out, int S, int T, int R,
                     int n_stage, int chunk, int origin_tiles, float max_depth) {
-  // G, row-major 4 x kCol: rows x, y, z of the three g (column blocks 0-2)
-  // and the constant row that carries kt (block 3)
-  __shared__ __align__(16) float G[4 * kCol];
+  extern __shared__ __align__(128) unsigned char mx_smem[];
+  MxShared& sh = *reinterpret_cast<MxShared*>(mx_smem);
 
   const int tiles = R / kTile;
   const int ti = blockIdx.x, s = blockIdx.y;
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7, k = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, c = lane & 3;
   const size_t plane = (size_t)S * R;
-  const size_t ray0 = (size_t)s * R + (size_t)ti * kTile + threadIdx.x;
+  const size_t tile_ray0 = (size_t)s * R + (size_t)ti * kTile;
   const size_t tile_idx = (size_t)s * tiles + ti;
   const int* tile_list = list + tile_idx * n_stage;
   const float* tile_lb = lb + tile_idx * n_stage;
@@ -450,93 +615,101 @@ tri_trace_mx_kernel(const float* __restrict__ tris,     // (S, T, 9)
   const size_t r0 = (size_t)s * R + (size_t)(ti / origin_tiles) * origin_tiles * kTile;
   const V3 o_cam = {origins[r0], origins[plane + r0], origins[2 * plane + r0]};
 
-  float D[kRays][4];  // the thread's rows of D = [dx dy dz 1]
-  float tbest[kRays];
-  int gbest[kRays];
+  // A of the tile, once: ray i is row i % 64 of row block i / 64
+  for (int i = threadIdx.x; i < kTile; i += kMxThreads) {
+    float hi[3], lo[3];
 #pragma unroll
-  for (int k = 0; k < kRays; ++k) {
-    const size_t idx = ray0 + (size_t)k * kThreads;
-    D[k][0] = dirs[idx];
-    D[k][1] = dirs[plane + idx];
-    D[k][2] = dirs[2 * plane + idx];
-    D[k][3] = 1.0f;
-    tbest[k] = kBig;
-    gbest[k] = 0;
+    for (int r = 0; r < 3; ++r) split_tf32(dirs[r * plane + tile_ray0 + i], hi[r], lo[r]);
+    float4* row = &sh.a[i / 64][i % 64 / 8][0][i % 8];
+    row[0] = make_float4(hi[0], hi[1], hi[2], 0.f);
+    row[8] = make_float4(lo[0], lo[1], lo[2], 0.f);  // the next depth half
+  }
+  for (int i = threadIdx.x; i < kMaxChunk / kMxCols * 12 * 8; i += kMxThreads)
+    sh.b[i / 96][1][i / 8 % 12][1][i % 8] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the lane's rays: g + 8h of its warp's 16 rows of each of its warpgroup's
+  // row blocks m, tile rays 64 (kMxRows wg + m) + 16k + g + 8h
+  float tb[kMxRows][2];  // the lane's running best of each
+#pragma unroll
+  for (int m = 0; m < kMxRows; ++m) {
+    tb[m][0] = tb[m][1] = kBig;
+    sh.pbest[2 * m][threadIdx.x] = sh.pbest[2 * m + 1][threadIdx.x] = -1;
   }
 
   for (int ci = 0; ci < n_walk; ++ci) {
-    const float bound = tile_lb[ci];
-    bool open = false;
+    // the stage runs while a lane's own best of one of its rays lies beyond
+    // the bound: conservative (a ray's best is the least of its quad's), and
+    // faster than taking the quad's least first (chip_profile.py mx)
+    float far = tb[0][0];
 #pragma unroll
-    for (int k = 0; k < kRays; ++k) open = open || (bound < fminf(tbest[k], max_depth));
-    if (!__syncthreads_or(open)) continue;
+    for (int m = 0; m < kMxRows; ++m) far = fmaxf(far, fmaxf(tb[m][0], tb[m][1]));
+    // a barrier as well: every thread is done with the previous stage's rows
+    if (!__syncthreads_or(tile_lb[ci] < fminf(far, max_depth))) continue;
     ++n_ran;
 
     const int entry = tile_list[ci];
     if (threadIdx.x < chunk) {
       const int j = threadIdx.x;
       const int gid = entry < 0 ? -1 : entry * chunk + j;
-      float4 c[3];
-      stage_triangle<kSV>(c, gid >= 0 && gid < T ? tris + ((size_t)s * T + gid) * 9 : nullptr,
+      float4 cf[3];
+      stage_triangle<kSV>(cf, gid >= 0 && gid < T ? tris + ((size_t)s * T + gid) * 9 : nullptr,
                           o_cam);
-      const float g[3][3] = {{c[0].x, c[0].y, c[0].z}, {c[0].w, c[1].x, c[1].y},
-                             {c[1].z, c[1].w, c[2].x}};
+      const float gv[3][3] = {{cf[0].x, cf[0].y, cf[0].z}, {cf[0].w, cf[1].x, cf[1].y},
+                              {cf[1].z, cf[1].w, cf[2].x}};
+      const int ch = j / kMxCols, u = j % kMxCols / 8, i = j % 8;
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
+      for (int v = 0; v < 3; ++v) {
+        float hi[3], lo[3];
 #pragma unroll
-        for (int r = 0; r < 3; ++r) G[r * kCol + i * kMaxChunk + j] = g[i][r];
-        G[3 * kCol + i * kMaxChunk + j] = 0.0f;
-        G[i * kCol + 3 * kMaxChunk + j] = 0.0f;
+        for (int r = 0; r < 3; ++r) split_tf32(gv[v][r], hi[r], lo[r]);
+        const float4 big = make_float4(hi[0], hi[1], hi[2], 0.f);
+        sh.b[ch][0][3 * u + v][0][i] = big;
+        sh.b[ch][0][3 * u + v][1][i] = big;
+        sh.b[ch][1][3 * u + v][0][i] = make_float4(lo[0], lo[1], lo[2], 0.f);
       }
-      G[3 * kCol + 3 * kMaxChunk + j] = c[2].y;
+      sh.kt[j] = cf[2].y;
     }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to the tensor cores
     __syncthreads();
 
-    for (int j0 = 0; j0 < chunk; j0 += 4) {
-      float g[4][4][4];  // [row of G][column block][triangle of the four]
+    for (int ch = 0; ch < chunk / kMxCols; ++ch) {
+      const uint64_t b_lo = smem_desc(&sh.b[ch][1][0][0][0]);
+      const uint64_t b_hi = smem_desc(&sh.b[ch][0][0][0][0]);
+      const int pos0 = ci * chunk + ch * kMxCols + 2 * c;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 v = *reinterpret_cast<const float4*>(&G[r * kCol + i * kMaxChunk + j0]);
-          g[r][i][0] = v.x;
-          g[r][i][1] = v.y;
-          g[r][i][2] = v.z;
-          g[r][i][3] = v.w;
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int k = 0; k < kRays; ++k) {
-          float w[4];  // the ray's row of W at this triangle: w0, w1, w2, kt
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float acc = D[k][0] * g[0][i][jj];
-#pragma unroll
-            for (int r = 1; r < 4; ++r) acc = acc + D[k][r] * g[r][i][jj];
-            w[i] = acc;
-          }
-          if (w[0] * w[1] >= 0.0f && w[0] * w[2] >= 0.0f && w[1] * w[2] >= 0.0f) {
-            const float wsum = w[0] + w[1] + w[2];
-            const float tk = w[3] * (1.0f / wsum);
-            if (tk > 1e-4f && tk < tbest[k]) {
-              tbest[k] = tk;
-              gbest[k] = entry * chunk + j0 + jj;
-            }
-          }
-        }
+      for (int m = 0; m < kMxRows; ++m) {
+        float w[48];
+        mx_product(w, smem_desc(&sh.a[kMxRows * wg + m][0][0][0]), b_lo, b_hi);
+        mx_gate(w, sh.kt + ch * kMxCols, c, pos0, tb[m], &sh.pbest[2 * m][threadIdx.x],
+                &sh.pbest[2 * m + 1][threadIdx.x]);
       }
     }
   }
 
+  // merge the quad by (t, list position); lane c < 2 writes its ray g + 8c
 #pragma unroll
-  for (int k = 0; k < kRays; ++k) {
-    const size_t idx = ray0 + (size_t)k * kThreads;
-    const float t = fminf(fmaxf(tbest[k], 0.0f), max_depth);
-    t_out[idx] = t;
-    hit_out[idx] = t < max_depth;
-    gid_out[idx] = gbest[k];
+  for (int m = 0; m < kMxRows; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t = tb[m][h];
+      int p = sh.pbest[2 * m + h][threadIdx.x];
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        const float t2 = __shfl_xor_sync(0xffffffffu, t, x);
+        const int p2 = __shfl_xor_sync(0xffffffffu, p, x);
+        if (p2 >= 0 && (t2 < t || (t2 == t && p2 < p))) {
+          t = t2;
+          p = p2;
+        }
+      }
+      if (c == h) {
+        const size_t idx = tile_ray0 + 64 * (kMxRows * wg + m) + 16 * k + g + 8 * h;
+        const float tc = fminf(fmaxf(t, 0.0f), max_depth);
+        t_out[idx] = tc;
+        hit_out[idx] = tc < max_depth;
+        gid_out[idx] = p < 0 ? 0 : tile_list[p / chunk] * chunk + p % chunk;
+      }
+    }
   }
   if (cnt_out != nullptr && threadIdx.x == 0) cnt_out[tile_idx] = n_ran;
 }
@@ -624,16 +797,20 @@ extern "C" int tri_trace_occupancy(int form, int out, int knock, int split, int*
   return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
-// The per-camera test as a matrix product over padded lists of whole blocks
-// (bs == chunk, a multiple of 4 up to 128).
+// The per-camera test as a matrix product on the tensor cores, over padded
+// lists of whole blocks (bs == chunk, a multiple of 32 up to 128).
 extern "C" int tri_trace_mx_launch(const float* tris, const int* list, const int* nst,
                                    const float* lb, const float* origins, const float* dirs,
                                    float* t_out, bool* hit_out, int* gid_out, int* cnt_out,
                                    int S, int T, int R, int n_stage, int chunk,
                                    int origin_tiles, float max_depth, cudaStream_t stream) {
-  if (R % kTile != 0 || chunk < 4 || chunk > kMaxChunk || chunk % 4 != 0 || origin_tiles < 1)
+  if (R % kTile != 0 || chunk < kMxCols || chunk > kMaxChunk || chunk % kMxCols != 0 ||
+      origin_tiles < 1)
     return (int)cudaErrorInvalidValue;
-  tri_trace_mx_kernel<<<dim3(R / kTile, S), kThreads, 0, stream>>>(
+  const cudaError_t err = cudaFuncSetAttribute(
+      tri_trace_mx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(MxShared));
+  if (err != cudaSuccess) return (int)err;
+  tri_trace_mx_kernel<<<dim3(R / kTile, S), kMxThreads, sizeof(MxShared), stream>>>(
       tris, list, nst, lb, origins, dirs, t_out, hit_out, gid_out, cnt_out, S, T, R, n_stage,
       chunk, origin_tiles, max_depth);
   return (int)cudaGetLastError();

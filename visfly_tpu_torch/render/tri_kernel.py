@@ -43,10 +43,19 @@ Variants of the per-camera use (``mode``, ``form="sv_cam"`` only):
                prologue paid per operand, which a GPU block does not have.
 ``"mx"``       the test as a matrix product a stage, ``W = D · G`` with
                ``D = [dx dy dz 1]`` (1,024 × 4) and ``G = [g0 | g1 | g2 | kt]``
-               (4 × 4·chunk), computed inside the kernel in float32 on the CUDA
-               cores from coefficients that subtract the origin first. One
-               running best a ray, taken in (stage, slot) order with a strict
-               less-than: the TPU kernel's per-lane slabs give "first in stage
+               (4 × 4·chunk), from coefficients that subtract the origin
+               first. The kernel takes the three volumes on the tensor cores
+               (``wgmma`` in TF32 with float32 accumulation), each factor
+               split into two TF32 parts (:func:`tf32_split`) and three of the
+               four products summed, ``d_hi·g_hi + d_lo·g_hi + d_hi·g_lo``:
+               the counterpart of the TPU kernel's ``Precision.HIGHEST``
+               (:func:`sv_first_hit_tf32` models it; one TF32 pass would move
+               hits by metres). kt is read, not multiplied, and ``1 / wsum``
+               is the hardware's reciprocal with one Newton step (within an
+               ulp of the division). Stages hold a multiple of 32 triangles.
+               A ray's best is taken in (stage, slot) order with a strict
+               less-than and the first strict minimum kept, as ``"scalar"``
+               does; the TPU kernel's per-lane slabs give "first in stage
                order within a lane, then the smallest id across lanes", which
                can differ from it only on exact ties of t. The plain version
                takes the product with ``torch.matmul`` in full float32.
@@ -71,8 +80,10 @@ first use, bound with ctypes) or raises, and runs
 :func:`tri_first_hit_reference` on CPU tensors. The plain version does the
 kernel's arithmetic in the kernel's order, stage by stage with the same count
 skip and occlusion early-out per tile, except that the kernel fuses the
-per-test dot and cross products (``__fmaf_rn``): the two agree within the
-smoke's limits (1.6e-4 m at most on path D's 23,040 triangles).
+per-test dot and cross products (``__fmaf_rn``), and the matrix form takes
+its products in split TF32 and votes on each lane's own best (which runs a
+few more stages, never a different result): the two agree within the smoke's
+limits (1.6e-4 m at most on path D's 23,040 triangles, 3.1e-4 m for mx).
 
 The split: on the card a tile's stages are walked by a cluster of ``split``
 blocks (:func:`pick_split`), block ``c`` taking stages ``c, c + split, …``
@@ -102,6 +113,7 @@ BIG = 1e9
 MAX_CHUNK = 128  # triangles a stage: the kernel's staging buffer
 MAX_SPLIT = 8  # blocks a tile: a thread-block cluster's portable limit
 SPLIT_ROUNDS = 2  # rounds of resident blocks the split aims at (pick_split)
+MX_GROUP = 32  # triangles a product of the matrix form: N = 96 columns, three volumes of 32
 FORMS = {"mt": 0, "sv_tile": 1, "sv_cam": 1}  # the kernel's body: 0 kMT, 1 kSV
 # Launches of the CUDA kernel by the tier that asked for it, since the counts
 # were last set to 0. The wrapper adds one where it launches and nowhere else.
@@ -257,6 +269,67 @@ def _test_sv_mx(coef, d) -> Tuple[Tensor, Tensor, Tensor]:
     W = torch.matmul(D, G).transpose(-1, -2)  # (..., 4n, r)
     n = kt.shape[-2]
     return _accept_sv(*(W[..., i * n:(i + 1) * n, :] for i in range(4)))
+
+
+def _tf32_rna(x: Tensor) -> Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to the
+    nearest value with 10 mantissa bits, ties away from zero (half a TF32 ulp
+    added to the magnitude's bits, the low 13 cleared), so the largest
+    finite values round up to ±inf; ±0 and ±inf stay, NaN stays NaN."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (bits + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 1 << 31, r - (1 << 32), r).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isnan(x), x, r)
+
+
+def tf32_split(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """The matrix-form kernel's split of float32 ``x`` into two TF32 parts
+    (``split_tf32`` of ``csrc/tri_trace.cu``): ``hi = rna(x)`` and ``lo`` the
+    rounded rest, ``rna(|x| − |hi|)`` with x's sign (``|x| − |hi|`` is exact),
+    so that ``|x − hi − lo| ≤ 2⁻²²·|x|`` and the split of ``−x`` is that of
+    ``x`` negated, to the bit. A model for the tests and ``chip_smoke.py``."""
+    x = x.to(torch.float32)
+    hi = _tf32_rna(x)
+    r = x.abs() - hi.abs()
+    return hi, _tf32_rna(torch.where(torch.signbit(x), -r, r))
+
+
+def _sv_volumes_tf32(d, g, passes: int) -> Tensor:
+    """The volume ``d·g`` of direction and coefficient triples (component
+    tensors that broadcast) as the matrix-form kernel forms it from TF32
+    parts: ``passes = 3`` sums ``d_hi·g_hi + d_lo·g_hi + d_hi·g_lo``, the
+    kernel's product, ``passes = 1`` only ``d_hi·g_hi`` (one TF32 pass).
+    Products of TF32 parts are exact in float64; they are summed there and
+    rounded once to float32 (a model of the tensor cores' accumulation, which
+    aligns and truncates inside the unit)."""
+    acc = 0.0
+    for dc, gc in zip(d, g):
+        dh, dl = (y.double() for y in tf32_split(dc))
+        gh, gl = (y.double() for y in tf32_split(gc))
+        acc = acc + dh * gh
+        if passes == 3:
+            acc = acc + dl * gh + dh * gl
+    return acc.to(torch.float32)
+
+
+def sv_first_hit_tf32(tris: Tensor, origin, dirs: Tensor, max_depth: float = 20.0,
+                      passes: int = 3, slab: int = 256) -> Tuple[Tensor, Tensor]:
+    """First hit of rays ``dirs`` (R, 3) from one origin (a triple of
+    scalars or 0-d tensors) on every triangle of ``tris`` (T, 9), by signed
+    volumes whose coefficients subtract the origin first (float32, as the
+    kernel stages them) and whose volumes are :func:`_sv_volumes_tf32` →
+    (t (R,) clipped to [0, max_depth], hit (R,)). The model of the
+    matrix-form kernel with lists that hold the whole mesh; ties of t are
+    not resolved (no id)."""
+    best = torch.full((dirs.shape[0],), BIG, dtype=torch.float32, device=dirs.device)
+    d = tuple(dirs[:, i, None] for i in range(3))  # (R, 1)
+    for k0 in range(0, tris.shape[0], slab):
+        g0, g1, g2, kt = sv_coefficients(tris[k0:k0 + slab], origin)
+        w = [_sv_volumes_tf32(d, g, passes) for g in (g0, g1, g2)]
+        tk, _, _ = _accept_sv(*w, kt)
+        best = torch.minimum(best, tk.amin(-1))
+    t = torch.clamp(best, 0.0, max_depth)
+    return t, t < max_depth
 
 
 def padded_lists(lists: TileLists) -> TileLists:
@@ -501,8 +574,9 @@ def _check(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor, fo
     if not (1 <= chunk <= MAX_CHUNK and bs >= 1 and chunk % bs == 0):
         raise ValueError(f"a stage takes 1..{MAX_CHUNK} triangles in whole entries; got "
                          f"chunk {chunk}, block {bs}")
-    if mode == "mx" and chunk % 4:
-        raise ValueError(f"the matrix form takes stages of a multiple of 4 triangles; got {chunk}")
+    if mode == "mx" and chunk % MX_GROUP:
+        raise ValueError(f"the matrix form takes stages of a multiple of {MX_GROUP} triangles "
+                         f"(the columns of its tensor-core product); got {chunk}")
     n_stage = lists.lb.shape[-1]
     lead = (S,) if lists.start is not None else (S, tiles)
     if (tuple(lists.lb.shape) != (*lead, n_stage)
