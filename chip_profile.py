@@ -6,8 +6,8 @@ for the device's busy time per step. The profiler about doubles the host
 time of a step, so the idle share is taken against the step time clocked
 without it.
 
-    python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [sv] [probe] [floor]
-                            [split] [march] [analytic] [mx]         # default: A C
+    python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [G] [sv] [probe]
+                            [floor] [split] [march] [analytic] [mx]   # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
 and 3 times (360, 5,760 and 23,040 triangles); they also clock the parts of
@@ -33,6 +33,12 @@ update's time goes, host-clocked and synchronised after each part (forward
 rollout, backward pass, clip and Adam step; mean of 3 updates after 1
 warm-up), then one ``torch.profiler`` window of one update for the device's
 busy time.
+
+``G`` is the default training run, PPO on ``cluttered_flight`` at 48 agents
+(``chip_smoke.py`` path G): an update's rollout, GAE and epochs, host-clocked
+and synchronised; a rollout step's parts (the env step with and without the
+terminal observation, one render, the spawn rejection, the policy forward,
+the episode window); then one ``torch.profiler`` window of 8 rollout steps.
 
 ``probe`` and ``floor`` are the triangle kernel's two diagnostics at 23,040
 triangles (the counterparts of ``examples/_tri_probe.py`` and
@@ -219,7 +225,7 @@ def profile_bptt(name, trainer, card, n_updates=3):
     st, _ = trainer.update(st)
     parts = {"forward rollout": 0.0, "backward pass": 0.0, "clip and Adam step": 0.0}
     for _ in range(n_updates):
-        trainer.optimizer.zero_grad(set_to_none=True)
+        trainer.optimizer.zero_grad()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, (env_state, obs, hidden, _) = trainer._rollout_loss(st.env_state, st.obs, st.gen,
@@ -229,7 +235,7 @@ def profile_bptt(name, trainer, card, n_updates=3):
         loss.backward()
         parts["backward pass"] += sync_ms(t0)
         t0 = time.perf_counter()
-        trainer._clip_and_step()
+        trainer.optimizer.step()
         parts["clip and Adam step"] += sync_ms(t0)
         st = st._replace(env_state=trainer.env.detach(env_state),
                          obs={k: v.detach() for k, v in obs.items()})
@@ -241,6 +247,63 @@ def profile_bptt(name, trainer, card, n_updates=3):
         print(f"{name} | {part}: {ms / n_updates:.1f} ms an update, share "
               f"{ms / n_updates / update_ms:.3f} | {card}", flush=True)
     report_busy(name, lambda: trainer.update(st), 1, "update", update_ms, card)
+
+
+def profile_ppo(name, trainer, card):
+    """Where a PPO update's time goes (path G): rollout, GAE and epochs,
+    each synchronised and host-clocked over one update after a warm-up; the
+    parts of a rollout step; then the device's busy time over a window of 8
+    rollout steps against the unprofiled step."""
+    from visfly_tpu_torch.algos.ppo import push_episode_stats
+
+    env = trainer.env
+    st = trainer.init(torch.Generator(device=env.device).manual_seed(0))
+    st, _ = trainer.update(st)
+    parts = cs.timed_parts(trainer, ("_collect", "_advantages", "_train_flat"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = trainer.update(st)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    n_steps = trainer.n_steps
+    print(f"{name} | update ({env.num_envs} agents x {n_steps} steps, {trainer.n_epochs} "
+          f"epochs): {update_ms:.1f} ms | {card}", flush=True)
+    for part, sec in parts.items():
+        print(f"{name} | {part}: {sec * 1e3:.1f} ms an update, share "
+              f"{sec * 1e3 / update_ms:.3f} | {card}", flush=True)
+    step_ms = parts["_collect"] * 1e3 / n_steps
+    state, obs = st.env_state, st.obs
+    a = torch.zeros((env.num_envs, 4), device=env.device)
+    _, out = env.step(state, a)
+
+    def policy():
+        with torch.no_grad():
+            return trainer.policy(obs)
+
+    def plain_step():
+        env.terminal_obs_in_info = False
+        try:
+            return env.step(state, a)
+        finally:
+            env.terminal_obs_in_info = True
+
+    steps = {
+        "env.step (terminal observation, auto-reset)": lambda: env.step(state, a),
+        "env.step without the terminal observation": plain_step,
+        "render_sensors (one render)": lambda: env.sensor_observations(state),
+        "_spawn (all agents)": lambda: env._spawn(state.gen),
+        "policy forward (mean, log-std, value)": policy,
+        "push_episode_stats": lambda: push_episode_stats(
+            st.ep_stats, out.done, out.info["episode_return"], out.info["episode_length"],
+            out.info["is_success"]),
+    }
+    for part, fn in steps.items():
+        print(f"{name} | {part}: {host_ms(fn, reps=20):.3f} ms per call | {card}", flush=True)
+    print(f"{name} | rollout step (the update's rollout / {n_steps}): {step_ms:.3f} ms | {card}",
+          flush=True)
+    trainer.n_steps = 8
+    report_busy(name, lambda: trainer._collect(st), 8, "rollout step", step_ms, card)
+    trainer.n_steps = n_steps
 
 
 def probe(env, card):
@@ -884,6 +947,12 @@ def main(argv):
             march(make_env["B"](), card)
         elif name == "analytic":
             analytic(make_env["B"](), make_env["A"](), card)
+        elif name == "G":
+            from visfly_tpu_torch.algos import PPO
+            from visfly_tpu_torch.envs import NavigationEnv
+
+            profile_ppo("path G", PPO(NavigationEnv(device=dev, **cs.CLUTTERED_FLIGHT),
+                                      **cs.PPO_TUNED), card)
         elif name == "E":
             profile_bptt("path E", BPTT(cs.hover_grad_env(dev), horizon=32), card)
         elif name == "F":

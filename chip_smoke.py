@@ -35,7 +35,20 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   timed updates, in ``garage_simple_l_medium`` (the analytic kernel forward,
   the implicit-function rule backward) and in the 23,040-triangle garage with
   ``tri_variant: "merged"`` (the merged per-camera kernel forward, the planar
-  rule backward). No kernel runs backward.
+  rule backward). No kernel runs backward;
+- path G, the system's default training run (``python -m visfly_tpu.run -e
+  cluttered_flight -a PPO_tuned``): ``NavigationEnv`` with
+  ``env_cfgs/cluttered_flight.yaml`` (48 agents, 64×64 depth) and ``PPO`` with
+  ``alg_cfgs/cluttered_flight/PPO_tuned.yaml`` (256 steps, 10 epochs of one
+  minibatch of 12,288), one warm-up and 2 timed updates; the analytic kernel
+  renders twice a step (the terminal observation, then the observation after
+  the auto-reset);
+- paths H and I: ``SHAC`` and ``APG`` with ``alg_cfgs/navigation2/`` on
+  ``NavigationEnv2`` (96 agents, the garage for collisions, no camera,
+  ``requires_grad``), H = 32, one warm-up and 3 timed updates; path J:
+  ``SAC`` with ``alg_cfgs/navigation2/SAC.yaml`` (64 agents, buffer 500,000,
+  batch 512, 32 gradient steps), collecting until ``learning_starts`` and then
+  4 training env steps. These three use no kernel.
 
 Phases, one line each; any failure exits non-zero:
 
@@ -83,14 +96,21 @@ Phases, one line each; any failure exits non-zero:
    launched exactly its kernel mode, outputs finite and in range; the two
    diagnostics through their library functions; paths E and F: loss and
    gradient norm finite, gradient norm > 0, the carried state detached after
-   an update, launches equal to the renders;
+   an update, launches equal to the renders; paths G-J: the same, and every
+   trained parameter moved and every tensor of the state on the card; path G's
+   analytic launches exactly 2 × 256 an update;
 5. one step from the same state on the card and on the CPU plain path, for
    the depth leg and path D at 360 triangles (depth within 1e-3 m on all but
    ≤ 1e-5 of pixels) and for path A (colour equal on all but ≤ 1e-4 of
    pixels, pad centre within 1e-3); state obs within 1e-4; one BPTT rollout
    of path E at 8 agents, H = 4, from the same parameters, state and noise on
    the card and on the CPU: loss within 1e-5, every parameter's gradient
-   within 1e-4 of its largest entry.
+   within 1e-4 of its largest entry; one PPO update of path G's env and recipe
+   at 8 agents, 4 steps, 2 epochs of 2 minibatches, from the same parameters,
+   state, noise and permutations on the card and on the CPU: loss within
+   1e-5, the first minibatch's gradient within 1e-4 of each parameter's
+   largest gradient entry, every parameter after the update within 1e-4 in
+   the l2 norm (its elementwise difference printed beside it).
 
 The line before the last is a JSON object with each kernel's route, source,
 launches in phase 4, error, times and bound; the last line is
@@ -178,6 +198,48 @@ VARIANT_SENSORS = {"depth": ("merged", "tri_trace_camsoup_merged"),
 VISUAL_POLICY = {"net_arch": {"depth": {"cnn": 32}, "state": {"mlp": [32]},
                               "collision_vector": {"mlp": [16]}},
                  "latent_dim": (32,)}
+# path G, the system's default training run (``python -m visfly_tpu.run -e
+# cluttered_flight -a PPO_tuned``): the env section of
+# visfly_tpu/exps/env_cfgs/cluttered_flight.yaml and the algorithm section of
+# visfly_tpu/exps/alg_cfgs/cluttered_flight/PPO_tuned.yaml, written out here
+# because the card's machine has no YAML reader (tests/test_torch_ppo.py holds
+# them equal to the files)
+CLUTTERED_FLIGHT = {
+    "num_agent_per_scene": 48,
+    "random_kwargs": {"state_generator": {"class": "Uniform", "kwargs": [
+        {"position": {"mean": [1.0, 0.0, 1.5], "half": [0.0, 2.0, 1.0]}}]}},
+    "visual": True,
+    "max_episode_steps": 256,
+    "scene_kwargs": {"path": "garage_simple_l_medium", "trace_steps": 32},
+    "dynamics_kwargs": {"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate",
+                        "ctrl_delay": True},
+    "sensor_kwargs": [{"sensor_type": "depth", "uuid": "depth", "resolution": [64, 64]}],
+}
+PPO_TUNED = {
+    "learning_rate": 3.0e-4, "n_steps": 256, "batch_size": 25600, "n_epochs": 10,
+    "gamma": 0.99, "gae_lambda": 0.95, "clip_range": 0.2, "ent_coef": 0.003, "vf_coef": 0.5,
+    "max_grad_norm": 0.5, "weight_decay": 1.0e-5,
+    "policy_kwargs": {"pi_layers": [64, 64], "vf_layers": [64, 64], "net_arch": {
+        "depth": {"cnn": 128}, "state": {"mlp": [128, 64]}, "target": {"mlp": [128, 64]}}},
+}
+# paths H-J: ``NavigationEnv2`` as visfly_tpu/exps/env_cfgs/navigation2.yaml
+# configured it when commit a75efc1 added it (the file has left the tree since;
+# the algorithm files below remain): the garage for the collision queries and
+# the spawn rejection, no camera
+NAVIGATION2 = {
+    "num_agent_per_scene": 96, "visual": True, "requires_grad": True,
+    "max_episode_steps": 256, "scene_kwargs": {"path": "garage_simple_l_medium"},
+    "dynamics_kwargs": {"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate",
+                        "ctrl_delay": True},
+}
+# the algorithm sections of visfly_tpu/exps/alg_cfgs/navigation2/{SHAC,APG,SAC}.yaml,
+# and SAC.yaml's env section
+SHAC_NAV2 = {"horizon": 32, "learning_rate": 1.0e-3, "policy_kwargs": {"latent_dim": [128, 128]}}
+APG_NAV2 = {"horizon": 32, "learning_rate": 1.0e-3, "policy_kwargs": {"latent_dim": [128, 128]}}
+SAC_NAV2_ENV = {"requires_grad": False, "num_agent_per_scene": 64}
+SAC_NAV2 = {"learning_rate": 3.0e-4, "buffer_size": 500000, "batch_size": 512,
+            "gradient_steps": 32, "learning_starts": 10000, "tau": 0.005, "gamma": 0.99,
+            "policy_kwargs": {"latent_dim": [128, 128]}}
 PATH_D = {
     0: (360, {"depth": "tri_trace_tile_sv", "depth48": "tri_trace_tile_mt"}),
     2: (5760, {"depth": "tri_trace_tile_sv"}),
@@ -431,6 +493,112 @@ def bptt_card_vs_cpu(dev):
     rel = max(float((g - out["cpu"][1][n]).abs().max() / out["cpu"][1][n].abs().max())
               for n, g in out["card"][1].items())
     return abs(out["card"][0] - out["cpu"][0]), rel
+
+
+def timed_parts(trainer, names):
+    """Wrap the trainer's methods ``names`` to add their host-clocked,
+    synchronised seconds to the returned dict (the update's parts)."""
+    import torch
+
+    spent = {n: 0.0 for n in names}
+    for n in names:
+        def wrapped(*args, _fn=getattr(trainer, n), _n=n, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[_n] += time.perf_counter() - t0
+            return out
+        setattr(trainer, n, wrapped)
+    return spent
+
+
+def trained_modules(trainer):
+    """The modules a trainer optimises, by name."""
+    return {n: getattr(trainer, n) for n in ("policy", "actor", "critic")
+            if getattr(trainer, n, None) is not None}
+
+
+def snapshot(trainer):
+    return {f"{m}.{n}": p.detach().clone() for m, mod in trained_modules(trainer).items()
+            for n, p in mod.named_parameters()}
+
+
+def check_trained(name, trainer, st, m, before, loss_key, dev, still=()):
+    """A trainer's state after timed updates: loss and gradient norm finite,
+    the norm > 0, every parameter moved (but those in ``still``), the carried
+    state detached and every tensor of it on the card."""
+    import torch
+
+    for k in (loss_key, "grad_norm"):
+        check(bool(torch.isfinite(m[k])), f"{name}: {k} is not finite")
+    check(float(m["grad_norm"]) > 0, f"{name}: the gradient is zero")
+    after = snapshot(trainer)
+    frozen = [k for k in after if torch.equal(after[k], before[k]) and k not in still]
+    check(not frozen, f"{name}: parameters did not move: {frozen}")
+    carried = list(tensors_of(st.env_state)) + list(tensors_of(st.obs))
+    check(len(carried) > 20 and not any(t.requires_grad or t.grad_fn is not None
+                                        for t in carried),
+          f"{name}: the carried state still holds a graph after the update")
+    off = [t.device for t in tensors_of(tuple(st)) if t.device != dev]
+    check(not off, f"{name}: state tensors off the card: {off[:3]}")
+
+
+def ppo_card_vs_cpu(dev):
+    """One PPO update of path G's env and recipe at 8 agents, n_steps 4, 2
+    epochs of 2 minibatches, from the same parameters, state, action noise
+    and permutations on the card and on the CPU → (|Δloss|, the largest
+    difference of the first minibatch's gradient relative to its parameter's
+    largest gradient entry, the largest parameter difference after the update
+    in the l2 norm relative to the parameter's norm, and elementwise relative
+    to the parameter's largest entry with the count of elements past 1e-4 of
+    it). Adam's step lr·g/(|g| + 1e-8) turns a 1e-9 difference in a gradient
+    entry of 1e-9 into a move of 0.1 lr, so the elementwise difference of the
+    parameters is printed, and the gradient and the l2 norm are held."""
+    import torch
+
+    from visfly_tpu_torch.algos import PPO
+    from visfly_tpu_torch.algos.ppo import init_episode_stats
+    from visfly_tpu_torch.envs import NavigationEnv
+
+    kw = dict(PPO_TUNED, n_steps=4, n_epochs=2, batch_size=16)
+    env_kw = dict(CLUTTERED_FLIGHT, num_agent_per_scene=8)
+    tr = PPO(NavigationEnv(device=dev, **env_kw), **kw)
+    st = tr.init()
+    tr_cpu = PPO(NavigationEnv(device="cpu", **env_kw), **kw)
+    tr_cpu.build({k: v.cpu() for k, v in st.obs.items()})  # the same seed: the same policy
+    st_cpu = tr_cpu._state(to_device(st.env_state, "cpu", torch.Generator().manual_seed(0)),
+                           {k: v.cpu() for k, v in st.obs.items()}, None, 0,
+                           init_episode_stats("cpu"), ())
+    noise = torch.randn((4, 8, 4), generator=torch.Generator().manual_seed(7))
+    perms = torch.stack([torch.randperm(32, generator=torch.Generator().manual_seed(8 + e))
+                         for e in range(2)])
+    grads = []
+    for t in (tr, tr_cpu):  # the gradient of the first minibatch, before its clip
+        seen = {}
+        grads.append(seen)
+
+        def step(_step=t.optimizer.step, _t=t, _seen=seen):
+            if not _seen:
+                _seen.update({n: p.grad.detach().cpu().clone()
+                              for n, p in _t.policy.named_parameters()})
+            return _step()
+        t.optimizer.step = step
+    _, m_card = tr.update(st, noise.to(dev), perms.to(dev))
+    st_cpu, m_cpu = tr_cpu.update(st_cpu, noise, perms)
+    check(int(st_cpu.ep_stats.count) == 0, "PPO card vs cpu: an agent was done in the rollout")
+    g_rel = max(float((grads[0][n] - g).abs().max() / g.abs().max())
+                for n, g in grads[1].items())
+    l2, elem, worst, n_past = 0.0, 0.0, "", 0
+    for (name, p), q in zip(tr.policy.named_parameters(), tr_cpu.policy.parameters()):
+        d = (p.detach().cpu() - q.detach()).abs()
+        l2 = max(l2, float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(q.detach())))
+        scale = q.detach().abs().max()
+        if float(d.max() / scale) > elem:
+            elem, worst = float(d.max() / scale), f"{name} ({d.numel()} elements)"
+        n_past += int((d > 1e-4 * scale).sum())
+    return (abs(float(m_card["loss"]) - float(m_cpu["loss"])), g_rel, l2, elem, worst,
+            n_past)
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -1463,6 +1631,124 @@ def card_vs_cpu(env, env_cpu, state, seed):
     return out_gpu, out_cpu, s_err
 
 
+def training_paths(dev, card, launches):
+    """Paths G-J, the trainers at their published widths; adds each path's
+    launches to ``launches``."""
+    import torch
+
+    # path G: the default training run, PPO on cluttered_flight; B1 renders
+    # twice a step (the terminal observation before the auto-reset, the
+    # observation after it) and once at the reset
+    from visfly_tpu_torch.algos import APG, PPO, SAC, SHAC
+    from visfly_tpu_torch.envs import NavigationEnv, NavigationEnv2
+
+    def report_train(name, counts, what):
+        used = {k: v for k, v in counts.items() if v}
+        for k, v in counts.items():
+            launches[k] += v
+        print(f"phase 4 | {name}: {used or 'no kernel'} launches | {what} | {card}", flush=True)
+
+    tr_g = PPO(NavigationEnv(device=dev, **CLUTTERED_FLIGHT), **PPO_TUNED)
+    parts = timed_parts(tr_g, ("_collect", "_advantages", "_train_flat"))
+    n_env, n_steps, n_timed = tr_g.env.num_envs, tr_g.n_steps, 2
+    reset_launches()
+    st = tr_g.init(torch.Generator(device=dev).manual_seed(90))
+    st, m = tr_g.update(st)
+    before = snapshot(tr_g)
+    for k in parts:
+        parts[k] = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        st, m = tr_g.update(st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = all_launches()
+    want = {k: 0 for k in counts}
+    want["trace_analytic"] = 1 + 2 * n_steps * (n_timed + 1)
+    check(counts == want, f"path G: kernel launches {counts} != expected {want}")
+    check_trained("path G", tr_g, st, m, before, "loss", dev)
+    check(tr_g.n_minibatches == 1 and tr_g.env.terminal_obs_in_info, "path G: PPO's layout")
+    check(st.obs["depth"].shape == (n_env, 1, *RES), "path G: depth shape")
+    ms = {k: v / n_timed * 1e3 for k, v in parts.items()}
+    report_train(
+        "path G (PPO, cluttered_flight)", counts,
+        f"{dt / n_timed * 1e3:.1f} ms an update ({n_env} agents x {n_steps} steps, 64x64 "
+        f"depth, {tr_g.n_epochs} epochs of 1 minibatch of {n_env * n_steps}): rollout "
+        f"{ms['_collect']:.1f} ms, GAE {ms['_advantages']:.1f} ms, epochs "
+        f"{ms['_train_flat']:.1f} ms; {n_env * n_steps / (ms['_collect'] / 1e3):.1f} env steps/s "
+        f"of the rollout; trace_analytic {counts['trace_analytic'] - 1} launches in "
+        f"{n_timed + 1} updates = 2 x {n_steps} x {n_timed + 1}; loss {float(m['loss']):.4f}, "
+        f"gradient norm {float(m['grad_norm']):.4f}, approx KL {float(m['approx_kl']):.5f}")
+
+    # paths H and I: SHAC and APG through the differentiable navigation2 env,
+    # the garage for collisions, no camera: no kernel
+    for name, cls, cfg, loss_key, still in (
+            ("path H (SHAC, navigation2)", SHAC, SHAC_NAV2, "actor_loss", ()),
+            # the deterministic actor never uses its log-std head
+            ("path I (APG, navigation2)", APG, APG_NAV2, "loss",
+             ("actor.head.log_std.weight", "actor.head.log_std.bias"))):
+        tr = cls(NavigationEnv2(device=dev, **NAVIGATION2), **cfg)
+        n_timed = 3
+        reset_launches()
+        st = tr.init(torch.Generator(device=dev).manual_seed(100))
+        st, m = tr.update(st)
+        before = snapshot(tr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            st, m = tr.update(st)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = all_launches()
+        check(not any(counts.values()), f"{name}: launched {counts}")
+        check_trained(name, tr, st, m, before, loss_key, dev, still)
+        check(st.global_step == tr.H * tr.env.num_envs * (n_timed + 1), f"{name}: global_step")
+        extra = f", critic loss {float(m['critic_loss']):.4f}" if cls is SHAC else ""
+        report_train(name, counts,
+                     f"{dt / n_timed * 1e3:.1f} ms an update ({tr.env.num_envs} agents, "
+                     f"H={tr.H}), {tr.H * tr.env.num_envs * n_timed / dt:.1f} agent steps/s; "
+                     f"loss {float(m[loss_key]):.4f}{extra}, gradient norm "
+                     f"{float(m['grad_norm']):.4f}")
+
+    # path J: SAC, collecting until ``learning_starts`` transitions are stored,
+    # then training at every env step, as ``SAC.learn`` decides
+    tr_j = SAC(NavigationEnv2(device=dev, **dict(NAVIGATION2, **SAC_NAV2_ENV)), **SAC_NAV2)
+    n_env = tr_j.env.num_envs
+    reset_launches()
+    st = tr_j.init(torch.Generator(device=dev).manual_seed(110))
+    n_collect = -(-tr_j.learning_starts // n_env)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_collect):
+        check(i * n_env < tr_j.learning_starts, "path J: training before learning_starts")
+        st, m = tr_j.step_and_train(st, False)
+    torch.cuda.synchronize()
+    dt_collect = time.perf_counter() - t0
+    before = snapshot(tr_j)
+    alpha0 = float(tr_j.log_alpha.detach())
+    n_train = 4
+    t0 = time.perf_counter()
+    for i in range(n_collect, n_collect + n_train):
+        st, m = tr_j.step_and_train(st, i * n_env >= tr_j.learning_starts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = all_launches()
+    check(not any(counts.values()), f"path J: launched {counts}")
+    check_trained("path J", tr_j, st, m, before, "actor_loss", dev)
+    check(bool(torch.isfinite(m["critic_loss"])) and float(tr_j.log_alpha.detach()) != alpha0,
+          "path J: critic loss or temperature")
+    check(st.buffer.pos == n_env * (n_collect + n_train) and not st.buffer.full,
+          "path J: replay ring position")
+    report_train("path J (SAC, navigation2)", counts,
+                 f"{dt / n_train * 1e3:.1f} ms a training env step ({n_env} agents, "
+                 f"{tr_j.gradient_steps} gradient steps of {tr_j.batch_size}), "
+                 f"{dt_collect / n_collect * 1e3:.1f} ms a collecting step ({n_collect} steps to "
+                 f"{tr_j.learning_starts} transitions); critic loss "
+                 f"{float(m['critic_loss']):.4f}, actor loss {float(m['actor_loss']):.4f}, alpha "
+                 f"{float(m['alpha']):.4f}, gradient norm {float(m['grad_norm']):.4f}")
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "visfly_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1781,6 +2067,8 @@ def main():
         report_bptt(f"path F (visual BPTT, {name})", tr_f, ms, sps, counts, m, 2,
                     "64x64 depth")
 
+    training_paths(dev, card, launches)
+
     # 5. one step from the same state, card vs CPU plain path
     out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
     # the two devices' float32 dynamics differ in the last ulps, so a pixel on
@@ -1820,6 +2108,16 @@ def main():
     check(d_loss <= 1e-5, f"BPTT loss card vs cpu {d_loss} > 1e-5")
     check(g_rel <= GRAD_TOL, f"BPTT gradient card vs cpu {g_rel} > {GRAD_TOL}")
 
+    d_loss, g_rel, p_l2, p_elem, worst, n_past = ppo_card_vs_cpu(dev)
+    print(f"phase 5 | path G card vs cpu (PPO, 8 agents, 4 steps, 2 epochs of 2 minibatches, "
+          f"same parameters, state, noise and permutations): |d loss|={d_loss:.3e}, first "
+          f"gradient max relative difference {g_rel:.3e}, parameters after the update: l2 "
+          f"relative difference {p_l2:.3e}, elementwise {p_elem:.3e} of the largest entry "
+          f"at {worst} ({n_past} elements past 1e-4 of it)", flush=True)
+    check(d_loss <= 1e-5, f"PPO loss card vs cpu {d_loss} > 1e-5")
+    check(g_rel <= GRAD_TOL, f"PPO gradient card vs cpu {g_rel} > {GRAD_TOL}")
+    check(p_l2 <= GRAD_TOL, f"PPO parameters card vs cpu {p_l2} > {GRAD_TOL} (l2)")
+
     for mode, n_launch in launches.items():
         check(n_launch > 0, f"no main path launched {mode}")
     print(json.dumps({
@@ -1833,7 +2131,7 @@ def main():
                 "card from torch.profiler; trace_analytic (B1, "
                 "path B's camera rays) and trace_analytic_kid (B1-kid, path A's) cull each "
                 "tile, and their bounds count the rows that meet a tile and a one-origin "
-                "tile's origin terms once; "
+                "tile's origin terms once (its launches include path G's training run, 2 a step); "
                 "trace_march (the per-tile cull, B2), trace_march_nocull (B3a) and "
                 "trace_march_packed (B3b) are instantiations of one march kernel, timed on path "
                 "B's camera rays; B2's bound counts the rows its tiles evaluate; the "
@@ -1845,7 +2143,7 @@ def main():
                 "knockout B8b with body off "
                 "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
                 "(all others) triangles, at the split the wrapper picks (the diagnostics "
-                "and mx at 1 block a tile); launches add up the depth leg and paths A-F and the "
+                "and mx at 1 block a tile); launches add up the depth leg, paths A-J and the "
                 "diagnostics; library_ms is null because no single PyTorch call computes a "
                 "first hit"}),
         flush=True)

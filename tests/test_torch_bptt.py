@@ -438,7 +438,7 @@ def test_schedule_drives_the_optimiser():
     rates = []
     for _ in range(3):
         st, _ = tr.update(st)
-        rates.append(tr.optimizer.param_groups[0]["lr"])
+        rates.append(tr.optimizer.adam.param_groups[0]["lr"])
     assert rates == pytest.approx([1e-3, 5e-4, 0.0])
 
 

@@ -195,8 +195,6 @@ def test_unported_branches_raise(tmp_path):
     assert env.tensor_output and not env.is_train and not env.is_multi_drone
     assert env.sensitive_radius == 10.0
     for build in (
-        lambda: nav(indiv_reward=True),
-        lambda: nav(col_refine_steps=2),
         lambda: nav(latent_dim=8),
         lambda: nav(scene_kwargs=dict(scene, obj_settings={"path": "x"})),
         lambda: nav(scene_kwargs=dict(scene, backend="grid")),
@@ -205,16 +203,12 @@ def test_unported_branches_raise(tmp_path):
         lambda: nav(scene_kwargs={"path": str(glb)}),
         lambda: nav(scene_kwargs={"path": str(tmp_path / "stage.scene_instance.json")}),
         lambda: nav(scene_kwargs={"path": str(tmp_path)}),
-        lambda: nav(random_kwargs={"noise_kwargs": {"IMU": {"model": "UniformNoiseModel"}}}),
+        lambda: nav(random_kwargs={"noise_kwargs": {"depth": {"model": "GaussianNoiseModel"}}}),
         lambda: nav(dynamics_kwargs={"wind_settings": ["sin(x)", "0*x", "0*x"]}),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build()
-    env = nav()
-    env.terminal_obs_in_info = True
     st, _ = tenvs.NavigationEnv(**bench_kwargs()).reset(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        env.step(st, torch.zeros(N, 4))
     # colour, march and refined sensors render
     env = nav(sensor_kwargs=[
         {"uuid": "color", "sensor_type": "color", "resolution": [8, 8]},

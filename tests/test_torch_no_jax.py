@@ -22,8 +22,11 @@ names = [m.name for m in pkgutil.walk_packages(visfly_tpu_torch.__path__, "visfl
 for name in names:
     importlib.import_module(name)
 import visfly_tpu_torch.policies, visfly_tpu_torch.algos
+from visfly_tpu_torch.algos import ALGO_ALIASES
+assert sorted(ALGO_ALIASES) == ["apg", "bptt", "ppo", "sac", "shac"]
 for sub in ("policies.common", "policies.extractors", "policies.networks", "algos.bptt",
-            "algos.common", "algos.lr_scheduler"):
+            "algos.common", "algos.lr_scheduler", "algos.ppo", "algos.shac", "algos.apg",
+            "algos.sac", "algos.returns", "algos.buffers"):
     assert "visfly_tpu_torch." + sub in names, sub
 import chip_smoke, chip_profile
 banned = ("jax", "jaxlib", "flax", "optax", "visfly_tpu")
@@ -44,7 +47,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 32, proc.stdout  # policies/ and algos/ included
+    assert n_modules >= 38, proc.stdout  # policies/ and all five trainers included
 
 
 def _run_smoke(cwd):

@@ -19,7 +19,13 @@ import jax.numpy as jnp
 from visfly_tpu.policies import extractors as jx
 from visfly_tpu.policies import networks as jn
 from visfly_tpu_torch import policies as tp
-from visfly_tpu_torch.interop import _load_cnn, _load_gru, _load_mlp, actor_params_from_flax
+from visfly_tpu_torch.interop import (
+    _load_cnn,
+    _load_gru,
+    _load_mlp,
+    actor_params_from_flax,
+    policy_params_from_flax,
+)
 from visfly_tpu_torch.policies import extractors as tx
 from visfly_tpu_torch.policies import networks as tn
 
@@ -192,9 +198,6 @@ def test_unported_extractors_raise():
     for cls in (tx.TransCNN, tx.DecoderHead):
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
             cls()
-    for cls in (tn.QCritic, tn.StateCritic, tn.ActorCriticPolicy, tn.RecurrentActorCriticPolicy):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*items 13 and 14"):
-            cls()
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +274,89 @@ def test_recurrent_actor_matches_flax():
     close(a_t, a_j)
     close_log_prob(lp_t, lp_j, a_t)
     close(h_t2, h_j2)
+
+
+# ---------------------------------------------------------------------------
+# critics and the actor-critic policies
+# ---------------------------------------------------------------------------
+
+CRITICS = {
+    "qcritic": ("QCritic", {"n_critics": 2, "net_arch": ARCH, "latent_dim": (24, 24)}),
+    "qcritic_ln": ("QCritic", {"n_critics": 3, "latent_dim": (16,), "layer_norm": True,
+                               "activation": "tanh"}),
+    "state_critic": ("StateCritic", {"n_critics": 3, "net_arch": ARCH, "latent_dim": (32,)}),
+    "actor_critic": ("ActorCriticPolicy", {"net_arch": ARCH, "pi_layers": (16, 16),
+                                           "vf_layers": (24,)}),
+    "recurrent_actor_critic": ("RecurrentActorCriticPolicy", {
+        "hidden_dim": 12, "net_arch": ARCH, "pi_layers": (16,), "vf_layers": (8,)}),
+}
+
+
+def _call(module, cls, obs, action, h0):
+    """The module's outputs as a tuple, in both packages' argument order."""
+    if cls == "QCritic":
+        return (module(obs, action),)
+    if cls == "RecurrentActorCriticPolicy":
+        return tuple(module(obs, h0))
+    return tuple(module(obs)) if cls == "ActorCriticPolicy" else (module(obs),)
+
+
+@pytest.mark.parametrize("case", list(CRITICS))
+def test_critics_and_policies_match_flax(case):
+    """Each critic and actor-critic policy, its flax parameters carried over
+    by ``policy_params_from_flax``: outputs within 1e-5, and ∂ Σ outputs /
+    ∂ parameters within 1e-4 of each parameter's largest gradient entry."""
+    cls, kw = CRITICS[case]
+    obs = obs_batch()
+    if "net_arch" not in kw:
+        obs = {"state": obs["state"]}
+    jobs, tobs = both(obs)
+    action, h0 = randn(5, 4, seed=4), randn(5, 12, seed=5) * 0.3
+    ja, jh = jnp.asarray(action), jnp.asarray(h0)
+    ta, th = torch.from_numpy(action), torch.from_numpy(h0)
+    jkw = dict(kw)
+    tkw = dict(kw)
+    if cls in ("ActorCriticPolicy", "RecurrentActorCriticPolicy"):
+        jkw["action_dim"] = 4
+        tkw["action_dim"] = 4
+    elif cls == "QCritic":
+        tkw["action_dim"] = 4
+    jm = getattr(jn, cls)(**jkw)
+    args = {"QCritic": (jobs, ja), "RecurrentActorCriticPolicy": (jobs, jh)}.get(cls, (jobs,))
+    params = jm.init(KEY, *args)
+    if cls in ("ActorCriticPolicy", "RecurrentActorCriticPolicy"):
+        # a log-std away from its zero start, so that its copy is checked
+        params = {"params": {**params["params"],
+                             "log_std": jnp.asarray([0.1, -0.2, 0.3, -0.4])}}
+    tm = policy_params_from_flax(to_numpy(params), getattr(tn, cls)(shapes(obs), **tkw))
+
+    def total(p):
+        out = jm.apply(p, *args)
+        return sum(jnp.sum(jnp.sin(o)) for o in (out if isinstance(out, tuple) else (out,)))
+
+    outs_j = jm.apply(params, *args)
+    outs_j = outs_j if isinstance(outs_j, tuple) else (outs_j,)
+    outs_t = _call(tm, cls, tobs, ta, th)
+    assert len(outs_j) == len(outs_t)
+    for o_t, o_j in zip(outs_t, outs_j):
+        assert tuple(o_t.shape) == tuple(o_j.shape)
+        close(o_t, o_j)
+    if cls in ("QCritic", "StateCritic"):  # independent heads
+        assert not np.allclose(outs_t[0][:, 0].detach().numpy(), outs_t[0][:, 1].detach().numpy())
+    sum(torch.sin(o).sum() for o in outs_t).backward()
+    grads = jax.grad(total)(params)
+    twin = policy_params_from_flax(to_numpy(grads), getattr(tn, cls)(shapes(obs), **tkw))
+    for (name, p), g in zip(tm.named_parameters(), twin.parameters()):
+        scale = float(g.abs().max())
+        assert p.grad is not None, name
+        np.testing.assert_allclose(p.grad.numpy(), g.detach().numpy(), atol=1e-4 * scale + 1e-7,
+                                   rtol=0, err_msg=name)
+
+
+def test_policy_params_from_flax_rejects_other_modules():
+    with pytest.raises(TypeError, match="no flax counterpart"):
+        policy_params_from_flax({"params": {"extractor": {}}},
+                                tx.MultiInputExtractor({"state": (13,)}))
 
 
 def test_sample_from_a_generator_is_reproducible():

@@ -13,7 +13,8 @@ Semantics kept from the JAX trainer:
   ``d ← d·γ·(1−done) + done``
 * global-norm clip at 0.5 written as optax writes it, scale =
   ``max_norm / max(norm, max_norm)``, then Adam (``eps = 1e-8`` outside the
-  root, the rate from ``transfer_schedule`` at the count of updates so far)
+  root, the rate from ``transfer_schedule`` at the count of updates so far):
+  ``common.AdamChain``, which every trainer of the package uses
 * the carried env state, observation and hidden state are detached between
   updates (``env.detach``), so the graph never outgrows one horizon.
 
@@ -37,13 +38,12 @@ from torch import Tensor
 
 from ..envs.base import DroneGymEnv, EnvState
 from ..policies.networks import Actor, RecurrentActor
-from .common import TrainerMixin
-from .lr_scheduler import transfer_schedule
+from .common import AdamChain, TrainerMixin
 
 
 class BPTTState(NamedTuple):
     params: Any  # name → parameter tensor of trainer.actor (updated in place)
-    opt_state: Any  # the torch optimiser
+    opt_state: Any  # the trainer's AdamChain
     env_state: EnvState
     obs: Dict[str, Tensor]
     gen: torch.Generator  # the action noise's generator
@@ -77,10 +77,9 @@ class BPTT(TrainerMixin):
         self.remat = remat
         self.policy_kwargs = dict(policy_kwargs or {})
         self.recurrent = bool(self.policy_kwargs.get("recurrent", False))
-        self.schedule = transfer_schedule(learning_rate)
+        self.learning_rate = learning_rate
         self.actor = None  # built from the first observation's shapes
         self.optimizer = None
-        self.n_updates = 0
 
     # -- setup ---------------------------------------------------------------
 
@@ -104,12 +103,9 @@ class BPTT(TrainerMixin):
                 activation=pk.get("activation", "relu"),
                 layer_norm=pk.get("layer_norm", False), generator=generator)
         self.actor = actor.to(self.env.device)
-        self.optimizer = torch.optim.Adam(self.actor.parameters(), lr=self._lr(0), eps=1e-8)
-        self.n_updates = 0
+        self.optimizer = AdamChain(self.actor.parameters(), self.learning_rate,
+                                   self.max_grad_norm)
         return self.actor
-
-    def _lr(self, count: int) -> float:
-        return float(self.schedule(count)) if callable(self.schedule) else self.schedule
 
     def _state(self, env_state, obs, gen, global_step, hidden) -> "BPTTState":
         return BPTTState(dict(self.actor.named_parameters()), self.optimizer, env_state, obs, gen,
@@ -161,30 +157,15 @@ class BPTT(TrainerMixin):
         metrics = (torch.stack(rewards), torch.stack(dones), torch.stack(successes))
         return loss.mean(), (env_state, obs, hidden, metrics)
 
-    def _clip_and_step(self) -> Tensor:
-        """Scale the gradients to the global norm ``max_grad_norm`` (optax's
-        rule: scale = max_norm / max(norm, max_norm)) and step Adam at the
-        schedule's rate → the norm before the clip."""
-        grads = [p.grad for p in self.actor.parameters() if p.grad is not None]
-        grad_norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        scale = self.max_grad_norm / torch.clamp(grad_norm, min=self.max_grad_norm)
-        for g in grads:
-            g.mul_(scale)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self._lr(self.n_updates)
-        self.optimizer.step()
-        self.n_updates += 1
-        return grad_norm
-
     def update(self, st: BPTTState, noise: Optional[Tensor] = None
                ) -> Tuple[BPTTState, Dict[str, Tensor]]:
         """One rollout, backward pass and clipped Adam step; the actor's
         parameters change in place."""
-        self.optimizer.zero_grad(set_to_none=True)
+        self.optimizer.zero_grad()
         loss, (env_state, obs, hidden, metrics) = self._rollout_loss(
             st.env_state, st.obs, st.gen, st.hidden, noise)
         loss.backward()
-        grad_norm = self._clip_and_step()
+        grad_norm = self.optimizer.step()
 
         # truncate the graph between updates
         env_state = self.env.detach(env_state)

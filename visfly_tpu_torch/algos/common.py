@@ -1,20 +1,92 @@
 """Shared trainer plumbing (counterpart of ``visfly_tpu/algos/common.py``):
-the differentiable-env requirement, deterministic evaluation rollouts and the
-hooks a stateful policy overrides. Checkpoints and metric logs are not ported
-yet (ROADMAP Queue A item 21, ``utils/checkpoint.py`` and
-``utils/logger.py``) and raise ``NotImplementedError``.
+the differentiable-env requirement, deterministic evaluation rollouts, the
+hooks a stateful policy overrides, and the optimiser every trainer uses
+(``AdamChain``: optax's global-norm clip, then Adam or AdamW at a schedule's
+rate). Checkpoints and metric logs are not ported yet (ROADMAP Queue A item
+21, ``utils/checkpoint.py`` and ``utils/logger.py``) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import copy
+from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+from torch import Tensor, nn
+
+from .lr_scheduler import transfer_schedule
 
 
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: Queue A item 21, "
                                "utils/checkpoint.py and utils/logger.py)")
+
+
+def clip_grads_(params: Iterable[Tensor], max_norm: Optional[float]) -> Tensor:
+    """Scale the gradients of ``params`` to the global norm ``max_norm`` as
+    optax's ``clip_by_global_norm`` does (scale = max_norm / max(norm,
+    max_norm); ``clip_grad_norm_`` would divide by norm + 1e-6) and return the
+    norm before the clip. ``max_norm=None`` only measures."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    if max_norm is not None:
+        scale = max_norm / torch.clamp(norm, min=max_norm)
+        for g in grads:
+            g.mul_(scale)
+    return norm
+
+
+class AdamChain:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(schedule))``
+    over ``params``: no clip when ``max_grad_norm`` is None, and with a
+    ``weight_decay`` AdamW, whose decoupled decay is optax's ``adamw``'s
+    (both scale the decay by the rate). Adam's eps is 1e-8 outside the root
+    in both packages. The rate is the schedule's at the count of steps taken
+    so far, as optax counts them."""
+
+    def __init__(self, params: Iterable[Tensor], learning_rate,
+                 max_grad_norm: Optional[float] = None, weight_decay: float = 0.0):
+        self.params = list(params)
+        self.schedule = transfer_schedule(learning_rate)
+        self.max_grad_norm = None if max_grad_norm is None else float(max_grad_norm)
+        self.count = 0
+        if weight_decay:
+            self.adam = torch.optim.AdamW(self.params, lr=self.lr(), eps=1e-8,
+                                          weight_decay=float(weight_decay))
+        else:
+            self.adam = torch.optim.Adam(self.params, lr=self.lr(), eps=1e-8)
+
+    def lr(self) -> float:
+        return float(self.schedule(self.count)) if callable(self.schedule) else self.schedule
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def step(self) -> Tensor:
+        """Clip the gradients, step at the current rate → the norm before the
+        clip."""
+        norm = clip_grads_(self.params, self.max_grad_norm)
+        for group in self.adam.param_groups:
+            group["lr"] = self.lr()
+        self.adam.step()
+        self.count += 1
+        return norm
+
+
+def frozen_copy(module: nn.Module) -> nn.Module:
+    """A copy of ``module`` that no optimiser trains: a target network."""
+    target = copy.deepcopy(module)
+    target.requires_grad_(False)
+    return target
+
+
+@torch.no_grad()
+def polyak_(target: nn.Module, source: nn.Module, tau: float) -> None:
+    """target ← (1 − τ)·target + τ·source, parameter by parameter."""
+    for t, s in zip(target.parameters(), source.parameters()):
+        t.mul_(1.0 - tau).add_(s, alpha=tau)
 
 
 class TrainerMixin:

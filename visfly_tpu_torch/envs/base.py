@@ -13,10 +13,17 @@ env's device).
 Subclasses implement ``get_observation`` / ``get_reward`` / ``get_success``
 / ``get_failure``, and keep env-specific state in ``EnvState.aux`` through
 the hooks ``init_aux`` / ``reset_aux`` / ``step_aux`` /
-``update_aux_from_sensors``. Not ported yet, and raising
-``NotImplementedError``: dynamic objects (``obj_settings``), IMU and sensor
-noise, world-model latents, ``terminal_obs_in_info``, wind functions and
-velocity sub-sampled collision checks.
+``update_aux_from_sensors``; ``aggregate_success`` and ``aggregate_done``
+are the hooks a multi-drone env overrides. Not ported yet, and raising
+``NotImplementedError``: dynamic objects (``obj_settings``), sensor noise,
+world-model latents and wind functions.
+
+``terminal_obs_in_info`` (set by PPO and SAC) adds the pre-reset observation,
+detached, to ``info["terminal_observation"]``; on a visual env it costs a
+second render a step, before the auto-reset. IMU noise
+(``random_kwargs["noise_kwargs"]["IMU"]``) is drawn from ``EnvState.gen``
+at every state observation. A reward returned as a dict (``{"reward": total,
+term: value, ...}``) logs each term as ``info["extra_<term>"]``.
 
 Gradients: with ``requires_grad=True`` a step is differentiable from the
 action and the carried state to ``obs`` and ``reward`` (through the dynamics,
@@ -127,9 +134,6 @@ class DroneGymEnv:
         latent_dim: Optional[int] = None,
         dtype=torch.float32,
     ):
-        if col_refine_steps:
-            raise _unported("col_refine_steps > 0",
-                            "Queue A item 8, velocity sub-sampled collisions")
         if latent_dim is not None:
             raise _unported("world-model latents", "Queue A item 14, world_model.py")
         self.device = torch.device(device)
@@ -143,6 +147,7 @@ class DroneGymEnv:
         self.grad_collision = bool(grad_collision)
         self.is_collision_reset = is_collision_reset
         self.uav_radius = float(uav_radius)
+        self.col_refine_steps = int(col_refine_steps)
         # attributes only, as in the JAX package: nothing reads them yet
         self.tensor_output = tensor_output
         self.is_train = is_train
@@ -163,10 +168,14 @@ class DroneGymEnv:
         self.dyn_config = DroneConfig(**dynamics_kwargs)
         self.params = make_drone_params(self.dyn_config, dtype=dtype, device=self.device)
 
-        random_kwargs = random_kwargs or self.default_random_kwargs()
-        if random_kwargs.get("noise_kwargs"):
-            raise _unported("IMU and sensor noise", "Queue A items 8 and 12, render/noise.py")
-        self.randomizers = rnd.from_reference_kwargs(random_kwargs, device=self.device)
+        self.noise_settings = dict((random_kwargs or {}).get("noise_kwargs") or {})
+        sensor_noise = sorted(k for k in self.noise_settings if k != "IMU")
+        if sensor_noise:
+            raise _unported(f"sensor noise ({', '.join(sensor_noise)})",
+                            "Queue A item 12, render/noise.py")
+        self.randomizers = rnd.from_reference_kwargs(
+            random_kwargs or self.default_random_kwargs(), device=self.device)
+        self._imu_noise = self._build_imu_noise()
 
         self.scene = None
         self.scene_kwargs = dict(scene_kwargs or {})
@@ -232,9 +241,38 @@ class DroneGymEnv:
 
         return render_sensors(self, state)
 
+    def _build_imu_noise(self):
+        """The IMU noise model → None (no noise) or (kind, mean, half or std):
+        ``UniformNoiseModel`` (the default model) adds ``(U[0,1) − 0.5) ·
+        half + mean``, any other model ``N(0,1) · std + mean``."""
+        imu = self.noise_settings.get("IMU")
+        if imu is None:
+            return None
+        kw = imu.get("kwargs", {})
+
+        def t(key):
+            return torch.as_tensor(kw.get(key, 0.0), dtype=self.dtype, device=self.device)
+
+        if imu.get("model", "UniformNoiseModel") == "UniformNoiseModel":
+            return ("uniform", t("mean"), t("half"))
+        return ("normal", t("mean"), t("std"))
+
     def state_obs(self, state: EnvState) -> Tensor:
-        """IMU state, 13-dim (12 with euler output)."""
-        return dyn_mod.get_state(state.dyn, self.dyn_config)
+        """IMU state, 13-dim (12 with euler output), with the IMU noise drawn
+        from ``state.gen`` and the quaternion re-normalised after it."""
+        s = dyn_mod.get_state(state.dyn, self.dyn_config)
+        if self._imu_noise is not None:
+            kind, a, b = self._imu_noise
+            draw = torch.rand if kind == "uniform" else torch.randn
+            noise = draw(s.shape, generator=state.gen, dtype=s.dtype, device=s.device)
+            if kind == "uniform":
+                noise = noise - 0.5
+            s = s + (noise * b + a)
+            if self.dyn_config.is_quat_output:
+                q = s[:, 3:7]
+                q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+                s = torch.cat([s[:, :3], q, s[:, 7:]], dim=-1)
+        return s
 
     def is_collision_fn(self, pos: Tensor) -> Tensor:
         """Spawn rejection: closer than 1 m to a surface (the analytic SDF of
@@ -268,6 +306,16 @@ class DroneGymEnv:
             from ..scene import closest_point_query
 
             point, dis, out = closest_point_query(self.scene, self.scene_ids, pos)
+            if self.col_refine_steps > 0:
+                # point, distance and collision come from the query above; the
+                # positions along the velocity over one control interval, at
+                # fractions 1/k .. (k-1)/k, feed only the out-of-bounds test
+                k = self.col_refine_steps
+                frac = torch.linspace(0.0, 1.0, k + 1, dtype=pos.dtype, device=pos.device)[1:-1]
+                samples = (pos.detach()[:, None, :] + dyn.vel.detach()[:, None, :]
+                           * frac[None, :, None] * self.dyn_config.ctrl_dt)
+                lo, hi = self.scene.bbox[0], self.scene.bbox[1]
+                out = out | torch.any((samples < lo) | (samples > hi), dim=-1).any(dim=-1)
         else:
             lo, hi = self.bbox[0], self.bbox[1]
             d = torch.cat([pos - lo, hi - pos], dim=-1)  # (N, 6)
@@ -311,8 +359,6 @@ class DroneGymEnv:
              ) -> Tuple[EnvState, StepOutput]:
         """One control step for all agents. ``is_test=True`` suppresses the
         auto-reset."""
-        if self.terminal_obs_in_info:
-            raise _unported("terminal_obs_in_info", "Queue A item 8, terminal_obs_in_info")
         dyn = dyn_mod.step(self.dyn_config, self.params, state.dyn, action,
                            wind_const=self.wind_const)
         aux = self.step_aux(state.aux, dyn)
@@ -320,21 +366,28 @@ class DroneGymEnv:
         step_count = state.step_count + 1
         st = state._replace(dyn=dyn, step_count=step_count, collision=collision,
                             once_collided=once, aux=aux)
+        pre_sensor_obs = None
+        if self.needs_sensors_for_reward or self.terminal_obs_in_info:
+            pre_sensor_obs = self.sensor_observations(st)
         if self.needs_sensors_for_reward:
-            st = self.update_aux_from_sensors(st, self.sensor_observations(st))
+            st = self.update_aux_from_sensors(st, pre_sensor_obs)
 
-        success = self.get_success(st)
+        success = self.aggregate_success(self.get_success(st))
         failure = self.get_failure(st)
         st = st._replace(success=success, failure=failure)
 
         reward = self.get_reward(st)
+        indiv = {}
+        if isinstance(reward, dict):
+            indiv = {k: v for k, v in reward.items() if k != "reward"}
+            reward = reward["reward"]
         returns = state.returns + reward
 
         episode_done = state.episode_done | success | failure | collision.is_out_bounds
         if self.is_collision_reset:
             episode_done = episode_done | collision.is_collision
         truncated = step_count >= self.max_episode_steps
-        done = episode_done | truncated
+        done = self.aggregate_done(episode_done | truncated)
 
         info = {
             "episode_done": episode_done,
@@ -344,8 +397,14 @@ class DroneGymEnv:
             "episode_length": step_count,
             "episode_time": step_count.to(self.dtype) * self.dyn_config.ctrl_dt,
             "collision": once,
+            **{f"extra_{k}": v.detach() for k, v in indiv.items()},
         }
         st = st._replace(returns=returns, episode_done=episode_done)
+        if self.terminal_obs_in_info:
+            # what the agent saw at the end of the transition, before the
+            # auto-reset respawns it (SB3's ``terminal_observation``)
+            term_obs = self.get_observation(st, pre_sensor_obs)
+            info["terminal_observation"] = {k: v.detach() for k, v in term_obs.items()}
         if not is_test:
             st = self._auto_reset(st, done)
         sensor_obs = self.sensor_observations(st)
@@ -355,6 +414,13 @@ class DroneGymEnv:
             obs = {k: v.detach() for k, v in obs.items()}
             reward = reward.detach()
         return st, StepOutput(obs=obs, reward=reward, done=done, info=info)
+
+    def aggregate_success(self, success: Tensor) -> Tensor:
+        """Per agent by default; a multi-drone env aggregates per scene."""
+        return success
+
+    def aggregate_done(self, done: Tensor) -> Tensor:
+        return done
 
     def detach(self, state: EnvState) -> EnvState:
         """The same state with no gradient history: what a trainer carries
@@ -368,16 +434,103 @@ class DroneGymEnv:
         pos, q, vel, omega = (x.detach() for x in self._spawn(st.gen))
         dyn = dyn_mod.reset(self.dyn_config, self.params, st.dyn, mask=done, pos=pos, ori=q,
                             vel=vel, ori_vel=omega, generator=st.gen)
-        collision, once = self._update_collision(dyn, st.once_collided & ~done)
+        return self._reset_masked(st, done, dyn)
+
+    def _reset_masked(self, st: EnvState, mask: Tensor, dyn: DynState) -> EnvState:
+        """The bookkeeping of a masked reset to the dynamics ``dyn``."""
+        collision, once = self._update_collision(dyn, st.once_collided & ~mask)
         return st._replace(
             dyn=dyn,
-            aux=self.reset_aux(st._replace(dyn=dyn), done),
-            step_count=torch.where(done, 0, st.step_count).to(st.step_count.dtype),
-            episode_done=st.episode_done & ~done,
-            returns=torch.where(done, torch.zeros_like(st.returns), st.returns),
+            aux=self.reset_aux(st._replace(dyn=dyn), mask),
+            step_count=torch.where(mask, 0, st.step_count).to(st.step_count.dtype),
+            episode_done=st.episode_done & ~mask,
+            returns=torch.where(mask, torch.zeros_like(st.returns), st.returns),
             collision=collision,
             once_collided=once,
         )
+
+    def reset_agents(self, state: EnvState, mask: Tensor) -> EnvState:
+        """Explicit masked reset: the auto-reset of the agents in ``mask``."""
+        return self._auto_reset(state, mask)
+
+    def reset_agents_from_state(self, state: EnvState, mask: Tensor, full_state: Tensor,
+                                pos_reset_by_state: bool = True) -> EnvState:
+        """Masked reset from stored 22-dim full dynamics states (pos, q, vel,
+        ω, motor ω, thrusts, t), the reset from a replay buffer. With
+        ``pos_reset_by_state=False`` the positions are drawn from the
+        randomizer and the rest comes from ``full_state``."""
+        fs = torch.as_tensor(full_state, device=self.device).detach().to(self.dtype)
+        pos = fs[:, 0:3]
+        if not pos_reset_by_state:
+            pos = self._spawn(state.gen)[0].detach()
+        dyn = dyn_mod.reset(self.dyn_config, self.params, state.dyn, mask=mask, pos=pos,
+                            ori=fs[:, 3:7], vel=fs[:, 7:10], ori_vel=fs[:, 10:13],
+                            motor_omega=fs[:, 13:17], thrusts=fs[:, 17:21], t=fs[:, 21])
+        return self._reset_masked(state, mask, dyn)
+
+    def reset_scenes(self, state: Optional[EnvState] = None) -> Optional[EnvState]:
+        """Scene rotation: regenerate the procedural scenes with the next
+        seeds (``scene_kwargs["seed"]`` advances by ``num_scene``) and, given
+        a state, respawn every agent in them. Shapes stay as they were."""
+        if self.scene is None:
+            return state
+        from ..scene import load_scenes_for_env
+
+        self.scene_kwargs["seed"] = self.scene_kwargs.get("seed", self.seed) + self.num_scene
+        self.scene = load_scenes_for_env(self)
+        self.bbox = self.scene.bbox
+        if state is None:
+            return None
+        return self.reset_agents(state, torch.ones((self.num_agent,), dtype=torch.bool,
+                                                   device=self.device))
+
+    def stack(self, state: EnvState):
+        """Pose snapshot (pos, q, vel, ω), detached, which ``recover`` takes."""
+        d = state.dyn
+        return tuple(x.detach() for x in (d.pos, d.q, d.vel, d.omega))
+
+    def recover(self, state: EnvState, snapshot) -> EnvState:
+        """Restore a pose snapshot for all agents."""
+        pos, q, vel, omega = snapshot
+        dyn = dyn_mod.reset(self.dyn_config, self.params, state.dyn, pos=pos, ori=q, vel=vel,
+                            ori_vel=omega)
+        falses = torch.zeros((self.num_agent,), dtype=torch.bool, device=self.device)
+        collision, once = self._update_collision(dyn, falses)
+        return state._replace(dyn=dyn, collision=collision, once_collided=once)
+
+    # -- observation space metadata ----------------------------------------------
+
+    def obs_space(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """{key: (shape without the batch dimension, dtype)} of an
+        observation, from a reset with a generator of its own."""
+        with torch.no_grad():
+            _, obs = self.reset(torch.Generator(device=self.device).manual_seed(0))
+        return {k: (tuple(v.shape[1:]), v.dtype) for k, v in obs.items()}
+
+    @property
+    def observation_space(self):
+        """gymnasium ``Dict`` space of the observation shapes (gymnasium is
+        imported here, when asked for)."""
+        import numpy as np
+        from gymnasium import spaces
+
+        out = {}
+        for k, (shape, _dtype) in self.obs_space().items():
+            if k in ("color", "semantic"):
+                out[k] = spaces.Box(0, 255, shape, np.uint8)
+            elif k == "depth":
+                out[k] = spaces.Box(0.0, np.inf, shape, np.float32)
+            else:
+                out[k] = spaces.Box(-np.inf, np.inf, shape, np.float32)
+        return spaces.Dict(out)
+
+    @property
+    def action_space(self):
+        """Box(-1, 1, (4,)) for every action type."""
+        import numpy as np
+        from gymnasium import spaces
+
+        return spaces.Box(-1.0, 1.0, (self.action_size,), np.float32)
 
     def __repr__(self):
         return (f"{type(self).__name__}(num_scene={self.num_scene}, "

@@ -10,7 +10,7 @@ from torch import Tensor
 
 from ..core.math_utils import safe_norm
 from ..dynamics import dynamics as dyn_mod
-from .base import DroneGymEnv, EnvState, _unported
+from .base import DroneGymEnv, EnvState
 
 
 def get_along_vertical_vector(base: Tensor, obj: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -41,13 +41,13 @@ class _TargetEnv(DroneGymEnv):
 
 
 class NavigationEnv(_TargetEnv):
-    """Depth + state + target navigation."""
+    """Depth + state + target navigation. ``indiv_reward=True`` returns the
+    reward as its named terms, which the base env logs in
+    ``info["extra_<term>"]``."""
 
     def __init__(self, *args, indiv_reward: bool = False, **kwargs):
-        if indiv_reward:
-            raise _unported("per-term reward telemetry (indiv_reward)",
-                            "Queue A item 8, the rest of envs/base.py")
         super().__init__(*args, **kwargs)
+        self.indiv_reward = bool(indiv_reward)
 
     def get_observation(self, state: EnvState, sensor_obs) -> Dict[str, Tensor]:
         obs = {"state": self.state_obs(state), "target": self.target}
@@ -55,9 +55,10 @@ class NavigationEnv(_TargetEnv):
             obs["depth"] = sensor_obs["depth"]
         return obs
 
-    def get_reward(self, state: EnvState) -> Tensor:
+    def get_reward(self, state: EnvState):
         """Approach-velocity + view-cone + collision-potential shaping with a
-        remaining-steps success bonus."""
+        remaining-steps success bonus; a dict of the terms and their total
+        under ``"reward"`` with ``indiv_reward``."""
         pos = state.dyn.pos
         vel = dyn_mod.velocity(state.dyn)
         omega = state.dyn.omega
@@ -75,19 +76,22 @@ class NavigationEnv(_TargetEnv):
         view_pen = torch.clamp(torch.arccos(view_cos), min=thrd_perce) - thrd_perce
         col_closing = torch.clamp(torch.sum(col_vec * vel, dim=-1) / (1e-6 + col_dis), min=0.0)
 
-        terms = (
-            approach * 0.01,
-            view_pen * -0.01,
-            safe_norm(state.dyn.q - q_ref, dim=-1) * -0.00001,  # upright
-            vel_norm * -0.002,
-            safe_norm(omega, dim=-1) * -0.002,
-            1.0 / (col_dis + 0.2) * -0.01,
-            torch.clamp(1.0 - col_dis, min=0.0) * col_closing * -0.005,
+        terms = {
+            "approach": approach * 0.01,
+            "view": view_pen * -0.01,
+            "upright": safe_norm(state.dyn.q - q_ref, dim=-1) * -0.00001,
+            "vel": vel_norm * -0.002,
+            "omega": safe_norm(omega, dim=-1) * -0.002,
+            "col_dis": 1.0 / (col_dis + 0.2) * -0.01,
+            "col_closing": torch.clamp(1.0 - col_dis, min=0.0) * col_closing * -0.005,
             # success bonus scaled by the remaining steps
-            state.success * (self.max_episode_steps - state.step_count) * 0.1
+            "success": state.success * (self.max_episode_steps - state.step_count) * 0.1
             * (0.2 + 0.8 / (1.0 + vel_norm)),
-        )
-        return sum(terms)
+        }
+        total = sum(terms.values())
+        if self.indiv_reward:
+            return {"reward": total, **terms}
+        return total
 
 
 class NavigationEnv2(_TargetEnv):
@@ -123,3 +127,23 @@ class NavigationEnv2(_TargetEnv):
         approach, away, _dis = get_along_vertical_vector(self.target - state.dyn.pos, vel)
         return ((approach - away) * 0.02 + safe_norm(state.dyn.omega, dim=-1) * -0.001
                 + state.success * 1.0)
+
+    def get_analytical_reward(self, state: EnvState) -> Tensor:
+        """The differentiable reward the analytic policy gradient trains on:
+        obstacle approach speed and distance, target approach speed, view
+        cone, ω, collision and success."""
+        vel = dyn_mod.velocity(state.dyn)
+        direction = dyn_mod.direction(state.dyn)
+        thrd_perce = math.pi / 18
+        approach, away, _ = get_along_vertical_vector(self.target - state.dyn.pos, vel)
+        obs_approach, _obs_away, col_dis = get_along_vertical_vector(state.collision.vector, vel)
+        obstacle_spd_r = obs_approach * -0.1 * torch.clamp(1.0 - col_dis, min=0.0)
+        obstacle_dis_r = 1.0 / (col_dis + 0.03) * -0.02
+        target_spd_r = (approach - away) * 0.02
+        vel_norm = safe_norm(vel, dim=-1)
+        view_cos = torch.clamp(torch.sum(direction * vel, dim=-1) / (1e-6 + vel_norm), -1.0, 1.0)
+        view_aware_r = torch.clamp(torch.arccos(view_cos) - thrd_perce, min=0.0) * -0.01
+        return (obstacle_spd_r + target_spd_r + view_aware_r + obstacle_dis_r
+                + safe_norm(state.dyn.omega, dim=-1) * -0.01
+                + state.collision.is_collision * -2.0
+                + state.success * 5.0)

@@ -1,6 +1,7 @@
 """Initial-state randomizers (counterpart of
 ``visfly_tpu/envs/randomization.py``): Uniform / Normal / TargetUniform /
-Union state generators and collision-rejection resampling.
+Union state generators, collision-rejection resampling and the meshgrid
+spawns of evaluation.
 
 Randomness comes from an explicit ``torch.Generator`` on the device of the
 spec's tensors. Reference sampling quirks kept for parity:
@@ -16,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -147,6 +149,32 @@ def sample(spec: RandomizerSpec, gen: torch.Generator, n: int,
         vel = u(spec.vel_mean, spec.vel_half)
         omega = u(spec.omega_mean, spec.omega_half)
 
+    q = quat.from_euler(euler[:, 0], euler[:, 1], euler[:, 2], order="zyx")
+    return pos, q, vel, omega
+
+
+def meshgrid_sample(spec: RandomizerSpec, gen: torch.Generator, n: int, index: int = 0,
+                    xyz_num=(1, 1, 1), xyz_half=(0.0, 2.0, 0.0)
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Deterministic evaluation spawns: positions cycle from row ``index``
+    through a meshgrid of ``xyz_num`` points an axis (linspace over the spawn
+    box, its centre on an axis of one point), plus a uniform jitter of
+    ``xyz_half``; orientation, velocity and ω are drawn as ``sample`` draws
+    them."""
+    dev = spec.pos_mean.device
+    axes = [np.linspace(-1.0, 1.0, k) if k > 1 else np.zeros(1) for k in xyz_num]
+    grid = np.stack([g.ravel() for g in np.meshgrid(*axes, indexing="ij")], axis=1)
+    base = torch.as_tensor(grid, dtype=torch.float32, device=dev)
+    rows = base[(index + torch.arange(n, device=dev)) % base.shape[0]]
+
+    def u(mean, half):
+        return (2.0 * torch.rand((n, 3), generator=gen, device=dev) - 1.0) * half + mean
+
+    jitter = u(0.0, torch.as_tensor(xyz_half, dtype=torch.float32, device=dev))
+    pos = rows * spec.pos_half + spec.pos_mean + jitter
+    euler = u(spec.ori_mean, spec.ori_half)
+    vel = u(spec.vel_mean, spec.vel_half)
+    omega = u(spec.omega_mean, spec.omega_half)
     q = quat.from_euler(euler[:, 0], euler[:, 1], euler[:, 2], order="zyx")
     return pos, q, vel, omega
 

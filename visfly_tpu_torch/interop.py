@@ -13,11 +13,21 @@ import numpy as np
 import torch
 
 from .core.types import Bound
+from .algos.buffers import ReplayBuffer
+from .algos.ppo import EpisodeStats
 from .dynamics.config import DroneParams
 from .dynamics.dynamics import DynState
 from .envs.base import CollisionInfo, EnvState
 from .envs.landing import LandingAux
 from .policies.extractors import MLP, GRUCell, ImageCNN
+from .policies.networks import (
+    Actor,
+    ActorCriticPolicy,
+    QCritic,
+    RecurrentActor,
+    RecurrentActorCriticPolicy,
+    StateCritic,
+)
 from .render.sphere_trace import Lighting
 from .render.trace_kernel import KernelScene
 from .scene.prim_scene import PrimitiveScene, scene_from_arrays
@@ -169,6 +179,11 @@ def _load_gru(gru: GRUCell, g) -> None:
     _load_dense(gru.hn, g["hn"])
 
 
+def _load_extractor(extractor, p) -> None:
+    for name, sub in extractor.extractors.items():
+        (_load_cnn if isinstance(sub, ImageCNN) else _load_mlp)(sub, p[name])
+
+
 def actor_params_from_flax(params, module):
     """The parameters of a ``visfly_tpu.policies.networks`` ``Actor`` or
     ``RecurrentActor`` (the flax dict of numpy arrays, with or without its
@@ -179,14 +194,53 @@ def actor_params_from_flax(params, module):
     and ``hn``."""
     p = params.get("params", params)
     with torch.no_grad():
-        for name, sub in module.extractor.extractors.items():
-            (_load_cnn if isinstance(sub, ImageCNN) else _load_mlp)(sub, p["extractor"][name])
+        _load_extractor(module.extractor, p["extractor"])
         _load_mlp(module.latent, p["latent"])
         _load_dense(module.head.mu, p["mu"])
         _load_dense(module.head.log_std, p["log_std"])
         if hasattr(module, "gru"):
             _load_gru(module.gru, p["gru"])
     return module
+
+
+def policy_params_from_flax(params, module):
+    """The parameters of any network of ``visfly_tpu.policies.networks``
+    into the port's module of the same architecture and class, in place, by
+    the rules of :func:`actor_params_from_flax`; returns the module.
+    ``QCritic`` and ``StateCritic`` read ``qf<i>`` / ``vf<i>`` and their
+    ``_out`` layers, the actor-critic policies ``mlp_pi``, ``mlp_vf``,
+    ``mu``, ``value``, the ``log_std`` vector and, recurrent, ``gru``."""
+    if isinstance(module, (Actor, RecurrentActor)):
+        return actor_params_from_flax(params, module)
+    if not isinstance(module, (QCritic, StateCritic, ActorCriticPolicy,
+                               RecurrentActorCriticPolicy)):
+        raise TypeError(f"no flax counterpart for {type(module).__name__}")
+    p = params.get("params", params)
+    with torch.no_grad():
+        _load_extractor(module.extractor, p["extractor"])
+        if isinstance(module, (QCritic, StateCritic)):
+            heads = module.heads
+            for i in range(heads.n):
+                _load_mlp(getattr(heads, f"{heads.prefix}{i}"), p[f"{heads.prefix}{i}"])
+                _load_dense(getattr(heads, f"{heads.prefix}{i}_out"),
+                            p[f"{heads.prefix}{i}_out"])
+        else:
+            h = module.heads
+            _load_mlp(h.mlp_pi, p["mlp_pi"])
+            _load_mlp(h.mlp_vf, p["mlp_vf"])
+            _load_dense(h.mu, p["mu"])
+            _load_dense(h.value, p["value"])
+            h.log_std.copy_(_t(p["log_std"], h.log_std.device))
+            if hasattr(module, "gru"):
+                _load_gru(module.gru, p["gru"])
+    return module
+
+
+def _gen_and_obs(st, trainer, gen):
+    dev = trainer.env.device
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+    return dev, gen, {k: _t(v, dev) for k, v in st.obs.items()}
 
 
 def bptt_state_from_jax(st, trainer, gen: Optional[torch.Generator] = None):
@@ -196,12 +250,92 @@ def bptt_state_from_jax(st, trainer, gen: Optional[torch.Generator] = None):
     cross over, the actor is built for the observation and given the
     parameters, and the optimiser starts fresh (Adam's moments do not cross).
     ``gen`` takes the place of both PRNG keys."""
-    dev = trainer.env.device
-    if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
-    obs = {k: _t(v, dev) for k, v in st.obs.items()}
+    dev, gen, obs = _gen_and_obs(st, trainer, gen)
     trainer.build(obs)
     actor_params_from_flax(st.params, trainer.actor)
     hidden = () if isinstance(st.hidden, tuple) else _t(st.hidden, dev)
     return trainer._state(env_state_from_numpy(st.env_state, gen, dev), obs, gen,
                           int(st.global_step), hidden)
+
+
+def episode_stats_from_numpy(stats, device=None) -> EpisodeStats:
+    """``visfly_tpu.algos.ppo.EpisodeStats`` of numpy arrays → EpisodeStats."""
+    return EpisodeStats(_t(stats.returns, device), _t(stats.lengths, device),
+                        _t(stats.success, device), _t(stats.pos, device, torch.int64),
+                        _t(stats.count, device, torch.int64))
+
+
+def ppo_state_from_jax(st, trainer, gen: Optional[torch.Generator] = None):
+    """``visfly_tpu.algos.PPOState`` of numpy arrays → the port's
+    ``PPOState`` for ``trainer`` (a ``visfly_tpu_torch.algos.PPO`` over the
+    same env and settings): the env state, observation, episode window and
+    hidden state cross over, the policy is built and given the parameters,
+    and the optimiser starts fresh (Adam's moments do not cross). ``gen``
+    takes the place of both PRNG keys."""
+    dev, gen, obs = _gen_and_obs(st, trainer, gen)
+    trainer.build(obs)
+    policy_params_from_flax(st.params, trainer.policy)
+    hidden = () if isinstance(st.hidden, tuple) else _t(st.hidden, dev)
+    return trainer._state(env_state_from_numpy(st.env_state, gen, dev), obs, gen,
+                          int(st.global_step), episode_stats_from_numpy(st.ep_stats, dev),
+                          hidden)
+
+
+def _critics_from_jax(st, trainer) -> None:
+    policy_params_from_flax(st.critic_params, trainer.critic)
+    policy_params_from_flax(st.critic_target_params, trainer.critic_target)
+
+
+def shac_state_from_jax(st, trainer, gen: Optional[torch.Generator] = None):
+    """``visfly_tpu.algos.SHACState`` of numpy arrays → the port's
+    ``SHACState`` for ``trainer``: env state and observation, the actor's,
+    critic's and target critic's parameters; both optimisers start fresh
+    (Adam's moments do not cross). ``gen`` takes the place of both PRNG
+    keys."""
+    dev, gen, obs = _gen_and_obs(st, trainer, gen)
+    trainer.build(obs)
+    actor_params_from_flax(st.actor_params, trainer.actor)
+    _critics_from_jax(st, trainer)
+    return trainer._state(env_state_from_numpy(st.env_state, gen, dev), obs, gen,
+                          int(st.global_step))
+
+
+def apg_state_from_jax(st, trainer, gen: Optional[torch.Generator] = None):
+    """``visfly_tpu.algos.APGState`` of numpy arrays → the port's
+    ``APGState`` for ``trainer``: env state, observation and the actor's
+    parameters; the optimiser starts fresh (Adam's moments do not cross).
+    ``gen`` stands in for the env state's PRNG key."""
+    dev, gen, obs = _gen_and_obs(st, trainer, gen)
+    trainer.build(obs)
+    actor_params_from_flax(st.params, trainer.actor)
+    return trainer._state(env_state_from_numpy(st.env_state, gen, dev), obs,
+                          int(st.global_step))
+
+
+def buffer_from_numpy(buf, device=None) -> ReplayBuffer:
+    """``visfly_tpu.algos.buffers.ReplayBuffer`` of numpy arrays →
+    ReplayBuffer (its ring position and fill flag as Python values)."""
+    full_states = () if isinstance(buf.full_states, tuple) else _t(buf.full_states, device)
+    return ReplayBuffer(
+        obs={k: _t(v, device) for k, v in buf.obs.items()},
+        next_obs={k: _t(v, device) for k, v in buf.next_obs.items()},
+        actions=_t(buf.actions, device), rewards=_t(buf.rewards, device),
+        dones=_t(buf.dones, device, torch.bool), pos=int(buf.pos), full=bool(buf.full),
+        full_states=full_states)
+
+
+def sac_state_from_jax(st, trainer, gen: Optional[torch.Generator] = None):
+    """``visfly_tpu.algos.SACState`` of numpy arrays → the port's
+    ``SACState`` for ``trainer``: env state, observation, replay buffer,
+    the actor's, critic's and target critic's parameters and ``log_alpha``;
+    the three optimisers start fresh (Adam's moments do not cross). ``gen``
+    takes the place of both PRNG keys."""
+    dev, gen, obs = _gen_and_obs(st, trainer, gen)
+    trainer.build(obs)
+    actor_params_from_flax(st.actor_params, trainer.actor)
+    _critics_from_jax(st, trainer)
+    with torch.no_grad():
+        trainer.log_alpha.copy_(_t(st.log_alpha, dev))
+    return trainer._state(buffer_from_numpy(st.buffer, dev),
+                          env_state_from_numpy(st.env_state, gen, dev), obs, gen,
+                          int(st.global_step))

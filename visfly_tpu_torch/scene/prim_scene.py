@@ -37,10 +37,11 @@ BIG = 1e9
 SURFACE_EPS = 0.01  # the march's hit epsilon
 
 
-def _family_split(params: np.ndarray) -> tuple:
+def _family_split(params: np.ndarray, min_kb: int = 0, min_kc: int = 0) -> tuple:
     """Split packed (S, K, 12) rows into box/capsule arrays for the trace
-    kernel, padding counts up to multiples of 4. A trailing column carries
-    each row's original packed index (boxes col 12, capsules col 8)."""
+    kernel, padding counts up to multiples of 4, and at least to ``min_kb``
+    / ``min_kc``. A trailing column carries each row's original packed index
+    (boxes col 12, capsules col 8)."""
     S = params.shape[0]
     boxes_per, caps_per = [], []
     for s in range(S):
@@ -62,8 +63,8 @@ def _family_split(params: np.ndarray) -> tuple:
     def pad4(n):
         return max(4, -(-n // 4) * 4)
 
-    kb = pad4(max(len(b) for b in boxes_per))
-    kc = pad4(max(len(c) for c in caps_per))
+    kb = pad4(max(max(len(b) for b in boxes_per), min_kb))
+    kc = pad4(max(max(len(c) for c in caps_per), min_kc))
     boxes = np.zeros((S, kb, 13), np.float32)
     capsules = np.zeros((S, kc, 9), np.float32)
     for s in range(S):
@@ -150,9 +151,11 @@ def _rows_for_primitive(pr: dict) -> List[np.ndarray]:
     return rows
 
 
-def pack_arrays(specs: Sequence[SceneSpec]) -> dict:
+def pack_arrays(specs: Sequence[SceneSpec], min_k: int = 0, min_kb: int = 0,
+                min_kc: int = 0) -> dict:
     """SceneSpec list → numpy arrays (params, colors, semantic, bbox, boxes,
-    capsules), scenes padded to a common K."""
+    capsules), scenes padded to a common K; the ``min_*`` floors keep the
+    shapes of an earlier scene when scenes rotate."""
     all_rows, all_colors, all_sems = [], [], []
     for spec in specs:
         rows, colors, sems = [], [], []
@@ -179,7 +182,7 @@ def pack_arrays(specs: Sequence[SceneSpec]) -> dict:
                 "bound. Render it with analytic_refine >= 4.",
                 stacklevel=3)
 
-    K = max(r.shape[0] for r in all_rows)
+    K = max(max(r.shape[0] for r in all_rows), min_k)
     S = len(specs)
     params = np.zeros((S, K, 12), np.float32)
     colors = np.zeros((S, K, 3), np.float32)
@@ -191,7 +194,7 @@ def pack_arrays(specs: Sequence[SceneSpec]) -> dict:
 
     lo = np.min([s.bounds_min for s in specs], axis=0)
     hi = np.max([s.bounds_max for s in specs], axis=0)
-    boxes, capsules = _family_split(params)
+    boxes, capsules = _family_split(params, min_kb, min_kc)
     return dict(params=params, colors=colors, semantic=sems,
                 bbox=np.stack([lo, hi]).astype(np.float32), boxes=boxes, capsules=capsules)
 
@@ -212,9 +215,11 @@ def scene_from_arrays(arrays: dict, eps: float, device=None) -> PrimitiveScene:
     )
 
 
-def pack_scenes(specs: Sequence[SceneSpec], device=None) -> PrimitiveScene:
-    """SceneSpec list → PrimitiveScene on ``device``."""
-    return scene_from_arrays(pack_arrays(specs), SURFACE_EPS, device)
+def pack_scenes(specs: Sequence[SceneSpec], device=None, min_k: int = 0, min_kb: int = 0,
+                min_kc: int = 0) -> PrimitiveScene:
+    """SceneSpec list → PrimitiveScene on ``device``, padded at least to the
+    ``min_*`` floors."""
+    return scene_from_arrays(pack_arrays(specs, min_k, min_kb, min_kc), SURFACE_EPS, device)
 
 
 # ---------------------------------------------------------------------------

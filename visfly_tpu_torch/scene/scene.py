@@ -358,4 +358,11 @@ def _build_scene(env, specs):
             "(ROADMAP: Queue A item 18, imported meshes: grids of presets)")
     from .prim_scene import pack_scenes
 
-    return pack_scenes(specs, device=env.device)
+    old = getattr(env, "scene", None)
+    floors = {}
+    if old is not None and hasattr(old, "params"):
+        # a rotated scene keeps at least the rows of the one it replaces, as
+        # the JAX package keeps its compiled shapes
+        floors = dict(min_k=old.params.shape[1], min_kb=old.boxes.shape[1],
+                      min_kc=old.capsules.shape[1])
+    return pack_scenes(specs, device=env.device, **floors)
