@@ -6,7 +6,7 @@ for the device's busy time per step. The profiler about doubles the host
 time of a step, so the idle share is taken against the step time clocked
 without it.
 
-    python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [G] [sv] [probe]
+    python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [G] [K] [sv] [probe]
                             [floor] [split] [march] [analytic] [mx]   # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
@@ -39,6 +39,11 @@ busy time.
 and synchronised; a rollout step's parts (the env step with and without the
 terminal observation, one render, the spawn rejection, the policy forward,
 the episode window); then one ``torch.profiler`` window of 8 rollout steps.
+``K`` is the swarm crossing run (path K: PPO_tuned on ``crossing``, 24
+scenes × 3 agents) the same way, and besides: the drones' mesh hits of one
+render and B1 alone on the static scene, each with its device-busy time
+from its own profiler window, and the collision query with and without the
+inter-drone override.
 
 ``probe`` and ``floor`` are the triangle kernel's two diagnostics at 23,040
 triangles (the counterparts of ``examples/_tri_probe.py`` and
@@ -249,11 +254,14 @@ def profile_bptt(name, trainer, card, n_updates=3):
     report_busy(name, lambda: trainer.update(st), 1, "update", update_ms, card)
 
 
-def profile_ppo(name, trainer, card):
-    """Where a PPO update's time goes (path G): rollout, GAE and epochs,
-    each synchronised and host-clocked over one update after a warm-up; the
-    parts of a rollout step; then the device's busy time over a window of 8
-    rollout steps against the unprofiled step."""
+def profile_ppo(name, trainer, card, extra=None):
+    """Where a PPO update's time goes (paths G and K): rollout, GAE and
+    epochs, each synchronised and host-clocked over one update after a
+    warm-up; the parts of a rollout step (``extra(state)`` adds the env's
+    own, {name: (callable, None | "" | kernel name)}: "" reads the device's
+    busy time of one call, a kernel name that kernel's own time); then the
+    device's busy time over a window of 8 rollout steps against the
+    unprofiled step."""
     from visfly_tpu_torch.algos.ppo import push_episode_stats
 
     env = trainer.env
@@ -297,13 +305,72 @@ def profile_ppo(name, trainer, card):
             st.ep_stats, out.done, out.info["episode_return"], out.info["episode_length"],
             out.info["is_success"]),
     }
+    device = {}
+    for part, (fn, kernel) in (extra(state) if extra else {}).items():
+        steps[part] = fn
+        if kernel is not None:
+            device[part] = kernel
     for part, fn in steps.items():
-        print(f"{name} | {part}: {host_ms(fn, reps=20):.3f} ms per call | {card}", flush=True)
+        ms = host_ms(fn, reps=20)
+        print(f"{name} | {part}: {ms:.3f} ms per call | {card}", flush=True)
+        if device.get(part) == "":  # many kernels: the busy time of a window
+            report_busy(f"{name} {part}", fn, 1, "call", ms, card)
+        elif part in device:  # one kernel: its own time over 20 launches
+            dev_ms, n = cs.device_ms(fn, device[part])
+            print(f"{name} | {part}: on the device {dev_ms:.4f} ms ({n} of 20 launches traced) | "
+                  f"{card}", flush=True)
     print(f"{name} | rollout step (the update's rollout / {n_steps}): {step_ms:.3f} ms | {card}",
           flush=True)
     trainer.n_steps = 8
     report_busy(name, lambda: trainer._collect(st), 8, "rollout step", step_ms, card)
     trainer.n_steps = n_steps
+
+
+def crossing_parts(env):
+    """The parts of a path K step beyond path G's: the drones' mesh hits of
+    one render (posed templates against every camera ray, plain PyTorch),
+    B1 alone on the static scene, and the collision query with and without
+    the inter-drone override."""
+    from visfly_tpu_torch.envs.base import DroneGymEnv
+    from visfly_tpu_torch.render import camera_rays_components, prepare_kernel_scene, trace_diff
+    from visfly_tpu_torch.render.sphere_trace import _object_mesh_hits
+
+    def parts(state):
+        spec = env.sensor_kwargs[0]
+        H, W = spec["resolution"]
+        n, S = env.num_agent, env.num_scene
+        R = n // S * H * W
+        o_c, d_c, _ = camera_rays_components(spec, state.dyn.pos, state.dyn.q, env.cameras[0])
+        o_full = o_c[:, :, None].expand(3, n, H * W).reshape(3, S, R)
+        d_full = d_c.reshape(3, S, R).contiguous()
+        objects = env.render_objects(state)
+        kscene = prepare_kernel_scene(env.scene)
+        o_pm, d_pm = o_full.permute(1, 2, 0), d_full.permute(1, 2, 0)
+        M, K = objects[3].shape[1], objects[3].shape[2]
+        # the function's least work: each ray against each drone's bounding
+        # sphere (29 float32 operations, a root as 8) and each of its
+        # triangles (Möller–Trumbore as chip_smoke.TRI_OPS["mt"] counts it,
+        # all three parts), rays read once (origins and directions), t, hit,
+        # normal and colour written once, the posed templates read once
+        ops = S * R * M * (29 + K * sum(cs.TRI_OPS["mt"]))
+        n_bytes = S * R * (6 * 4 + 4 + 1 + 6 * 4) + S * M * (K * 9 + 4 + 4 + 1 + 3) * 4
+        bound = max(ops / cs.PEAK_FP32_PER_S, n_bytes / cs.PEAK_BYTES_PER_S) * 1e3
+        print(f"path K | _object_mesh_hits bound: {bound:.4f} ms by "
+              f"{'operations' if ops / cs.PEAK_FP32_PER_S > n_bytes / cs.PEAK_BYTES_PER_S else 'bytes'}"
+              f" ({ops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB) | {env.device}", flush=True)
+        return {
+            f"_object_mesh_hits ({M} drones x {K} triangles against {S} x {R} rays)":
+                (lambda: _object_mesh_hits(objects, o_pm, d_pm, cs.MAX_DEPTH), ""),
+            "B1 alone (trace_diff on the static scene)": (lambda: trace_diff(
+                kscene, o_full, d_full, None, cs.TRACE_STEPS, cs.MAX_DEPTH, 1.0, R % 1024 == 0,
+                True, 0, False, img_w=W), cs.KERNEL_NAMES["trace_analytic"]),
+            "_update_collision with the inter-drone override": (
+                lambda: env._update_collision(state.dyn, state.once_collided), None),
+            "_update_collision without it (the base env's)": (
+                lambda: DroneGymEnv._update_collision(env, state.dyn, state.once_collided), None),
+        }
+
+    return parts
 
 
 def probe(env, card):
@@ -953,6 +1020,12 @@ def main(argv):
 
             profile_ppo("path G", PPO(NavigationEnv(device=dev, **cs.CLUTTERED_FLIGHT),
                                       **cs.PPO_TUNED), card)
+        elif name == "K":
+            from visfly_tpu_torch.algos import PPO
+            from visfly_tpu_torch.envs import MultiNavigationEnv
+
+            env = MultiNavigationEnv(device=dev, **cs.CROSSING)
+            profile_ppo("path K", PPO(env, **cs.PPO_TUNED_CROSSING), card, crossing_parts(env))
         elif name == "E":
             profile_bptt("path E", BPTT(cs.hover_grad_env(dev), horizon=32), card)
         elif name == "F":

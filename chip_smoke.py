@@ -48,7 +48,24 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   ``requires_grad``), H = 32, one warm-up and 3 timed updates; path J:
   ``SAC`` with ``alg_cfgs/navigation2/SAC.yaml`` (64 agents, buffer 500,000,
   batch 512, 32 gradient steps), collecting until ``learning_starts`` and then
-  4 training env steps. These three use no kernel.
+  4 training env steps. These three use no kernel;
+- path K, the swarm crossing run (``python -m visfly_tpu.run -e crossing -a
+  PPO_tuned``): ``MultiNavigationEnv`` with ``env_cfgs/crossing.yaml`` (24
+  scenes × 3 agents, 64×64 depth) and ``PPO`` with
+  ``alg_cfgs/crossing/PPO_tuned.yaml`` (256 steps, 5 epochs of one minibatch
+  of 18,432), one warm-up and 2 timed updates; the analytic kernel renders the
+  static scene twice a step and the other drones of each scene compose after
+  it as posed quadrotor templates (plain PyTorch);
+- path L, dynamic objects: ``DynEnv``, 256 agents in
+  ``garage_simple_l_medium``, 64×64 depth and 64×64 colour, with circle and
+  polygon objects that enter the analytic kernel's scene as dynamic capsules,
+  and again with a drone and a human template beside them, when every object
+  composes after the kernel; 2 chunks of 32 steps each;
+- path M, the rest of the zoo: ``racing2`` with ``PPO`` (``RacingEnv2``, 64
+  agents, its YAML files' recipe; 1 warm-up and 1 timed update),
+  ``tracking`` with ``BPTT`` (``TrackEnv``, 64 agents, H = 48; 1 and 2), a
+  ``CatchEnv`` rollout of 32 steps, and path C's ``HoverEnv`` with a string
+  wind of two fields and ``drag_random`` 0.3 (2 chunks of 125). No kernel.
 
 Phases, one line each; any failure exits non-zero:
 
@@ -98,7 +115,8 @@ Phases, one line each; any failure exits non-zero:
    gradient norm finite, gradient norm > 0, the carried state detached after
    an update, launches equal to the renders; paths G-J: the same, and every
    trained parameter moved and every tensor of the state on the card; path G's
-   analytic launches exactly 2 × 256 an update;
+   and path K's analytic launches exactly 2 × 256 an update; path L's analytic
+   and id kernels once a render each; path M launches nothing;
 5. one step from the same state on the card and on the CPU plain path, for
    the depth leg and path D at 360 triangles (depth within 1e-3 m on all but
    ≤ 1e-5 of pixels) and for path A (colour equal on all but ≤ 1e-4 of
@@ -110,7 +128,17 @@ Phases, one line each; any failure exits non-zero:
    state, noise and permutations on the card and on the CPU: loss within
    1e-5, the first minibatch's gradient within 1e-4 of each parameter's
    largest gradient entry, every parameter after the update within 1e-4 in
-   the l2 norm (its elementwise difference printed beside it).
+   the l2 norm (its elementwise difference printed beside it); two agents of
+   path K's swarm 1.2 m apart in ``box15_wall_empty``, agent 0 facing agent 1,
+   rendered on the card and on the CPU (depth within 1e-3 m on all but ≤ 1e-5
+   of pixels, a silhouette wider than tall on both); one step of path L's two
+   envs at 32 agents from the same state (depth as above, colour equal on all
+   but ≤ 1e-4); sensor noise drawn from the env's CUDA generator (replayed
+   from its state): Gaussian depth noise's mean within 1e-3 m and standard
+   deviation within 5% of the model's on the depth leg's camera, Redwood
+   depth noise unbiased within 1% on flat pixels, salt and pepper within 5%
+   of the model's shares on path A's camera, and every model on constant
+   images within tests/test_scene_render.py's limits.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches in phase 4, error, times and bound; the last line is
@@ -222,6 +250,47 @@ PPO_TUNED = {
     "policy_kwargs": {"pi_layers": [64, 64], "vf_layers": [64, 64], "net_arch": {
         "depth": {"cnn": 128}, "state": {"mlp": [128, 64]}, "target": {"mlp": [128, 64]}}},
 }
+# path K, the swarm crossing run (``python -m visfly_tpu.run -e crossing -a
+# PPO_tuned``): the env section of visfly_tpu/exps/env_cfgs/crossing.yaml and
+# the algorithm section of visfly_tpu/exps/alg_cfgs/crossing/PPO_tuned.yaml
+# (tests/test_torch_multi.py holds them equal to the files)
+CROSSING = {
+    "num_agent_per_scene": 3,
+    "num_scene": 24,
+    "random_kwargs": {"state_generator": {"class": "Uniform", "kwargs": [
+        {"position": {"mean": [1.0, 0.0, 1.5], "half": [0.0, 2.0, 1.0]}}]}},
+    "visual": True,
+    "max_episode_steps": 256,
+    "scene_kwargs": {"path": "garage_crossing", "trace_steps": 32},
+    "dynamics_kwargs": {"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate",
+                        "ctrl_delay": True},
+    "sensor_kwargs": [{"sensor_type": "depth", "uuid": "depth", "resolution": [64, 64]}],
+}
+PPO_TUNED_CROSSING = {
+    "learning_rate": 3.0e-4, "n_steps": 256, "batch_size": 18432, "n_epochs": 5,
+    "gamma": 0.99, "gae_lambda": 0.95, "clip_range": 0.2, "ent_coef": 0.003, "vf_coef": 0.5,
+    "max_grad_norm": 0.5, "weight_decay": 1.0e-5,
+    "policy_kwargs": {"pi_layers": [64, 64], "vf_layers": [64, 64], "net_arch": {
+        "depth": {"cnn": 128}, "state": {"mlp": [128, 64]}, "target": {"mlp": [128, 64]},
+        "swarm": {"mlp": [128, 64]}}},
+}
+# path M: racing2 with PPO (visfly_tpu/exps/env_cfgs/racing2.yaml,
+# alg_cfgs/racing2/PPO.yaml) and tracking with BPTT (env_cfgs/tracking.yaml,
+# alg_cfgs/tracking/BPTT.yaml and its env override); tests/test_torch_zoo.py
+# holds them equal to the files
+RACING2 = {"num_agent_per_scene": 64, "visual": False, "max_episode_steps": 256,
+           "dynamics_kwargs": {"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate"}}
+PPO_RACING2 = {
+    "learning_rate": {"class": "linear", "kwargs": {"initial": 3.0e-4, "final": 0.0,
+                                                    "total_steps": 7320}},
+    "n_steps": 256, "batch_size": 16384, "n_epochs": 10,
+    "policy_kwargs": {"pi_layers": [128, 128], "vf_layers": [128, 128]},
+}
+TRACKING = {"num_agent_per_scene": 64, "visual": False, "max_episode_steps": 256,
+            "dynamics_kwargs": {"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate"}}
+TRACKING_BPTT_ENV = {"requires_grad": True}
+BPTT_TRACKING = {"horizon": 48, "learning_rate": 1.0e-3,
+                 "policy_kwargs": {"latent_dim": [128, 128]}}
 # paths H-J: ``NavigationEnv2`` as visfly_tpu/exps/env_cfgs/navigation2.yaml
 # configured it when commit a75efc1 added it (the file has left the tree since;
 # the algorithm files below remain): the garage for the collision queries and
@@ -1749,6 +1818,343 @@ def training_paths(dev, card, launches):
                  f"{float(m['alpha']):.4f}, gradient norm {float(m['grad_norm']):.4f}")
 
 
+# path L: ``DynEnv`` amid moving objects; ``spheres`` are template-less
+# circle objects, which enter the analytic kernel's scene as dynamic capsules;
+# ``mixed`` adds a drone and a human template, and then every object of the
+# env is intersected after the kernel (templates, and the spheres as their
+# fallback), as in the JAX package
+OBJ_SPHERES = [
+    {"name": "ring", "num": 2, "radius": 0.5, "velocity": 1.5,
+     "path": {"class": "circle", "kwargs": {"radius": 2.5, "center": [5.0, 0.0, 1.5]}}},
+    {"name": "patrol", "radius": 0.4, "velocity": 2.0,
+     "path": {"class": "polygon", "kwargs": {"points": [[3, -3, 1.2], [9, -3, 1.2],
+                                                        [9, 3, 1.2], [3, 3, 1.2]]}}},
+]
+OBJ_MIXED = OBJ_SPHERES + [
+    {"name": "drone", "model_path": "drone", "radius": 0.35, "velocity": 1.0,
+     "path": {"class": "circle", "kwargs": {"radius": 1.5, "center": [4.0, 1.0, 1.8]}}},
+    {"name": "human", "model_path": "human", "radius": 0.9, "velocity": 0.8,
+     "path": {"class": "polygon", "kwargs": {"points": [[6, -2, 0.0], [6, 2, 0.0]]}}},
+]
+# the sensor noise phase: a depth model at a time on the depth leg's env, and
+# salt and pepper on path A's colour camera
+DEPTH_NOISE = {
+    "GaussianNoiseModel": {"sigma": 0.05, "mean": 0.01},
+    "RedwoodDepthNoiseModel": {"noise_multiplier": 1.0, "lateral_prob": 0.5,
+                               "dropout_scale": 0.25},
+}
+SALT_AND_PEPPER = {"amount": 0.1, "s_vs_p": 0.5}
+
+
+def dyn_env(device, obj_settings, n=None):
+    """Path L's env: the depth leg's spawn and scene with objects, 64×64
+    depth and 64×64 colour."""
+    from visfly_tpu_torch.envs import DynEnv
+
+    return DynEnv(num_agent_per_scene=n or N_AGENTS, visual=True, device=device, max_episode_steps=256,
+                  scene_kwargs={"path": "garage_simple_l_medium", "trace_steps": TRACE_STEPS,
+                                "obj_settings": obj_settings},
+                  sensor_kwargs=[{"uuid": "depth", "sensor_type": "depth", "resolution": list(RES)},
+                                 {"uuid": "color", "sensor_type": "color", "resolution": list(RES)}],
+                  random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [
+                      {"position": {"mean": [1.0, 0.0, 1.5], "half": [0.5, 2.0, 1.0]}}]}},
+                  dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate"})
+
+
+def depth_off(a, b):
+    """(share of pixels off by more than T_TOL, the largest difference on
+    the rest) between two depth images, the second on the CPU."""
+    diff = (a.cpu() - b).abs()
+    off = diff > T_TOL
+    return float(off.float().mean()), float(diff[~off].max())
+
+
+def two_drones(device):
+    """Two agents of one scene 1.2 m apart at the same height, agent 0
+    facing agent 1 (tests/test_object_mesh.py's swarm view)."""
+    from visfly_tpu_torch.envs import MultiNavigationEnv
+
+    return MultiNavigationEnv(
+        num_scene=1, num_agent_per_scene=2, visual=True, uav_radius=0.25, device=device,
+        scene_kwargs={"path": "box15_wall_empty"},
+        sensor_kwargs=[{"sensor_type": "depth", "uuid": "depth", "resolution": [64, 64]}],
+        random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [
+            {"position": {"mean": [1.0, -1.0, 2.0], "half": [0, 0, 0]}},
+            {"position": {"mean": [2.2, -1.0, 2.0], "half": [0, 0, 0]}}]}},
+        dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03})
+
+
+def swarm_and_zoo_paths(dev, card, launches):
+    """Paths K (the swarm crossing run), L (dynamic objects) and M (the rest
+    of the zoo); adds each path's launches to ``launches``."""
+    import torch
+
+    from visfly_tpu_torch.algos import BPTT, PPO
+    from visfly_tpu_torch.envs import CatchEnv, HoverEnv, MultiNavigationEnv, RacingEnv2, TrackEnv
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+        return {k: v for k, v in counts.items() if v} or "no kernel"
+
+    # path K: PPO_tuned on crossing; the drones are posed templates composed
+    # after B1, which renders twice a step and once at the reset
+    tr = PPO(MultiNavigationEnv(device=dev, **CROSSING), **PPO_TUNED_CROSSING)
+    parts = timed_parts(tr, ("_collect", "_advantages", "_train_flat"))
+    n_env, n_steps, n_timed = tr.env.num_envs, tr.n_steps, 2
+    reset_launches()
+    st = tr.init(torch.Generator(device=dev).manual_seed(120))
+    st, m = tr.update(st)
+    before = snapshot(tr)
+    for k in parts:
+        parts[k] = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        st, m = tr.update(st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = all_launches()
+    want = {k: 0 for k in counts}
+    want["trace_analytic"] = 1 + 2 * n_steps * (n_timed + 1)
+    check(counts == want, f"path K: kernel launches {counts} != expected {want}")
+    check_trained("path K", tr, st, m, before, "loss", dev)
+    check(tr.n_minibatches == 1 and tr.batch_size == n_env * n_steps == 18432
+          and n_env == 72, "path K: PPO's layout")
+    check(st.obs["depth"].shape == (n_env, 1, *RES) and st.obs["swarm"].shape == (n_env, 2, 13),
+          "path K: observation shapes")
+    ms = {k: v / n_timed * 1e3 for k, v in parts.items()}
+    print(f"phase 4 | path K (PPO_tuned, crossing): {add(counts)} launches | "
+          f"{dt / n_timed * 1e3:.1f} ms an update ({tr.env.num_scene} scenes x "
+          f"{tr.env.num_agent_per_scene} agents x {n_steps} steps, 64x64 depth with the other "
+          f"drones as posed templates, {tr.n_epochs} epochs of 1 minibatch of "
+          f"{n_env * n_steps}): rollout {ms['_collect']:.1f} ms, GAE {ms['_advantages']:.1f} ms, "
+          f"epochs {ms['_train_flat']:.1f} ms; {n_env * n_steps / (ms['_collect'] / 1e3):.1f} "
+          f"env steps/s of the rollout; trace_analytic {counts['trace_analytic'] - 1} launches in "
+          f"{n_timed + 1} updates = 2 x {n_steps} x {n_timed + 1}; loss {float(m['loss']):.4f}, "
+          f"gradient norm {float(m['grad_norm']):.4f} | {card}", flush=True)
+
+    # drones in view, card vs CPU: agent 0's camera sees agent 1 as a flat
+    # quadrotor (outside the counted runs)
+    depth = {}
+    for d in (dev, "cpu"):
+        _, obs = two_drones(d).reset(torch.Generator(device=d).manual_seed(0))
+        depth[str(d)] = obs["depth"]
+    share, err = depth_off(depth[str(dev)], depth["cpu"])
+    sil = {}
+    for k, img in depth.items():
+        ys, xs = torch.nonzero(img[0, 0].cpu() < 1.7, as_tuple=True)
+        check(len(ys) > 0, f"path K drones in view ({k}): no drone silhouette")
+        sil[k] = (len(ys), int(xs.max() - xs.min()) + 1, int(ys.max() - ys.min()) + 1)
+        check(sil[k][1] > sil[k][2], f"path K drones in view ({k}): silhouette {sil[k]} is not "
+                                     "wider than tall")
+    print(f"phase 5 | path K drones in view card vs cpu: depth max|d|={err:.3e} m on all but "
+          f"{share:.3e} of pixels; silhouette (pixels, width, height) card {sil[str(dev)]}, "
+          f"cpu {sil['cpu']} | {card}", flush=True)
+    check(share <= HIT_TOL, f"path K drones in view: depth off on {share} of pixels")
+
+    # path L: DynEnv amid moving objects, B1 (depth) and B1-kid (colour) once
+    # a render; card vs CPU on one step at 32 agents, from the same state
+    for name, objs in (("spheres in the kernel", OBJ_SPHERES),
+                       ("templates after the kernel", OBJ_MIXED)):
+        env_l = dyn_env(dev, objs)
+        check((env_l.objects.mesh is None) == (objs is OBJ_SPHERES), f"path L {name}: templates")
+        state_l, out, sps, counts, dt = drive(
+            env_l, 130, 1, CHUNK,
+            lambda steps: {"trace_analytic": 1 + steps, "trace_analytic_kid": 1 + steps})
+        images = env_l.sensor_observations(state_l)
+        check(bool(((out.obs["depth"] >= 0) & (out.obs["depth"] <= MAX_DEPTH)).all()),
+              f"path L {name}: depth outside [0, 20]")
+        check(images["color"].dtype == torch.uint8, f"path L {name}: colour dtype")
+        check(state_l.objects.pos.device == dev
+              and abs(float(state_l.objects.t[0]) - 2 * CHUNK * 0.03) < 1e-4,
+              f"path L {name}: objects not stepped on the card")
+        print(f"phase 4 | path L (DynEnv, {name}, {env_l.objects.num_objects} objects): "
+              f"{add(counts)} launches in {CHUNK * 2} steps | {sps:.1f} env steps/s "
+              f"({env_l.num_agent} agents, 64x64 depth + 64x64 colour, timed {dt:.3f} s) | {card}",
+              flush=True)
+        n = 32
+        small, small_cpu = dyn_env(dev, objs, n), dyn_env("cpu", objs, n)
+        st = small.reset(torch.Generator(device=dev).manual_seed(131))[0]
+        st = st._replace(objects=state_l.objects)  # the objects where the run left them
+        a = torch.rand((n, 4), device=dev, generator=torch.Generator(device=dev).manual_seed(132))
+        st_g, out_g = small.step(st, a * 0.6 - 0.3, is_test=True)
+        st_c, out_c = small_cpu.step(to_device(st, "cpu", torch.Generator().manual_seed(0)),
+                                     (a * 0.6 - 0.3).cpu(), is_test=True)
+        share, err = depth_off(out_g.obs["depth"], out_c.obs["depth"])
+        col_g = small.sensor_observations(st_g)["color"].cpu()
+        col_c = small_cpu.sensor_observations(st_c)["color"]
+        c_flip = float((col_g != col_c).any(dim=1).float().mean())
+        print(f"phase 5 | path L ({name}) card vs cpu ({n} agents, one step): depth max|d|="
+              f"{err:.3e} m on all but {share:.3e} of pixels; colour differs on {c_flip:.3e} of "
+              f"pixels | {card}", flush=True)
+        check(share <= HIT_TOL, f"path L {name}: depth card vs cpu off on {share} of pixels")
+        check(c_flip <= COLOR_TOL, f"path L {name}: colour card vs cpu differs on {c_flip}")
+
+    # path M: the rest of the zoo; no kernel
+    tr = PPO(RacingEnv2(device=dev, **RACING2), **PPO_RACING2)
+    reset_launches()
+    st = tr.init(torch.Generator(device=dev).manual_seed(140))
+    st, m = tr.update(st)
+    before = snapshot(tr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, m = tr.update(st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_trained("path M racing2", tr, st, m, before, "loss", dev)
+    check(st.obs["gate"].dtype == torch.int32, "path M racing2: gate observation")
+    print(f"phase 4 | path M (PPO, racing2): {add(all_launches())} launches | {dt * 1e3:.1f} ms "
+          f"an update ({tr.env.num_envs} agents x {tr.n_steps} steps, {tr.n_epochs} epochs); "
+          f"gates passed {int(st.env_state.aux.past_targets.sum())}; loss "
+          f"{float(m['loss']):.4f}, gradient norm {float(m['grad_norm']):.4f} | {card}",
+          flush=True)
+
+    tr = BPTT(TrackEnv(device=dev, **dict(TRACKING, **TRACKING_BPTT_ENV)), **BPTT_TRACKING)
+    reset_launches()
+    st = tr.init(torch.Generator(device=dev).manual_seed(150))
+    st, m = tr.update(st)
+    before = snapshot(tr)
+    n_timed = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        st, m = tr.update(st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_trained("path M tracking", tr, st, m, before, "actor_loss", dev)
+    ms, sps = dt / n_timed * 1e3, tr.H * tr.env.num_envs * n_timed / dt
+    print(f"phase 4 | path M (BPTT, tracking): {add(all_launches())} launches | {ms:.1f} ms an "
+          f"update, {sps:.1f} agent steps/s ({tr.env.num_envs} agents, H={tr.H}); loss "
+          f"{float(m['actor_loss']):.4f}, gradient norm {float(m['grad_norm']):.4f} | {card}",
+          flush=True)
+
+    env_catch = CatchEnv(num_agent_per_scene=N_AGENTS, device=dev,
+                         dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03})
+    state, out, sps, counts, dt = drive(env_catch, 160, 1, 16, lambda steps: {})
+    check(bool(torch.isfinite(out.obs["ball"]).all()), "path M catch: ball not finite")
+    print(f"phase 4 | path M (CatchEnv): {add(counts)} launches in 32 steps | {sps:.1f} env "
+          f"steps/s ({N_AGENTS} agents); balls grounded {int(state.aux.grounded.sum())} | {card}",
+          flush=True)
+
+    wind = ["0.5 * sin(x)", "0.3 * cos(2 * x)", "0 * x", "0.2 + 0 * x", "0.9 * y", "0.1 * exp(-x)"]
+    env_w = HoverEnv(num_agent_per_scene=200, device=dev, visual=False, max_episode_steps=500,
+                     dynamics_kwargs={"dt": 0.0025, "ctrl_dt": 0.02, "action_type": "bodyrate",
+                                      "wind_settings": wind, "drag_random": 0.3})
+    state, out, sps, counts, dt = drive(env_w, 170, 1, 125, lambda steps: {})
+    state = env_w.reset_agents(state, torch.ones(200, dtype=torch.bool, device=dev))
+    rel = state.dyn.linear_drag / env_w.params.linear_drag_coeffs - 1
+    check(bool(torch.isfinite(state.dyn.wind).all()) and float(state.dyn.wind.abs().max()) > 0.1,
+          "path M wind: no wind")
+    check(float(rel.abs().max()) <= 0.3 + 1e-5 and float(rel.std()) > 0.05,
+          f"path M drag: relative coefficients {float(rel.abs().max())}, {float(rel.std())}")
+    print(f"phase 4 | path M (HoverEnv, string wind of two fields, drag_random 0.3): "
+          f"{add(counts)} launches in 250 steps | {sps:.1f} env steps/s (200 agents, 8 "
+          f"substeps, path C's settings); wind {[round(float(w), 4) for w in state.dyn.wind[0]]}, drag spread "
+          f"{float(rel.std()):.4f} (uniform: {0.3 / 3 ** 0.5:.4f}) | {card}", flush=True)
+
+
+def noise_phase(dev, card):
+    """Sensor noise on the card: each depth model on the depth leg's env and
+    salt and pepper on path A's colour camera, drawn from the env's CUDA
+    generator, the noisy minus the clean image held to the model's
+    parameters; and the models on constant images with the JAX package's
+    tolerances (tests/test_scene_render.py)."""
+    import torch
+
+    from visfly_tpu_torch.envs import LandingEnv, NavigationEnv
+    from visfly_tpu_torch.envs.landing import _SPAWN
+    from visfly_tpu_torch.render import noise as nz
+
+    def nav(noise):
+        return NavigationEnv(
+            num_agent_per_scene=N_AGENTS, visual=True, device=dev,
+            scene_kwargs={"path": "garage_simple_l_medium", "trace_steps": TRACE_STEPS},
+            sensor_kwargs=[{"uuid": "depth", "sensor_type": "depth", "resolution": list(RES)}],
+            random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [
+                {"position": {"mean": [1.0, 0.0, 1.5], "half": [0.5, 2.0, 1.0]}}]},
+                "noise_kwargs": noise},
+            dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate"})
+
+    clean_env = nav({})
+    state, _ = clean_env.reset(torch.Generator(device=dev).manual_seed(180))
+    check(state.gen.device.type == "cuda", "the env's generator is not on the card")
+    clean = clean_env.sensor_observations(state)["depth"]
+    for model, kw in DEPTH_NOISE.items():
+        env = nav({"depth": {"model": model, "kwargs": kw}})
+        start = state.gen.get_state()
+        noisy = env.sensor_observations(state)["depth"]
+        state.gen.set_state(start)
+        check(torch.equal(env.sensor_observations(state)["depth"], noisy) and noisy.is_cuda,
+              f"{model}: the draws do not replay from the env's CUDA generator")
+        if model == "GaussianNoiseModel":
+            d = noisy - clean
+            mean, std = float(d.mean()), float(d.std())
+            what = f"noisy - clean mean {mean:.5f} m (model {kw['mean']}), std {std:.5f} m " \
+                   f"(model {kw['sigma']})"
+            ok = abs(mean - kw["mean"]) < 1e-3 and abs(std - kw["sigma"]) < 0.05 * kw["sigma"]
+        else:
+            # flat pixels: the clean depth of all four neighbours within 1%,
+            # where the lateral jitter moves nothing and the rest is unbiased
+            near = [torch.roll(clean, k, dims=dim) for k in (1, -1) for dim in (-1, -2)]
+            flat = (torch.stack([(z - clean).abs() for z in near]).amax(0) < 0.01 * clean) & (
+                clean < MAX_DEPTH)
+            kept = flat & (noisy > 0)
+            rel = float(((noisy - clean) / clean)[kept].mean())
+            rel_std = float(((noisy - clean) / clean)[kept].std())
+            dropped = float((noisy == 0).float().mean())
+            dropped_flat = float((noisy == 0)[flat].float().mean())
+            what = (f"flat kept pixels' relative error mean {rel:.5f}, std {rel_std:.5f}; "
+                    f"dropped share {dropped:.4f} of all pixels, {dropped_flat:.4f} of the flat")
+            ok = abs(rel) < 0.01 and rel_std > 0 and dropped > dropped_flat and dropped_flat < 0.1
+        print(f"phase 5 | noise {model} on the depth leg's 64x64 depth ({N_AGENTS} agents): "
+              f"{what} | {card}", flush=True)
+        check(ok, f"{model}: {what}")
+
+    g = torch.Generator(device=dev).manual_seed(181)
+    rgb = torch.full((4, 3, 32, 32), 128, dtype=torch.uint8, device=dev)
+    depth = torch.full((4, 1, 32, 32), 3.0, device=dev)
+    x = nz.gaussian(g, rgb, intensity_constant=0.1).float()
+    stats = [5.0 < float(x.std()) < 40.0 and abs(float(x.mean()) - 128.0) < 2.0]
+    x = nz.salt_and_pepper(g, rgb, amount=0.1)
+    stats.append(0.03 < float((x == 255).float().mean()) < 0.07
+                 and 0.03 < float((x == 0).float().mean()) < 0.07)
+    x = nz.poisson(g, rgb).float()
+    stats.append(5.0 < float(x.std()) < 20.0 and abs(float(x.mean()) - 128.0) < 2.0)
+    x = nz.speckle(g, rgb, sigma=0.05).float()
+    stats.append(3.0 < float(x.std()) < 15.0)
+    x = nz.redwood_depth(g, depth)
+    valid = x[x > 0]
+    stats.append(abs(float(valid.mean()) - 3.0) < 0.1 and float(valid.std()) > 0)
+    edge = depth.clone()
+    edge[..., 16:] = 10.0
+    stats.append(bool((nz.redwood_depth(g, edge, lateral_prob=0.0) == 0).any()))
+    print(f"phase 5 | noise models on constant images on the card (gaussian, salt and pepper, "
+          f"poisson, speckle, redwood, redwood edge dropout): {stats} | {card}", flush=True)
+    check(all(stats), f"noise model statistics on the card: {stats}")
+
+    clean_env = LandingEnv(num_agent_per_scene=N_AGENTS, device=dev)
+    noisy_env = LandingEnv(num_agent_per_scene=N_AGENTS, device=dev, random_kwargs=dict(
+        _SPAWN, noise_kwargs={"color": {"model": "SaltAndPepperNoiseModel",
+                                        "kwargs": SALT_AND_PEPPER}}))
+    state, _ = clean_env.reset(torch.Generator(device=dev).manual_seed(182))
+    clean = clean_env.sensor_observations(state)["color"]
+    noisy = noisy_env.sensor_observations(state)["color"]
+    amount, s_vs_p = SALT_AND_PEPPER["amount"], SALT_AND_PEPPER["s_vs_p"]
+    salt = float(((noisy == 255) & (clean != 255)).float().mean())
+    pepper = float(((noisy == 0) & (clean != 0)).float().mean())
+    want_salt = amount * s_vs_p * float((clean != 255).float().mean())
+    want_pepper = amount * (1 - s_vs_p) * float((clean != 0).float().mean())
+    print(f"phase 5 | noise SaltAndPepperNoiseModel on path A's 64x64 colour: salt {salt:.5f} "
+          f"(model {want_salt:.5f}), pepper {pepper:.5f} (model {want_pepper:.5f}); other "
+          f"pixels unchanged: {bool(((noisy == clean) | (noisy == 0) | (noisy == 255)).all())} "
+          f"| {card}", flush=True)
+    check(abs(salt - want_salt) < 0.05 * want_salt and abs(pepper - want_pepper)
+          < 0.05 * want_pepper, "salt and pepper shares")
+    check(bool(((noisy == clean) | (noisy == 0) | (noisy == 255)).all()),
+          "salt and pepper changed other pixels")
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "visfly_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2068,6 +2474,7 @@ def main():
                     "64x64 depth")
 
     training_paths(dev, card, launches)
+    swarm_and_zoo_paths(dev, card, launches)
 
     # 5. one step from the same state, card vs CPU plain path
     out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
@@ -2118,6 +2525,8 @@ def main():
     check(g_rel <= GRAD_TOL, f"PPO gradient card vs cpu {g_rel} > {GRAD_TOL}")
     check(p_l2 <= GRAD_TOL, f"PPO parameters card vs cpu {p_l2} > {GRAD_TOL} (l2)")
 
+    noise_phase(dev, card)
+
     for mode, n_launch in launches.items():
         check(n_launch > 0, f"no main path launched {mode}")
     print(json.dumps({
@@ -2131,7 +2540,9 @@ def main():
                 "card from torch.profiler; trace_analytic (B1, "
                 "path B's camera rays) and trace_analytic_kid (B1-kid, path A's) cull each "
                 "tile, and their bounds count the rows that meet a tile and a one-origin "
-                "tile's origin terms once (its launches include path G's training run, 2 a step); "
+                "tile's origin terms once (its launches include path G's and path K's training "
+                "runs, 2 a step, and path L's depth); trace_analytic_kid's include path L's "
+                "colour; "
                 "trace_march (the per-tile cull, B2), trace_march_nocull (B3a) and "
                 "trace_march_packed (B3b) are instantiations of one march kernel, timed on path "
                 "B's camera rays; B2's bound counts the rows its tiles evaluate; the "
@@ -2143,7 +2554,7 @@ def main():
                 "knockout B8b with body off "
                 "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
                 "(all others) triangles, at the split the wrapper picks (the diagnostics "
-                "and mx at 1 block a tile); launches add up the depth leg, paths A-J and the "
+                "and mx at 1 block a tile); launches add up the depth leg, paths A-L and the "
                 "diagnostics; library_ms is null because no single PyTorch call computes a "
                 "first hit"}),
         flush=True)

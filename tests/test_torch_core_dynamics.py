@@ -172,6 +172,9 @@ def test_masked_reset_matches_jax():
                      ori=torch.from_numpy(new[1]), vel=torch.from_numpy(new[2]),
                      ori_vel=torch.from_numpy(new[3]), t=torch.from_numpy(new[4]))
     for name in tdyn.DynState._fields:
+        if isinstance(getattr(out, name), tuple):  # per-agent drag, unset in both
+            assert getattr(ref, name) == (), name
+            continue
         np.testing.assert_array_equal(getattr(out, name).numpy(),
                                       np.asarray(getattr(ref, name)), err_msg=name)
 

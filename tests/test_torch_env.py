@@ -196,18 +196,18 @@ def test_unported_branches_raise(tmp_path):
     assert env.sensitive_radius == 10.0
     for build in (
         lambda: nav(latent_dim=8),
-        lambda: nav(scene_kwargs=dict(scene, obj_settings={"path": "x"})),
         lambda: nav(scene_kwargs=dict(scene, backend="grid")),
         # a mesh file's default backend (box decomposition), habitat paths
         lambda: nav(scene_kwargs={"path": obj}),
         lambda: nav(scene_kwargs={"path": str(glb)}),
         lambda: nav(scene_kwargs={"path": str(tmp_path / "stage.scene_instance.json")}),
         lambda: nav(scene_kwargs={"path": str(tmp_path)}),
-        lambda: nav(random_kwargs={"noise_kwargs": {"depth": {"model": "GaussianNoiseModel"}}}),
-        lambda: nav(dynamics_kwargs={"wind_settings": ["sin(x)", "0*x", "0*x"]}),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build()
+    with pytest.raises(NotImplementedError, match="ROADMAP: Queue A item 21"):
+        tenvs.MultiNavigationEnv(**bench_kwargs(num_agent_per_scene=3, scene_kwargs=dict(
+            scene, is_find_path=True)))
     st, _ = tenvs.NavigationEnv(**bench_kwargs()).reset(torch.Generator().manual_seed(0))
     # colour, march and refined sensors render
     env = nav(sensor_kwargs=[
@@ -217,8 +217,8 @@ def test_unported_branches_raise(tmp_path):
     images = env.sensor_observations(st)
     assert images["color"].dtype == torch.uint8 and images["color"].shape == (N, 3, 8, 8)
     assert torch.isfinite(images["depth"]).all() and torch.isfinite(images["refined"]).all()
-    # on a mesh scene: the grid render opt-out, shadow rays, dynamic objects,
-    # textures and the variants of the per-camera kernel
+    # on a mesh scene: the grid render opt-out, shadow rays, textures and the
+    # variants of the per-camera kernel
     from visfly_tpu_torch.render import bake_lighting, render_camera
 
     mesh_env = nav(scene_kwargs={"path": obj, "backend": "grid", "sdf_spacing": 0.25})
@@ -231,13 +231,14 @@ def test_unported_branches_raise(tmp_path):
     for render in (
         lambda: render_camera(mesh_env.scene, pos, q, dict(spec, render_backend="grid")),
         lambda: render_camera(mesh_env.scene, pos, q, spec, lighting=sun),
-        lambda: render_camera(mesh_env.scene, pos, q, spec, objects=ball),
         lambda: render_camera(textured, pos, q, spec),
         lambda: render_camera(mesh_env.scene._replace(triangles=()), pos, q, spec),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render()
     assert render_camera(mesh_env.scene, pos, q, spec)["color"].shape == (N, 3, 8, 8)
+    assert render_camera(mesh_env.scene, pos, q, spec, objects=ball)["color"].shape == (
+        N, 3, 8, 8)
     # off the CPU a camera whose rays are not whole 1,024-ray tiles raises: no
     # render steps down to the brute force by shape alone
     assert (N * 8 * 8) % 1024

@@ -135,9 +135,12 @@ def test_imu_noise_statistics_match_jax(model, kw):
 
 
 def test_sensor_noise_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        tenvs.NavigationEnv(**bench_kwargs(random_kwargs={
-            "noise_kwargs": {"depth": {"model": "GaussianDepthNoiseModel"}}}))
+    """Sensor noise is ported (``render/noise.py``); a model name the JAX
+    package does not know still raises, at the first render, naming it."""
+    env = tenvs.NavigationEnv(**bench_kwargs(random_kwargs={
+        "noise_kwargs": {"depth": {"model": "GaussianDepthNoiseModel"}}}))
+    with pytest.raises(ValueError, match="unknown noise model 'GaussianDepthNoiseModel'"):
+        env.reset(torch.Generator().manual_seed(0))
 
 
 # ---------------------------------------------------------------------------

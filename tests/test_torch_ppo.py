@@ -114,7 +114,8 @@ def test_rollout_state_matches_jax(updated):
     assert tst2.global_step == int(jst2.global_step) == N * STEPS
     assert float(m_t["ep_len_mean"]) == STEPS
     assert float(m_t["grad_norm"]) > 0 and np.isfinite(float(m_t["grad_norm"]))
-    carried = [tst2.obs[k] for k in tst2.obs] + list(tst2.env_state.dyn)
+    carried = [tst2.obs[k] for k in tst2.obs] + [
+        t for t in tst2.env_state.dyn if isinstance(t, torch.Tensor)]
     assert not any(t.requires_grad for t in carried)
     if ttr.recurrent:
         np.testing.assert_array_equal(tst2.hidden.numpy(), 0.0)  # zeroed by the done step

@@ -98,7 +98,8 @@ def test_shac_state_and_targets(shac_updated):
     by Polyak steps and is not trained itself."""
     _, _, ttr, tst2, _, _ = shac_updated
     assert isinstance(tst2, SHACState)
-    assert not any(t.requires_grad for t in list(tst2.env_state.dyn) + list(tst2.obs.values()))
+    assert not any(t.requires_grad for t in list(tst2.obs.values()) + [
+        t for t in tst2.env_state.dyn if isinstance(t, torch.Tensor)])
     assert all(not p.requires_grad for p in ttr.critic_target.parameters())
     gap = max(float((p - q).abs().max()) for p, q in zip(ttr.critic.parameters(),
                                                          ttr.critic_target.parameters()))

@@ -50,10 +50,6 @@ class DroneConfig:
             object.__setattr__(self, "action_type", ACTION_TYPE_ALIAS[self.action_type])
         if abs(self.ctrl_dt / self.dt - round(self.ctrl_dt / self.dt)) > 1e-9:
             raise ValueError("ctrl_dt should be a multiple of dt")
-        if self.drag_random:
-            raise NotImplementedError(
-                "drag_random > 0 is not ported yet (ROADMAP Queue A, item 2: "
-                "drag randomisation)")
 
     @property
     def interval_steps(self) -> int:

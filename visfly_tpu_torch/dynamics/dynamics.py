@@ -12,7 +12,9 @@ row-major ``(N, dim)``. Semantics follow the JAX module one to one:
 * body-frame linear+quadratic drag
 * euler/rk4 integration with post-substep quaternion normalisation
 * state clamps (``_ugly_fix``)
-* constant wind and the wind-included ``velocity`` output
+* wind (a constant, or a function of the clock and the previous wind) and
+  the wind-included ``velocity`` output
+* per-agent drag coefficients drawn at a partial reset (``drag_random``)
 
 Reference quirks replicated on purpose (``DEVIATIONS.md``): the velocity
 mode's yaw channel de-normalises to 0, partial resets draw the clock from
@@ -20,7 +22,7 @@ mode's yaw channel de-normalises to 0, partial resets draw the clock from
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -51,6 +53,12 @@ class DynState(NamedTuple):
     t: Tensor  # (N,)
     pre_action: Tensor  # (K, N, 4) comm-delay FIFO (K may be 0)
     wind: Tensor  # (N, 3) current wind velocity
+    # per-agent drag coefficients (N, 3) when config.drag_random > 0, else ()
+    linear_drag: Any = ()
+    quad_drag: Any = ()
+
+
+WindFn = Callable[[Tensor, Tensor], Tensor]  # (t (N,), prev (N, 3)) -> (N, 3)
 
 
 def init_state(config: DroneConfig, params: DroneParams, num: int,
@@ -73,6 +81,10 @@ def init_state(config: DroneConfig, params: DroneParams, num: int,
         t=zeros(num),
         pre_action=zeros(config.comm_delay_steps, num, 4),
         wind=zeros(num, 3),
+        linear_drag=(params.linear_drag_coeffs.to(dtype).expand(num, 3).clone()
+                     if config.drag_random else ()),
+        quad_drag=(params.quad_drag_coeffs.to(dtype).expand(num, 3).clone()
+                   if config.drag_random else ()),
     )
 
 
@@ -92,7 +104,10 @@ def reset(
 ) -> DynState:
     """Masked reset. ``mask`` (N,) bool selects the agents to reset; None
     resets all. A partial reset with a ``generator`` and no ``t`` draws the
-    clock from ``U[0, 2·3.14)``; a full reset uses t = 0."""
+    clock from ``U[0, 2·3.14)``; a full reset uses t = 0. With
+    ``config.drag_random > 0`` a reset with a ``generator`` draws each reset
+    agent's drag coefficients, ``mean · (clip((U − 0.5)·2·drag_random, −0.5,
+    0.5) + 1)``, linear then quadratic, after the clock."""
     num = state.pos.shape[0]
     dtype, dev = state.pos.dtype, state.pos.device
     full = mask is None
@@ -120,6 +135,16 @@ def reset(
     else:
         new_t = t
 
+    linear_drag, quad_drag = state.linear_drag, state.quad_drag
+    if config.drag_random and isinstance(linear_drag, Tensor) and generator is not None:
+        def rand_coeffs(mean):
+            u = (torch.rand((num, 3), generator=generator, dtype=dtype, device=dev) - 0.5
+                 ) * 2 * config.drag_random
+            return mean * (torch.clamp(u, -0.5, 0.5) + 1.0)
+
+        linear_drag = pick(rand_coeffs(params.linear_drag_coeffs), linear_drag)
+        quad_drag = pick(rand_coeffs(params.quad_drag_coeffs), quad_drag)
+
     zeros3 = torch.zeros_like(state.acc)
     return DynState(
         pos=pick(new_pos, state.pos),
@@ -134,6 +159,8 @@ def reset(
         pre_action=torch.where(mask[None, :, None], torch.zeros_like(state.pre_action),
                                state.pre_action),
         wind=state.wind,
+        linear_drag=linear_drag,
+        quad_drag=quad_drag,
     )
 
 
@@ -259,8 +286,9 @@ def _substep(config: DroneConfig, params: DroneParams, state: DynState,
     force_torque = thrusts @ params.b_allocation.T  # (N, 4) [F, τ]
 
     vel_body = quat.inv_rotate(state.q, state.vel)
-    drag = (params.linear_drag_coeffs * vel_body
-            + params.quad_drag_coeffs * vel_body * torch.abs(vel_body))
+    ld = params.linear_drag_coeffs if isinstance(state.linear_drag, tuple) else state.linear_drag
+    qd = params.quad_drag_coeffs if isinstance(state.quad_drag, tuple) else state.quad_drag
+    drag = ld * vel_body + qd * vel_body * torch.abs(vel_body)
     thrust_vec = torch.cat([torch.zeros_like(force_torque[:, :2]), force_torque[:, :1]],
                            dim=-1)
     acc = quat.rotate(state.q, thrust_vec - drag) / params.mass + _g_vec(state.pos)
@@ -287,9 +315,13 @@ def _ugly_fix(state: DynState) -> DynState:
     )
 
 
-def update_wind(state: DynState, wind_const=None) -> DynState:
-    """Set the wind field: a constant (3,) velocity, or zero."""
-    if wind_const is not None:
+def update_wind(state: DynState, wind_fn: Optional[WindFn] = None,
+                wind_const=None) -> DynState:
+    """Set the wind field: ``wind_fn(t, previous wind)``, a constant (3,)
+    velocity, or zero."""
+    if wind_fn is not None:
+        wind = wind_fn(state.t, state.wind)
+    elif wind_const is not None:
         wind = torch.as_tensor(wind_const, dtype=state.wind.dtype,
                                device=state.wind.device).expand_as(state.wind)
     else:
@@ -298,11 +330,12 @@ def update_wind(state: DynState, wind_const=None) -> DynState:
 
 
 def step(config: DroneConfig, params: DroneParams, state: DynState, action: Tensor,
-         wind_const=None) -> DynState:
+         wind_fn: Optional[WindFn] = None, wind_const=None) -> DynState:
     """Advance N drones by one control step of ctrl_dt. ``action`` is (N, 4)
-    in [-1, 1]; ``wind_const`` is a constant wind velocity or None."""
+    in [-1, 1]; the wind comes from ``wind_fn`` or ``wind_const`` (see
+    :func:`update_wind`)."""
     full_fp32_matmul()
-    state = update_wind(state, wind_const)
+    state = update_wind(state, wind_fn, wind_const)
 
     # communication-delay FIFO
     if config.comm_delay_steps > 0:

@@ -13,10 +13,21 @@ env's device).
 Subclasses implement ``get_observation`` / ``get_reward`` / ``get_success``
 / ``get_failure``, and keep env-specific state in ``EnvState.aux`` through
 the hooks ``init_aux`` / ``reset_aux`` / ``step_aux`` /
-``update_aux_from_sensors``; ``aggregate_success`` and ``aggregate_done``
-are the hooks a multi-drone env overrides. Not ported yet, and raising
-``NotImplementedError``: dynamic objects (``obj_settings``), sensor noise,
-world-model latents and wind functions.
+``update_aux_from_sensors``; ``aggregate_success``, ``aggregate_done`` and
+``render_objects`` are the hooks a multi-drone env overrides. Not ported yet,
+and raising ``NotImplementedError``: world-model latents.
+
+Dynamic objects (``scene_kwargs["obj_settings"]``: a JSON file's path, a
+dict with ``"path"``, or an inline list of settings; ``scene/objects.py``)
+live in ``EnvState.objects``: they start at their tables' first row at a
+reset, advance by ``ctrl_dt`` a step, override the collision point where
+nearer, and appear in the cameras (``render_objects``). Wind:
+``dynamics_kwargs["wind_settings"]`` is a constant (3,) velocity, or three
+(or six, two fields summed) expressions in ``x`` = the clock and ``y`` = the
+previous wind component; ``dynamics_kwargs["wind_fn"]`` takes a callable
+``(t (N,), wind (N, 3)) → (N, 3)``. Sensor noise
+(``random_kwargs["noise_kwargs"][uuid]``) is drawn from ``EnvState.gen``
+after each render.
 
 ``terminal_obs_in_info`` (set by PPO and SAC) adds the pre-reset observation,
 detached, to ``info["terminal_observation"]``; on a visual env it costs a
@@ -50,6 +61,31 @@ from ..dynamics import DroneConfig, DynState, make_drone_params
 from ..dynamics import dynamics as dyn_mod
 from ..render.camera import camera_geometry
 from . import randomization as rnd
+
+
+def _wind_fn_from_strings(settings):
+    """A wind function from expression strings in (x = the clock t (N,),
+    y = the previous wind component (N,)): three for one field, six for two
+    fields summed. The expressions see ``jnp``, ``np`` and ``th`` (all torch),
+    ``math``, ``sin``, ``cos``, ``exp`` and ``pi``, and no builtins."""
+    import math
+
+    ns = {"jnp": torch, "np": torch, "th": torch, "math": math, "sin": torch.sin,
+          "cos": torch.cos, "exp": torch.exp, "pi": math.pi, "__builtins__": {}}
+    fields = [[eval("lambda x,y: " + s, dict(ns)) for s in settings[:3]]]
+    if len(settings) == 6:
+        fields.append([eval("lambda x,y: " + s, dict(ns)) for s in settings[3:6]])
+
+    def wind_fn(t: Tensor, prev: Tensor) -> Tensor:
+        w = 0
+        for fns in fields:
+            w = w + torch.stack([
+                torch.as_tensor(f(t, prev[:, i]), dtype=prev.dtype,
+                                device=prev.device).expand(t.shape)
+                for i, f in enumerate(fns)], dim=-1)
+        return w
+
+    return wind_fn
 
 
 def _unported(what: str, item: str):
@@ -91,6 +127,7 @@ class EnvState(NamedTuple):
     once_collided: Tensor  # (N,) bool since episode start
     returns: Tensor  # (N,) accumulated episode reward
     aux: Any = ()  # env-specific NamedTuple of tensors (pad centre, ...)
+    objects: Any = ()  # ObjectsState of the dynamic objects, when the env has any
 
 
 class StepOutput(NamedTuple):
@@ -159,28 +196,26 @@ class DroneGymEnv:
             self.num_agent_per_scene)
 
         dynamics_kwargs = dict(dynamics_kwargs or {})
-        self.wind_const = dynamics_kwargs.pop("wind_settings", None)
-        if "wind_fn" in dynamics_kwargs or (
-                self.wind_const is not None and isinstance(self.wind_const[0], str)):
-            raise _unported("wind functions", "Queue A item 2, wind functions")
+        wind_settings = dynamics_kwargs.pop("wind_settings", None)
+        self.wind_fn = dynamics_kwargs.pop("wind_fn", None)
+        self.wind_const = None
+        if wind_settings is not None:
+            if isinstance(wind_settings[0], str):
+                self.wind_fn = _wind_fn_from_strings(wind_settings)
+            else:
+                self.wind_const = wind_settings
         dynamics_kwargs.pop("seed", None)
         dynamics_kwargs.pop("device", None)
         self.dyn_config = DroneConfig(**dynamics_kwargs)
         self.params = make_drone_params(self.dyn_config, dtype=dtype, device=self.device)
 
         self.noise_settings = dict((random_kwargs or {}).get("noise_kwargs") or {})
-        sensor_noise = sorted(k for k in self.noise_settings if k != "IMU")
-        if sensor_noise:
-            raise _unported(f"sensor noise ({', '.join(sensor_noise)})",
-                            "Queue A item 12, render/noise.py")
         self.randomizers = rnd.from_reference_kwargs(
             random_kwargs or self.default_random_kwargs(), device=self.device)
         self._imu_noise = self._build_imu_noise()
 
         self.scene = None
         self.scene_kwargs = dict(scene_kwargs or {})
-        if self.scene_kwargs.get("obj_settings"):
-            raise _unported("dynamic objects (obj_settings)", "Queue A item 16, dynamic objects")
         self.sensor_kwargs = [dict(s) for s in (sensor_kwargs or [])]
         self.cameras = [camera_geometry(s, self.device) for s in self.sensor_kwargs]
         # non-visual envs fly in the hard-coded empty-box world
@@ -191,6 +226,22 @@ class DroneGymEnv:
 
             self.scene = load_scenes_for_env(self)
             self.bbox = self.scene.bbox
+
+        self.objects = None
+        obj_settings = self.scene_kwargs.get("obj_settings")
+        if obj_settings:
+            from ..scene.objects import build_objects, load_obj_settings
+
+            if isinstance(obj_settings, dict) and "path" in obj_settings:
+                obj_settings = obj_settings["path"]
+            self.objects = build_objects(load_obj_settings(obj_settings), self.num_scene, seed,
+                                         device=self.device)
+            m = self.objects.num_objects // self.num_scene
+            from ..scene.mesh import instance_palette
+
+            self._object_colors = torch.as_tensor(
+                instance_palette(m + 1)[1:], dtype=torch.float32,
+                device=self.device).expand(self.num_scene, m, 3)
 
         self.state_size = 13 if self.dyn_config.is_quat_output else 12
         self.action_size = 4
@@ -240,6 +291,21 @@ class DroneGymEnv:
         from ..render import render_sensors
 
         return render_sensors(self, state)
+
+    def render_objects(self, state: EnvState):
+        """The dynamic geometry the cameras see beside the scene: (positions
+        (S, M, 3), radii (S, M), colours (S, M, 3)[, templates (S, M, K, 9),
+        None]), or None. Objects whose setting names a ``model_path`` render
+        as their template, the rest as their bounding sphere."""
+        if self.objects is None or type(state.objects) is tuple:
+            return None
+        S = self.num_scene
+        m = self.objects.num_objects // S
+        out = (state.objects.pos.reshape(S, m, 3), self.objects.radius.reshape(S, m),
+               self._object_colors)
+        if self.objects.mesh is not None:
+            out = out + (self.objects.mesh.reshape(S, m, *self.objects.mesh.shape[1:]), None)
+        return out
 
     def _build_imu_noise(self):
         """The IMU noise model → None (no noise) or (kind, mean, half or std):
@@ -297,10 +363,12 @@ class DroneGymEnv:
         ]
         return tuple(torch.cat(parts, dim=0).to(self.dtype) for parts in zip(*outs))
 
-    def _update_collision(self, dyn: DynState, once: Tensor) -> Tuple[CollisionInfo, Tensor]:
+    def _update_collision(self, dyn: DynState, once: Tensor, objects: Any = ()
+                          ) -> Tuple[CollisionInfo, Tensor]:
         """Closest-point and bounds queries: the scene for visual envs (its
         SDF, or the exact triangles of a mesh scene), the nearest face of the
-        bbox world otherwise."""
+        bbox world otherwise; a dynamic object's sphere (``objects``, an
+        ``ObjectsState``) takes over the closest point where it is nearer."""
         pos = dyn.pos if self.grad_collision else dyn.pos.detach()
         if self.scene is not None:
             from ..scene import closest_point_query
@@ -324,6 +392,14 @@ class DroneGymEnv:
             point = torch.where(on_axis, self.bbox.reshape(-1)[idx][:, None], pos)
             dis = torch.linalg.vector_norm(point - pos, dim=-1)
             out = torch.any(pos < lo, dim=-1) | torch.any(pos > hi, dim=-1)
+        if self.objects is not None and type(objects) is not tuple:
+            from ..scene.objects import objects_closest
+
+            o_point, o_dis = objects_closest(self.objects, objects.pos.detach(), self.scene_ids,
+                                             pos)
+            closer = o_dis < dis
+            point = torch.where(closer[:, None], o_point, point)
+            dis = torch.where(closer, o_dis, dis)
         is_col = dis < self.uav_radius
         return CollisionInfo(point, point - pos, dis, is_col, out), once | is_col
 
@@ -341,14 +417,19 @@ class DroneGymEnv:
                             ori_vel=omega)
         n = self.num_agent
         falses = torch.zeros((n,), dtype=torch.bool, device=self.device)
-        collision, _once = self._update_collision(dyn, falses)
+        objects = ()
+        if self.objects is not None:
+            from ..scene.objects import init_objects_state
+
+            objects = init_objects_state(self.objects, self.num_scene)
+        collision, _once = self._update_collision(dyn, falses, objects)
         st = EnvState(
             dyn=dyn, gen=gen,
             step_count=torch.zeros((n,), dtype=torch.int32, device=self.device),
             episode_done=falses, success=falses, failure=falses,
             collision=collision, once_collided=falses,
             returns=torch.zeros((n,), dtype=self.dtype, device=self.device),
-            aux=self.init_aux(),
+            aux=self.init_aux(), objects=objects,
         )
         st = st._replace(aux=self.reset_aux(st, torch.ones_like(falses)))
         sensor_obs = self.sensor_observations(st)
@@ -360,12 +441,17 @@ class DroneGymEnv:
         """One control step for all agents. ``is_test=True`` suppresses the
         auto-reset."""
         dyn = dyn_mod.step(self.dyn_config, self.params, state.dyn, action,
-                           wind_const=self.wind_const)
+                           wind_fn=self.wind_fn, wind_const=self.wind_const)
         aux = self.step_aux(state.aux, dyn)
-        collision, once = self._update_collision(dyn, state.once_collided)
+        objects = state.objects
+        if self.objects is not None and type(objects) is not tuple:
+            from ..scene.objects import step_objects
+
+            objects = step_objects(self.objects, objects, self.dyn_config.ctrl_dt)
+        collision, once = self._update_collision(dyn, state.once_collided, objects)
         step_count = state.step_count + 1
         st = state._replace(dyn=dyn, step_count=step_count, collision=collision,
-                            once_collided=once, aux=aux)
+                            once_collided=once, aux=aux, objects=objects)
         pre_sensor_obs = None
         if self.needs_sensors_for_reward or self.terminal_obs_in_info:
             pre_sensor_obs = self.sensor_observations(st)
@@ -438,7 +524,7 @@ class DroneGymEnv:
 
     def _reset_masked(self, st: EnvState, mask: Tensor, dyn: DynState) -> EnvState:
         """The bookkeeping of a masked reset to the dynamics ``dyn``."""
-        collision, once = self._update_collision(dyn, st.once_collided & ~mask)
+        collision, once = self._update_collision(dyn, st.once_collided & ~mask, st.objects)
         return st._replace(
             dyn=dyn,
             aux=self.reset_aux(st._replace(dyn=dyn), mask),
@@ -495,7 +581,7 @@ class DroneGymEnv:
         dyn = dyn_mod.reset(self.dyn_config, self.params, state.dyn, pos=pos, ori=q, vel=vel,
                             ori_vel=omega)
         falses = torch.zeros((self.num_agent,), dtype=torch.bool, device=self.device)
-        collision, once = self._update_collision(dyn, falses)
+        collision, once = self._update_collision(dyn, falses, state.objects)
         return state._replace(dyn=dyn, collision=collision, once_collided=once)
 
     # -- observation space metadata ----------------------------------------------

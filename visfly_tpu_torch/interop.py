@@ -18,7 +18,9 @@ from .algos.ppo import EpisodeStats
 from .dynamics.config import DroneParams
 from .dynamics.dynamics import DynState
 from .envs.base import CollisionInfo, EnvState
+from .envs.catch import BallState
 from .envs.landing import LandingAux
+from .envs.racing import RacingAux
 from .policies.extractors import MLP, GRUCell, ImageCNN
 from .policies.networks import (
     Actor,
@@ -30,11 +32,12 @@ from .policies.networks import (
 )
 from .render.sphere_trace import Lighting
 from .render.trace_kernel import KernelScene
+from .scene.objects import DynamicObjects, ObjectsState
 from .scene.prim_scene import PrimitiveScene, scene_from_arrays
 from .scene.scene import SceneData, scene_data_from_arrays
 
 # env-specific aux states the port knows, by their field names
-_AUX_TYPES = {LandingAux._fields: LandingAux}
+_AUX_TYPES = {cls._fields: cls for cls in (LandingAux, RacingAux, BallState)}
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -52,11 +55,13 @@ def drone_params_from_numpy(p, device=None) -> DroneParams:
 
 
 def dyn_state_from_numpy(s, device=None) -> DynState:
-    """``visfly_tpu.dynamics.DynState`` of numpy arrays → DynState."""
-    if not isinstance(getattr(s, "linear_drag", ()), tuple):
-        raise NotImplementedError("per-agent drag (drag_random > 0) is not ported yet "
-                                  "(ROADMAP: drag randomisation)")
-    return DynState(**{f: _t(getattr(s, f), device) for f in DynState._fields})
+    """``visfly_tpu.dynamics.DynState`` of numpy arrays → DynState; the
+    per-agent drag coefficients cross over where they are set."""
+    def leaf(f):
+        x = getattr(s, f, ())
+        return () if isinstance(x, tuple) else _t(x, device)
+
+    return DynState(**{f: leaf(f) for f in DynState._fields})
 
 
 def scene_from_numpy(scene, device=None) -> PrimitiveScene:
@@ -105,16 +110,33 @@ def aux_from_numpy(aux, device=None):
     return _AUX_TYPES[aux._fields](*(_t(x, device) for x in aux))
 
 
+def dynamic_objects_from_numpy(objs, device=None) -> DynamicObjects:
+    """``visfly_tpu.scene.objects.DynamicObjects`` of numpy arrays →
+    DynamicObjects."""
+    return DynamicObjects(
+        table=_t(objs.table, device), period=_t(objs.period, device),
+        radius=_t(objs.radius, device), scene_of=_t(objs.scene_of, device, torch.int64),
+        mesh=None if objs.mesh is None else _t(objs.mesh, device))
+
+
+def objects_state_from_numpy(objs, device=None):
+    """``visfly_tpu.scene.objects.ObjectsState`` of numpy arrays →
+    ObjectsState; ``()`` stays ``()``."""
+    if isinstance(objs, tuple) and not hasattr(objs, "_fields"):
+        return ()
+    return ObjectsState(*(_t(x, device) for x in objs))
+
+
 def env_state_from_numpy(st, gen: Optional[torch.Generator] = None,
                          device=None) -> EnvState:
     """``visfly_tpu.envs.EnvState`` of numpy arrays → EnvState. The JAX PRNG
     key has no counterpart; ``gen`` (default: a generator on ``device``
     seeded with 0) takes its place. ``aux`` crosses over for the envs the
-    port has (``LandingAux``)."""
-    for name, item in (("objects", "Queue A item 16, dynamic objects"),
-                       ("latent", "Queue A item 14, world_model.py")):
-        if not isinstance(getattr(st, name, ()), tuple):
-            raise NotImplementedError(f"EnvState.{name} is not ported yet (ROADMAP: {item})")
+    port has (``LandingAux``, ``RacingAux``, ``BallState``), and so do the
+    dynamic objects' state."""
+    if not isinstance(getattr(st, "latent", ()), tuple):
+        raise NotImplementedError("EnvState.latent is not ported yet "
+                                  "(ROADMAP: Queue A item 14, world_model.py)")
     if gen is None:
         gen = torch.Generator(device=device or "cpu").manual_seed(0)
     c = st.collision
@@ -135,6 +157,7 @@ def env_state_from_numpy(st, gen: Optional[torch.Generator] = None,
         once_collided=_t(st.once_collided, device, torch.bool),
         returns=_t(st.returns, device),
         aux=aux_from_numpy(getattr(st, "aux", ()), device),
+        objects=objects_state_from_numpy(getattr(st, "objects", ()), device),
     )
 
 

@@ -23,10 +23,23 @@ its sensor-spec keys are ``tri_cap`` (per-tile list length, default by mesh
 size), ``tri_backface`` and ``tri_variant`` ("scalar", the default, "merged",
 "mx" or "wl": how the per-camera tier of a dense mesh runs; nothing changes
 where a mesh or a ray set does not reach that tier); colour and semantic ids come from the baked grids
-at the exact hit. Not ported yet, each raising ``NotImplementedError``: the
+at the exact hit.
+
+Dynamic objects (``objects``: positions (S, M, 3), radii (S, M), colours
+(S, M, 3)[, triangle templates (S, M, K, 9), attitudes (S, M, 4)]): without
+templates they go into the kernel's scene as dynamic capsules; with
+templates (drone bodies, ``model_path`` objects) the kernel traces the static
+scene and each object's posed template is intersected after it
+(:func:`_object_mesh_hits`, plain PyTorch, as it is plain XLA in the JAX
+package), composed by the smaller t. On a mesh scene every object composes
+after the triangle trace. Object pixels shade with the object's colour and
+its hit normal, semantic id 255. A sensor's noise model
+(``random_kwargs["noise_kwargs"][uuid]``, ``render/noise.py``) applies after
+the render, drawn from ``EnvState.gen``.
+
+Not ported yet, each raising ``NotImplementedError``: the
 ``render_backend: "grid"`` opt-out (the trilinear SDF march), grid scenes
-without triangles, textures, shadow rays, dynamic objects in mesh scenes and
-with mesh templates, and sensor noise.
+without triangles, textures and shadow rays.
 """
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ from ..core import quaternion as quat
 from ..scene.prim_scene import PrimitiveScene, prim_distances, prim_normal_single, prim_sdf
 from ..scene.scene import SceneData
 from .camera import (CameraGeometry, camera_rays, camera_rays_components, tile_cones_body)
+from .noise import apply_noise
 from .trace_kernel import prepare_kernel_scene, trace_diff
 from .tri_kernel import TILE
 from .tri_trace import default_tri_cap, tri_trace_diff
@@ -213,6 +227,124 @@ def trace_cones_grouped(scene: PrimitiveScene, origins: Tensor, dirs: Tensor, ta
 
 
 # ---------------------------------------------------------------------------
+# dynamic objects, composed after the trace (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _sphere_candidates(c: Tensor, r: Tensor, o: Tensor, d: Tensor, max_depth: float):
+    """Each scene's sphere (centre ``c`` (S, 3), radius ``r`` (S,)) against
+    rays o/d (S, R, 3): (t (S, R), BIG where no hit; whether each ray's
+    origin lies outside the sphere; the hit normal (S, R, 3)). A sphere that
+    holds a ray's origin is invisible to that ray."""
+    e = c[:, None] - o
+    b = torch.sum(e * d, dim=-1)
+    ee = torch.sum(e * e, dim=-1)
+    rr = (r * r)[:, None]
+    disc = b * b - (ee - rr)
+    ts = b - torch.sqrt(torch.clamp(disc, min=0.0))
+    outside = ee > rr
+    ok = (disc > 0.0) & (ts > 1e-4) & outside & (r[:, None] > 1e-6) & (ts < max_depth)
+    ts = torch.where(ok, ts, BIG)
+    n = (o + d * ts[..., None] - c[:, None]) / torch.clamp(r[:, None, None], min=1e-9)
+    return ts, outside, n
+
+
+def _object_colors(objects, like: Tensor) -> Tensor:
+    if len(objects) > 2 and objects[2] is not None:
+        return objects[2].to(like.dtype)
+    return torch.full(objects[0].shape, 110.0, dtype=like.dtype, device=like.device)
+
+
+def _object_sphere_hits(objects, o: Tensor, d: Tensor, max_depth: float):
+    """Nearest object-sphere hit per ray (o/d (S, R, 3)), one object at a
+    time: (t (S, R), BIG where none; hit (S, R); normal (S, R, 3); the
+    winning object's colour (S, R, 3), 0 where none)."""
+    obj_pos, obj_radius = objects[0], objects[1]
+    obj_color = _object_colors(objects, o)
+    t = torch.full(o.shape[:2], BIG, dtype=o.dtype, device=o.device)
+    n = torch.zeros_like(o)
+    col = torch.zeros_like(o)
+    for m in range(obj_pos.shape[1]):
+        tm, _outside, nm = _sphere_candidates(obj_pos[:, m], obj_radius[:, m], o, d, max_depth)
+        better = (tm < t)[..., None]
+        n = torch.where(better, nm, n)
+        col = torch.where(better, obj_color[:, m, None], col)
+        t = torch.minimum(t, tm)
+    return t, t < max_depth, n, col
+
+
+def _object_mesh_hits(objects, o: Tensor, d: Tensor, max_depth: float):
+    """Nearest object hit per ray with each object's triangle template
+    (``objects[3]`` (S, M, K, 9), zero rows pad) posed at its position and
+    attitude (``objects[4]`` (S, M, 4), identity where absent), Möller–
+    Trumbore against every triangle; an all-zero template falls back to the
+    bounding sphere. A ray whose origin lies inside an object's bounding
+    sphere ignores the object (a drone never sees its own body). One object
+    at a time, so memory is O(S·R·K); returns what
+    :func:`_object_sphere_hits` returns."""
+    mesh = objects[3] if len(objects) > 3 else None
+    if mesh is None:
+        return _object_sphere_hits(objects, o, d, max_depth)
+    obj_pos, obj_radius = objects[0], objects[1]
+    obj_color = _object_colors(objects, o)
+    S, M, K = mesh.shape[:3]
+    q = objects[4] if len(objects) > 4 else None
+    if q is None:
+        q = quat.identity((S, M), o.dtype, o.device)
+    rot = quat.to_rotation_matrix(q)  # (S, M, 3, 3)
+    has_mesh = torch.any(torch.abs(mesh) > 0.0, dim=-1).any(dim=-1)  # (S, M)
+    t = torch.full(o.shape[:2], BIG, dtype=o.dtype, device=o.device)
+    n = torch.zeros_like(o)
+    col = torch.zeros_like(o)
+    od, dd = o[:, :, None], d[:, :, None]  # (S, R, 1, 3)
+    for m in range(M):
+        c = obj_pos[:, m]
+        ts, outside, n_s = _sphere_candidates(c, obj_radius[:, m], o, d, max_depth)
+        # the posed template: world vertices (S, K, 3, 3)
+        v_l = mesh[:, m].reshape(S, K * 3, 3)
+        v_w = torch.sum(rot[:, m, None] * v_l[:, :, None, :], dim=-1) + c[:, None]
+        tri = v_w.reshape(S, K, 3, 3)
+        a_ = tri[:, :, 0]
+        e1 = tri[:, :, 1] - a_
+        e2 = tri[:, :, 2] - a_
+        h = torch.linalg.cross(dd, e2[:, None])  # (S, R, K, 3)
+        det = torch.sum(e1[:, None] * h, dim=-1)
+        valid = torch.abs(det) > 1e-12
+        inv = torch.where(valid, 1.0 / torch.where(valid, det, 1.0), 0.0)
+        s_ = od - a_[:, None]
+        u = torch.sum(s_ * h, dim=-1) * inv
+        qv = torch.linalg.cross(s_, e1[:, None])
+        v = torch.sum(dd * qv, dim=-1) * inv
+        tk = torch.sum(e2[:, None] * qv, dim=-1) * inv
+        ok = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (tk > 1e-4) & (tk < max_depth)
+        tk = torch.where(ok, tk, BIG)
+        kid = torch.argmin(tk, dim=-1)  # (S, R)
+        tm = torch.gather(tk, -1, kid[..., None])[..., 0]
+        fn = torch.linalg.cross(e1, e2)
+        fn = fn / torch.clamp(torch.linalg.vector_norm(fn, dim=-1, keepdim=True), min=1e-12)
+        n_m = torch.gather(fn, 1, kid[..., None].expand(*kid.shape, 3))  # (S, R, 3)
+        # the face normal turned toward the viewer (templates are soups)
+        n_m = torch.where(torch.sum(n_m * d, dim=-1, keepdim=True) > 0, -n_m, n_m)
+        mesh_m = has_mesh[:, m, None]
+        tm = torch.where(outside & mesh_m, tm, BIG)
+        t_obj = torch.where(mesh_m, tm, ts)
+        n_obj = torch.where(mesh_m[..., None], n_m, n_s)
+        better = (t_obj < t)[..., None]
+        n = torch.where(better, n_obj, n)
+        col = torch.where(better, obj_color[:, m, None], col)
+        t = torch.minimum(t, t_obj)
+    return t, t < max_depth, n, col
+
+
+def _compose_objects(objects, o: Tensor, d: Tensor, t: Tensor, hit: Tensor, max_depth: float):
+    """The object hits composed with a trace's (t, hit) (S, R) by the smaller
+    t: (t, hit, object pixels, object normals, object colours)."""
+    t_o, hit_o, n_o, c_o = _object_mesh_hits(objects, o, d, max_depth)
+    obj_px = hit_o & (t_o < torch.where(hit, t, max_depth))
+    return torch.where(obj_px, t_o, t), hit | obj_px, obj_px, n_o, c_o
+
+
+# ---------------------------------------------------------------------------
 # camera rendering
 # ---------------------------------------------------------------------------
 
@@ -248,8 +380,6 @@ def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype
     if str(spec.get("render_backend", "tri")) == "grid":
         raise _unported("render_backend 'grid' (the trilinear SDF march, trace_rays)",
                         "Queue A item 19, exact-triangle render: the grid opt-out")
-    if objects is not None:
-        raise _unported("dynamic objects in mesh scenes", "Queue A item 16, dynamic objects")
     if isinstance(data.tri_uv, Tensor):
         raise _unported("textured colour", "Queue A item 18, imported meshes: textures")
     if lighting is not None and lighting.shadows and stype == "color":
@@ -275,6 +405,10 @@ def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype
         W if whole else None, tiled, H * W if whole else None,
         bool(spec.get("tri_backface", False)),
         variant=str(spec.get("tri_variant", "scalar")))
+    obj_px = None
+    if objects is not None:
+        t, hit, obj_px, n_o, c_o = _compose_objects(objects, o_g3, d_g3, t, hit, max_depth)
+        normal = torch.where(obj_px[..., None], n_o, normal)
     if stype == "depth":
         depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f, max_depth)
         return {"depth": depth[:, None, :, :]}
@@ -286,10 +420,14 @@ def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype
     g = torch.round((p_hit - data.origin) / data.spacing).to(torch.int64)
     g = torch.minimum(torch.clamp(g, min=0), g.new_tensor([X - 1, Y - 1, Z - 1]))
     lin = ((sid_f * X + g[..., 0]) * Y + g[..., 1]) * Z + g[..., 2]
+    obj_f = (torch.zeros_like(hit_f) if obj_px is None else obj_px.reshape(n * H * W))
     if stype == "semantic":
-        sem = torch.where(hit_f, data.semantic.reshape(-1)[lin], 0).reshape(n, H, W)
+        sem = torch.where(hit_f & ~obj_f, data.semantic.reshape(-1)[lin], 0)
+        sem = torch.where(hit_f & obj_f, 255, sem).reshape(n, H, W)
         return {"semantic": sem[:, None, :, :].to(torch.uint8)}
     albedo = data.albedo.reshape(-1, 3)[lin].to(torch.float32)
+    if obj_px is not None:
+        albedo = torch.where(obj_f[:, None], c_o.reshape(-1, 3), albedo)
     shade = lambert_shade(normal.reshape(-1, 3), p_hit, lighting)
     rgb = torch.clamp(albedo * shade, 0, 255)
     rgb = torch.where(hit_f[:, None], rgb, 0.0).reshape(n, H, W, 3)
@@ -309,8 +447,8 @@ def render_camera(
     geom: Optional[CameraGeometry] = None,
 ) -> Dict[str, Tensor]:
     """Render one sensor for N agents ordered scene-contiguously (scene id =
-    agent // agents per scene). ``objects`` (positions (S, M, 3), radii
-    (S, M)) render as spheres that do not occlude a camera inside them."""
+    agent // agents per scene). ``objects``: see the module docstring; an
+    object does not occlude a camera inside its bounding sphere."""
     stype = str(spec.get("sensor_type", spec.get("uuid", "depth"))).lower()
     if stype not in ("depth", "color", "semantic"):
         raise ValueError(f"unknown sensor type {stype!r}")
@@ -321,8 +459,10 @@ def render_camera(
         return _render_triangles(data, pos, q, spec, stype, max_depth, objects, lighting)
     if not isinstance(data, PrimitiveScene):
         raise TypeError(f"cannot render a {type(data).__name__}")
-    if objects is not None and len(objects) > 3 and objects[3] is not None:
-        raise _unported("dynamic objects with mesh templates", "Queue A item 16, dynamic objects")
+    # objects with triangle templates compose after the trace, which then
+    # sees the static scene only; the others enter it as dynamic capsules
+    mesh_objs = objects is not None and len(objects) > 3 and objects[3] is not None
+    kern_objects = None if mesh_objs else objects
 
     H, W = spec["resolution"]
     n = pos.shape[0]
@@ -332,7 +472,7 @@ def render_camera(
     # analytic tracing discards warm starts, so the cone prepass would be
     # dead work: it is skipped
     tile = 1 if analytic else int(spec.get("tile", 1))
-    kscene = prepare_kernel_scene(data, objects)
+    kscene = prepare_kernel_scene(data, kern_objects)
     kid = None
 
     if tile > 1 and H % tile == 0 and W % tile == 0 and H >= tile:
@@ -341,7 +481,8 @@ def render_camera(
         origins, dirs, cos_f = camera_rays(spec, pos, q)
         o_pm = origins[:, None, :].expand(n, H * W, 3).reshape(S, R, 3).contiguous()
         d_pm = dirs.reshape(S, R, 3)
-        t_init = cone_warm_start(data, spec, tile, origins, q, S, objects, n_steps, max_depth)
+        t_init = cone_warm_start(data, spec, tile, origins, q, S, kern_objects, n_steps,
+                                 max_depth)
         pixel_steps = n_steps if t_init is None else max(8, n_steps // 2)
         t, hit, _ = trace_diff(kscene, o_pm, d_pm, t_init, pixel_steps, max_depth,
                                packed=True, img_w=W if (H * W) % TILE == 0 else None)
@@ -365,9 +506,12 @@ def render_camera(
         t, hit = out[0], out[1]
         kid = out[2] if want_kid else None
         cos_f = cos_f.reshape(1, H, W)
-        if stype != "depth":  # shading needs point-major arrays
+        if stype != "depth" or mesh_objs:  # shading and objects need point-major arrays
             o_pm, d_pm = o_full.permute(1, 2, 0), d_full.permute(1, 2, 0)
 
+    obj_px = None
+    if mesh_objs:
+        t, hit, obj_px, n_o, c_o = _compose_objects(objects, o_pm, d_pm, t, hit, max_depth)
     if stype == "depth":
         depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f, max_depth)
         return {"depth": depth[:, None, :, :]}
@@ -376,6 +520,12 @@ def render_camera(
         shaded = _shade_primitive_indexed(data, p_hit, hit, kid, stype, lighting)
     else:
         shaded = _shade_primitive(data, p_hit, hit, stype, lighting)
+    if obj_px is not None:
+        if stype == "semantic":
+            shaded = torch.where(obj_px, 255.0, shaded)
+        else:
+            shaded = torch.where(obj_px[..., None], c_o * lambert_shade(n_o, p_hit, lighting),
+                                 shaded)
     if stype == "semantic":
         sem = torch.round(shaded).to(torch.uint8).reshape(n, H, W)
         return {"semantic": sem[:, None, :, :]}
@@ -384,17 +534,25 @@ def render_camera(
 
 
 def render_sensors(env, state) -> Dict[str, Tensor]:
-    """Render every sensor in ``env.sensor_kwargs``, keyed by uuid. The
-    env's lighting setup is baked once."""
+    """Render every sensor in ``env.sensor_kwargs``, keyed by uuid, with the
+    env's dynamic objects (``env.render_objects``) in view and each sensor's
+    noise model applied, drawn from ``state.gen`` one sensor after another.
+    The env's lighting setup is baked once."""
     if env.scene is None:
         return {}
     if not hasattr(env, "_baked_lighting"):
         env._baked_lighting = bake_lighting(env.scene_kwargs.get("lighting"), env.device)
+    objects = env.render_objects(state)
+    noise = getattr(env, "noise_settings", None) or {}
     out: Dict[str, Tensor] = {}
     for spec, geom in zip(env.sensor_kwargs, env.cameras):
         res = render_camera(env.scene, state.dyn.pos, state.dyn.q, spec,
                             n_steps=int(env.scene_kwargs.get("trace_steps", 40)),
-                            num_scene=env.num_scene, lighting=env._baked_lighting, geom=geom)
+                            objects=objects, num_scene=env.num_scene,
+                            lighting=env._baked_lighting, geom=geom)
         for k, v in res.items():
-            out[spec.get("uuid", k)] = v
+            uuid = spec.get("uuid", k)
+            if uuid in noise and uuid != "IMU":
+                v = apply_noise(state.gen, uuid, v, noise)
+            out[uuid] = v
     return out

@@ -176,6 +176,20 @@ def load_mesh(path: str) -> Tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
+def instance_palette(n: int) -> np.ndarray:
+    """(n, 3) uint8 instance colours: golden-angle hues at two lightness
+    bands. Row 0 (the stage) is the neutral 180 grey of plain imported
+    meshes."""
+    import colorsys
+
+    out = np.full((max(n, 1), 3), 180, np.uint8)
+    for i in range(1, n):
+        h = (i * 0.381966) % 1.0
+        light = 0.55 if i % 2 else 0.4
+        out[i] = np.asarray(colorsys.hls_to_rgb(h, light, 0.9)) * 255
+    return out
+
+
 def mesh_to_sdf_grid(verts: np.ndarray, faces: np.ndarray, origin: np.ndarray, spacing: float,
                      dims: Tuple[int, int, int], signed: bool = True) -> np.ndarray:
     """(X, Y, Z) float32 signed distance grid of the mesh, by the native
