@@ -99,10 +99,12 @@ def traced_ms(fn, kernel, name, reps=20):
     """The card's ms per launch of ``kernel`` over ``reps`` calls of ``fn``,
     one launch each, from a ``torch.profiler`` trace → (ms, launches the
     trace held). A trace can miss the first kernels it should hold, so eight
-    small kernels go first in each (as in ``chip_smoke.device_ms``). The mean
-    is taken over the launches the trace holds, only if they are at least 90%
-    of ``reps``; a trace with fewer is taken again, and the third such
-    fails."""
+    small kernels go first in each. The mean is taken over the launches the
+    trace holds, only if they are at least 90% of ``reps``; a trace with fewer
+    is taken again, and the third such fails. A render launches more kernels
+    than the one read here, so ``chip_smoke.device_ms``'s queued events, which
+    count them all, do not serve; a trace after a short one can misread a
+    short kernel (``chip_profile.py timing``)."""
     import torch
 
     pad = torch.zeros(1, device="cuda")

@@ -7,7 +7,7 @@ time of a step, so the idle share is taken against the step time clocked
 without it.
 
     python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [G] [K] [sv] [probe]
-                            [floor] [split] [march] [analytic] [mx]   # default: A C
+                            [floor] [split] [march] [analytic] [mx] [timing]   # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
 and 3 times (360, 5,760 and 23,040 triangles); they also clock the parts of
@@ -105,6 +105,14 @@ B's camera rays, B1-kid culled on path A's and on path B's, and B1 culled on
 1 M random rays (no shared origin: every term per ray), with the bound and
 the share of it; beside them the package's kernel un-culled on path B's
 rays.
+
+``timing`` is the evidence for ``chip_smoke.py::device_ms``: B1-kid culled
+at the 480×640 top view of ``cluttered_flight`` (path N's global view) and
+B1 culled on path B's camera rays, each in three rounds of 20 launches.
+Per round: every launch's duration from ``torch.profiler``'s kernel records,
+with the host's time between the launches, and again with the 20 launches
+queued behind a spin of the card, with the gaps between them; then
+``device_ms`` beside the mean of the records.
 
 Every line ends with the card's name and power limit.
 """
@@ -316,9 +324,9 @@ def profile_ppo(name, trainer, card, extra=None):
         if device.get(part) == "":  # many kernels: the busy time of a window
             report_busy(f"{name} {part}", fn, 1, "call", ms, card)
         elif part in device:  # one kernel: its own time over 20 launches
-            dev_ms, n = cs.device_ms(fn, device[part])
-            print(f"{name} | {part}: on the device {dev_ms:.4f} ms ({n} of 20 launches traced) | "
-                  f"{card}", flush=True)
+            dev_ms = cs.device_ms(fn)
+            print(f"{name} | {part}: on the device {dev_ms:.4f} ms (20 calls queued behind a "
+                  f"spin) | {card}", flush=True)
     print(f"{name} | rollout step (the update's rollout / {n_steps}): {step_ms:.3f} ms | {card}",
           flush=True)
     trainer.n_steps = 8
@@ -977,6 +985,65 @@ def analytic(env_b, env_a, card):
           f"{ms:.4f} ms on the device ({held} of 20 launches traced) | {card}", flush=True)
 
 
+def timing(env_b, card):
+    """Per-launch kernel records against ``chip_smoke.py::device_ms``."""
+    import numpy as np
+
+    import visfly_tpu_torch.render.global_view as gv
+    from visfly_tpu_torch.envs import NavigationEnv
+    from visfly_tpu_torch.render import camera_rays_components, prepare_kernel_scene
+
+    dev = torch.device("cuda", 0)
+    env = NavigationEnv(device=dev, **cs.CLUTTERED_FLIGHT)
+    state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
+    eye, look = gv._camera_pose("top", env.bbox.cpu().numpy(),
+                                state.dyn.pos.mean(0).cpu().numpy())
+    q = gv._look_at_quat(eye.astype("float64"), look.astype("float64"))
+    spec = {"sensor_type": "color", "resolution": [480, 640], "hfov": 90.0, "tile": 1}
+    o_c, d_c, _ = camera_rays_components(
+        spec, torch.tensor(eye, dtype=torch.float32, device=dev)[None],
+        torch.tensor(q, dtype=torch.float32, device=dev)[None])
+    n = 480 * 640
+    o_v = o_c[:, :, None].expand(3, 1, n).contiguous()
+    d_v = d_c.reshape(3, 1, n).contiguous()
+    state_b, _ = env_b.reset(torch.Generator(device=dev).manual_seed(0))
+    uses = {
+        "B1-kid, the 480x640 global view": (
+            "trace_analytic_kid", prepare_kernel_scene(gv.scene_zero(env.scene)), o_v, d_v, 640),
+        "B1, path B's camera rays": (
+            "trace_analytic", prepare_kernel_scene(env_b.scene),
+            *cs.camera_rays_of(env_b, state_b), cs.RES[1])}
+    for use, (mode, ks, o, d, img_w) in uses.items():
+        kernel = cs.kernel_modes(None, img_w)[mode][0]
+        call = lambda: kernel(ks, o, d)  # noqa: E731
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        for round_ in range(3):
+            for queued in (False, True):
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    if queued:
+                        torch.cuda._sleep(20_000_000)
+                    for _ in range(20):
+                        call()
+                    torch.cuda.synchronize()
+                ev = sorted((e for e in prof.events() if cs.KERNEL_NAMES[mode] in e.name
+                             and e.device_type == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+                dur = np.array([e.time_range.elapsed_us() for e in ev])
+                gaps = np.array([b.time_range.start - a.time_range.end
+                                 for a, b in zip(ev, ev[1:])])
+                how = (f"queued, gaps {gaps.min():.2f}-{gaps.max():.2f} us" if queued and
+                       len(gaps) else "host between launches")
+                stats = (f"{dur.mean():.2f} us (min {dur.min():.2f}, max {dur.max():.2f})"
+                         if len(dur) else "none")
+                print(f"timing | {use} round {round_} ({how}): {len(ev)} of 20 launches "
+                      f"recorded, {stats} | {card}", flush=True)
+            print(f"timing | {use} round {round_}: device_ms {cs.device_ms(call) * 1e3:.2f} us"
+                  f" | {card}", flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_profile.py needs one CUDA card", file=sys.stderr)
@@ -1014,6 +1081,8 @@ def main(argv):
             march(make_env["B"](), card)
         elif name == "analytic":
             analytic(make_env["B"](), make_env["A"](), card)
+        elif name == "timing":
+            timing(make_env["B"](), card)
         elif name == "G":
             from visfly_tpu_torch.algos import PPO
             from visfly_tpu_torch.envs import NavigationEnv

@@ -65,7 +65,20 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   agents, its YAML files' recipe; 1 warm-up and 1 timed update),
   ``tracking`` with ``BPTT`` (``TrackEnv``, 64 agents, H = 48; 1 and 2), a
   ``CatchEnv`` rollout of 32 steps, and path C's ``HoverEnv`` with a string
-  wind of two fields and ``drag_random`` 0.3 (2 chunks of 125). No kernel.
+  wind of two fields and ``drag_random`` 0.3 (2 chunks of 125). No kernel;
+- path N, the experiment layer at path G's width: path G's state after its
+  timed updates saved, continued one update through ``learn(log_dir=...)``
+  (its ``progress.csv`` carries ``train/loss`` and ``time/fps``), and resumed
+  in a fresh trainer of another seed, one update held to the continuation;
+  ``python -m visfly_tpu_torch.run -t 1 -e cluttered_flight -a PPO_tuned -n
+  12288 -c smoke`` in a temporary directory (one update, B1 exactly 1 + 2 ×
+  256 launches) and ``-t 0 -w`` on its checkpoint (the 4-agent eval env,
+  ``max_steps`` 512, B1 twice a step and once at each of its two resets,
+  the trainer's init and the rollout's); the global view
+  of the evaluation's last state at 480×640 (``view="top"`` with the
+  trajectory, ``view="near"`` with the velocity, collision and axes
+  overlays; B1-kid once a frame, its per-tile cull without frustum planes)
+  and the crossing env's (24 scenes, scene 0 rendered).
 
 Phases, one line each; any failure exits non-zero:
 
@@ -138,7 +151,14 @@ Phases, one line each; any failure exits non-zero:
    deviation within 5% of the model's on the depth leg's camera, Redwood
    depth noise unbiased within 1% on flat pixels, salt and pepper within 5%
    of the model's shares on path A's camera, and every model on constant
-   images within tests/test_scene_render.py's limits.
+   images within tests/test_scene_render.py's limits; path N's resume
+   against the continuation (loss within 1e-5, every parameter within 1e-4
+   relative in the l2 norm, generator states and ``AdamChain.count`` equal,
+   whether the whole state is bitwise equal printed with its largest
+   elementwise difference), the load's report of the env fields it kept, and
+   each global view against the same render from CPU copies (colour equal on
+   all but ≤ 1e-4 of pixels) with B1-kid at the view's rays against its plain
+   version (phase 3's limits) and timed, beside path A's.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches in phase 4, error, times and bound; the last line is
@@ -146,13 +166,18 @@ launches in phase 4, error, times and bound; the last line is
 
     python3 chip_smoke.py
 """
+import contextlib
+import csv
+import io
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_AGENTS = 256
@@ -325,6 +350,7 @@ SUITE = [
 SUITE_MODES = {"semantic": "trace_analytic_kid", "depth_march": "trace_march",
                "depth_nocull": "trace_march_nocull", "depth_tile": "trace_march_packed"}
 # the CUDA function each trace mode launches, as the profiler names it
+# (``chip_profile.py``)
 KERNEL_NAMES = {"trace_analytic": "trace_analytic_kernel<false",
                 "trace_analytic_kid": "trace_analytic_kernel<true",
                 "trace_march": "trace_march_kernel", "trace_march_nocull": "trace_march_kernel",
@@ -689,41 +715,37 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, name, reps=20, warmup=3):
-    """Milliseconds the card spends per call of ``fn`` in the kernels whose
-    name holds ``name``, from ``torch.profiler``'s trace of ``reps`` calls,
-    one launch each → (ms, launches the trace held): the kernel alone. CUDA
-    events around a call also hold the wrapper's host time while the card
-    waits (0.03-0.08 ms a call), which is most of a kernel as short as B1. A
-    trace can miss the first kernels it should hold (in this script's process
-    two, at the matrix form), so eight small kernels go first in each. The
-    mean is taken over the launches a trace holds, only if they are at least
-    90% of ``reps``; a trace with fewer is taken again, and the third such
-    fails."""
+def device_ms(fn, reps=20, warmup=3):
+    """Milliseconds the card spends per call of ``fn``, from CUDA events: the
+    ``reps`` calls are queued behind a spin of the card (``torch.cuda._sleep``)
+    and so run back to back, without the host's time between launches that
+    :func:`cuda_ms` holds (0.03-0.08 ms a call, most of a kernel as short as
+    B1). Each wrapper timed so launches one kernel, so this is the kernel and
+    the gap of about a microsecond between two launches. The spin is doubled
+    until every call was queued before it ended; ``fn`` must not wait for the
+    card. ``torch.profiler``'s kernel records, which this replaced, dropped
+    the launches of a 16-microsecond kernel three traces running, and once a
+    trace had dropped some, the next could report half the kernel's time."""
     import torch
 
     for _ in range(warmup):
         fn()
-    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    for _ in range(3):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
-                pad.add_(1.0)
-            torch.cuda.synchronize()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [r for r in prof.key_averages() if name in r.key]
-        us = sum(getattr(r, "device_time_total", 0) or getattr(r, "cuda_time_total", 0)
-                 for r in rows)
-        n = sum(r.count for r in rows)
-        if us > 0 and 0.9 * reps <= n <= reps:
-            return us / n / 1e3, n
-        print(f"device_ms | {name}: the trace held {n} of {reps} launches; traced again",
-              flush=True)
-    raise RuntimeError(f"FAILED: three profiler traces held under 90% of {reps} launches "
-                       f"of {name}")
+    cycles = 20_000_000  # about 10 ms at the H100's clock
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError(f"FAILED: {reps} calls were not queued within a spin of {cycles} cycles")
+
 
 def camera_rays_of(env, state, sensor=0):
     """The component-major rays (3, 1, N·H·W) the render gives the kernels."""
@@ -1245,7 +1267,7 @@ def mx_phase(tris, o8, d8, img_w, cam_rays, args, plan, stats, n_rays, ms, b_ms,
 
     mode = "tri_trace_camsoup_mx"
     T = tris.shape[1]
-    dev_ms, held = device_ms(lambda: tri_first_hit(*args, mode="mx"), "tri_trace_mx_kernel")
+    dev_ms = device_ms(lambda: tri_first_hit(*args, mode="mx"))
     timing["device_ms"] = dev_ms
 
     # the kernel against its split's model on 8 cameras, lists of the whole mesh
@@ -1331,7 +1353,7 @@ def mx_phase(tris, o8, d8, img_w, cam_rays, args, plan, stats, n_rays, ms, b_ms,
     floor_ms, tc_ms, gate_ms = mx_floor_ms(stats)
     old_ms = tri_bound_ms("sv_cam", stats, n_rays, plan.lists)[0]
     print(f"phase 3 | {mode} T={T} 64x64 at {n_rays} rays: kernel {ms:.4f} ms (CUDA events "
-          f"around the call), on the device {dev_ms:.4f} ms ({held} of 20 launches traced); "
+          f"around the call), on the device {dev_ms:.4f} ms (20 calls queued behind a spin); "
           f"bound {b_ms:.4f} ms (the function's products, 3 TF32 passes, at the tensor rate; its "
           f"gate at the float32 rate), share {b_ms / ms:.4f} (device {b_ms / dev_ms:.4f}); old "
           f"yardstick {old_ms:.4f} ms (the float32 body on the CUDA cores, as B6); floor of this "
@@ -1702,7 +1724,8 @@ def card_vs_cpu(env, env_cpu, state, seed):
 
 def training_paths(dev, card, launches):
     """Paths G-J, the trainers at their published widths; adds each path's
-    launches to ``launches``."""
+    launches to ``launches`` → path G's trainer and its state after the
+    timed updates (path N resumes it)."""
     import torch
 
     # path G: the default training run, PPO on cluttered_flight; B1 renders
@@ -1749,6 +1772,7 @@ def training_paths(dev, card, launches):
         f"of the rollout; trace_analytic {counts['trace_analytic'] - 1} launches in "
         f"{n_timed + 1} updates = 2 x {n_steps} x {n_timed + 1}; loss {float(m['loss']):.4f}, "
         f"gradient norm {float(m['grad_norm']):.4f}, approx KL {float(m['approx_kl']):.5f}")
+    st_g = st
 
     # paths H and I: SHAC and APG through the differentiable navigation2 env,
     # the garage for collisions, no camera: no kernel
@@ -1816,6 +1840,237 @@ def training_paths(dev, card, launches):
                  f"{tr_j.learning_starts} transitions); critic loss "
                  f"{float(m['critic_loss']):.4f}, actor loss {float(m['actor_loss']):.4f}, alpha "
                  f"{float(m['alpha']):.4f}, gradient norm {float(m['grad_norm']):.4f}")
+    return tr_g, st_g
+
+
+def cpu_view(env):
+    """What ``render_global`` reads of an env, with its scene on the CPU."""
+    import torch
+
+    return types.SimpleNamespace(scene=to_device(env.scene, "cpu", None), bbox=env.bbox.cpu(),
+                                 device=torch.device("cpu"))
+
+
+def payload_diff(a, b):
+    """(bitwise equal, largest elementwise difference) of two checkpoint
+    payloads (``utils.checkpoint.to_payload``) of one structure."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if torch.equal(a, b):
+            return True, 0.0
+        d = (a.double() - b.double()).abs().max() if a.numel() else torch.zeros(())
+        return False, float(d)
+    if isinstance(a, dict):
+        parts = [payload_diff(a[k], b[k]) for k in a]
+    elif isinstance(a, (list, tuple)):
+        parts = [payload_diff(x, y) for x, y in zip(a, b)]
+    else:
+        return a == b, 0.0 if a == b else float("inf")
+    return all(p[0] for p in parts), max((p[1] for p in parts), default=0.0)
+
+
+def global_view_check(name, env, state, kw, card):
+    """One global view on the card (one ``trace_analytic_kid`` launch)
+    against the same render from CPU copies of the scene and the state →
+    the frame."""
+    import torch
+
+    from visfly_tpu_torch.render.global_view import render_global
+
+    reset_launches()
+    img = env.render(state, **kw)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    want = {k: 0 for k in counts}
+    want["trace_analytic_kid"] = 1
+    check(counts == want, f"path N {name}: kernel launches {counts} != expected {want}")
+    ref = render_global(cpu_view(env), to_device(state, "cpu", torch.Generator()), **kw)
+    off = float((img != ref).any(-1).mean())
+    print(f"phase 5 | path N global view {name} ({img.shape[0]}x{img.shape[1]}) card vs cpu: "
+          f"colour differs on {off:.3e} of pixels; std {img.std():.1f} | {card}", flush=True)
+    check(img.shape == (480, 640, 3) and img.dtype.name == "uint8", f"{name}: frame {img.shape}")
+    check(off <= COLOR_TOL, f"path N {name}: colour card vs cpu differs on {off} of pixels")
+    check(img.std() > 5, f"path N {name}: blank frame")
+    return img, counts
+
+
+def experiment_layer_path(dev, card, launches, errs, timing, tr_g, st_g):
+    """Path N, the experiment layer at path G's width: path G's state saved,
+    continued through ``learn(log_dir=...)`` and resumed in a fresh trainer
+    (held to the continuation); ``python -m visfly_tpu_torch.run`` training
+    one update and evaluating its checkpoint; the global view of the
+    evaluation's last state through B1-kid at 480×640, held to the CPU and
+    the kernel to its plain version; the crossing env's scene 0. Adds the
+    launches to ``launches`` and B1-kid's error at the view to ``errs``."""
+    import torch
+
+    from visfly_tpu_torch import run
+    from visfly_tpu_torch.algos import PPO
+    from visfly_tpu_torch.envs import MultiNavigationEnv, NavigationEnv
+    from visfly_tpu_torch.render import camera_rays_components, prepare_kernel_scene
+    from visfly_tpu_torch.render import global_view as gv
+    from visfly_tpu_torch.render.trace_kernel import cull_rows
+    from visfly_tpu_torch.utils.checkpoint import to_payload
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    t_path = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="visfly_path_n_")
+    cwd = os.getcwd()
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        # 1. exact resume: save, continue through learn (the logger), resume.
+        # cuDNN's convolution backward may accumulate in another order each
+        # run, and Adam turns such a difference in a near-zero gradient entry
+        # into a move of up to lr (ROADMAP Queue C, "Adam and parity"): both
+        # updates take cuDNN's deterministic algorithms, so that the
+        # comparison sees the resume alone
+        torch.backends.cudnn.deterministic = True
+        per = tr_g.n_steps * tr_g.env.num_envs
+        reset_launches()
+        ckpt = tr_g.save(st_g, os.path.join(work.name, "path_g"))
+        log_dir = os.path.join(work.name, "logs")
+        st_cont = tr_g.learn(total_timesteps=per, state=st_g, log_dir=log_dir)
+        with open(os.path.join(log_dir, "progress.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == 1 and {"train/loss", "time/fps"} <= set(rows[0]),
+              f"path N: progress.csv rows {rows}")
+        tr_r = PPO(NavigationEnv(device=dev, **CLUTTERED_FLIGHT), seed=7, **PPO_TUNED)
+        st_r = tr_r.load(tr_r.init(torch.Generator(device=dev).manual_seed(91)), ckpt)
+        st_res, m_res = tr_r.update(st_r)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        want = {k: 0 for k in counts}
+        want["trace_analytic"] = 2 * 2 * tr_g.n_steps + 1
+        check(counts == want, f"path N resume: kernel launches {counts} != expected {want}")
+        torch.backends.cudnn.deterministic = deterministic
+        d_loss = abs(float(m_res["loss"]) - float(rows[0]["train/loss"]))
+        p_l2, worst = max((float(torch.linalg.vector_norm(p.detach() - q.detach())
+                                 / torch.linalg.vector_norm(q.detach())), name)
+                          for (name, p), q in zip(tr_r.policy.named_parameters(),
+                                                  tr_g.policy.parameters()))
+        gens = (torch.equal(st_res.gen.get_state(), st_cont.gen.get_state())
+                and torch.equal(st_res.env_state.gen.get_state(),
+                                st_cont.env_state.gen.get_state()))
+        count_eq = st_res.opt_state.count == st_cont.opt_state.count
+        bitwise, elem = payload_diff(to_payload(tuple(st_res)), to_payload(tuple(st_cont)))
+        print(f"phase 5 | path N exact resume ({tr_g.env.num_envs} agents x {tr_g.n_steps} "
+              f"steps, checkpoint {os.path.getsize(ckpt)} bytes, cuDNN deterministic): |d loss|="
+              f"{d_loss:.3e}, parameters l2 relative difference {p_l2:.3e} (largest at "
+              f"{worst}), generators equal {gens}, "
+              f"AdamChain.count {st_res.opt_state.count} / {st_cont.opt_state.count}, state "
+              f"bitwise equal {bitwise}, largest elementwise difference {elem:.3e}; "
+              f"progress.csv carries train/loss and time/fps; {add(counts)} launches | {card}",
+              flush=True)
+        check(d_loss <= 1e-5, f"path N resume: loss off by {d_loss} > 1e-5")
+        check(p_l2 <= GRAD_TOL, f"path N resume: parameters off by {p_l2} > {GRAD_TOL} (l2)")
+        check(gens and count_eq, "path N resume: generator states or AdamChain.count differ")
+        del tr_r, st_r, st_res, st_cont
+
+        # 2. the runner trains one update of the default run and saves it
+        os.chdir(work.name)
+        reset_launches()
+        t0 = time.perf_counter()
+        trained = run.main(["-t", "1", "-e", "cluttered_flight", "-a", "PPO_tuned", "-n",
+                            str(per), "-c", "smoke"])
+        torch.cuda.synchronize()
+        dt_train = time.perf_counter() - t0
+        counts = all_launches()
+        want = {k: 0 for k in counts}
+        want["trace_analytic"] = 1 + 2 * tr_g.n_steps
+        check(counts == want, f"path N run -t 1: kernel launches {counts} != expected {want}")
+        path = trained["checkpoint"]
+        check(path == os.path.join(work.name, "saved", "cluttered_flight", "PPO_smoke_1.pt")
+              and os.path.isfile(path), f"path N: checkpoint {path}")
+        print(f"phase 4 | path N (python -m visfly_tpu_torch.run -t 1 -e cluttered_flight -a "
+              f"PPO_tuned -n {per}): {add(counts)} launches = 1 + 2 x {tr_g.n_steps} | "
+              f"{dt_train:.1f} s; checkpoint {os.path.getsize(path)} bytes | {card}", flush=True)
+        del trained
+
+        # 3. the runner evaluates the checkpoint in the eval env
+        reset_launches()
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            ev = run.main(["-t", "0", "-e", "cluttered_flight", "-a", "PPO_tuned", "-w", path])
+        torch.cuda.synchronize()
+        dt_eval = time.perf_counter() - t0
+        sys.stdout.write(printed.getvalue())
+        counts = all_launches()
+        tester, stats = ev["tester"], ev["stats"]
+        steps = len(tester.last_record["done"])
+        want = {k: 0 for k in counts}
+        # PPO switches its env to the terminal observation, the eval env too
+        # (as the JAX trainer does): two renders a step, and one at each of
+        # the two resets (the trainer's init, then the rollout's)
+        want["trace_analytic"] = 2 + 2 * steps
+        check(counts == want, f"path N run -t 0: kernel launches {counts} != expected {want}")
+        check(tester.env.num_envs == 4, f"path N: eval env of {tester.env.num_envs} agents")
+        check("['env_state', 'obs']" in printed.getvalue(),
+              "path N: the load did not report the env fields it kept")
+        check(all(os.path.isfile(f) for f in tester.files) and len(tester.files) >= 1,
+              f"path N: files {tester.files}")
+        check(0 <= stats["success_rate"] <= 1 and math.isfinite(stats["mean_return"]),
+              f"path N: stats {stats}")
+        print(f"phase 4 | path N (run -t 0 -w PPO_smoke_1.pt): {add(counts)} launches = 2 + 2 x "
+              f"{steps} steps | {dt_eval:.1f} s; success rate {stats['success_rate']:.4f}, mean "
+              f"return {stats['mean_return']:.4f}, mean length {stats['mean_length']:.1f}; wrote "
+              f"{[os.path.relpath(f, work.name) for f in tester.files]} | {card}", flush=True)
+
+        # 4. the global view of the evaluation's last state, 480×640 colour
+        env_e, st_e = tester.env, tester.last_state
+        traj = tester.last_record["position"]
+        views = {"top": dict(view="top", trajectory=True, traj_history=traj),
+                 "near": dict(view="near", traj_history=traj, velocity=True, collision=True,
+                              axes=True)}
+        for name, kw in views.items():
+            add(global_view_check(name, env_e, st_e, kw, card)[1])
+        # B1-kid at the top view's rays against its plain version, timed
+        focus = st_e.dyn.pos.mean(0).cpu().numpy()
+        eye, look = gv._camera_pose("top", env_e.bbox.cpu().numpy(), focus)
+        q = gv._look_at_quat(eye.astype("float64"), look.astype("float64"))
+        spec = {"sensor_type": "color", "resolution": [480, 640], "hfov": 90.0, "tile": 1}
+        o_c, d_c, _ = camera_rays_components(
+            spec, torch.tensor(eye, dtype=torch.float32, device=dev)[None],
+            torch.tensor(q, dtype=torch.float32, device=dev)[None])
+        n_rays = 480 * 640
+        o = o_c[:, :, None].expand(3, 1, n_rays).contiguous()
+        d = d_c.reshape(3, 1, n_rays).contiguous()
+        ks = prepare_kernel_scene(gv.scene_zero(env_e.scene))
+        kernel, plain = kernel_modes(None, 640)["trace_analytic_kid"]
+        errs["trace_analytic_kid"] = max(errs["trace_analytic_kid"], compare(
+            "trace_analytic_kid", "the 480x640 global view (cull without frustum planes)",
+            kernel, plain, ks, o, d))
+        call = lambda: kernel(ks, o, d)  # noqa: E731
+        ms = cuda_ms(call)
+        dev_ms = device_ms(call)
+        plain_ms = cuda_ms(lambda: plain(ks, o, d))
+        b_ms, b_by = bound_ms("trace_analytic_kid", ks, n_rays,
+                              plan=cull_rows(ks, o, d, MAX_DEPTH, 640), o=o)
+        a = timing["trace_analytic_kid"]
+        print(f"phase 3 | trace_analytic_kid at the 480x640 global view ({n_rays} rays, one "
+              f"camera): kernel {ms:.4f} ms (CUDA events around the call; on the device "
+              f"{dev_ms:.4f} ms, 20 calls queued behind a spin), plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by}, share {b_ms / ms:.4f} (device "
+              f"{b_ms / dev_ms:.4f}); path "
+              f"A's at 1048576 rays: device {a['device_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
+              f"by {a['bound_by']} | {card}", flush=True)
+
+        # the crossing env's scene: 24 scenes, the view renders scene 0
+        env_x = MultiNavigationEnv(device=dev, **CROSSING)
+        st_x, _ = env_x.reset(torch.Generator(device=dev).manual_seed(130))
+        add(global_view_check("crossing top (scene 0 of 24)", env_x, st_x, dict(view="top"),
+                              card)[1])
+        print(f"phase 4 | path N (the experiment layer): {time.perf_counter() - t_path:.1f} s | "
+              f"{card}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        os.chdir(cwd)
+        work.cleanup()
 
 
 # path L: ``DynEnv`` amid moving objects; ``spheres`` are template-less
@@ -2260,7 +2515,7 @@ def main():
         else:
             call = lambda: kernel(ks, o, d)  # noqa: E731
         ms = cuda_ms(call)
-        dev_ms, held = device_ms(call, KERNEL_NAMES[mode])
+        dev_ms = device_ms(call)
         march = "march" in mode
         plain_ms = cuda_ms(lambda: plain(ks, o, d), reps=3 if march else 20,
                            warmup=1 if march else 3)
@@ -2283,17 +2538,17 @@ def main():
             evals = (f", {stats['sdf_evals'] / o.shape[2]:.2f} SDF evaluations a ray (bound with "
                      f"the row constants at every evaluation: {old_ms:.4f} ms)")
         print(f"phase 3 | {mode} at {o.shape[2]} rays: kernel {ms:.4f} ms (CUDA events around "
-              f"the call; on the device {dev_ms:.4f} ms, {held} of 20 launches traced), plain {plain_ms:.4f} ms, bound "
+              f"the call; on the device {dev_ms:.4f} ms, queued), plain {plain_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}{evals}, share {b_ms / ms:.4f} (device {b_ms / dev_ms:.4f})"
               f" | {card}", flush=True)
     # the id's cost beside B1 on the same rays (path B's semantic sensor)
     kid_call = lambda: modes_b["trace_analytic_kid"][0](ks_b, o_b, d_b)  # noqa: E731
     kid_b = cuda_ms(kid_call)
-    kid_dev, held = device_ms(kid_call, KERNEL_NAMES["trace_analytic_kid"])
+    kid_dev = device_ms(kid_call)
     kb_ms, kb_by = bound_ms("trace_analytic_kid", ks_b, o_b.shape[2], plan=plan_b, o=o_b)
     old_ms, old_by = bound_ms("trace_analytic_kid", ks_b, o_b.shape[2], o=o_b, old=True)
     print(f"phase 3 | trace_analytic_kid on path B's rays: kernel {kid_b:.4f} ms (on the device "
-          f"{kid_dev:.4f} ms, {held} of 20 launches traced) beside trace_analytic's {timing['trace_analytic']['ms']:.4f} ms "
+          f"{kid_dev:.4f} ms, queued) beside trace_analytic's {timing['trace_analytic']['ms']:.4f} ms "
           f"({timing['trace_analytic']['device_ms']:.4f}), bound {kb_ms:.4f} ms by {kb_by} "
           f"(old yardstick: {old_ms:.4f} ms by {old_by}), share {kb_ms / kid_b:.4f} (device "
           f"{kb_ms / kid_dev:.4f}) | {card}", flush=True)
@@ -2473,7 +2728,9 @@ def main():
         report_bptt(f"path F (visual BPTT, {name})", tr_f, ms, sps, counts, m, 2,
                     "64x64 depth")
 
-    training_paths(dev, card, launches)
+    tr_g, st_g = training_paths(dev, card, launches)
+    experiment_layer_path(dev, card, launches, errs, timing, tr_g, st_g)
+    del tr_g, st_g
     swarm_and_zoo_paths(dev, card, launches)
 
     # 5. one step from the same state, card vs CPU plain path
@@ -2541,7 +2798,8 @@ def main():
                 "path B's camera rays) and trace_analytic_kid (B1-kid, path A's) cull each "
                 "tile, and their bounds count the rows that meet a tile and a one-origin "
                 "tile's origin terms once (its launches include path G's and path K's training "
-                "runs, 2 a step, and path L's depth); trace_analytic_kid's include path L's "
+                "runs, 2 a step, path N's resume, runner and evaluation, and path L's depth); "
+                "trace_analytic_kid's include path N's global views and path L's "
                 "colour; "
                 "trace_march (the per-tile cull, B2), trace_march_nocull (B3a) and "
                 "trace_march_packed (B3b) are instantiations of one march kernel, timed on path "

@@ -218,13 +218,20 @@ def test_trainer_forces_requires_grad():
     BPTT(tenvs.HoverEnv(device="cpu"), train=False)
 
 
-def test_unported_trainer_parts_raise():
+def test_unported_trainer_parts_raise(tmp_path):
+    """Checkpoints and metric logs, once unported here, are ported: save,
+    load, the interrupt checkpoint and the logger work (exact resume:
+    ``tests/test_torch_checkpoint.py``)."""
     tr = make_trainer()
     st = tr.init()
-    for call in (lambda: tr.save(st, "x"), lambda: tr.load(st, "x"),
-                 lambda: tr.save_interrupt_cache(st), lambda: tr.make_logger("logs")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 21"):
-            call()
+    path = tr.save(st, str(tmp_path / "x"))
+    assert path == str(tmp_path / "x.pt")
+    st2 = tr.load(st, str(tmp_path / "x"))
+    assert isinstance(st2, BPTTState) and st2.opt_state is tr.optimizer
+    assert tr.save_interrupt_cache(st, str(tmp_path)) == str(tmp_path / "bptt_interrupt_cache")
+    logger = tr.make_logger(str(tmp_path / "logs"), formats=("csv",))
+    logger.close()
+    assert (tmp_path / "logs").is_dir()
     assert tr.make_logger(None) is None
     assert isinstance(st, BPTTState)
 

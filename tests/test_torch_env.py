@@ -205,9 +205,10 @@ def test_unported_branches_raise(tmp_path):
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build()
-    with pytest.raises(NotImplementedError, match="ROADMAP: Queue A item 21"):
-        tenvs.MultiNavigationEnv(**bench_kwargs(num_agent_per_scene=3, scene_kwargs=dict(
-            scene, is_find_path=True)))
+    # the path planner (once Queue A item 21) is ported
+    planning = tenvs.MultiNavigationEnv(**bench_kwargs(num_agent_per_scene=3, scene_kwargs=dict(
+        scene, is_find_path=True)))
+    assert planning.is_find_path and planning.path == [None] * 3
     st, _ = tenvs.NavigationEnv(**bench_kwargs()).reset(torch.Generator().manual_seed(0))
     # colour, march and refined sensors render
     env = nav(sensor_kwargs=[

@@ -28,7 +28,9 @@ for sub in ("policies.common", "policies.extractors", "policies.networks", "algo
             "algos.common", "algos.lr_scheduler", "algos.ppo", "algos.shac", "algos.apg",
             "algos.sac", "algos.returns", "algos.buffers", "envs.multi", "envs.dynamic",
             "envs.racing", "envs.tracking", "envs.catch", "envs.controller", "scene.objects",
-            "scene.templates", "render.noise"):
+            "scene.templates", "render.noise", "run", "render.global_view", "utils.common",
+            "utils.checkpoint", "utils.logger", "utils.figfashion", "utils.evaluate",
+            "utils.profiling", "utils.debug", "utils.path_finder", "utils.sim2real"):
     assert "visfly_tpu_torch." + sub in names, sub
 import chip_smoke, chip_profile
 banned = ("jax", "jaxlib", "flax", "optax", "visfly_tpu")
@@ -49,7 +51,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 47, proc.stdout  # policies/, the trainers and the env zoo included
+    assert n_modules >= 63, proc.stdout  # policies/, the trainers, the zoo, run.py, utils/
 
 
 def _run_smoke(cwd):

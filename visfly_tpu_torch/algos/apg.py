@@ -41,6 +41,8 @@ class APG(TrainerMixin):
         seed: int = 42,
         remat: bool = True,
         train: bool = True,
+        comment: Optional[str] = None,
+        save_path: Optional[str] = None,
     ):
         self.env = env
         if train:
@@ -50,6 +52,8 @@ class APG(TrainerMixin):
         self.learning_rate = learning_rate
         self.seed = seed
         self.remat = remat  # nothing to do: autograd never replays a forward
+        self.comment = comment
+        self.save_path = save_path
         self.policy_kwargs = dict(policy_kwargs or {})
         self.actor = None  # built from the first observation's shapes
 

@@ -66,6 +66,8 @@ class BPTT(TrainerMixin):
         seed: int = 42,
         remat: bool = True,
         train: bool = True,
+        comment: Optional[str] = None,
+        save_path: Optional[str] = None,
     ):
         self.env = env
         if train:
@@ -75,6 +77,8 @@ class BPTT(TrainerMixin):
         self.max_grad_norm = float(max_grad_norm)
         self.seed = seed
         self.remat = remat
+        self.comment = comment
+        self.save_path = save_path
         self.policy_kwargs = dict(policy_kwargs or {})
         self.recurrent = bool(self.policy_kwargs.get("recurrent", False))
         self.learning_rate = learning_rate
@@ -221,6 +225,9 @@ class BPTT(TrainerMixin):
                     self.log_metrics(logger, m, int(st.global_step))
         except KeyboardInterrupt:
             self.save_interrupt_cache(st, log_dir)
+        finally:
+            if logger is not None:
+                logger.close()
         return st
 
     def predict(self, st: BPTTState, obs: Dict[str, Tensor], hidden: Any = None) -> Tensor:

@@ -1,14 +1,16 @@
 """Shared trainer plumbing (counterpart of ``visfly_tpu/algos/common.py``):
 the differentiable-env requirement, deterministic evaluation rollouts, the
-hooks a stateful policy overrides, and the optimiser every trainer uses
+hooks a stateful policy overrides, the optimiser every trainer uses
 (``AdamChain``: optax's global-norm clip, then Adam or AdamW at a schedule's
-rate). Checkpoints and metric logs are not ported yet (ROADMAP Queue A item
-21, ``utils/checkpoint.py`` and ``utils/logger.py``) and raise
-``NotImplementedError``.
+rate), metric logs (``utils/logger.py``) and full-state checkpoints for an
+exact resume (``utils/checkpoint.py``): every field of a trainer's state,
+its networks' parameters, its optimisers' moments and step counts, the env
+state and every generator.
 """
 from __future__ import annotations
 
 import copy
+import os
 from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
@@ -16,11 +18,6 @@ import torch
 from torch import Tensor, nn
 
 from .lr_scheduler import transfer_schedule
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: Queue A item 21, "
-                               "utils/checkpoint.py and utils/logger.py)")
 
 
 def clip_grads_(params: Iterable[Tensor], max_norm: Optional[float]) -> Tensor:
@@ -102,9 +99,9 @@ class TrainerMixin:
 
     def make_logger(self, log_dir: Optional[str] = None,
                     formats=("stdout", "csv", "tensorboard")):
-        if log_dir:
-            raise _unported("metric logging to a directory")
-        return None
+        from ..utils.logger import Logger
+
+        return Logger(log_dir, formats) if log_dir else None
 
     def evaluate(self, st, eval_env=None, max_steps: int = 1024,
                  gen: Optional[torch.Generator] = None) -> Dict[str, float]:
@@ -151,14 +148,34 @@ class TrainerMixin:
     def mask_predict_carry(self, carry, done):
         return carry
 
-    def save(self, st, path: str):
-        raise _unported("saving a training state")
+    # -- exact-resume checkpoints ---------------------------------------------
+    def save(self, st, path: str) -> str:
+        """Every field of the state → ``path`` (``.pt``); returns the file."""
+        from ..utils.checkpoint import save_train_state
+
+        return save_train_state(path, st)
 
     def load(self, st, path: str):
-        raise _unported("loading a training state")
+        """The state saved at ``path`` restored into ``st``, a state of this
+        trainer (from ``init()``); fields whose shapes do not match (the env's
+        when the env differs in size) keep ``st``'s values and are printed."""
+        from ..utils.checkpoint import load_train_state
+
+        new_st, skipped = load_train_state(path, st)
+        if skipped:
+            print(f"[{type(self).__name__}] checkpoint fields kept from the fresh init "
+                  f"(shape/structure mismatch): {skipped}", flush=True)
+        return new_st
 
     def save_interrupt_cache(self, st, log_dir: Optional[str] = None) -> str:
-        raise _unported("the checkpoint on an interrupt")
+        """The checkpoint taken on Ctrl-C, at
+        ``{log_dir or ./saved}/{trainer}_interrupt_cache``; returns that path."""
+        folder = log_dir or os.path.join(os.getcwd(), "saved")
+        os.makedirs(folder, exist_ok=True)
+        path = os.path.join(folder, f"{type(self).__name__.lower()}_interrupt_cache")
+        self.save(st, path)
+        print(f"[{type(self).__name__}] interrupted — checkpoint saved to {path}", flush=True)
+        return path
 
     def log_metrics(self, logger, metrics: Dict[str, Any], step: int, prefix: str = "train/"):
         if logger is None:

@@ -142,6 +142,7 @@ class PPO(TrainerMixin):
         seed: int = 42,
         comment: Optional[str] = None,
         save_path: Optional[str] = None,
+        train: bool = True,  # accepted for the runner's eval flow: PPO never needs a grad env
     ):
         self.env = env
         self.n_steps = int(n_steps)
@@ -446,6 +447,9 @@ class PPO(TrainerMixin):
                     self.log_metrics(logger, m, int(st.global_step))
         except KeyboardInterrupt:
             self.save_interrupt_cache(st, log_dir)
+        finally:
+            if logger is not None:
+                logger.close()
         return st
 
     def rotate_scenes(self, st: PPOState) -> PPOState:

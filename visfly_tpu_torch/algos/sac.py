@@ -71,6 +71,9 @@ class SAC(TrainerMixin):
         learning_starts: int = 1000,
         ent_coef: str = "auto",
         seed: int = 42,
+        comment: Optional[str] = None,
+        save_path: Optional[str] = None,
+        train: bool = True,  # accepted for the runner's eval flow: SAC never needs a grad env
     ):
         self.env = env
         self.buffer_size = int(buffer_size)
@@ -87,6 +90,8 @@ class SAC(TrainerMixin):
         self.target_entropy = -float(env.action_size)
         self.learning_rate = learning_rate
         self.seed = seed
+        self.comment = comment
+        self.save_path = save_path
         # a done row's next observation is the pre-reset one
         env.terminal_obs_in_info = True
         self.policy_kwargs = dict(policy_kwargs or {})

@@ -65,6 +65,8 @@ class SHAC(TrainerMixin):
         seed: int = 42,
         remat: bool = True,
         train: bool = True,
+        comment: Optional[str] = None,
+        save_path: Optional[str] = None,
     ):
         self.env = env
         if train:
@@ -77,6 +79,8 @@ class SHAC(TrainerMixin):
         self.learning_rate = learning_rate
         self.seed = seed
         self.remat = remat  # nothing to do: autograd never replays a forward
+        self.comment = comment
+        self.save_path = save_path
         self.policy_kwargs = dict(policy_kwargs or {})
         self.actor = self.critic = self.critic_target = None  # built from the first obs
 

@@ -584,6 +584,18 @@ class DroneGymEnv:
         collision, once = self._update_collision(dyn, falses, state.objects)
         return state._replace(dyn=dyn, collision=collision, once_collided=once)
 
+    def render(self, state: EnvState, traj_history=None, **render_settings):
+        """Global evaluation view (``render/global_view.py``): an (H, W, 3)
+        uint8 frame, or None for an env without a scene.
+        ``scene_kwargs["render_settings"]`` gives the defaults."""
+        if self.scene is None:
+            return None
+        from ..render.global_view import render_global
+
+        settings = {**self.scene_kwargs.get("render_settings", {}), **render_settings}
+        with torch.no_grad():
+            return render_global(self, state, traj_history=traj_history, **settings)
+
     # -- observation space metadata ----------------------------------------------
 
     def obs_space(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:

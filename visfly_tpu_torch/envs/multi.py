@@ -109,14 +109,13 @@ class MultiDroneGymEnv(DroneGymEnv):
 
 class MultiNavigationEnv(MultiDroneGymEnv):
     """Swarm navigation: each agent observes its own state, its target and
-    the other agents' states of its scene; success is x > 10.
-    ``scene_kwargs["is_find_path"]`` (the path planner) is not ported."""
+    the other agents' states of its scene; success is x > 10. With
+    ``scene_kwargs["is_find_path"]`` every reset plans a PRM waypoint path per
+    agent to its target (``utils/path_finder.py``, on the host), exposed as
+    :attr:`path`: guidance for controllers and figures, not part of a step."""
 
     def __init__(self, *args, target: Optional[Tensor] = None, sensor_kwargs=None,
                  max_episode_steps: int = 256, **kwargs):
-        if dict(kwargs.get("scene_kwargs") or {}).get("is_find_path", False):
-            raise _unported("scene_kwargs['is_find_path'] (the PRM path planner)",
-                            "Queue A item 21, utils/path_finder.py")
         if kwargs.get("visual", True) and not sensor_kwargs:
             sensor_kwargs = [{"sensor_type": "depth", "uuid": "depth", "resolution": [64, 64]}]
         super().__init__(*args, sensor_kwargs=sensor_kwargs,
@@ -130,9 +129,30 @@ class MultiNavigationEnv(MultiDroneGymEnv):
         else:
             self.target = torch.as_tensor(target, dtype=self.dtype, device=self.device)
         self.success_radius = 0.5
+        self.is_find_path = bool(dict(kwargs.get("scene_kwargs") or {}).get("is_find_path",
+                                                                           False))
+        self._paths = [None] * self.num_envs
         A = self.num_agent_per_scene
         self._others = torch.tensor([[j for j in range(A) if j != i] for i in range(A)],
                                     dtype=torch.long, device=self.device).reshape(A, A - 1)
+
+    @property
+    def path(self):
+        """Per-agent PRM waypoints (P, 3) from the latest reset; ``None``
+        where planning is off or no path was found."""
+        return self._paths
+
+    def reset(self, gen: Optional[torch.Generator] = None):
+        st, obs = super().reset(gen)
+        if self.is_find_path:
+            from ..utils.path_finder import find_paths
+
+            self._paths = find_paths(self, st.dyn.pos, self.target)
+        return st, obs
+
+    def reset_env_by_id(self, state: EnvState, scene_id: int) -> EnvState:
+        raise _unported("reset_env_by_id (a scene swap, and the planner's replan after it)",
+                        "Queue A item 20, habitat datasets and scene swaps")
 
     def get_observation(self, state: EnvState, sensor_obs) -> Dict[str, Tensor]:
         s = self.state_obs(state)

@@ -490,7 +490,9 @@ def render_camera(
     else:
         # component-major: rays never exist as (R, 3) tensors on the way in
         o_c, d_c, cos_f = camera_rays_components(spec, pos, q, geom)
-        o_full = o_c[:, :, None].expand(3, n, H * W).reshape(3, S, R)
+        # with one agent a scene the reshape is a view of the stride-0
+        # expand; the kernels take contiguous rays
+        o_full = o_c[:, :, None].expand(3, n, H * W).reshape(3, S, R).contiguous()
         d_full = d_c.reshape(3, S, R).contiguous()
         # the winning row's id is produced only when shading needs it
         want_kid = stype != "depth" and analytic
