@@ -6,8 +6,9 @@ for the device's busy time per step. The profiler about doubles the host
 time of a step, so the idle share is taken against the step time clocked
 without it.
 
-    python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [G] [K] [sv] [probe]
-                            [floor] [split] [march] [analytic] [mx] [timing]   # default: A C
+    python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [G] [K] [O] [sv]
+                            [probe] [floor] [split] [march] [analytic] [mx] [timing]
+                            # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
 and 3 times (360, 5,760 and 23,040 triangles); they also clock the parts of
@@ -44,6 +45,14 @@ scenes × 3 agents) the same way, and besides: the drones' mesh hits of one
 render and B1 alone on the static scene, each with its device-busy time
 from its own profiler window, and the collision query with and without the
 inter-drone override.
+
+``O`` is path O, the habitat dataset ``chip_smoke.py`` writes, at both
+backends (O1 decomposed into primitives, O2 exact and textured, 4 scenes ×
+64 agents, 64×64 depth, colour and semantic): the seconds to load each
+backend's four scenes, then a step's parts as for the other paths (on O2
+with each sensor's prepass and kernel, ``tri_closest_point`` at ~47,600
+triangles a scene, the grid's spawn test and the colour sensor's texture
+gathers), and the device-busy share of 8 steps.
 
 ``probe`` and ``floor`` are the triangle kernel's two diagnostics at 23,040
 triangles (the counterparts of ``examples/_tri_probe.py`` and
@@ -182,6 +191,15 @@ def profile(name, env, card):
         parts["tri_closest_point"] = lambda: tri_closest_point(tris, env.scene_ids, state.dyn.pos)
         parts["point_is_collision on the grid (one try)"] = lambda: point_is_collision(
             env.scene, state.dyn.pos, env.scene_ids, 1.0)
+    if isinstance(getattr(env.scene, "tri_uv", ()), torch.Tensor):
+        from visfly_tpu_torch.render.sphere_trace import _texture_albedo
+        from visfly_tpu_torch.render.tri_trace import tri_trace_diff
+
+        o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, 1)
+        t, _, _, gid = tri_trace_diff(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w, True, cam_rays)
+        p3 = (o_c + d_c * t[None]).permute(1, 2, 0)
+        parts["texture gathers (barycentrics, texcoords, atlas)"] = (
+            lambda: _texture_albedo(env.scene, gid, p3))
     if env.needs_sensors_for_reward:
         images = env.sensor_observations(state)
         parts["update_aux_from_sensors (images given)"] = lambda: env.update_aux_from_sensors(
@@ -1095,6 +1113,17 @@ def main(argv):
 
             env = MultiNavigationEnv(device=dev, **cs.CROSSING)
             profile_ppo("path K", PPO(env, **cs.PPO_TUNED_CROSSING), card, crossing_parts(env))
+        elif name == "O":
+            work = tempfile.TemporaryDirectory(prefix="visfly_path_o_")
+            config, _ = cs.write_o_dataset(work.name)
+            for label, grid in (("O1 (decomposed)", False), ("O2 (exact, textured)", True)):
+                t0 = time.perf_counter()
+                env = cs.o_env(dev, config, grid)
+                print(f"path {label} | load of {cs.O_SCENES} scenes: "
+                      f"{time.perf_counter() - t0:.2f} s on the host | {card}", flush=True)
+                profile(f"path {label}", env, card)
+                del env
+            work.cleanup()
         elif name == "E":
             profile_bptt("path E", BPTT(cs.hover_grad_env(dev), horizon=32), card)
         elif name == "F":

@@ -78,7 +78,26 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   of the evaluation's last state at 480×640 (``view="top"`` with the
   trajectory, ``view="near"`` with the velocity, collision and axes
   overlays; B1-kid once a frame, its per-tile cull without frustum planes)
-  and the crossing env's (24 scenes, scene 0 rendered).
+  and the crossing env's (24 scenes, scene 0 rendered);
+- path O, the scenes users bring: a habitat-format dataset written by the
+  smoke in a temporary directory (a GLB stage, ``garage_mesh(3)``: 23,040
+  triangles with per-face texcoords and a 1,024×1,024 PNG; four templates of
+  768 triangles: two GLBs with red/blue checker PNGs, a GLB of a flat
+  ``baseColorFactor``, an OBJ with an MTL ``Kd``; six scene instances of 32
+  placements each, translated, turned and scaled uniformly or not, 47,616
+  triangles a scene; the dataset config), loaded by ``NavigationEnv`` with
+  ``scene_kwargs={"path": <config>}``: 4 scenes × 64 agents, 64×64 depth,
+  colour and semantic, dt = ctrl_dt = 0.03, bodyrate; O1 the default
+  backend (each scene decomposed, ``max_prims`` 64: B1 once, B1-kid twice a
+  render), O2 ``backend: "grid"`` (exact textured triangles with
+  per-instance ids: the triangle kernel three times a render); each one
+  warm-up chunk and one timed chunk of 32 steps, ``reset_env_by_id(state,
+  2)`` after its 10th step and ``reset_scenes`` after its 20th (timed apart:
+  the rotation wraps the loader's six files), then ``approaching_point`` for
+  every agent and the 480×640 global view of scene 0 with the approaching
+  lines; on O2's scene 0 besides: 4 agents with a 64×64 colour camera and
+  shadow rays, 4 with a ``render_backend: "grid"`` depth sensor, and 4 in
+  ``garage_simple_l_medium`` baked into a grid by ``bake_scenes``.
 
 Phases, one line each; any failure exits non-zero:
 
@@ -158,7 +177,19 @@ Phases, one line each; any failure exits non-zero:
    elementwise difference), the load's report of the env fields it kept, and
    each global view against the same render from CPU copies (colour equal on
    all but ≤ 1e-4 of pixels) with B1-kid at the view's rays against its plain
-   version (phase 3's limits) and timed, beside path A's.
+   version (phase 3's limits) and timed, beside path A's; path O: the scenes
+   the loader's order gives at the build, the swap and the rotation, the swap
+   keeping scenes 0, 1 and 3's rows (O1) or grids, triangles and texture
+   tables (O2) bit for bit and moving only scene 2's agents, each kernel
+   exactly once a render of each sensor that uses it, the approaching points
+   card vs CPU within 1e-3 m, one step at 4 agents a scene card vs CPU
+   (depth, colour and semantic as above), on O2 both checker colours on the
+   textured objects and the id of every instance seen on 16 or more pixels
+   in the semantic image with the stage's id 1, B1, B1-kid and the triangle
+   kernel at path O's rays against their plain versions (phase 3's limits)
+   and timed, with the tier the triangle kernel took; the shadowed colour no
+   brighter than the unshadowed anywhere and darker somewhere, card vs CPU on
+   one camera; the grid renders card vs CPU; no kernel in a grid render.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches in phase 4, error, times and bound; the last line is
@@ -1060,17 +1091,18 @@ def all_launches():
 
 
 def mesh_camera_rays(env, state, sensor):
-    """The component-major rays (3, 1, N·H·W) that the exact-triangle render
-    of ``sensor`` traces, and the ``img_w`` and ``cam_rays`` it passes on."""
+    """The component-major rays (3, S, N/S·H·W) that the exact-triangle
+    render of ``sensor`` traces, and the ``img_w`` and ``cam_rays`` it
+    passes on."""
     from visfly_tpu_torch.render import camera_rays
 
     spec = env.sensor_kwargs[sensor]
     h, w = spec["resolution"]
-    n = env.num_agent
+    n, S = env.num_agent, env.num_scene
     origins, dirs, _ = camera_rays(spec, state.dyn.pos, state.dyn.q)
-    o = origins[:, None, :].expand(n, h * w, 3).reshape(1, n * h * w, 3)
+    o = origins[:, None, :].expand(n, h * w, 3).reshape(S, n // S * h * w, 3)
     o_c = o.permute(2, 0, 1).contiguous()
-    d_c = dirs.reshape(1, n * h * w, 3).permute(2, 0, 1).contiguous()
+    d_c = dirs.reshape(S, n // S * h * w, 3).permute(2, 0, 1).contiguous()
     whole = (h * w) % 1024 == 0
     return o_c, d_c, (w if whole else None), (h * w if whole else None)
 
@@ -2410,6 +2442,698 @@ def noise_phase(dev, card):
           "salt and pepper changed other pixels")
 
 
+# path O: the scenes users bring. A habitat-format dataset written by the
+# smoke (a textured GLB stage, four object templates, six scene instances)
+# loaded by ``NavigationEnv`` at both backends: decomposed into primitives for
+# the analytic kernel (O1) and baked with its exact, textured triangles and
+# per-instance ids for the triangle kernel (O2)
+O_SCENES, O_AGENTS, O_FILES, O_OBJECTS = 4, 64, 6, 32
+O_SPACING = 0.15  # m: the decomposition's and the bake's grid cell
+O_VIEW = (480, 640)  # the global view's resolution
+O_SEED = 42  # the env's seed, and so its scene loader's
+O_SENSORS = [{"uuid": u, "sensor_type": u, "resolution": list(RES)}
+             for u in ("depth", "color", "semantic")]
+# habitat (y-up) → std (z-up): std = hab @ _H2S, hab = std @ _H2S.T
+_H2S = ((0.0, -1.0, 0.0), (0.0, 0.0, 1.0), (-1.0, 0.0, 0.0))
+# the checker colours of the textured objects, told apart by their red/blue ratio
+O_RED, O_BLUE = (210, 40, 40), (40, 40, 210)
+
+
+def subdivided_box(half, levels):
+    """A box of half extents ``half`` at the origin, each triangle split 1:4
+    ``levels`` times → (verts (3F, 3), faces (F, 3)): 12·4^levels triangles."""
+    import numpy as np
+
+    corners = np.asarray([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)],
+                         np.float32) * np.asarray(half, np.float32)
+    box_faces = np.asarray([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                            [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]],
+                           np.int32)
+    v, f = corners, box_faces
+    for _ in range(levels):
+        a, b, c = (v[f[:, k]] for k in range(3))
+        ab, bc, ca = (a + b) / 2, (b + c) / 2, (c + a) / 2
+        v = np.concatenate([np.stack([a, ab, ca], 1), np.stack([ab, b, bc], 1),
+                            np.stack([ca, bc, c], 1), np.stack([ab, bc, ca], 1)]).reshape(-1, 3)
+        f = np.arange(len(v), dtype=np.int32).reshape(-1, 3)
+    return v.astype(np.float32), f
+
+
+def planar_uv(v, f, tile):
+    """Per-corner texcoords (V, 2) of a soup (each vertex in one face): each
+    face projected along its normal's dominant axis, one texture every
+    ``tile`` m (REPEAT wraps the rest)."""
+    import numpy as np
+
+    tri = v[f]
+    n = np.abs(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]))
+    axis = np.argmax(n, axis=1)
+    keep = np.asarray([[1, 2], [0, 2], [0, 1]])[axis]  # (F, 2) the other two axes
+    uv = np.take_along_axis(tri, np.repeat(keep[:, None, :], 3, axis=1), axis=2) / tile
+    out = np.zeros((len(v), 2), np.float32)
+    out[f.reshape(-1)] = uv.reshape(-1, 2)
+    return out
+
+
+def write_o_glb(path, verts, faces, uvs=None, png=None, color=None):
+    """A one-primitive GLB: with ``png`` a baseColorTexture sampled at
+    ``uvs``, with ``color`` a flat baseColorFactor."""
+    import json
+    import struct
+
+    import numpy as np
+
+    blobs = [verts.astype(np.float32).tobytes(), faces.astype(np.uint32).tobytes()]
+    attrs = {"POSITION": 0}
+    accessors = [{"bufferView": 0, "componentType": 5126, "count": len(verts), "type": "VEC3"},
+                 {"bufferView": 1, "componentType": 5125, "count": faces.size, "type": "SCALAR"}]
+    prim = {"attributes": attrs, "indices": 1, "material": 0}
+    gltf = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+            "nodes": [{"mesh": 0}], "meshes": [{"primitives": [prim]}]}
+    if png is not None:
+        blobs += [uvs.astype(np.float32).tobytes(), png]
+        attrs["TEXCOORD_0"] = 2
+        accessors.append({"bufferView": 2, "componentType": 5126, "count": len(uvs),
+                          "type": "VEC2"})
+        gltf.update(materials=[{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0}}}],
+                    textures=[{"source": 0}], images=[{"bufferView": 3, "mimeType": "image/png"}])
+    else:
+        gltf["materials"] = [{"pbrMetallicRoughness": {"baseColorFactor": [*color, 1.0]}}]
+    views, off = [], 0
+    for b in blobs:
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": len(b)})
+        off += len(b) + (-len(b) % 4)
+    bin_ = b"".join(b + b"\0" * (-len(b) % 4) for b in blobs)
+    gltf.update(accessors=accessors, bufferViews=views, buffers=[{"byteLength": len(bin_)}])
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    with open(path, "wb") as fo:
+        fo.write(struct.pack("<III", 0x46546C67, 2, 12 + 8 + len(js) + 8 + len(bin_)))
+        fo.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        fo.write(struct.pack("<II", len(bin_), 0x004E4942) + bin_)
+
+
+def write_o_dataset(root):
+    """The habitat-format dataset of path O under ``root``, in the habitat
+    frame: the stage, ``garage_mesh(3)`` (23,040 triangles) with per-face
+    texcoords and a 1,024×1,024 brick PNG; four templates of 768 triangles
+    (two textured GLBs with red/blue checkers, a GLB of a flat colour, an OBJ
+    with an MTL ``Kd``); ``O_FILES`` scene instances of ``O_OBJECTS``
+    placements each (translation, yaw, uniform or non-uniform scale); the
+    dataset config. → (the config's path, {scene file: placements' templates})."""
+    import json
+
+    import numpy as np
+
+    from visfly_tpu_torch.scene.png import encode_png
+
+    h2s = np.asarray(_H2S)
+    for d in ("meshes", "configs/stages", "configs/objects", "configs/scenes"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    # the stage: grey bricks, 128×64 texels with darker mortar, a tile every 2 m
+    yy, xx = np.mgrid[0:1024, 0:1024]
+    row = yy // 64
+    brick = (xx + 64 * (row % 2)) // 128
+    shade = 150 + ((brick * 37 + row * 11) % 5) * 10
+    mortar = (yy % 64 < 4) | ((xx + 64 * (row % 2)) % 128 < 4)
+    img = np.where(mortar, 95, shade).astype(np.uint8)
+    v, f = garage_mesh(3)
+    write_o_glb(os.path.join(root, "meshes", "garage.glb"), v @ h2s.T, f,
+                planar_uv(v, f, 2.0), encode_png(np.stack([img] * 3, -1), (1, 2, 4)))
+
+    def checker(cells, px):
+        g = (np.indices((cells, cells)).sum(0) % 2).astype(bool)
+        cell = np.where(g[..., None], np.asarray(O_RED, np.uint8), np.asarray(O_BLUE, np.uint8))
+        return np.repeat(np.repeat(cell, px, axis=0), px, axis=1)
+
+    box_v, box_f = subdivided_box((0.5, 0.5, 0.5), 3)
+    templates = {
+        "crate_a": ("glb", dict(uvs=planar_uv(box_v, box_f, 1.0),
+                                png=encode_png(checker(8, 32), (0, 1, 2, 3, 4)))),
+        "crate_b": ("glb", dict(uvs=planar_uv(box_v, box_f, 0.5),
+                                png=encode_png(checker(4, 16), (4,)))),
+        "barrel": ("glb", dict(color=[0.25, 0.7, 0.25])),
+        "bin": ("obj", None),
+    }
+    for name, (kind, kw) in templates.items():
+        mesh = os.path.join(root, "meshes", f"{name}.{kind}")
+        if kind == "glb":
+            write_o_glb(mesh, box_v, box_f, **kw)
+        else:
+            with open(os.path.join(root, "meshes", "bin.mtl"), "w") as fo:
+                fo.write("newmtl metal\nKd 0.6 0.58 0.6\n")
+            with open(mesh, "w") as fo:
+                fo.write("mtllib bin.mtl\nusemtl metal\n")
+                fo.write("".join(f"v {p[0]} {p[1]} {p[2]}\n" for p in box_v.tolist()))
+                fo.write("".join(f"f {t[0] + 1} {t[1] + 1} {t[2] + 1}\n" for t in box_f.tolist()))
+        with open(os.path.join(root, "configs", "objects", f"{name}.object_config.json"),
+                  "w") as fo:
+            json.dump({"render_asset": f"../../meshes/{name}.{kind}"}, fo)
+    with open(os.path.join(root, "configs", "stages", "garage.stage_config.json"), "w") as fo:
+        json.dump({"render_asset": "../../meshes/garage.glb"}, fo)
+    names = list(templates)
+    placed = {}
+    for i in range(O_FILES):
+        rng = np.random.default_rng(100 + i)
+        objs = []
+        for k in range(O_OBJECTS):
+            s = float(rng.uniform(0.4, 0.8))
+            inst = {"template_name": names[k % 4]}
+            if k % 3 == 2:
+                ns = rng.uniform(0.3, 0.9, 3)
+                inst["non_uniform_scale"] = ns.tolist()
+                height = ns[1]  # habitat y is up
+            else:
+                inst["uniform_scale"] = s
+                height = s
+            z = height / 2 if k % 4 else float(rng.uniform(1.0, 2.5))
+            std = np.asarray([rng.uniform(1.5, 15.0), rng.uniform(-3.8, 3.8), z])
+            inst["translation"] = (std @ h2s.T).tolist()
+            yaw = float(rng.uniform(0, np.pi))
+            inst["rotation"] = [np.cos(yaw / 2), 0.0, np.sin(yaw / 2), 0.0]
+            objs.append(inst)
+        path = os.path.join(root, "configs", "scenes", f"room_{i}.scene_instance.json")
+        with open(path, "w") as fo:
+            json.dump({"stage_instance": {"template_name": "garage"},
+                       "object_instances": objs}, fo)
+        placed[path] = [o["template_name"] for o in objs]
+    config = os.path.join(root, "rooms.scene_dataset_config.json")
+    with open(config, "w") as fo:
+        json.dump({"stages": {"paths": {".json": ["configs/stages/*.json"]}},
+                   "objects": {"paths": {".json": ["configs/objects/*.json"]}},
+                   "scene_instances": {"paths": {".json": ["configs/scenes/*.json"]}}}, fo)
+    return config, placed
+
+
+def o_env(device, config, grid):
+    """Path O's env: ``NavigationEnv`` on the dataset config, agents all over
+    the garage, 64×64 depth, colour and semantic."""
+    from visfly_tpu_torch.envs import NavigationEnv
+
+    scene = {"path": config, "max_prims": 64, "spacing": O_SPACING, "sdf_spacing": O_SPACING}
+    if grid:
+        scene["backend"] = "grid"
+    return NavigationEnv(
+        num_agent_per_scene=O_AGENTS, num_scene=O_SCENES, visual=True, device=device,
+        seed=O_SEED, scene_kwargs=scene, sensor_kwargs=[dict(s) for s in O_SENSORS],
+        random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [
+            {"position": {"mean": [8.0, 0.0, 1.75], "half": [6.5, 3.0, 0.5]}}]}},
+        dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate"},
+        max_episode_steps=256)
+
+
+def o_twin(device, scene, n, num_scene, sensors, **scene_kw):
+    """An env like path O's with ``n`` agents a scene and ``scene`` (already
+    built) in effect: how the card-vs-CPU checks and the shadow and grid
+    sensors share one load (an env swaps its scene in place)."""
+    from visfly_tpu_torch.envs import NavigationEnv
+
+    twin = NavigationEnv(
+        num_agent_per_scene=n, num_scene=num_scene, visual=True, device=device, seed=O_SEED,
+        scene_kwargs={"path": "box15_wall_empty", **scene_kw},
+        sensor_kwargs=[dict(s) for s in sensors],
+        random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [
+            {"position": {"mean": [8.0, 0.0, 1.75], "half": [6.5, 3.0, 0.5]}}]}},
+        dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03, "action_type": "bodyrate"})
+    twin.scene = to_device(scene, device, None)
+    twin.bbox = twin.scene.bbox
+    return twin
+
+
+def scene_rows(scene, s):
+    """Every per-scene tensor of scene ``s`` (a packed primitive scene's rows,
+    a mesh scene's grids, triangles and texture tables)."""
+    import torch
+
+    return {f: getattr(scene, f)[s].clone() for f in scene._fields
+            if isinstance(getattr(scene, f), torch.Tensor) and getattr(scene, f).dim() > 1
+            and f not in ("bbox",)}
+
+
+def same_rows(a, b):
+    """Rows of one scene before and after a swap, equal where both have them
+    and zero (padding) beyond the smaller."""
+    import torch
+
+    for f in a:
+        x, y = a[f], b[f]
+        common = tuple(slice(0, min(p, q)) for p, q in zip(x.shape, y.shape))
+        if not torch.equal(x[common], y[common]):
+            return False
+        for z in (x, y):
+            rest = z.clone()
+            rest[common] = 0
+            if bool(rest.any()):
+                return False
+    return True
+
+
+def o_expected_files(config):
+    """The files the env loads at its build, its swap and its rotation, as a
+    CPU ``SimpleDataLoader`` of the env's seed gives them."""
+    from visfly_tpu_torch.scene.habitat_dataset import list_habitat_scenes
+    from visfly_tpu_torch.utils.dataloader import SimpleDataLoader
+
+    loader = SimpleDataLoader(list_habitat_scenes(config), seed=O_SEED)
+    return loader.next(O_SCENES), loader.next(1), loader.next(O_SCENES)
+
+
+def o_scene_ids(env):
+    """What names the files of the env's scenes: the decomposed specs'
+    names (O1), each scene's real triangle count (O2)."""
+    if hasattr(env.scene, "params"):
+        return [s.name for s in env._scene_specs]
+    return [int((env.scene.triangles[s].abs().sum(-1) > 0).sum()) for s in range(O_SCENES)]
+
+
+def o_file_ids(files, grid):
+    import os as _os
+
+    from visfly_tpu_torch.scene.habitat_dataset import load_habitat_scene_mesh
+
+    if not grid:
+        return [_os.path.basename(f)[:-len(".scene_instance.json")] for f in files]
+    return [len(load_habitat_scene_mesh(f)[1]) for f in files]
+
+
+def o_drive(env, name, per_render, config, card):
+    """Reset, one warm-up chunk and one timed chunk of ``CHUNK`` steps with
+    every observation consumed; in the timed chunk ``reset_env_by_id(state,
+    2)`` after 10 steps and ``reset_scenes(state)`` after 20, timed apart
+    from the steps. Launches are held to ``per_render`` a render (one at the
+    reset, one a step), the swap to scene 2's rows and agents, the rotation
+    to the loader's order. → (state, launches)."""
+    import torch
+
+    dev = env.device
+    gen = torch.Generator(device=dev).manual_seed(90)
+    act_gen = torch.Generator(device=dev).manual_seed(91)
+    n = env.num_agent
+    first, swap_f, rot_f = o_expected_files(config)
+    grid = not hasattr(env.scene, "params")
+    check(o_scene_ids(env) == o_file_ids(first, grid),
+          f"path O {name}: the scenes loaded are not the loader's first {O_SCENES}")
+    reset_launches()
+    state, _ = env.reset(gen)
+    carried = torch.zeros((), device=dev)
+    step_s, swap_s, rot_s = 0.0, 0.0, 0.0
+    for i in range(2 * CHUNK):
+        timed = i >= CHUNK
+        if i == CHUNK + CHUNK * 5 // 16:  # the 10th step of a 32-step chunk
+            before = [scene_rows(env.scene, s) for s in range(O_SCENES)]
+            pos0, count0 = state.dyn.pos.clone(), state.step_count.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = env.reset_env_by_id(state, 2)
+            torch.cuda.synchronize()
+            swap_s = time.perf_counter() - t0
+            after = [scene_rows(env.scene, s) for s in range(O_SCENES)]
+            kept = [same_rows(before[s], after[s]) for s in range(O_SCENES)]
+            check(kept == [True, True, False, True],
+                  f"path O {name}: scenes kept their rows across the swap: {kept}")
+            mine = env.scene_ids == 2
+            check(bool((state.step_count[mine] == 0).all())
+                  and torch.equal(state.dyn.pos[~mine], pos0[~mine])
+                  and torch.equal(state.step_count[~mine], count0[~mine]),
+                  f"path O {name}: the swap moved agents outside scene 2")
+            check(o_scene_ids(env)[2] == o_file_ids(swap_f, grid)[0],
+                  f"path O {name}: the swap did not load the loader's next file")
+        if i == CHUNK + CHUNK * 5 // 8:  # the 20th
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = env.reset_scenes(state)
+            torch.cuda.synchronize()
+            rot_s = time.perf_counter() - t0
+            check(o_scene_ids(env) == o_file_ids(rot_f, grid),
+                  f"path O {name}: the rotation did not load the loader's next {O_SCENES}")
+            check(bool((state.step_count == 0).all()), f"path O {name}: rotation kept agents")
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        a = torch.rand((n, 4), generator=act_gen, device=dev) * 0.6 - 0.3
+        state, out = env.step(state, a)
+        obs_sum = sum(v.float().sum() for v in out.obs.values())
+        carried = carried + out.reward.sum() + obs_sum * 1e-12
+        if timed:
+            torch.cuda.synchronize()
+            step_s += time.perf_counter() - t0
+    launches = all_launches()
+    renders = 1 + 2 * CHUNK
+    used = {k: v for k, v in launches.items() if v}
+    want = {k: v * renders for k, v in per_render.items()}
+    check(used == want, f"path O {name}: kernel launches {used} != expected {want}")
+    check(bool(torch.isfinite(carried)), f"path O {name}: carried sum is not finite")
+    sps = n * CHUNK / step_s
+    print(f"phase 4 | path O {name}: {used} launches in {renders} renders (exactly "
+          f"{per_render} a render, the renders after the swap and the rotation included) | "
+          f"{sps:.1f} env steps/s ({n} agents, {O_SCENES} scenes, 64x64 depth + colour + "
+          f"semantic, {CHUNK} steps in {step_s:.3f} s); reset_env_by_id {swap_s:.3f} s, "
+          f"reset_scenes {rot_s:.3f} s (host loads, apart from the steps) | {card}", flush=True)
+    return state, launches
+
+
+def o_card_vs_cpu(name, env, card, seed):
+    """One step of 4 agents a scene in the env's scene on the card and on
+    the CPU from the same state (twins without cameras: state within
+    OBS_TOL), then the three cameras at the card's state after it on both:
+    depth within T_TOL on all but HIT_TOL of the pixels, colour and semantic
+    equal on all but COLOR_TOL. → (the twin with cameras, the state, the
+    card's images)."""
+    import torch
+
+    dev = env.device
+    twin = o_twin(dev, env.scene, 4, O_SCENES, O_SENSORS)
+    twin_cpu = o_twin("cpu", env.scene, 4, O_SCENES, O_SENSORS)
+    state, _ = twin.reset(torch.Generator(device=dev).manual_seed(seed))
+    a = torch.rand((twin.num_agent, 4), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(seed)) * 0.6 - 0.3
+    state_cpu = to_device(state, "cpu", torch.Generator().manual_seed(0))
+    state, out_gpu = o_twin(dev, env.scene, 4, O_SCENES, []).step(state, a, is_test=True)
+    _, out_cpu = o_twin("cpu", env.scene, 4, O_SCENES, []).step(state_cpu, a.cpu(), is_test=True)
+    s_err = float((out_gpu.obs["state"].cpu() - out_cpu.obs["state"]).abs().max())
+    check(s_err <= OBS_TOL, f"path O {name}: state obs card vs cpu {s_err} > {OBS_TOL}")
+    imgs = twin.sensor_observations(state)
+    imgs_cpu = twin_cpu.sensor_observations(to_device(state, "cpu", torch.Generator()))
+    d_flip, d_err = depth_off(imgs["depth"], imgs_cpu["depth"])
+    c_off = float((imgs["color"].cpu() != imgs_cpu["color"]).any(dim=1).float().mean())
+    s_off = float((imgs["semantic"].cpu() != imgs_cpu["semantic"]).float().mean())
+    print(f"phase 5 | path O {name} card vs cpu (4 agents a scene, {O_SCENES} scenes): one step, "
+          f"state max|d|={s_err:.3e}; the cameras after it: depth max|d|={d_err:.3e} m on all but "
+          f"{d_flip:.3e} of pixels, colour differs on {c_off:.3e}, semantic on {s_off:.3e} | "
+          f"{card}", flush=True)
+    check(d_flip <= HIT_TOL, f"path O {name}: depth card vs cpu off on {d_flip}")
+    check(c_off <= COLOR_TOL, f"path O {name}: colour card vs cpu differs on {c_off}")
+    check(s_off <= COLOR_TOL, f"path O {name}: semantic card vs cpu differs on {s_off}")
+    return twin, state, imgs
+
+
+def o_kernel_times(name, env, state, card):
+    """Each kernel of ``modes`` on path O's 256-agent rays against its plain
+    version, its time (CUDA events around the call; on the device, queued)
+    and its bound, printed."""
+    import torch
+
+    from visfly_tpu_torch.render import (default_tri_cap, prepare_kernel_scene, trace_analytic,
+                                         trace_analytic_reference, tri_first_hit,
+                                         tri_first_hit_reference)
+    from visfly_tpu_torch.render.trace_kernel import cull_rows
+    from visfly_tpu_torch.render.tri_kernel import count_name
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    out = {}
+    if hasattr(env.scene, "params"):
+        ks = prepare_kernel_scene(env.scene)
+        for mode, sensor in (("trace_analytic", 0), ("trace_analytic_kid", 1)):
+            o, d = camera_rays_of(env, state, sensor)
+            S = O_SCENES
+            o, d = o.reshape(3, S, -1).contiguous(), d.reshape(3, S, -1).contiguous()
+            kid = mode.endswith("kid")
+            kernel = lambda: trace_analytic(ks, o, d, MAX_DEPTH, want_kid=kid, cull=True,  # noqa
+                                            img_w=RES[1])
+            plain = lambda: trace_analytic_reference(ks, o, d, MAX_DEPTH, want_kid=kid,  # noqa
+                                                     cull=True, img_w=RES[1])
+            err = compare(mode, f"path O {name} rays", lambda *a: kernel(), lambda *a: plain(),
+                          ks, o, d)
+            plan = cull_rows(ks, o, d, MAX_DEPTH, RES[1])
+            b_ms, b_by = bound_ms(mode, ks, o.shape[1] * o.shape[2], plan=plan, o=o)
+            out[mode] = dict(ms=cuda_ms(kernel), device_ms=device_ms(kernel),
+                             plain_ms=cuda_ms(plain, reps=5, warmup=1), bound_ms=b_ms,
+                             bound_by=b_by, err=err, rows=ks.boxes.shape[1] + ks.capsules.shape[1])
+    else:
+        tris = env.scene.triangles
+        T = tris.shape[1]
+        cap = default_tri_cap(T)
+        o_c, d_c, w, hw = mesh_camera_rays(env, state, 0)
+        plan = plan_tiles(tris, o_c, d_c, MAX_DEPTH, cap, w, hw)
+        mode = count_name(plan.form, plan.lists.block)
+        args = (tris, plan.lists, plan.origins_c, plan.dirs_c, MAX_DEPTH, plan.form,
+                plan.origin_tiles)
+        t_k, hit_k, gid_k = tri_first_hit(*args)
+        stats = {}
+        plain_ms = cuda_ms(lambda: tri_first_hit_reference(*args, stats=stats), reps=1, warmup=0)
+        t_p, hit_p, gid_p = tri_first_hit_reference(*args)
+        torch.cuda.synchronize()
+        both = hit_k & hit_p
+        err = float((t_k - t_p).abs()[both].max())
+        flip = float((hit_k != hit_p).float().mean())
+        gid_off = float(((gid_k != gid_p) & both).float().mean())
+        check(err <= T_TOL and flip <= HIT_TOL and gid_off <= HIT_TOL,
+              f"path O {name}: {mode} vs plain: |dt| {err}, hit {flip}, id {gid_off}")
+        b_ms, b_by, by_bytes = tri_bound_ms(plan.form, stats, o_c.shape[1] * o_c.shape[2],
+                                            plan.lists, plan.form == "mt")
+        kernel = lambda: tri_first_hit(*args)  # noqa: E731
+        out[mode] = dict(ms=cuda_ms(kernel), device_ms=device_ms(kernel), plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, err=err, triangles=T, cap=cap,
+                         flip=flip, gid_off=gid_off,
+                         prepass_ms=cuda_ms(lambda: plan_tiles(tris, o_c, d_c, MAX_DEPTH, cap,
+                                                               w, hw), reps=5, warmup=1))
+        print(f"phase 3 | path O {name}: the triangle kernel's tier at {T} triangles a scene, "
+              f"{o_c.shape[2]} rays a scene, cap {cap}: {mode} (form {plan.form}, block "
+              f"{plan.lists.block}); {stats['real_tests'] / (o_c.shape[1] * o_c.shape[2]):.1f} "
+              f"tests a ray on triangles; vs plain max|dt|={err:.3e} m hit_mismatch={flip:.3e} "
+              f"id_mismatch={gid_off:.3e} | {card}", flush=True)
+    for mode, x in out.items():
+        rays = env.num_agent_per_scene * RES[0] * RES[1]
+        print(f"phase 3 | path O {name}: {mode} at {O_SCENES} x {rays} rays: "
+              f"kernel {x['ms']:.4f} ms (on the device {x['device_ms']:.4f} ms, queued), plain "
+              f"{x['plain_ms']:.4f} ms, bound {x['bound_ms']:.4f} ms by {x['bound_by']}, share "
+              f"{x['bound_ms'] / x['device_ms']:.4f} of the device time"
+              + (f", prepass {x['prepass_ms']:.4f} ms" if "prepass_ms" in x else "")
+              + f" | {card}", flush=True)
+
+
+def scene_ingest_path(dev, card, launches):
+    """Path O: the habitat dataset at both backends (O1 decomposed, O2 exact
+    and textured), with the swap, the rotation, the approaching points and
+    the global view; on O2's scene the shadow rays, the grid render opt-out
+    and a grid-only preset. Adds its launches to ``launches``."""
+    import types as _types
+
+    import numpy as np
+    import torch
+
+    from visfly_tpu_torch.envs.base import DroneGymEnv
+    from visfly_tpu_torch.render import bake_lighting, render_camera
+    from visfly_tpu_torch.render.global_view import scene_zero
+    from visfly_tpu_torch.render.tri_trace import pack_triangles
+    from visfly_tpu_torch.scene.scene import SceneData
+
+    work = tempfile.TemporaryDirectory(prefix="visfly_path_o_")
+    t0 = time.perf_counter()
+    config, placed = write_o_dataset(work.name)
+    print(f"phase 4 | path O: dataset written in {time.perf_counter() - t0:.1f} s ({O_FILES} "
+          f"scene instances of {O_OBJECTS} objects, a 23040-triangle textured stage) | {card}",
+          flush=True)
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for name, grid in (("O1 (decomposed)", False), ("O2 (exact, textured)", True)):
+        t_path = t0 = time.perf_counter()
+        env = o_env(dev, config, grid)
+        load_s = time.perf_counter() - t0
+        if grid:
+            check(isinstance(env.scene, SceneData) and isinstance(env.scene.tri_uv, torch.Tensor),
+                  f"path O {name}: no texture tables")
+            # the parts of one scene's bake: the signed grid, one unsigned grid an
+            # instance (in a thread pool), the pack, the atlas
+            from visfly_tpu_torch.scene import mesh as tmesh
+
+            v, f, inst, cols, tex = env._scene_meshes[0]
+            frame = tmesh._Frame(env.scene.origin.cpu().numpy(), float(env.scene.spacing),
+                                 tuple(env.scene.sdf.shape[1:]), env.scene.bbox.cpu().numpy())
+            parts = {}
+            for part, fn in (
+                    ("signed grid", lambda: tmesh.mesh_to_sdf_grid(v, f, frame.lo, frame.spacing,
+                                                                   frame.dims)),
+                    (f"{len(np.unique(inst))} instance grids",
+                     lambda: tmesh._instance_grids(v, f, inst, cols, frame)),
+                    ("pack", lambda: pack_triangles(v, f, return_order=True)),
+                    ("atlas", lambda: tmesh.build_atlas(tex))):
+                t1 = time.perf_counter()
+                fn()
+                parts[part] = time.perf_counter() - t1
+            print(f"phase 4 | path O {name}: one scene's bake, host seconds "
+                  f"{ {k: round(x, 3) for k, x in parts.items()} } | {card}", flush=True)
+            tris = [int((env.scene.triangles[s].abs().sum(-1) > 0).sum()) for s in range(O_SCENES)]
+            size = f"{tris} triangles a scene (packed {env.scene.triangles.shape[1]})"
+            check(min(tris) > 40000, f"path O {name}: triangles {tris}")
+        else:
+            prims = [len(s.primitives) for s in env._scene_specs]
+            size = (f"{prims} primitives a scene (packed rows {env.scene.boxes.shape[1]} boxes, "
+                    f"{env.scene.capsules.shape[1]} capsules, floor {env._pack_floor})")
+            check(min(prims) > 8, f"path O {name}: primitives {prims}")
+        print(f"phase 4 | path O {name}: {O_SCENES} scenes loaded in {load_s:.1f} s on the host; "
+              f"{size}; grid {tuple(getattr(env.scene, 'sdf', torch.zeros(1, 0, 0, 0)).shape[1:])}"
+              f" | {card}", flush=True)
+        # the tier each sensor takes: one render with the counts reset
+        st0, _ = env.reset(torch.Generator(device=dev).manual_seed(89))
+        if grid:
+            reset_launches()
+            env.sensor_observations(st0)
+            torch.cuda.synchronize()
+            per_render = {k: v for k, v in all_launches().items() if v}
+            check(sum(per_render.values()) == 3 and len(per_render) == 1,
+                  f"path O {name}: one render launched {per_render}")
+        else:
+            per_render = {"trace_analytic": 1, "trace_analytic_kid": 2}
+        state, counts = o_drive(env, name, per_render, config, card)
+        add(counts)
+        t_check = time.perf_counter()
+        # the approaching points, card vs CPU
+        reset_launches()
+        ap = env.approaching_point(state)
+        cpu_env = _types.SimpleNamespace(scene=to_device(env.scene, "cpu", None),
+                                         scene_ids=env.scene_ids.cpu())
+        state_cpu = to_device(state, "cpu", torch.Generator())
+        ap_cpu = DroneGymEnv.approaching_point(cpu_env, state_cpu)
+        ap_err = float((ap.cpu() - ap_cpu).abs().max())
+        print(f"phase 5 | path O {name}: approaching_point of {env.num_agent} agents card vs cpu "
+              f"max|d|={ap_err:.3e} m; {float((ap - state.dyn.pos).norm(dim=-1).median()):.2f} m "
+              f"ahead (median) | {card}", flush=True)
+        check(ap_err <= T_TOL, f"path O {name}: approaching_point card vs cpu {ap_err} > {T_TOL}")
+        # the global view of scene 0 with the approaching lines
+        t0 = time.perf_counter()
+        img = env.render(state, view="top", approaching=True, resolution=list(O_VIEW))
+        torch.cuda.synchronize()
+        gv_s = time.perf_counter() - t0
+        counts = all_launches()
+        add(counts)
+        used = {k: v for k, v in counts.items() if v}
+        check(img.shape == (*O_VIEW, 3) and img.std() > 5,
+              f"path O {name}: global view {img.shape}")
+        check(sum(used.values()) == 1, f"path O {name}: the global view launched {used}")
+        print(f"phase 4 | path O {name}: global view {O_VIEW[0]}x{O_VIEW[1]} of scene 0 with "
+              f"approaching lines in "
+              f"{gv_s:.3f} s, {used} | {card}", flush=True)
+        # one step at 4 agents a scene, card vs CPU
+        twin, tst, imgs = o_card_vs_cpu(name, env, card, 93)
+        if grid:
+            sem, rgb = imgs["semantic"][:, 0], imgs["color"].int()
+            # textures: red and blue checker cells on the textured objects
+            red = (rgb[:, 0] > 2 * rgb[:, 2]) & (rgb[:, 0] > 2 * rgb[:, 1]) & (sem >= 2)
+            blue = (rgb[:, 2] > 2 * rgb[:, 0]) & (rgb[:, 2] > 2 * rgb[:, 1]) & (sem >= 2)
+            n_red, n_blue = int(red.sum()), int(blue.sum())
+            # instance ids: every instance on 16 or more pixels of the semantic
+            # camera (its winning triangles') has its id in the image
+            from visfly_tpu_torch.render import camera_rays, default_tri_cap, tri_trace_diff
+
+            spec = twin.sensor_kwargs[2]
+            origins, dirs, _ = camera_rays(spec, tst.dyn.pos, tst.dyn.q)
+            Rs = 4 * RES[0] * RES[1]
+            o_c = origins[:, None].expand(-1, RES[0] * RES[1], 3).reshape(O_SCENES, Rs, 3)
+            d_c = dirs.reshape(O_SCENES, Rs, 3)
+            tri = env.scene.triangles
+            _, hit, _, gid = tri_trace_diff(tri, o_c.permute(2, 0, 1).contiguous(),
+                                            d_c.permute(2, 0, 1).contiguous(), MAX_DEPTH,
+                                            default_tri_cap(tri.shape[1]), RES[1], True,
+                                            RES[0] * RES[1])
+            missing, n_vis, n_ids = [], 0, 0
+            for s in range(O_SCENES):
+                v, f, inst = env._scene_meshes[s][:3]
+                _, order = pack_triangles(v, f, return_order=True)
+                face = torch.as_tensor(order, device=dev)[gid[s].long()][hit[s]]
+                ids, px = torch.unique(torch.as_tensor(inst, device=dev)[face], return_counts=True)
+                seen = set(torch.unique(sem[4 * s:4 * s + 4]).tolist())
+                vis = [int(i) for i, c in zip(ids.tolist(), px.tolist()) if c >= 16]
+                n_vis += len(vis)
+                n_ids += len(seen - {0})
+                missing += [(s, i) for i in vis if i % 255 + 1 not in seen]
+                check(1 in seen, f"path O {name}: scene {s}'s semantic image lacks the stage's id")
+            print(f"phase 5 | path O {name}: textured objects show {n_red} red and {n_blue} blue "
+                  f"checker pixels; {n_vis} instances on >= 16 pixels, {n_ids} distinct ids in "
+                  f"the semantic images, missing {missing[:6]} | {card}", flush=True)
+            check(n_red >= 50 and n_blue >= 50, f"path O {name}: the checkerboard did not come "
+                  f"through ({n_red} red, {n_blue} blue pixels)")
+            check(not missing and n_ids >= n_vis, f"path O {name}: instance ids missing {missing}")
+        t_cpu = time.perf_counter()
+        o_kernel_times(name, env, state, card)
+        print(f"phase 4 | path O {name}: {time.perf_counter() - t_path:.1f} s in all, of which the "
+              f"card-vs-CPU step and the checks after the chunk {t_cpu - t_check:.1f} s, the "
+              f"kernels against their plain versions {time.perf_counter() - t_cpu:.1f} s | {card}",
+              flush=True)
+        if grid:
+            o2_scene = env.scene
+        del env, twin
+    # separately, on O2's scene 0: shadow rays, the grid opt-out, a grid-only preset
+    t_rest = time.perf_counter()
+    scene0 = scene_zero(o2_scene)
+    light = {"ambient": 0.3, "lights": [{"type": "directional", "direction": [0.4, 0.3, -1.0],
+                                         "intensity": 0.9}]}
+    color = [O_SENSORS[1]]
+    lit = o_twin(dev, scene0, 4, 1, color, lighting=light)
+    shadowed = o_twin(dev, scene0, 4, 1, color, lighting={**light, "shadows": True})
+    st, _ = lit.reset(torch.Generator(device=dev).manual_seed(94))
+    reset_launches()
+    plain_img = lit.sensor_observations(st)["color"]
+    shadow_img = shadowed.sensor_observations(st)["color"]
+    torch.cuda.synchronize()
+    counts = all_launches()
+    add(counts)
+    check(sum(counts.values()) == 2, f"path O shadows: launches {counts}")
+    darker = float((shadow_img < plain_img).any(1).float().mean())
+    check(bool((shadow_img <= plain_img).all()) and darker > 0,
+          f"path O shadows: a pixel brighter, or none darker ({darker})")
+    spec = shadowed.sensor_kwargs[0]
+    cpu_light = bake_lighting({**light, "shadows": True})
+    one = render_camera(to_device(scene0, "cpu", None), st.dyn.pos[:1].cpu(), st.dyn.q[:1].cpu(),
+                        spec, lighting=cpu_light)["color"]
+    card_one = render_camera(scene0, st.dyn.pos[:1], st.dyn.q[:1], spec,
+                             lighting=shadowed._baked_lighting)["color"]
+    s_off = float((card_one.cpu() != one).any(1).float().mean())
+    call = lambda: shadowed.sensor_observations(st)  # noqa: E731
+    shadow_ms, lit_ms = cuda_ms(call, reps=5, warmup=1), cuda_ms(
+        lambda: lit.sensor_observations(st), reps=5, warmup=1)
+    print(f"phase 5 | path O shadows on O2's scene 0 (4 agents, 64x64 colour, "
+          f"{scene0.triangles.shape[1]} triangles): {darker:.3f} of the pixels darker, none "
+          f"brighter; card vs cpu (one camera) colour differs on {s_off:.3e} | render "
+          f"{shadow_ms:.2f} ms with shadow rays, {lit_ms:.2f} ms without | {card}", flush=True)
+    check(s_off <= COLOR_TOL, f"path O shadows: colour card vs cpu differs on {s_off}")
+    for name, scene, sensors in (
+            ("the render_backend 'grid' opt-out on O2's scene 0", scene0,
+             [dict(O_SENSORS[0], render_backend="grid")]),
+            ("a grid-only garage_simple_l_medium (bake_scenes)", None,
+             [dict(O_SENSORS[0]), dict(O_SENSORS[1])])):
+        if scene is None:
+            from visfly_tpu_torch.envs import NavigationEnv
+
+            t0 = time.perf_counter()
+            baked = NavigationEnv(num_agent_per_scene=4, visual=True, device=dev,
+                                  scene_kwargs={"path": "garage_simple_l_medium",
+                                                "backend": "grid"})
+            check(isinstance(baked.scene, SceneData) and not baked.scene.has_triangles,
+                  "path O: the grid-only preset has triangles")
+            scene = baked.scene
+            print(f"phase 4 | path O: garage_simple_l_medium baked into a grid "
+                  f"{tuple(scene.sdf.shape[1:])} in {time.perf_counter() - t0:.1f} s | {card}",
+                  flush=True)
+        env_g = o_twin(dev, scene, 4, 1, sensors)
+        env_c = o_twin("cpu", scene, 4, 1, sensors)
+        st, _ = env_g.reset(torch.Generator(device=dev).manual_seed(95))
+        reset_launches()
+        t0 = time.perf_counter()
+        imgs = env_g.sensor_observations(st)
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        counts = all_launches()
+        check(not any(counts.values()), f"path O grid render launched {counts}")
+        imgs_c = env_c.sensor_observations(to_device(st, "cpu", torch.Generator()))
+        d_flip, d_err = depth_off(imgs["depth"], imgs_c["depth"])
+        hit = float((imgs["depth"] < MAX_DEPTH).float().mean())
+        line = (f"phase 5 | path O {name}: 4 agents, {g_s * 1e3:.1f} ms a render, no kernel; "
+                f"depth hits {hit:.3f} of pixels, card vs cpu max|d|={d_err:.3e} m on all but "
+                f"{d_flip:.3e}")
+        check(d_flip <= HIT_TOL and hit > 0.5, f"path O {name}: depth card vs cpu off on {d_flip}")
+        if "color" in imgs:
+            c_off = float((imgs["color"].cpu() != imgs_c["color"]).any(1).float().mean())
+            line += f", colour differs on {c_off:.3e}"
+            check(c_off <= COLOR_TOL, f"path O {name}: colour card vs cpu differs on {c_off}")
+        print(line + f" | {card}", flush=True)
+    print(f"phase 4 | path O: shadows, the grid opt-out and the grid-only preset "
+          f"{time.perf_counter() - t_rest:.1f} s | {card}", flush=True)
+    work.cleanup()
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "visfly_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2732,6 +3456,7 @@ def main():
     experiment_layer_path(dev, card, launches, errs, timing, tr_g, st_g)
     del tr_g, st_g
     swarm_and_zoo_paths(dev, card, launches)
+    scene_ingest_path(dev, card, launches)
 
     # 5. one step from the same state, card vs CPU plain path
     out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
@@ -2812,9 +3537,10 @@ def main():
                 "knockout B8b with body off "
                 "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
                 "(all others) triangles, at the split the wrapper picks (the diagnostics "
-                "and mx at 1 block a tile); launches add up the depth leg, paths A-L and the "
-                "diagnostics; library_ms is null because no single PyTorch call computes a "
-                "first hit"}),
+                "and mx at 1 block a tile); launches add up the depth leg, paths A-O and the "
+                "diagnostics (path O: B1, B1-kid on the decomposed habitat scenes, camsoup on "
+                "the exact textured ones, its times in its phase 3 lines); library_ms is null "
+                "because no single PyTorch call computes a first hit"}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -175,7 +175,12 @@ def test_randomizer_kinds(kind):
 
 
 def test_unported_branches_raise(tmp_path):
-    """What is still to port raises, naming its ROADMAP item."""
+    """What is still to port raises, naming its ROADMAP item (world-model
+    latents). The scene sources and mesh render branches that raised until
+    Queue A items 18-20 were ported now build and render: a preset baked into
+    a grid, a mesh file's decomposition, textures, shadow rays, the grid
+    render opt-out and a grid scene without triangles; files that are not
+    what their names say raise as in the JAX package."""
     def nav(**over):
         return tenvs.NavigationEnv(**bench_kwargs(**over))
 
@@ -194,17 +199,21 @@ def test_unported_branches_raise(tmp_path):
     env = nav()
     assert env.tensor_output and not env.is_train and not env.is_multi_drone
     assert env.sensitive_radius == 10.0
-    for build in (
-        lambda: nav(latent_dim=8),
-        lambda: nav(scene_kwargs=dict(scene, backend="grid")),
-        # a mesh file's default backend (box decomposition), habitat paths
-        lambda: nav(scene_kwargs={"path": obj}),
-        lambda: nav(scene_kwargs={"path": str(glb)}),
-        lambda: nav(scene_kwargs={"path": str(tmp_path / "stage.scene_instance.json")}),
-        lambda: nav(scene_kwargs={"path": str(tmp_path)}),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        nav(latent_dim=8)
+    from visfly_tpu_torch.scene import PrimitiveScene, SceneData
+
+    grid = nav(scene_kwargs=dict(scene, backend="grid", sdf_spacing=0.25))
+    assert isinstance(grid.scene, SceneData) and not grid.scene.has_triangles
+    assert isinstance(nav(scene_kwargs={"path": obj}).scene, PrimitiveScene)
+    with pytest.raises(ValueError, match="not a GLB"):
+        nav(scene_kwargs={"path": str(glb)})
+    # an instance file without stage or objects is no habitat scene, and a
+    # directory of such files holds no scene JSONs
+    with pytest.raises(ValueError, match="unknown scene preset"):
+        nav(scene_kwargs={"path": str(tmp_path / "stage.scene_instance.json")})
+    with pytest.raises(KeyError, match="primitives"):
+        nav(scene_kwargs={"path": str(tmp_path)})
     # the path planner (once Queue A item 21) is ported
     planning = tenvs.MultiNavigationEnv(**bench_kwargs(num_agent_per_scene=3, scene_kwargs=dict(
         scene, is_find_path=True)))
@@ -218,8 +227,8 @@ def test_unported_branches_raise(tmp_path):
     images = env.sensor_observations(st)
     assert images["color"].dtype == torch.uint8 and images["color"].shape == (N, 3, 8, 8)
     assert torch.isfinite(images["depth"]).all() and torch.isfinite(images["refined"]).all()
-    # on a mesh scene: the grid render opt-out, shadow rays, textures and the
-    # variants of the per-camera kernel
+    # on a mesh scene: the grid render opt-out, shadow rays, textures and a
+    # grid scene without triangles
     from visfly_tpu_torch.render import bake_lighting, render_camera
 
     mesh_env = nav(scene_kwargs={"path": obj, "backend": "grid", "sdf_spacing": 0.25})
@@ -228,16 +237,20 @@ def test_unported_branches_raise(tmp_path):
     sun = bake_lighting({"shadows": True, "lights": [
         {"type": "directional", "direction": [0, 0, -1]}]})
     ball = (pos[None, :1] + 1.0, torch.full((1, 1), 0.2))
-    textured = mesh_env.scene._replace(tri_uv=torch.zeros(1, 96, 6))
-    for render in (
-        lambda: render_camera(mesh_env.scene, pos, q, dict(spec, render_backend="grid")),
-        lambda: render_camera(mesh_env.scene, pos, q, spec, lighting=sun),
-        lambda: render_camera(textured, pos, q, spec),
-        lambda: render_camera(mesh_env.scene._replace(triangles=()), pos, q, spec),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render()
-    assert render_camera(mesh_env.scene, pos, q, spec)["color"].shape == (N, 3, 8, 8)
+    T = mesh_env.scene.triangles.shape[1]
+    grey = torch.zeros(1, T, 4)
+    grey[..., :2] = 1.0  # every face samples one 180-grey texel, the grid's albedo
+    textured = mesh_env.scene._replace(tri_uv=torch.zeros(1, T, 6), tri_rect=grey,
+                                       atlas=torch.full((1, 1, 1, 3), 180, dtype=torch.uint8))
+    plain = render_camera(mesh_env.scene, pos, q, spec)["color"]
+    assert plain.shape == (N, 3, 8, 8)
+    assert torch.equal(render_camera(textured, pos, q, spec)["color"], plain)
+    assert (render_camera(mesh_env.scene, pos, q, spec, lighting=sun)["color"]
+            <= render_camera(mesh_env.scene, pos, q, spec, lighting=bake_lighting(
+                {"lights": [{"type": "directional", "direction": [0, 0, -1]}]}))["color"]).all()
+    for data, sp in ((mesh_env.scene, dict(spec, render_backend="grid")),
+                     (mesh_env.scene._replace(triangles=()), spec)):
+        assert render_camera(data, pos, q, sp, n_steps=8)["color"].shape == (N, 3, 8, 8)
     assert render_camera(mesh_env.scene, pos, q, spec, objects=ball)["color"].shape == (
         N, 3, 8, 8)
     # off the CPU a camera whose rays are not whole 1,024-ray tiles raises: no

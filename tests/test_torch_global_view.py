@@ -117,9 +117,12 @@ def test_env_render(envs):
 
 
 def test_approaching_is_not_ported(envs):
-    _, _, tenv, tst = envs
-    with pytest.raises(NotImplementedError, match="Queue A item 19"):
-        gv.render_global(tenv, tst, approaching=True, resolution=[16, 16])
+    """The approaching overlay, which named its ROADMAP item until
+    ``approaching_point`` was ported, draws the JAX lines."""
+    jenv, jst, tenv, tst = envs
+    kw = dict(view="top", resolution=[48, 96], approaching=True)
+    out = gv.render_global(tenv, tst, **kw)
+    assert_frames_close(out, jrender_global(jenv, jst, **kw), "approaching")
 
 
 def test_object_mode_tracks_the_first_object():

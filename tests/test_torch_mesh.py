@@ -143,7 +143,7 @@ def test_load_glb_geometry_bitwise(tmp_path):
     np.testing.assert_array_equal(v_t, v_j)
     np.testing.assert_array_equal(f_t, f_j)
     assert np.abs(v_t - v).max() > 0.5  # the node transform was applied
-    assert not tmesh.glb_has_materials(path)
+    assert tmesh.load_glb_textured(path)[2] is None  # no material, no texture tables
     data = tmesh.bake_mesh_scene(path, spacing=0.2, device="cpu")
     assert data.triangles.shape == (1, 16, 9)  # 12 faces padded to 8s
     with pytest.raises(ValueError, match="not a GLB"):
@@ -201,22 +201,39 @@ def test_interop_carries_a_jax_scene(baked):
     arrays = {k: getattr(jnp_data, k) for k in ("sdf", "albedo", "semantic", "origin",
                                                 "spacing", "bbox")}
     assert not scene_data_from_arrays(arrays).has_triangles
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scene_data_from_numpy(jnp_data._replace(tri_uv=np.zeros((1, 96, 6), np.float32)))
+    # texture tables cross over too
+    tables = dict(tri_uv=np.ones((1, 96, 6), np.float32), tri_rect=np.ones((1, 96, 4), np.float32),
+                  atlas=np.full((1, 2, 3, 3), 7, np.uint8))
+    crossed = scene_data_from_numpy(jnp_data._replace(**tables))
+    for k, v in tables.items():
+        np.testing.assert_array_equal(getattr(crossed, k).numpy(), v)
 
 
 def test_unported_mesh_features_raise(tmp_path):
-    """Textures, atlases, materials and instance ids name their item."""
+    """Materials, instance ids and textures, which named their ROADMAP item
+    until they were ported: a GLB's flat material bakes into texture tables
+    and per-instance ids label the semantic grid, as in the JAX package."""
     v, f = box((0, 0, 0), (1, 1, 1))
     path = write_glb(tmp_path / "red.glb", v, f, material=True)
-    assert tmesh.glb_has_materials(path)
-    for call in (lambda: tmesh.bake_mesh_scene(path, device="cpu"),
-                 lambda: tmesh.load_glb_textured(path),
-                 lambda: tmesh.build_atlas({}),
-                 lambda: tmesh.bake_scenes_from_meshes([(v, f, np.zeros(12, np.int32))]),
-                 lambda: tmesh.bake_scenes_from_meshes([(v, f, None, None, {"uv": 0})])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 18"):
-            call()
+    got, ref = tmesh.load_glb_textured(path), jmesh.load_glb_textured(path)
+    assert [im.tolist() for im in got[2]["images"]] == [[[[255, 0, 0]]]]
+    for a, b in zip(tmesh.build_atlas(got[2]), jmesh.build_atlas(ref[2])):
+        np.testing.assert_array_equal(a, b)
+    tdata = tmesh.bake_mesh_scene(path, spacing=0.25, device="cpu")
+    jdata = jmesh.bake_mesh_scene(path, spacing=0.25)
+    two = [(np.concatenate([v, v + 3.0]), np.concatenate([f, f + 8]),
+            np.repeat(np.arange(2, dtype=np.int32), 12), None)]
+    for t, j in ((tdata, jdata),
+                 (tmesh.bake_scenes_from_meshes(two, spacing=0.25, device="cpu"),
+                  jmesh.bake_scenes_from_meshes(two, spacing=0.25))):
+        for name in ("sdf", "albedo", "semantic", "triangles", "tri_uv", "tri_rect", "atlas"):
+            if isinstance(getattr(j, name), tuple):
+                assert getattr(t, name) == (), name
+            else:
+                np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                              np.asarray(getattr(j, name)), err_msg=name)
+    assert set(torch.unique(tmesh.bake_scenes_from_meshes(
+        two, spacing=0.25, device="cpu").semantic).tolist()) == {1, 2}
 
 
 def test_baker_builds_into_build_dir_and_raises_without_a_compiler(tmp_path, monkeypatch):

@@ -185,17 +185,17 @@ def test_drones_and_objects_render_together():
 
 
 def test_swarm_guards():
-    """One agent a scene is refused; the path planner is ported (its scene
-    swap waits for ``reset_env_by_id``, which names its ROADMAP item); the
-    drone template is built once on the env's device."""
+    """One agent a scene is refused; the path planner is ported, and so is
+    its replan after ``reset_env_by_id`` (without a scene there is no path
+    to plan); the drone template is built once on the env's device."""
     with pytest.raises(ValueError, match="should not be 1"):
         tenvs.MultiNavigationEnv(device="cpu", num_agent_per_scene=1, visual=False)
     planning = tenvs.MultiNavigationEnv(device="cpu", num_agent_per_scene=3, visual=False,
                                         scene_kwargs={"path": "garage_crossing",
                                                       "is_find_path": True})
     assert planning.is_find_path and planning.path == [None] * 3
-    with pytest.raises(NotImplementedError, match="item 20"):
-        planning.reset_env_by_id(None, 0)
+    st = planning.reset_env_by_id(planning.reset(torch.Generator().manual_seed(0))[0], 0)
+    assert planning.path == [None] * 3 and st.step_count.tolist() == [0, 0, 0]
     env = tenvs.MultiNavigationEnv(device="cpu", **crossing_kwargs(False))
     assert env._drone_template.shape == (84, 9) and env._drone_template.device.type == "cpu"
     st, _ = env.reset(torch.Generator().manual_seed(0))

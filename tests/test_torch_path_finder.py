@@ -78,8 +78,11 @@ def test_swarm_env_path_hints():
         np.testing.assert_allclose(p[-1], tgt[i], atol=1e-5)
         col = point_is_collision(env.scene, torch.from_numpy(p[1:-1]), radius=env.uav_radius)
         assert not col.any(), f"agent {i}: waypoint in collision"
-    with pytest.raises(NotImplementedError, match="Queue A item 20"):
-        env.reset_env_by_id(state, 0)
+    # a scene swap replans its agents from where they respawned
+    state = env.reset_env_by_id(state, 0)
+    for i, p in enumerate(env.path):
+        assert p is not None
+        np.testing.assert_allclose(p[0], state.dyn.pos[i].numpy(), atol=1e-5)
     off = tenvs.MultiNavigationEnv(device="cpu", num_agent_per_scene=2, visual=False)
     off.reset(torch.Generator().manual_seed(0))
     assert off.path == [None, None]

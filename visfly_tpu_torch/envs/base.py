@@ -29,6 +29,15 @@ previous wind component; ``dynamics_kwargs["wind_fn"]`` takes a callable
 (``random_kwargs["noise_kwargs"][uuid]``) is drawn from ``EnvState.gen``
 after each render.
 
+Scenes: ``env.scene`` is the one scene in effect, and a rotation or a swap
+replaces it in place (the JAX package carries it in ``EnvState.scene`` so
+that swapped arrays reach its compiled programs as operands; eager PyTorch
+has no compiled program to feed). ``reset_scenes`` loads the next scenes of
+the source (the next seeds of a preset, the loader's next files of a
+dataset) and respawns every agent; ``reset_env_by_id`` replaces one scene
+and respawns only its agents. ``approaching_point`` traces each agent's
+velocity ray through the scene (``trace_rays``).
+
 ``terminal_obs_in_info`` (set by PPO and SAC) adds the pre-reset observation,
 detached, to ``info["terminal_observation"]``; on a visual env it costs a
 second render a step, before the auto-reset. IMU noise
@@ -555,9 +564,10 @@ class DroneGymEnv:
         return self._reset_masked(state, mask, dyn)
 
     def reset_scenes(self, state: Optional[EnvState] = None) -> Optional[EnvState]:
-        """Scene rotation: regenerate the procedural scenes with the next
-        seeds (``scene_kwargs["seed"]`` advances by ``num_scene``) and, given
-        a state, respawn every agent in them. Shapes stay as they were."""
+        """Scene rotation: the next scenes of the env's source (a preset's
+        next seeds, as ``scene_kwargs["seed"]`` advances by ``num_scene``; a
+        dataset's next files from its loader) and, given a state, every agent
+        respawned in them. A primitive scene keeps at least its rows."""
         if self.scene is None:
             return state
         from ..scene import load_scenes_for_env
@@ -569,6 +579,31 @@ class DroneGymEnv:
             return None
         return self.reset_agents(state, torch.ones((self.num_agent,), dtype=torch.bool,
                                                    device=self.device))
+
+    def reset_env_by_id(self, state: EnvState, scene_id: int) -> EnvState:
+        """Replace scene ``scene_id`` (``scene.swap_scene_for_env``: the
+        dataset's next file, or a preset's fresh seed) and respawn only its
+        agents; the other scenes' rows and agents stay as they were."""
+        mask = self.scene_ids == int(scene_id)
+        if self.scene is not None:
+            from ..scene import swap_scene_for_env
+
+            swap_scene_for_env(self, int(scene_id))
+        return self.reset_agents(state, mask)
+
+    def approaching_point(self, state: EnvState, max_distance: float = 100.0) -> Tensor:
+        """The first scene hit along each agent's velocity (``trace_rays``, 64
+        steps), or the point ``max_distance`` ahead where there is none (N, 3)."""
+        vel = dyn_mod.velocity(state.dyn)
+        direction = vel / (torch.linalg.vector_norm(vel, dim=-1, keepdim=True) + 1e-6)
+        fallback = state.dyn.pos + direction * max_distance
+        if self.scene is None:
+            return fallback
+        from ..render.sphere_trace import trace_rays
+
+        t, hit = trace_rays(self.scene, self.scene_ids, state.dyn.pos.detach(), direction,
+                            n_steps=64, max_depth=max_distance)
+        return torch.where(hit[:, None], state.dyn.pos + direction * t[:, None], fallback)
 
     def stack(self, state: EnvState):
         """Pose snapshot (pos, q, vel, ω), detached, which ``recover`` takes."""

@@ -18,7 +18,7 @@ from ..core import quaternion as quat
 from ..core.math_utils import safe_norm
 from ..dynamics import DynState
 from ..dynamics import dynamics as dyn_mod
-from .base import CollisionInfo, DroneGymEnv, EnvState, _unported
+from .base import CollisionInfo, DroneGymEnv, EnvState
 
 # the 4-colour agent cycle of the drone bodies
 _DRONE_COLORS = ((200.0, 60.0, 60.0), (60.0, 180.0, 60.0), (70.0, 90.0, 220.0),
@@ -151,8 +151,17 @@ class MultiNavigationEnv(MultiDroneGymEnv):
         return st, obs
 
     def reset_env_by_id(self, state: EnvState, scene_id: int) -> EnvState:
-        raise _unported("reset_env_by_id (a scene swap, and the planner's replan after it)",
-                        "Queue A item 20, habitat datasets and scene swaps")
+        """The base swap and respawn; with ``is_find_path`` the swapped
+        scene's agents are planned anew."""
+        st = super().reset_env_by_id(state, scene_id)
+        if self.is_find_path:
+            from ..utils.path_finder import find_paths
+
+            A = self.num_agent_per_scene
+            idx = range(scene_id * A, (scene_id + 1) * A)
+            for i, p in zip(idx, find_paths(self, st.dyn.pos, self.target, indices=idx)):
+                self._paths[i] = p
+        return st
 
     def get_observation(self, state: EnvState, sensor_obs) -> Dict[str, Tensor]:
         s = self.state_obs(state)

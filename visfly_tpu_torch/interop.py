@@ -73,13 +73,9 @@ def scene_from_numpy(scene, device=None) -> PrimitiveScene:
 
 def scene_data_from_numpy(data, device=None) -> SceneData:
     """``visfly_tpu.scene.SceneData`` of numpy arrays (sdf, albedo, semantic,
-    origin, spacing, bbox, triangles) → SceneData. Texture tables do not
-    cross over."""
-    if not isinstance(getattr(data, "tri_uv", ()), tuple):
-        raise NotImplementedError("textured scenes are not ported yet (ROADMAP: Queue A item "
-                                  "18, imported meshes: textures)")
-    fields = ("sdf", "albedo", "semantic", "origin", "spacing", "bbox", "triangles")
-    return scene_data_from_arrays({f: getattr(data, f) for f in fields}, device)
+    origin, spacing, bbox, and where present triangles and the texture
+    tables tri_uv, tri_rect, atlas) → SceneData."""
+    return scene_data_from_arrays({f: getattr(data, f, ()) for f in SceneData._fields}, device)
 
 
 def kernel_scene_from_numpy(kscene, device=None) -> KernelScene:
@@ -106,7 +102,8 @@ def aux_from_numpy(aux, device=None):
         return ()
     if aux._fields not in _AUX_TYPES:
         raise NotImplementedError(f"EnvState.aux of type {type(aux).__name__} is not ported "
-                                  "yet (ROADMAP: Queue A item 15, the rest of the env zoo)")
+                                  "yet (ROADMAP: Queue A item 14, which brings the world "
+                                  "model's aux)")
     return _AUX_TYPES[aux._fields](*(_t(x, device) for x in aux))
 
 

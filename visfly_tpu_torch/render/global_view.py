@@ -15,8 +15,7 @@ numpy: this path renders a handful of frames for humans, not observations.
 ``mode="object"`` tracks the first dynamic object. (The JAX package's test
 for it, ``isinstance(state.objects, tuple)``, holds for its ``ObjectsState``
 NamedTuple too, so there it always falls back to ``"follow"``; here it
-tracks.) ``approaching=True`` needs ``DroneGymEnv.approaching_point``, which
-is not ported yet.
+tracks.)
 """
 from __future__ import annotations
 
@@ -147,10 +146,9 @@ def scene_zero(data):
                              semantic=data.semantic[:1], boxes=data.boxes[:1],
                              capsules=data.capsules[:1])
     if isinstance(data, SceneData):
-        tri = data.triangles
-        return data._replace(sdf=data.sdf[:1], albedo=data.albedo[:1],
-                             semantic=data.semantic[:1],
-                             triangles=tri[:1] if isinstance(tri, torch.Tensor) else tri)
+        return data._replace(**{f: getattr(data, f)[:1] for f in
+                                ("sdf", "albedo", "semantic", "triangles", "tri_uv", "tri_rect",
+                                 "atlas") if isinstance(getattr(data, f), torch.Tensor)})
     raise TypeError(f"cannot render a {type(data).__name__}")
 
 
@@ -176,12 +174,9 @@ def render_global(
     centroid; ``'object'`` the first dynamic object (``'follow'`` without
     objects); ``'fix'`` uses the static view or ``position``. Overlays:
     ``velocity`` the last-10-segment motion trail, ``collision`` a line from
-    each agent to its closest obstacle point, ``axes`` each agent's body
-    frame."""
-    if approaching:
-        raise NotImplementedError(
-            "render_global(approaching=True) needs DroneGymEnv.approaching_point, which is "
-            "not ported yet (ROADMAP: Queue A item 19, exact-triangle render: the grid opt-out)")
+    each agent to its closest obstacle point, ``approaching`` a line to the
+    scene hit along each agent's velocity (``env.approaching_point``),
+    green fading to white over 10 m, ``axes`` each agent's body frame."""
     H, W = int(resolution[0]), int(resolution[1])
     pos = state.dyn.pos.detach().cpu().numpy()
     focus = pos.mean(axis=0)
@@ -231,6 +226,16 @@ def render_global(
         for i in range(pos.shape[0]):
             seg = _project(np.stack([pos[i], cpts[i]]), eye, q, hfov, (H, W))
             _draw_polyline(img, seg, np.asarray([255, 40, 40], np.uint8), int(line_width))
+
+    # approaching lines: agent → the scene hit along its velocity
+    if approaching:
+        apts = env.approaching_point(state).detach().cpu().numpy()
+        for i in range(pos.shape[0]):
+            d = min(float(np.linalg.norm(apts[i] - pos[i])) / 10.0, 1.0)
+            c = ((1 - d) * np.asarray([60, 250, 60])
+                 + d * np.asarray([250, 250, 250])).astype(np.uint8)
+            seg = _project(np.stack([pos[i], apts[i]]), eye, q, hfov, (H, W))
+            _draw_polyline(img, seg, c, int(line_width))
 
     # body axes: x red, y green, z blue
     if axes:

@@ -22,8 +22,17 @@ A mesh scene (``SceneData`` with triangles) renders its true triangles;
 its sensor-spec keys are ``tri_cap`` (per-tile list length, default by mesh
 size), ``tri_backface`` and ``tri_variant`` ("scalar", the default, "merged",
 "mx" or "wl": how the per-camera tier of a dense mesh runs; nothing changes
-where a mesh or a ray set does not reach that tier); colour and semantic ids come from the baked grids
-at the exact hit.
+where a mesh or a ray set does not reach that tier). Semantic ids come from
+the baked grid at the exact hit, and so does colour, unless the scene
+carries texture tables: then the winning triangle's texcoords, interpolated
+at the hit's barycentrics and wrapped (glTF REPEAT), pick the nearest texel
+of the scene's atlas. ``scene_kwargs["lighting"]["shadows"]`` casts one
+shadow ray a light from each exact hit (:func:`shadow_visibility`, an
+any-hit test against every triangle, chunked over rays and triangles; plain
+PyTorch, as it is plain XLA in the JAX package). A grid scene without
+triangles (``bake_scenes``), or a sensor with ``render_backend: "grid"``,
+sphere-traces the trilinear SDF instead (:func:`trace_rays`, plain PyTorch)
+and shades with the grid's normal.
 
 Dynamic objects (``objects``: positions (S, M, 3), radii (S, M), colours
 (S, M, 3)[, triangle templates (S, M, K, 9), attitudes (S, M, 4)]): without
@@ -32,14 +41,11 @@ templates (drone bodies, ``model_path`` objects) the kernel traces the static
 scene and each object's posed template is intersected after it
 (:func:`_object_mesh_hits`, plain PyTorch, as it is plain XLA in the JAX
 package), composed by the smaller t. On a mesh scene every object composes
-after the triangle trace. Object pixels shade with the object's colour and
-its hit normal, semantic id 255. A sensor's noise model
+after the triangle trace or the grid's sphere trace. Object pixels shade
+with the object's colour and its hit normal, semantic id 255. A sensor's
+noise model
 (``random_kwargs["noise_kwargs"][uuid]``, ``render/noise.py``) applies after
 the render, drawn from ``EnvState.gen``.
-
-Not ported yet, each raising ``NotImplementedError``: the
-``render_backend: "grid"`` opt-out (the trilinear SDF march), grid scenes
-without triangles, textures and shadow rays.
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ from torch import Tensor
 
 from ..core import quaternion as quat
 from ..scene.prim_scene import PrimitiveScene, prim_distances, prim_normal_single, prim_sdf
+from ..scene.queries import sample_sdf, sdf_normal
 from ..scene.scene import SceneData
 from .camera import (CameraGeometry, camera_rays, camera_rays_components, tile_cones_body)
 from .noise import apply_noise
@@ -64,10 +71,6 @@ BIG = 1e9
 _LIGHT_DIR = (0.33798, 0.24142, 0.90966)  # normalised
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
-
-
 # ---------------------------------------------------------------------------
 # lighting and shading
 # ---------------------------------------------------------------------------
@@ -76,8 +79,8 @@ def _unported(what: str, item: str):
 @dataclasses.dataclass(frozen=True)
 class Lighting:
     """A baked lighting setup. ``shadows`` is a static flag, not a tensor: it
-    selects code (shadow rays on the exact-triangle backend, which is not
-    ported; primitive scenes ignore it)."""
+    selects code (shadow rays on the exact-triangle backend; the other
+    backends ignore it)."""
 
     kind: Tensor  # (L,) 0 directional / 1 point
     vec: Tensor  # (L, 3) unit direction TO the light, or the light's position
@@ -124,10 +127,13 @@ def bake_lighting(cfg, device=None) -> Optional[Lighting]:
                     t(cfg.get("attenuation", 0.0)), bool(cfg.get("shadows", False)))
 
 
-def lambert_shade(n: Tensor, p: Tensor, lighting: Optional[Lighting]) -> Tensor:
+def lambert_shade(n: Tensor, p: Tensor, lighting: Optional[Lighting],
+                  vis: Optional[Tensor] = None) -> Tensor:
     """Lambertian shade multiplier (..., 3) from normal ``n`` and hit point
     ``p`` (both (..., 3)). ``lighting=None`` is the fixed
-    ``0.35 + 0.65·max(n·L, 0)`` single directional light."""
+    ``0.35 + 0.65·max(n·L, 0)`` single directional light. ``vis`` (..., L)
+    in [0, 1] scales each light's diffuse term (shadow rays); the ambient
+    term is never scaled."""
     if lighting is None:
         lam = torch.clamp(torch.sum(n * n.new_tensor(_LIGHT_DIR), dim=-1), min=0.0)
         return (0.35 + 0.65 * lam)[..., None].expand(*lam.shape, 3)
@@ -138,7 +144,56 @@ def lambert_shade(n: Tensor, p: Tensor, lighting: Optional[Lighting]) -> Tensor:
     l = torch.where(kind[:, None] > 0.5, l_pt, vec)  # (..., L, 3)
     lam = torch.clamp(torch.sum(n[..., None, :] * l, dim=-1), min=0.0)  # (..., L)
     w = torch.where(kind > 0.5, 1.0 / (1.0 + lighting.attenuation * d2), 1.0)
+    if vis is not None:
+        w = w * vis
     return lighting.ambient + torch.sum((lam * w)[..., None] * col, dim=-2)
+
+
+def shadow_visibility(tri: Tensor, p: Tensor, nrm: Tensor, lighting: Lighting,
+                      slab: int = 512, chunk_elems: int = 1 << 22) -> Tensor:
+    """Each light's visibility from surface points: one any-hit shadow ray
+    a (point, light), from ``p + 1e-3·n`` toward the light, blocked where
+    any triangle meets it past 1e-3 and, for a point light, before the
+    light. tri (S, T, 9), p and nrm (S, R, 3) → vis (S, R, L) of 0 or 1.
+
+    Möller–Trumbore against every triangle, over chunks of rays and slabs
+    of ``slab`` triangles, so that no intermediate holds more than about
+    ``chunk_elems`` (point, light, triangle) tests (the JAX package scans
+    the slabs with every ray at once, (S, R, L, slab, 3)). The chunks change
+    nothing but memory: a ray is blocked where any test of any slab hits."""
+    kind, vec = lighting.kind, lighting.vec
+    S, R, L = p.shape[0], p.shape[1], kind.shape[0]
+    T = tri.shape[1]
+    slab = max(1, min(slab, T))
+    rc = max(1, min(R, chunk_elems // (S * L * slab)))
+    out = torch.empty((S, R, L), dtype=p.dtype, device=p.device)
+    for r0 in range(0, R, rc):
+        pc, nc = p[:, r0:r0 + rc], nrm[:, r0:r0 + rc]
+        to = vec - pc[:, :, None, :]  # (S, r, L, 3)
+        dist = torch.sqrt(torch.clamp(torch.sum(to * to, dim=-1), min=1e-12))
+        ldir = torch.where(kind[:, None] > 0.5, to / dist[..., None], vec.expand_as(to))
+        tmax = torch.where(kind > 0.5, dist, BIG)[..., None]  # (S, r, L, 1)
+        o = (pc + 1e-3 * nc)[:, :, None, None, :]  # (S, r, 1, 1, 3)
+        d5 = ldir[:, :, :, None, :]  # (S, r, L, 1, 3)
+        occ = torch.zeros(ldir.shape[:3], dtype=torch.bool, device=p.device)
+        for t0 in range(0, T, slab):
+            tr = tri[:, t0:t0 + slab]
+            a = tr[:, None, None, :, 0:3]  # (S, 1, 1, slab, 3)
+            e1 = tr[:, None, None, :, 3:6] - a
+            e2 = tr[:, None, None, :, 6:9] - a
+            pv = torch.linalg.cross(d5, e2)
+            det = torch.sum(e1 * pv, dim=-1)  # (S, r, L, slab)
+            valid = torch.abs(det) > 1e-12
+            inv = 1.0 / torch.where(valid, det, 1.0)
+            tv = o - a
+            u = torch.sum(tv * pv, dim=-1) * inv
+            qv = torch.linalg.cross(tv, e1)
+            v = torch.sum(d5 * qv, dim=-1) * inv
+            t = torch.sum(e2 * qv, dim=-1) * inv
+            hit = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-3) & (t < tmax)
+            occ |= torch.any(hit, dim=-1)
+        out[:, r0:r0 + rc] = torch.where(occ, 0.0, 1.0)
+    return out
 
 
 def _shade_rows(scene: PrimitiveScene, p_hit: Tensor, hit: Tensor, k: Tensor, dyn_px,
@@ -344,6 +399,40 @@ def _compose_objects(objects, o: Tensor, d: Tensor, t: Tensor, hit: Tensor, max_
     return torch.where(obj_px, t_o, t), hit | obj_px, obj_px, n_o, c_o
 
 
+def trace_rays(data, sid: Tensor, origins: Tensor, dirs: Tensor, n_steps: int = 48,
+               max_depth: float = DEFAULT_MAX_DEPTH, hit_eps: Optional[float] = None):
+    """Sphere trace of a flat batch of rays, origins and dirs (N, 3) with
+    scene ids sid (N,), over either scene type: the analytic SDF of a
+    ``PrimitiveScene`` (hit within its ``eps``) or the trilinear grid of a
+    ``SceneData`` (hit within 0.3 cells, at least half a cell a step). A
+    fixed ``n_steps``, then the SDF at the last point added once more; →
+    (t (N,), max_depth where it missed; hit (N,))."""
+    if isinstance(data, PrimitiveScene):
+        eps = data.eps if hit_eps is None else hit_eps
+        min_step = 0.0
+    else:
+        eps = data.spacing * 0.3 if hit_eps is None else hit_eps
+        min_step = data.spacing * 0.5
+    t = torch.zeros(origins.shape[0], dtype=origins.dtype, device=origins.device)
+    done = torch.zeros(origins.shape[0], dtype=torch.bool, device=origins.device)
+    for _ in range(n_steps):
+        d = sample_sdf(data, sid, origins + dirs * t[:, None])
+        done = done | (d < eps) | (t >= max_depth)
+        t = torch.where(done, t, t + torch.clamp(d, min=min_step))
+    t = torch.clamp(t + sample_sdf(data, sid, origins + dirs * t[:, None]), 0.0, max_depth)
+    hit = t < max_depth
+    return torch.where(hit, t, max_depth), hit
+
+
+def _grid_cells(data: SceneData, sid: Tensor, p: Tensor) -> Tensor:
+    """Flat index of the grid cell nearest each point p (N, 3) of scene
+    sid (N,), into ``semantic.reshape(-1)`` and ``albedo.reshape(-1, 3)``."""
+    X, Y, Z = data.sdf.shape[1:]
+    g = torch.round((p - data.origin) / data.spacing).to(torch.int64)
+    g = torch.minimum(torch.clamp(g, min=0), g.new_tensor([X - 1, Y - 1, Z - 1]))
+    return ((sid * X + g[..., 0]) * Y + g[..., 1]) * Z + g[..., 2]
+
+
 # ---------------------------------------------------------------------------
 # camera rendering
 # ---------------------------------------------------------------------------
@@ -369,6 +458,41 @@ def cone_warm_start(data, spec, tile, origins, q, S, objects, n_steps, max_depth
     return t_px.reshape(S, n // S * H * W).contiguous()
 
 
+def _texture_albedo(data: SceneData, gid: Tensor, p: Tensor) -> Tensor:
+    """Textured albedo (S·R, 3) float32 of the hits p (S, R, 3) on the
+    winning triangles gid (S, R): the barycentrics of the hit, the
+    triangle's corner texcoords interpolated and wrapped (glTF REPEAT), the
+    nearest texel of the scene's atlas."""
+    S = gid.shape[0]
+    g = gid.to(torch.int64)[..., None]
+    rows = torch.gather(data.triangles, 1, g.expand(*gid.shape, 9))
+    uv3 = torch.gather(data.tri_uv, 1, g.expand(*gid.shape, 6))
+    rect = torch.gather(data.tri_rect, 1, g.expand(*gid.shape, 4))
+    va = rows[..., 0:3]
+    v0, v1, v2 = rows[..., 3:6] - va, rows[..., 6:9] - va, p - va
+    d00 = torch.sum(v0 * v0, dim=-1)
+    d01 = torch.sum(v0 * v1, dim=-1)
+    d11 = torch.sum(v1 * v1, dim=-1)
+    d20 = torch.sum(v2 * v0, dim=-1)
+    d21 = torch.sum(v2 * v1, dim=-1)
+    den = d00 * d11 - d01 * d01
+    den = torch.where(torch.abs(den) > 1e-12, den, 1.0)
+    bu = (d11 * d20 - d01 * d21) / den
+    bv = (d00 * d21 - d01 * d20) / den
+    uv = (uv3[..., 0:2] * (1.0 - bu - bv)[..., None] + uv3[..., 2:4] * bu[..., None]
+          + uv3[..., 4:6] * bv[..., None])
+    uv = uv - torch.floor(uv)
+    tw, th = rect[..., 0], rect[..., 1]
+    col = torch.minimum(torch.clamp(torch.round(uv[..., 0] * (tw - 1.0)), min=0.0),
+                        torch.clamp(tw - 1.0, min=0.0)) + rect[..., 3]
+    row = torch.minimum(torch.clamp(torch.round(uv[..., 1] * (th - 1.0)), min=0.0),
+                        torch.clamp(th - 1.0, min=0.0)) + rect[..., 2]
+    AH, AW = data.atlas.shape[1], data.atlas.shape[2]
+    scene = torch.arange(S, device=gid.device)[:, None]
+    lin = ((scene * AH + row.to(torch.int64)) * AW + col.to(torch.int64)).reshape(-1)
+    return data.atlas.reshape(-1, 3)[lin].to(torch.float32)
+
+
 def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype: str,
                       max_depth: float, objects, lighting: Optional[Lighting]
                       ) -> Dict[str, Tensor]:
@@ -377,14 +501,6 @@ def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype
     they are not, CPU tensors take the brute force (every ray against every
     triangle, as the JAX package does); on the card that would be a plain
     PyTorch render by shape alone, so it raises instead."""
-    if str(spec.get("render_backend", "tri")) == "grid":
-        raise _unported("render_backend 'grid' (the trilinear SDF march, trace_rays)",
-                        "Queue A item 19, exact-triangle render: the grid opt-out")
-    if isinstance(data.tri_uv, Tensor):
-        raise _unported("textured colour", "Queue A item 18, imported meshes: textures")
-    if lighting is not None and lighting.shadows and stype == "color":
-        raise _unported("shadow rays (shadow_visibility)",
-                        "Queue A item 19, exact-triangle render: shadows")
     H, W = spec["resolution"]
     n, S = pos.shape[0], data.num_scene
     Rs = (n // S) * H * W
@@ -399,7 +515,7 @@ def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype
     tiled = Rs % TILE == 0
     whole = tiled and (H * W) % TILE == 0  # a tile never spans two cameras
     tri = data.triangles
-    t, hit, normal, _gid = tri_trace_diff(
+    t, hit, normal, gid = tri_trace_diff(
         tri, o_g3.permute(2, 0, 1).contiguous(), d_g3.permute(2, 0, 1).contiguous(),
         max_depth, int(spec.get("tri_cap", default_tri_cap(tri.shape[1]))),
         W if whole else None, tiled, H * W if whole else None,
@@ -412,25 +528,76 @@ def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype
     if stype == "depth":
         depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f, max_depth)
         return {"depth": depth[:, None, :, :]}
-    # albedo and ids from the baked grids at the exact hit
-    p_hit = (o_g3 + d_g3 * t[..., None]).reshape(n * H * W, 3)
+    # ids, and albedo where the scene has no textures, from the baked grids at
+    # the exact hit
+    p3 = o_g3 + d_g3 * t[..., None]
+    p_hit = p3.reshape(n * H * W, 3)
     hit_f = hit.reshape(n * H * W)
-    sid_f = torch.arange(S, device=pos.device).repeat_interleave(Rs)
-    X, Y, Z = data.sdf.shape[1:]
-    g = torch.round((p_hit - data.origin) / data.spacing).to(torch.int64)
-    g = torch.minimum(torch.clamp(g, min=0), g.new_tensor([X - 1, Y - 1, Z - 1]))
-    lin = ((sid_f * X + g[..., 0]) * Y + g[..., 1]) * Z + g[..., 2]
+    lin = _grid_cells(data, torch.arange(S, device=pos.device).repeat_interleave(Rs), p_hit)
     obj_f = (torch.zeros_like(hit_f) if obj_px is None else obj_px.reshape(n * H * W))
     if stype == "semantic":
         sem = torch.where(hit_f & ~obj_f, data.semantic.reshape(-1)[lin], 0)
         sem = torch.where(hit_f & obj_f, 255, sem).reshape(n, H, W)
         return {"semantic": sem[:, None, :, :].to(torch.uint8)}
-    albedo = data.albedo.reshape(-1, 3)[lin].to(torch.float32)
+    if isinstance(data.tri_uv, Tensor):
+        albedo = _texture_albedo(data, gid, p3)
+    else:
+        albedo = data.albedo.reshape(-1, 3)[lin].to(torch.float32)
     if obj_px is not None:
         albedo = torch.where(obj_f[:, None], c_o.reshape(-1, 3), albedo)
-    shade = lambert_shade(normal.reshape(-1, 3), p_hit, lighting)
+    vis = None
+    if lighting is not None and lighting.shadows:
+        # dynamic objects receive shadows and cast none
+        vis = shadow_visibility(tri, p3, normal.reshape(S, Rs, 3), lighting)
+        vis = vis.reshape(n * H * W, -1)
+    shade = lambert_shade(normal.reshape(-1, 3), p_hit, lighting, vis)
     rgb = torch.clamp(albedo * shade, 0, 255)
     rgb = torch.where(hit_f[:, None], rgb, 0.0).reshape(n, H, W, 3)
+    return {"color": rgb.permute(0, 3, 1, 2).to(torch.uint8)}
+
+
+def _render_grid(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype: str,
+                 n_steps: int, max_depth: float, objects, num_scene: Optional[int],
+                 lighting: Optional[Lighting]) -> Dict[str, Tensor]:
+    """One sensor sphere-traced through a grid scene's trilinear SDF
+    (:func:`trace_rays`, a flat batch with scene ids): the grid backend,
+    for a scene without triangles or a sensor with ``render_backend:
+    "grid"``. Objects compose after the trace and shade with their own
+    normal."""
+    H, W = spec["resolution"]
+    n = pos.shape[0]
+    S = data.num_scene if num_scene is None else num_scene
+    R = n * H * W
+    origins, dirs, cos_f = camera_rays(spec, pos, q)
+    flat_o = origins[:, None, :].expand(n, H * W, 3).reshape(R, 3)
+    flat_d = dirs.reshape(R, 3)
+    flat_sid = torch.arange(S, device=pos.device).repeat_interleave(R // S)
+    t, hit = trace_rays(data, flat_sid, flat_o, flat_d, n_steps, max_depth)
+    obj_flat = None
+    if objects is not None:
+        t_o, hit_o, n_o, c_o = _object_mesh_hits(objects, flat_o.reshape(S, R // S, 3),
+                                                 flat_d.reshape(S, R // S, 3), max_depth)
+        t_o, hit_o = t_o.reshape(R), hit_o.reshape(R)
+        obj_flat = hit_o & (t_o < t)
+        t = torch.where(obj_flat, t_o, t)
+        hit = hit | obj_flat
+    if stype == "depth":
+        depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f, max_depth)
+        return {"depth": depth[:, None, :, :]}
+    p_hit = flat_o + flat_d * t[:, None]
+    lin = _grid_cells(data, flat_sid, p_hit)
+    obj_f = torch.zeros_like(hit) if obj_flat is None else obj_flat
+    if stype == "semantic":
+        sem = torch.where(hit & ~obj_f, data.semantic.reshape(-1)[lin], 0)
+        sem = torch.where(hit & obj_f, 255, sem).reshape(n, H, W)
+        return {"semantic": sem[:, None, :, :].to(torch.uint8)}
+    albedo = data.albedo.reshape(-1, 3)[lin].to(torch.float32)
+    normal = sdf_normal(data, flat_sid, p_hit)
+    if obj_flat is not None:
+        albedo = torch.where(obj_flat[:, None], c_o.reshape(R, 3), albedo)
+        normal = torch.where(obj_flat[:, None], n_o.reshape(R, 3), normal)
+    rgb = torch.clamp(albedo * lambert_shade(normal, p_hit, lighting), 0, 255)
+    rgb = torch.where(hit[:, None], rgb, 0.0).reshape(n, H, W, 3)
     return {"color": rgb.permute(0, 3, 1, 2).to(torch.uint8)}
 
 
@@ -453,10 +620,10 @@ def render_camera(
     if stype not in ("depth", "color", "semantic"):
         raise ValueError(f"unknown sensor type {stype!r}")
     if isinstance(data, SceneData):
-        if not data.has_triangles:
-            raise _unported("rendering of a grid scene without triangles (trace_rays)",
-                            "Queue A item 19, exact-triangle render: the grid opt-out")
-        return _render_triangles(data, pos, q, spec, stype, max_depth, objects, lighting)
+        if data.has_triangles and str(spec.get("render_backend", "tri")) != "grid":
+            return _render_triangles(data, pos, q, spec, stype, max_depth, objects, lighting)
+        return _render_grid(data, pos, q, spec, stype, n_steps, max_depth, objects, num_scene,
+                            lighting)
     if not isinstance(data, PrimitiveScene):
         raise TypeError(f"cannot render a {type(data).__name__}")
     # objects with triangle templates compose after the trace, which then

@@ -7,12 +7,27 @@ Named presets mirror the reference dataset scene families:
 draw from ``numpy.random.default_rng(seed)`` in the same order as the JAX
 package, so one seed gives the same scene in both.
 
-``load_scenes_for_env`` builds an env's scene: a procedural preset packs
-into a ``PrimitiveScene``; a mesh file (OBJ, GLB) with ``backend: "grid"``
-bakes into a :class:`SceneData` (SDF grid plus the exact triangles), and
-``scene_kwargs["data"]`` hands over one already baked. Not ported yet, each
-raising ``NotImplementedError``: the default backend of a mesh file (box
-decomposition), habitat datasets and directories of scene JSONs.
+``load_scenes_for_env`` builds an env's scene from ``scene_kwargs``:
+
+- ``"data"``: a :class:`SceneData` already baked, tiled over the scenes;
+- a mesh file (OBJ, GLB): by default decomposed into boxes and cylinders
+  (``decompose.py``) for the analytic trace kernel; with ``backend: "grid"``
+  baked into a :class:`SceneData` (SDF grid, the exact triangles and a GLB's
+  texture tables) for the triangle kernel;
+- a habitat scene instance, a directory of them or a dataset config
+  (``habitat_dataset.py``): one file per scene from the env's
+  :class:`~..utils.dataloader.SimpleDataLoader`, decomposed by default, or
+  with ``backend: "grid"`` baked with per-instance ids, material colours and
+  textures;
+- a directory of scene JSONs (``save_scene_spec``), one per scene from the
+  loader;
+- a procedural preset, seeds ``seed, seed + 1, ...``; with
+  ``backend: "grid"`` baked into a dense grid without triangles
+  (:func:`bake_scenes`).
+
+Primitive scenes pack into a ``PrimitiveScene``. The env keeps what a
+rotation or a swap needs beside ``env.scene`` (the specs or meshes of its
+scenes, the loader); :func:`swap_scene_for_env` replaces one scene in place.
 """
 from __future__ import annotations
 
@@ -257,8 +272,12 @@ class SceneData(NamedTuple):
               when present cameras trace the true mesh
               (``render/tri_trace.py``) and collision queries answer exactly
               (``queries.tri_closest_point``)
-    tri_uv, tri_rect, atlas   texture tables of the exact-triangle camera;
-              always ``()`` here (textures are not ported)
+    tri_uv    (S, T, 6) float32 each packed face's corner texcoords, or ``()``
+    tri_rect  (S, T, 4) float32 its image's rectangle in the atlas, [tw th y0
+              x0] in texels (tw = 0 on padding rows), or ``()``
+    atlas     (S, AH, AW, 3) uint8 each scene's images stacked, or ``()``:
+              with these tables the exact-triangle camera renders textured
+              colour in place of the grid's albedo
     """
 
     sdf: Tensor
@@ -283,11 +302,15 @@ class SceneData(NamedTuple):
 
 def scene_data_from_arrays(arrays: dict, device=None) -> SceneData:
     """Numpy arrays (keys sdf, albedo, semantic, origin, spacing, bbox and,
-    optionally, triangles) → :class:`SceneData` on ``device``."""
+    optionally, triangles and the texture tables tri_uv, tri_rect, atlas) →
+    :class:`SceneData` on ``device``."""
     def t(x, dtype):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
-    tris = arrays.get("triangles", ())
+    def opt(key, ndim, dtype):
+        x = arrays.get(key, ())
+        return t(x, dtype) if getattr(x, "ndim", 0) == ndim else ()
+
     return SceneData(
         sdf=t(arrays["sdf"], torch.float32),
         albedo=t(arrays["albedo"], torch.uint8),
@@ -295,32 +318,162 @@ def scene_data_from_arrays(arrays: dict, device=None) -> SceneData:
         origin=t(arrays["origin"], torch.float32),
         spacing=t(arrays["spacing"], torch.float32),
         bbox=t(arrays["bbox"], torch.float32),
-        triangles=t(tris, torch.float32) if getattr(tris, "ndim", 0) == 3 else (),
+        triangles=opt("triangles", 3, torch.float32),
+        tri_uv=opt("tri_uv", 3, torch.float32),
+        tri_rect=opt("tri_rect", 3, torch.float32),
+        atlas=opt("atlas", 4, torch.uint8),
     )
 
 
 def _tile_scene_data(data: SceneData, num_scene: int) -> SceneData:
-    """A single-scene SceneData repeated along the scene axis."""
+    """A single-scene SceneData repeated along the scene axis: every
+    per-scene field, the texture tables too (the textured camera indexes
+    the stacked atlas by scene)."""
     def tile(x):
         if not isinstance(x, Tensor) or x.dim() == 0:
             return x
         return x.repeat(num_scene, *([1] * (x.dim() - 1)))
 
-    return data._replace(sdf=tile(data.sdf), albedo=tile(data.albedo),
-                         semantic=tile(data.semantic), triangles=tile(data.triangles))
+    return data._replace(**{f: tile(getattr(data, f)) for f in
+                            ("sdf", "albedo", "semantic", "triangles", "tri_uv", "tri_rect",
+                             "atlas")})
+
+
+def bake_scenes(specs, spacing: float = 0.1, margin: float = 0.4, with_color: bool = True,
+                max_cells: int = 384, device=None) -> SceneData:
+    """Primitive SDFs evaluated on one dense grid shared by the scenes (the
+    union of their bounds plus ``margin``), with each cell's nearest
+    primitive's colour and semantic id: a grid scene without triangles,
+    which cameras sphere-trace (``render_backend`` "grid"). ``with_color``
+    False leaves the albedo empty."""
+    lo = np.min([s.bounds_min for s in specs], axis=0) - margin
+    hi = np.max([s.bounds_max for s in specs], axis=0) + margin
+    shape = np.minimum(np.ceil((hi - lo) / spacing).astype(int) + 1, max_cells)
+    spacing = float(np.max((hi - lo) / (shape - 1)))
+    axes = [lo[i] + np.arange(shape[i]) * spacing for i in range(3)]
+    pts = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).astype(np.float32)
+
+    sdfs, colors, sems = [], [], []
+    for spec in specs:
+        d, nearest = None, None
+        for idx, prm in enumerate(spec.primitives):
+            di = prim.eval_primitive(pts, prm).astype(np.float32)
+            if d is None:
+                d, nearest = di, np.zeros(di.shape, np.int16)
+            else:
+                closer = di < d
+                d = np.where(closer, di, d)
+                nearest = np.where(closer, idx, nearest)
+        sdfs.append(d)
+        col = np.zeros((*d.shape, 3), np.uint8)
+        sem = np.zeros(d.shape, np.uint8)
+        for idx, prm in enumerate(spec.primitives):
+            m = nearest == idx
+            col[m] = prm.get("color", np.asarray([180, 180, 180], np.uint8))
+            sem[m] = prm.get("semantic", 0)
+        colors.append(col)
+        sems.append(sem)
+    return scene_data_from_arrays({
+        "sdf": np.stack(sdfs),
+        "albedo": np.stack(colors) if with_color else np.zeros((len(specs), 0, 0, 0, 3),
+                                                               np.uint8),
+        "semantic": np.stack(sems),
+        "origin": lo.astype(np.float32),
+        "spacing": np.float32(spacing),
+        "bbox": np.stack([lo + margin, hi - margin]).astype(np.float32),
+    }, device)
+
+
+def save_scene_spec(spec: SceneSpec, path: str) -> None:
+    """A SceneSpec as JSON, the format a directory-of-scenes dataset holds."""
+    import json
+
+    def enc(v):
+        return v.tolist() if isinstance(v, np.ndarray) else v
+
+    data = {
+        "name": spec.name,
+        "bounds_min": spec.bounds_min.tolist(),
+        "bounds_max": spec.bounds_max.tolist(),
+        "primitives": [{k: enc(v) for k, v in p.items()} for p in spec.primitives],
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+
+
+def load_scene_spec(path: str) -> SceneSpec:
+    """The SceneSpec :func:`save_scene_spec` wrote: lists become float32
+    arrays, colours uint8, semantic ids ints."""
+    import json
+
+    with open(path) as f:
+        data = json.load(f)
+    prims = []
+    for p in data["primitives"]:
+        prm = {k: (np.asarray(v, np.float32) if isinstance(v, list) else v) for k, v in p.items()}
+        if "color" in prm:
+            prm["color"] = prm["color"].astype(np.uint8)
+        if "semantic" in prm:
+            prm["semantic"] = int(prm["semantic"])
+        prims.append(prm)
+    return SceneSpec(bounds_min=np.asarray(data["bounds_min"], np.float32),
+                     bounds_max=np.asarray(data["bounds_max"], np.float32),
+                     primitives=prims, name=data.get("name", "scene"))
+
+
+def generate_scene_dataset(out_dir: str, preset: str, count: int, seed: int = 42,
+                           **kwargs) -> List[str]:
+    """``count`` scenes of a preset (seeds ``seed, seed + 1, ...``) written as
+    ``<preset>_<i>.scene_instance.json`` under ``out_dir``; their paths."""
+    paths = []
+    for i in range(count):
+        p = os.path.join(out_dir, f"{preset}_{i:04d}.scene_instance.json")
+        save_scene_spec(make_scene(preset, seed=seed + i, **kwargs), p)
+        paths.append(p)
+    return paths
+
+
 
 
 _MESH_EXT = (".glb", ".gltf", ".obj")
+# the keys of scene_kwargs that load_habitat_scene takes
+_HABITAT_KEYS = ("spacing", "margin", "max_prims", "min_cover", "max_cells")
+
+
+def _is_mesh_file(path) -> bool:
+    return isinstance(path, str) and os.path.isfile(path) and path.lower().endswith(_MESH_EXT)
+
+
+def _habitat_mesh(env, path: str):
+    """One habitat scene instance as the grid backend bakes it: (verts,
+    faces, face instance ids, instance colours, texinfo)."""
+    from .habitat_dataset import load_habitat_scene_mesh
+
+    v, f, _bounds, inst, colors, tex = load_habitat_scene_mesh(
+        path, env._habitat_dataset, return_instances=True, return_textures=True)
+    return v, f, inst, colors, tex
+
+
+def _bake_meshes(env, meshes):
+    from .mesh import bake_scenes_from_meshes
+
+    kw = env.scene_kwargs
+    return bake_scenes_from_meshes(meshes, spacing=kw.get("sdf_spacing", 0.1),
+                                   margin=kw.get("margin", 0.5),
+                                   max_cells=kw.get("max_cells", 384), device=env.device)
 
 
 def load_scenes_for_env(env):
-    """Build the device scene from an env's ``scene_kwargs``: a pre-baked
-    ``data``, a mesh file with ``backend: "grid"`` (one bake, repeated over
-    ``env.num_scene``), or a procedural preset, one scene per
-    ``env.num_scene`` with seeds ``seed, seed + 1, ...``."""
+    """Build the device scene from an env's ``scene_kwargs`` (see the module
+    docstring). What a later rotation or swap needs is kept on the env:
+    ``_scene_specs`` (primitive specs, one per scene), ``_scene_meshes``
+    (a habitat grid scene's meshes), ``_scene_loader`` and
+    ``_habitat_dataset`` (dataset paths) and ``_pack_floor``."""
     kw = dict(env.scene_kwargs)
     path = kw.get("path", "box15_wall_empty")
     seed = kw.get("seed", env.seed)
+    grid = kw.get("backend", "primitive") == "grid"
     if "data" in kw:
         data = kw["data"]
         if not isinstance(data, SceneData):
@@ -329,40 +482,121 @@ def load_scenes_for_env(env):
         if data.num_scene == 1 and env.num_scene > 1:
             data = _tile_scene_data(data, env.num_scene)
         return data
-    if isinstance(path, str) and os.path.isfile(path) and path.lower().endswith(_MESH_EXT):
-        if kw.get("backend", "primitive") != "grid":
-            raise NotImplementedError(
-                "a mesh file loads with scene_kwargs backend='grid' only; the default, its "
-                "decomposition into boxes (scene/decompose.py), is not ported yet (ROADMAP: "
-                "Queue A item 18, imported meshes: decompose)")
-        from .mesh import bake_mesh_scene
 
-        data = bake_mesh_scene(path, spacing=kw.get("sdf_spacing", 0.1),
-                               margin=kw.get("margin", 0.5), device=env.device)
-        return _tile_scene_data(data, env.num_scene) if env.num_scene > 1 else data
-    if isinstance(path, str) and (os.path.isfile(path) or os.path.isdir(path)):
-        raise NotImplementedError(
-            "habitat scene instances, dataset configs and directories of scene JSONs are not "
-            "ported yet (ROADMAP: Queue A item 20, habitat datasets and scene directories)")
-    preset = resolve_scene_path(path)
-    specs = [make_scene(preset, seed=seed + i, **kw.get("scene_gen_kwargs", {}))
-             for i in range(env.num_scene)]
+    if _is_mesh_file(path):
+        if grid:
+            from .mesh import bake_mesh_scene
+
+            data = bake_mesh_scene(path, spacing=kw.get("sdf_spacing", 0.1),
+                                   margin=kw.get("margin", 0.5), device=env.device)
+            return _tile_scene_data(data, env.num_scene) if env.num_scene > 1 else data
+        from .decompose import decompose_mesh_scene
+
+        spec = decompose_mesh_scene(path, spacing=kw.get("sdf_spacing", 0.1),
+                                    margin=kw.get("margin", 0.5),
+                                    max_prims=kw.get("max_prims", 48),
+                                    min_cover=kw.get("min_cover", 0.98))
+        env._scene_specs = [spec] * env.num_scene
+        return _build_scene(env, env._scene_specs)
+
+    from .habitat_dataset import is_habitat_scene_path
+
+    if is_habitat_scene_path(path):
+        from ..utils.dataloader import SimpleDataLoader
+        from .habitat_dataset import (HabitatDataset, find_dataset_config,
+                                      list_habitat_scenes, load_habitat_scene)
+
+        if getattr(env, "_scene_loader", None) is None:
+            files = list_habitat_scenes(path)
+            if not files:
+                raise FileNotFoundError(f"no scene instances under {path}")
+            env._scene_loader = SimpleDataLoader(files, seed=seed)
+            cfg = (path if path.endswith(".scene_dataset_config.json")
+                   else find_dataset_config(files[0]))
+            env._habitat_dataset = HabitatDataset(cfg) if cfg else None
+        files = env._scene_loader.next(env.num_scene)
+        if grid:
+            env._scene_meshes = [_habitat_mesh(env, f) for f in files]
+            return _bake_meshes(env, env._scene_meshes)
+        hab_kw = {k: kw[k] for k in _HABITAT_KEYS if k in kw}
+        specs = [load_habitat_scene(f, env._habitat_dataset, **hab_kw) for f in files]
+        # dataset scenes decompose into different primitive counts: the pack
+        # is floored at the largest so far, rounded up to a whole ×8 bucket,
+        # so that a swap keeps the other scenes' rows and the shapes
+        n_max = max(len(s.primitives) for s in specs)
+        env._pack_floor = max(int(getattr(env, "_pack_floor", 0)), -(-(n_max + 4) // 8) * 8)
+        env._scene_specs = specs
+        return _build_scene(env, specs)
+
+    if os.path.isdir(path):
+        from ..utils.dataloader import ChildrenPathDataset, SimpleDataLoader
+
+        if getattr(env, "_scene_loader", None) is None:
+            env._scene_loader = SimpleDataLoader(ChildrenPathDataset(path, seed=seed), seed=seed)
+        specs = [load_scene_spec(f) for f in env._scene_loader.next(env.num_scene)]
+    else:
+        preset = resolve_scene_path(path)
+        specs = [make_scene(preset, seed=seed + i, **kw.get("scene_gen_kwargs", {}))
+                 for i in range(env.num_scene)]
+    env._scene_specs = specs
     return _build_scene(env, specs)
 
 
 def _build_scene(env, specs):
+    """Specs → the env's scene: a dense grid with ``backend: "grid"``, else a
+    packed primitive scene floored at ``env._pack_floor`` and at the rows of
+    the scene it replaces."""
     kw = dict(env.scene_kwargs)
-    if kw.get("backend", "primitive") != "primitive":
-        raise NotImplementedError(
-            "baking a procedural preset into a dense grid (bake_scenes) is not ported yet "
-            "(ROADMAP: Queue A item 18, imported meshes: grids of presets)")
+    if kw.get("backend", "primitive") == "grid":
+        return bake_scenes(specs, spacing=kw.get("sdf_spacing", 0.1),
+                           with_color=kw.get("with_color", True), device=env.device)
     from .prim_scene import pack_scenes
 
+    floor = int(getattr(env, "_pack_floor", 0))
+    floors = dict(min_k=floor, min_kb=floor, min_kc=floor)
     old = getattr(env, "scene", None)
-    floors = {}
     if old is not None and hasattr(old, "params"):
-        # a rotated scene keeps at least the rows of the one it replaces, as
-        # the JAX package keeps its compiled shapes
-        floors = dict(min_k=old.params.shape[1], min_kb=old.boxes.shape[1],
-                      min_kc=old.capsules.shape[1])
+        floors = dict(min_k=max(floor, old.params.shape[1]),
+                      min_kb=max(floor, old.boxes.shape[1]),
+                      min_kc=max(floor, old.capsules.shape[1]))
     return pack_scenes(specs, device=env.device, **floors)
+
+
+def swap_scene_for_env(env, scene_id: int):
+    """Replace scene ``scene_id`` of the env's scene with the next one of its
+    source: the loader's next file for a dataset, a fresh seed for a preset.
+    The other scenes keep their packed rows, or their grids and triangles,
+    bit for bit. A mesh file's or a pre-baked ``data`` scene is fixed, and
+    swapping one of its scenes changes nothing. Sets and returns
+    ``env.scene``."""
+    kw = dict(env.scene_kwargs)
+    path = kw.get("path", "box15_wall_empty")
+    if "data" in kw or (isinstance(path, str) and path.lower().endswith(_MESH_EXT)):
+        return env.scene
+    from .habitat_dataset import is_habitat_scene_path
+
+    if is_habitat_scene_path(path):
+        f = env._scene_loader.next(1)[0]
+        if kw.get("backend", "primitive") == "grid":
+            from .mesh import rebake_scene
+
+            mesh = _habitat_mesh(env, f)
+            env._scene_meshes[scene_id] = mesh
+            scene = rebake_scene(env.scene, scene_id, mesh, margin=kw.get("margin", 0.5))
+            env.scene = scene if scene is not None else _bake_meshes(env, env._scene_meshes)
+            return env.scene
+        from .habitat_dataset import load_habitat_scene
+
+        hab_kw = {k: kw[k] for k in _HABITAT_KEYS if k in kw}
+        spec = load_habitat_scene(f, getattr(env, "_habitat_dataset", None), **hab_kw)
+    elif os.path.isdir(path):
+        spec = load_scene_spec(env._scene_loader.next(1)[0])
+    else:
+        env._scene_swap_count = getattr(env, "_scene_swap_count", 0) + 1
+        seed = kw.get("seed", env.seed) + env.num_scene * 1000 + env._scene_swap_count
+        spec = make_scene(resolve_scene_path(path), seed=seed, **kw.get("scene_gen_kwargs", {}))
+    specs = list(env._scene_specs)
+    specs[scene_id] = spec
+    env._scene_specs = specs
+    env.scene = _build_scene(env, specs)
+    return env.scene
