@@ -97,7 +97,28 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   every agent and the 480×640 global view of scene 0 with the approaching
   lines; on O2's scene 0 besides: 4 agents with a 64×64 colour camera and
   shadow rays, 4 with a ``render_backend: "grid"`` depth sensor, and 4 in
-  ``garage_simple_l_medium`` baked into a grid by ``bake_scenes``.
+  ``garage_simple_l_medium`` baked into a grid by ``bake_scenes``;
+- path P, the policies users add, over B1 depth in ``garage_simple_l_medium``
+  at dt = ctrl_dt = 0.03: P1 path F's env (64 agents, 64×64 depth) with
+  ``BPTT(env, horizon=8)`` through a resnet18 backbone (``{"depth":
+  {"backbone": "resnet18", "out": 128}, "state": {"mlp": [128, 64]}}``,
+  latent (64, 64)) whose weights are a torchvision-layout state dict drawn
+  from a seed (random BatchNorm statistics) folded in by ``apply_pretrained``,
+  one warm-up and 2 timed updates; and the other eight backbones (resnet34,
+  50, 101, mobilenet_s/l, efficientnet_s/m/l, each loaded the same way) on
+  256 × 1 × 64 × 64 depth; P2 the depth leg's env with a world model
+  (``create_world_model``, deter 128, stoch 32, ``initialize_latent``), one
+  warm-up and one timed chunk of 32 steps with and without it, and one
+  ``PPO_tuned`` update of path G's env and recipe with the latents attached
+  and ``LatentCombineExtractor``'s keys plus depth; P3 ``collect_depth_frames``
+  on the depth leg's env (4,096 frames) and ``train_autoencoder`` (latent 64,
+  batch 128, 200 steps); P4 P1's trained actor transplanted into a PPO policy
+  of the same ``net_arch`` (``actor_to_policy_params``) and one PPO update of
+  32 steps on P1's env; P5 data parallel in separate processes
+  (``parallel.run_ranks``, spawned, a ``file://`` store): path E's BPTT update
+  (``HoverEnv``, 128 agents, H = 32) and P1's env with path F's CNN (64
+  agents, H = 8) on two gloo ranks on the one card and on a world-size-1
+  NCCL group, each against one process from the same state and draws.
 
 Phases, one line each; any failure exits non-zero:
 
@@ -189,7 +210,22 @@ Phases, one line each; any failure exits non-zero:
    kernel at path O's rays against their plain versions (phase 3's limits)
    and timed, with the tier the triangle kernel took; the shadowed colour no
    brighter than the unshadowed anywhere and darker somewhere, card vs CPU on
-   one camera; the grid renders card vs CPU; no kernel in a grid render.
+   one camera; the grid renders card vs CPU; no kernel in a grid render;
+   path P: B1 exactly once a render on P1-P5 (1 + 8 a P1 update, 1 + 2 a
+   step of P2's PPO and P4's, 1 + 16 collecting P3's frames, on each rank of
+   P5's visual leg); P1 every trained parameter moved, the actor's forward
+   and its first gradient (8 agents, H = 4, same parameters, state and noise;
+   every parameter's gradient non-zero) card vs CPU within 1e-4 relative, each of the nine backbones card vs CPU
+   on 8 images within atol 2e-4 + rtol 1e-3; P2 the latents card vs CPU
+   after one deterministic posterior step within 1e-4, the done agents'
+   latents zeroed before their update (bitwise, replayed from the env's
+   generator), ``decode`` of the state's shape, the PPO update as path G's;
+   P3 the MSE of the last 20 steps below the first 20's, one Adam step card
+   vs CPU with deterministic cuDNN (loss within 1e-5, parameters 1e-4 in the
+   l2 norm); P4 the policy's mean equal to the actor's pre-tanh mean bitwise,
+   ``mlp_vf`` and ``value`` moved; P5 each rank's loss within 1e-5 relative
+   of one process's, parameters within 1e-4 in the l2 norm and equal on
+   every rank, positions within 1e-5.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches in phase 4, error, times and bound; the last line is
@@ -3134,6 +3170,524 @@ def scene_ingest_path(dev, card, launches):
     work.cleanup()
 
 
+# path P, the policies users add: the torchvision-layout backbones at their
+# published widths, the world model and its latent env, the depth
+# autoencoder, the actor → PPO transplant and the data-parallel trainers
+P1_ARCH = {"depth": {"backbone": "resnet18", "out": 128}, "state": {"mlp": [128, 64]}}
+P1_LATENT = (64, 64)
+# P1 fine-tunes a trunk of 11 M parameters: at BPTT's default 1e-3, Adam moves
+# every weight by about the rate a step and the actions saturate within three
+# updates (the gradient 0.52, 0.33, 0.002 on the CPU); 1e-4 keeps them inside
+P1_LR = 1e-4
+BACKBONE_NAMES = ("resnet18", "resnet34", "resnet50", "resnet101", "mobilenet_s",
+                  "mobilenet_l", "efficientnet_s", "efficientnet_m", "efficientnet_l")
+BACKBONE_ATOL, BACKBONE_RTOL = 2e-4, 1e-3  # tests/test_aux_subsystems.py:373
+
+
+def torchvision_state(name, seed, in_scale=1.0):
+    """A torchvision-layout state dict of backbone ``name`` drawn from
+    ``seed``: convolutions fan-in normalised (half that in the residual
+    trunks, ResNet and EfficientNetV2, whose 8-33 residual blocks would
+    otherwise grow resnet101's features to 3e4, so that the card-vs-CPU
+    comparison tests the graph and not float32 accumulation), the stem's
+    besides times ``in_scale`` (1 / 20 for depth in metres up to 20,
+    as a trunk trained on such depth would take it), BatchNorm γ = 1 + 0.1·N,
+    β and μ 0.1·N, σ² = 0.5 + 0.1·|N|, squeeze-excite biases 0.1·N."""
+    import torch
+
+    from visfly_tpu_torch.policies.compact_backbones import (
+        COMPACT_BACKBONES, EFFICIENTNET_V2, MOBILENET_V3, _make_divisible)
+    from visfly_tpu_torch.policies.torch_backbones import (
+        ARCH_STAGES, BOTTLENECK_ARCHS, BOTTLENECK_EXPANSION)
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    gain = 1.0 if name.startswith("mobilenet") else 0.5
+
+    def conv(key, *shape):
+        fan = 1
+        for d in shape[1:]:
+            fan *= d
+        stem = key in ("conv1.weight", "features.0.0.weight")
+        sd[key] = torch.randn(shape, generator=g) * (gain / fan ** 0.5 * (in_scale if stem else 1))
+
+    def vec(key, c):
+        sd[key] = torch.randn((c,), generator=g) * 0.1
+
+    def cbn(c_key, bn, *shape):
+        conv(f"{c_key}.weight", *shape)
+        c = shape[0]
+        sd[f"{bn}.weight"] = 1.0 + 0.1 * torch.randn((c,), generator=g)
+        vec(f"{bn}.bias", c)
+        vec(f"{bn}.running_mean", c)
+        sd[f"{bn}.running_var"] = 0.5 + 0.1 * torch.randn((c,), generator=g).abs()
+
+    if name in ARCH_STAGES:
+        exp = BOTTLENECK_EXPANSION if name in BOTTLENECK_ARCHS else 1
+        cbn("conv1", "bn1", 64, 3, 7, 7)
+        cin = 64
+        for stage, blocks in enumerate(ARCH_STAGES[name]):
+            c = 64 * 2 ** stage
+            for b in range(blocks):
+                tp = f"layer{stage + 1}.{b}"
+                if exp > 1:
+                    cbn(f"{tp}.conv1", f"{tp}.bn1", c, cin, 1, 1)
+                    cbn(f"{tp}.conv2", f"{tp}.bn2", c, c, 3, 3)
+                    cbn(f"{tp}.conv3", f"{tp}.bn3", c * exp, c, 1, 1)
+                else:
+                    cbn(f"{tp}.conv1", f"{tp}.bn1", c, cin, 3, 3)
+                    cbn(f"{tp}.conv2", f"{tp}.bn2", c, c, 3, 3)
+                if (b == 0 and stage > 0) or cin != c * exp:
+                    cbn(f"{tp}.downsample.0", f"{tp}.downsample.1", c * exp, cin, 1, 1)
+                cin = c * exp
+        return sd
+    arch = COMPACT_BACKBONES[name][1]["arch"]
+    if name.startswith("mobilenet"):
+        cfg = MOBILENET_V3[arch]
+        cbn("features.0.0", "features.0.1", cfg["stem"], 3, 3, 3)
+        cin = cfg["stem"]
+        for i, (k, e, out, use_se, _a, _s) in enumerate(cfg["blocks"]):
+            f, j = f"features.{i + 1}.block", 0
+            if e != cin:
+                cbn(f"{f}.{j}.0", f"{f}.{j}.1", e, cin, 1, 1)
+                j += 1
+            cbn(f"{f}.{j}.0", f"{f}.{j}.1", e, 1, k, k)
+            j += 1
+            if use_se:
+                sq = _make_divisible(e // 4)
+                conv(f"{f}.{j}.fc1.weight", sq, e, 1, 1)
+                vec(f"{f}.{j}.fc1.bias", sq)
+                conv(f"{f}.{j}.fc2.weight", e, sq, 1, 1)
+                vec(f"{f}.{j}.fc2.bias", e)
+                j += 1
+            cbn(f"{f}.{j}.0", f"{f}.{j}.1", out, e, 1, 1)
+            cin = out
+        nf = len(cfg["blocks"]) + 1
+    else:
+        cfg = EFFICIENTNET_V2[arch]
+        cbn("features.0.0", "features.0.1", cfg["stem"], 3, 3, 3)
+        cin = cfg["stem"]
+        for si, (btype, e, k, _s0, out, layers) in enumerate(cfg["stages"]):
+            for li in range(layers):
+                f = f"features.{si + 1}.{li}.block"
+                if btype == "fused" and e == 1:
+                    cbn(f"{f}.0.0", f"{f}.0.1", out, cin, k, k)
+                elif btype == "fused":
+                    cbn(f"{f}.0.0", f"{f}.0.1", cin * e, cin, k, k)
+                    cbn(f"{f}.1.0", f"{f}.1.1", out, cin * e, 1, 1)
+                else:
+                    x, sq = cin * e, max(1, cin // 4)
+                    cbn(f"{f}.0.0", f"{f}.0.1", x, cin, 1, 1)
+                    cbn(f"{f}.1.0", f"{f}.1.1", x, 1, k, k)
+                    conv(f"{f}.2.fc1.weight", sq, x, 1, 1)
+                    vec(f"{f}.2.fc1.bias", sq)
+                    conv(f"{f}.2.fc2.weight", x, sq, 1, 1)
+                    vec(f"{f}.2.fc2.bias", x)
+                    cbn(f"{f}.3.0", f"{f}.3.1", out, x, 1, 1)
+                cin = out
+        nf = len(cfg["stages"]) + 1
+    cbn(f"features.{nf}.0", f"features.{nf}.1", cfg["head"], cin, 1, 1)
+    return sd
+
+
+def loaded_backbone(name, seed):
+    """Backbone ``name`` on the CPU with the folded weights of
+    ``torchvision_state(name, seed)``, through the port's loader."""
+    import torch
+
+    from visfly_tpu_torch.policies.compact_backbones import (
+        convert_torch_efficientnet_v2, convert_torch_mobilenet_v3)
+    from visfly_tpu_torch.policies.extractors import backbone
+    from visfly_tpu_torch.policies.torch_backbones import convert_torch_resnet
+
+    sd = torchvision_state(name, seed)
+    with torch.device("meta"):  # the loader's weights replace any drawn ones
+        net = backbone(name)
+    if name.startswith("resnet"):
+        folded = convert_torch_resnet(sd, name)
+    elif name.startswith("mobilenet"):
+        folded = convert_torch_mobilenet_v3(sd, net.arch)
+    else:
+        folded = convert_torch_efficientnet_v2(sd, net.arch)
+    net.load_state_dict(folded, assign=True)
+    return net.eval()
+
+
+def p1_env(device, n=64):
+    """P1's env: path F's, at ``n`` agents, in the primitive garage."""
+    return visual_grad_env(device, {"path": "garage_simple_l_medium", "trace_steps": TRACE_STEPS},
+                           {"mean": [1.0, 0.0, 1.5], "half": [0.5, 2.0, 1.0]}, n=n)
+
+
+def rel_err(a, b):
+    """max |a − b| over max |b|."""
+    return float((a.detach().cpu() - b.detach().cpu()).abs().max()
+                 / b.detach().cpu().abs().max().clamp(min=1e-30))
+
+
+def p_bptt_rank(mesh, visual, n_global, seed):
+    """P5 on one rank: path E's BPTT update (HoverEnv, H = 32) or P1's env
+    with path F's CNN policy (H = 8), for this rank's block of ``n_global``
+    agents; one warm-up update from ``seed``'s state, then one timed → loss,
+    parameters, positions after the warm-up and the timed update, ms, and the
+    kernels' launches in this process."""
+    import torch
+
+    from visfly_tpu_torch.algos import BPTT
+    from visfly_tpu_torch.envs import HoverEnv, NavigationEnv2
+    from visfly_tpu_torch.parallel import make_rank_env, shard_train_state
+
+    reset_launches()
+    if visual:
+        env = make_rank_env(
+            NavigationEnv2, mesh, n_global, visual=True, requires_grad=True,
+            scene_kwargs={"path": "garage_simple_l_medium", "trace_steps": TRACE_STEPS},
+            sensor_kwargs=[{"uuid": "depth", "sensor_type": "depth", "resolution": list(RES)}],
+            random_kwargs={"state_generator": {"class": "Uniform", "kwargs": [
+                {"position": {"mean": [1.0, 0.0, 1.5], "half": [0.5, 2.0, 1.0]}}]}},
+            dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03}, max_episode_steps=256,
+            device=mesh.device)
+        tr = BPTT(env, horizon=8, policy_kwargs=VISUAL_POLICY)
+    else:
+        env = make_rank_env(HoverEnv, mesh, n_global, visual=False, requires_grad=True,
+                            dynamics_kwargs={"dt": 0.03, "ctrl_dt": 0.03},
+                            max_episode_steps=256, device=mesh.device)
+        tr = BPTT(env, horizon=32)
+    st = tr.init(torch.Generator(device=mesh.device).manual_seed(seed))
+    if mesh.size > 1 or mesh.backend == "nccl":
+        st = shard_train_state(st, mesh, tr)
+    st, m0 = tr.update(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, m = tr.update(st)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"loss": [float(m0["actor_loss"]), float(m["actor_loss"])],
+            "grad_norm": float(m["grad_norm"]),
+            "params": torch.cat([p.detach().flatten().cpu() for p in tr.actor.parameters()]),
+            "pos": st.env_state.dyn.pos.detach().cpu(), "ms": ms, "launches": all_launches(),
+            "steps": tr.H * 2, "device": str(mesh.device)}
+
+
+def p_ranks(mesh, seed):
+    """P5's legs on one rank, E's then F's."""
+    return {"hover": p_bptt_rank(mesh, False, 128, seed),
+            "visual": p_bptt_rank(mesh, True, 64, seed + 1)}
+
+
+def policies_path(dev, card, launches):
+    """Path P (sub-paths P1-P5, see the module docstring); adds each
+    sub-path's launches to ``launches`` and checks them against its renders."""
+    import copy
+
+    import torch
+
+    from visfly_tpu_torch.algos import BPTT, PPO
+    from visfly_tpu_torch.core.math_utils import full_fp32_matmul
+    from visfly_tpu_torch.envs import NavigationEnv
+    from visfly_tpu_torch.parallel import run_ranks
+    from visfly_tpu_torch.policies import EXTRACTOR_ALIASES, actor_to_policy_params
+    from visfly_tpu_torch.policies.autoencoder import collect_depth_frames, train_autoencoder
+    from visfly_tpu_torch.policies.torch_backbones import apply_pretrained
+    from visfly_tpu_torch.policies.world_model import create_world_model
+
+    full_fp32_matmul()
+    t_path = time.perf_counter()
+
+    def count(name, want):
+        counts = all_launches()
+        expect = {k: 0 for k in counts}
+        expect.update(want)
+        check(counts == expect, f"{name}: kernel launches {counts} != expected {expect}")
+        for k, v in counts.items():
+            launches[k] += v
+        return {k: v for k, v in counts.items() if v}
+
+    # P1: visual BPTT through resnet18, its torchvision weights folded in
+    tr1 = BPTT(p1_env(dev), horizon=8, learning_rate=P1_LR,
+               policy_kwargs={"net_arch": P1_ARCH, "latent_dim": P1_LATENT})
+    reset_launches()
+    st1 = tr1.init(torch.Generator(device=dev).manual_seed(300))
+    depth_weights = torchvision_state("resnet18", 301, 1.0 / MAX_DEPTH)
+    apply_pretrained(tr1.actor, {"depth_extractor": depth_weights})
+    before = snapshot(tr1)
+    st1, m = tr1.update(st1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        st1, m = tr1.update(st1)
+    torch.cuda.synchronize()
+    ms1 = (time.perf_counter() - t0) / 2 * 1e3
+    used = count("P1", {"trace_analytic": 1 + tr1.H * 3})
+    check_trained("P1", tr1, st1, m, before, "actor_loss", dev)
+    print(f"phase 4 | path P1 (visual BPTT through resnet18, folded torchvision weights): "
+          f"{used} launches in 3 updates | {ms1:.1f} ms an update ({tr1.env.num_envs} agents, "
+          f"H={tr1.H}, 64x64 depth; loss {float(m['actor_loss']):.4f}, gradient norm "
+          f"{float(m['grad_norm']):.4f}) | {card}", flush=True)
+
+    # the actor's forward and its first gradient, card vs CPU, at 8 agents and
+    # H = 4: the first action reaches a reward through the motors from the
+    # third step on, so at H = 2 the gradient is exactly zero
+    env8 = p1_env(dev, 8)
+    tr8 = BPTT(env8, horizon=4, policy_kwargs={"net_arch": P1_ARCH, "latent_dim": P1_LATENT})
+    reset_launches()
+    st8 = tr8.init(torch.Generator(device=dev).manual_seed(302))
+    apply_pretrained(tr8.actor, {"depth_extractor": depth_weights})
+    tr8c = BPTT(p1_env("cpu", 8), horizon=4,
+                policy_kwargs={"net_arch": P1_ARCH, "latent_dim": P1_LATENT})
+    tr8c.build({k: v.cpu() for k, v in st8.obs.items()})
+    tr8c.actor.load_state_dict({k: v.cpu() for k, v in tr8.actor.state_dict().items()})
+    with torch.no_grad():
+        fwd = [rel_err(a, b) for a, b in zip(
+            tr8.actor.head(tr8.actor.latent(tr8.actor.extractor(st8.obs))),
+            tr8c.actor.head(tr8c.actor.latent(tr8c.actor.extractor(
+                {k: v.cpu() for k, v in st8.obs.items()}))))]
+    noise = torch.randn((4, 8, 4), generator=torch.Generator().manual_seed(303))
+    grads, losses, depth_off = [], [], []
+    for t, state, obs, eps in (
+            (tr8, st8.env_state, st8.obs, noise.to(dev)),
+            (tr8c, to_device(st8.env_state, "cpu", torch.Generator().manual_seed(0)),
+             {k: v.cpu() for k, v in st8.obs.items()}, noise)):
+        loss, (_, last_obs, _, metrics) = t._rollout_loss(state, obs, None, (), eps)
+        loss.backward()
+        check(not bool(metrics[1].any()), "P1 card vs cpu: an agent was done within H = 4")
+        losses.append(float(loss.detach()))
+        depth_off.append(last_obs["depth"].detach().cpu())
+        grads.append({n: p.grad.detach().cpu() for n, p in t.actor.named_parameters()})
+    count("P1 card vs cpu", {"trace_analytic": 1 + tr8.H})  # the card's reset and H steps
+    g_rel = max(rel_err(g, grads[1][n]) for n, g in grads[0].items())
+    g_zero = [n for n, g in grads[1].items() if not bool(g.abs().max() > 0)]
+    check(not g_zero, f"P1 card vs cpu: no gradient reached {g_zero}")
+    px = int(((depth_off[0] - depth_off[1]).abs() > T_TOL).sum())
+    print(f"phase 5 | path P1 card vs cpu (8 agents, H=4, same parameters, state and noise): "
+          f"actor forward (mean, log-std) max relative difference {max(fwd):.3e}, |d loss| "
+          f"{abs(losses[0] - losses[1]):.3e} (relative {abs(losses[0] - losses[1]) / abs(losses[1]):.3e}), "
+          f"first gradient max relative difference {g_rel:.3e}, last depth off by > {T_TOL} m "
+          f"on {px} pixels", flush=True)
+    check(max(fwd) <= GRAD_TOL, f"P1 actor forward card vs cpu {max(fwd)} > {GRAD_TOL}")
+    check(abs(losses[0] - losses[1]) <= GRAD_TOL * abs(losses[1]), "P1 loss card vs cpu")
+    check(g_rel <= GRAD_TOL, f"P1 first gradient card vs cpu {g_rel} > {GRAD_TOL}")
+
+    # the nine backbones at 256 x 1 x 64 x 64 on the card, each held to its
+    # CPU forward on 8 of the images
+    x = torch.rand((N_AGENTS, 1, *RES), generator=torch.Generator().manual_seed(304))
+    xd = x.to(dev)
+    for i, name in enumerate(BACKBONE_NAMES):
+        net = loaded_backbone(name, 310 + i)
+        with torch.no_grad():
+            ref = net(x[:8])
+            net_d = copy.deepcopy(net).to(dev)
+            out = net_d(xd)
+            ms = cuda_ms(lambda: net_d(xd), reps=5, warmup=1)
+        err = (out[:8].cpu() - ref).abs()
+        bad = int((err > BACKBONE_ATOL + BACKBONE_RTOL * ref.abs()).sum())
+        print(f"phase 4 | path P1 backbone {name}: forward of {N_AGENTS}x1x64x64 depth "
+              f"{ms:.2f} ms, {tuple(out.shape[1:])} features, card vs cpu on 8 images max "
+              f"|d| {float(err.max()):.3e} (of max |y| {float(ref.abs().max()):.3e}), {bad} "
+              f"past atol {BACKBONE_ATOL} + rtol {BACKBONE_RTOL} | {card}", flush=True)
+        check(bool(torch.isfinite(out).all()) and bad == 0, f"P1 backbone {name} card vs cpu")
+        del net, net_d
+
+    # P4: P1's trained actor into a PPO policy of the same net_arch
+    ppo = PPO(tr1.env, n_steps=32, n_epochs=2,
+              policy_kwargs={"net_arch": P1_ARCH, "pi_layers": list(P1_LATENT),
+                             "vf_layers": [64, 64]})
+    reset_launches()
+    st4 = ppo.init(torch.Generator(device=dev).manual_seed(320))
+    ppo.policy.load_state_dict(actor_to_policy_params(tr1.actor, ppo.policy))
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with torch.no_grad():
+        mean, _, _ = ppo.policy(st4.obs)
+        pre = tr1.actor.head.mu(tr1.actor.latent(tr1.actor.extractor(st4.obs)))
+    torch.backends.cudnn.deterministic = cudnn
+    check(torch.equal(mean, pre), "P4: the policy's mean is not the actor's")
+    vf = {n: p.detach().clone() for n, p in ppo.policy.named_parameters()
+          if "mlp_vf" in n or "value" in n}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st4, m4 = ppo.update(st4)
+    torch.cuda.synchronize()
+    ms4 = (time.perf_counter() - t0) * 1e3
+    moved = [n for n, p in ppo.policy.named_parameters() if n in vf and not torch.equal(p, vf[n])]
+    check(sorted(moved) == sorted(vf), f"P4: value branch did not move: {set(vf) - set(moved)}")
+    check(bool(torch.isfinite(m4["loss"])), "P4: PPO loss not finite")
+    used = count("P4", {"trace_analytic": 1 + 2 * ppo.n_steps})
+    print(f"phase 4 | path P4 (BPTT actor -> PPO): mean equal to the actor's pre-tanh mean "
+          f"bitwise on {tr1.env.num_envs} agents; one PPO update ({ppo.n_steps} steps, "
+          f"{ppo.n_epochs} epochs) {used} launches, {ms4:.1f} ms, loss {float(m4['loss']):.4f}, "
+          f"mlp_vf and value moved | {card}", flush=True)
+    del ppo, st4, tr8, tr8c, st8
+
+    # P2: the depth leg's env with a world model
+    env2 = bench_env(dev)
+    _, obs = env2.reset(torch.Generator(device=dev).manual_seed(330))
+    world = create_world_model(obs, deter_dim=128, stoch_dim=32)
+    sps = {}
+    for label in ("without", "with"):
+        if label == "with":
+            env2.initialize_latent(128, 32, world)
+        _, out, sps[label], counts, dt = drive(env2, 331, 1, CHUNK,
+                                               lambda steps: {"trace_analytic": 1 + steps})
+        for k, v in counts.items():
+            launches[k] += v
+    check(out.obs["deter"].shape == (N_AGENTS, 128) and out.obs["stoch"].shape == (N_AGENTS, 32),
+          "P2: latent shapes")
+    check(bool(out.obs["deter"].abs().max() > 0), "P2: the latents did not move")
+    reset_launches()
+    state2, obs2 = env2.reset(torch.Generator(device=dev).manual_seed(332))
+    a2 = torch.rand((N_AGENTS, 4), generator=torch.Generator(device=dev).manual_seed(333),
+                    device=dev) * 0.6 - 0.3
+    state2, out2 = env2.step(state2, a2)
+    # done agents: the first 16 at their last step, stepped without the auto-reset
+    state2 = state2._replace(step_count=torch.where(
+        torch.arange(N_AGENTS, device=dev) < 16, env2.max_episode_steps - 1,
+        state2.step_count).to(state2.step_count.dtype))
+    gen_state = state2.gen.get_state()
+    latent_in = state2.latent
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the replay below holds the step bitwise
+    state3, out3 = env2.step(state2, a2, is_test=True)
+    done = out3.done
+    check(bool(done[:16].all()), "P2: the agents at their last step are not done")
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    plain_obs = {k: v for k, v in out3.obs.items() if k not in ("deter", "stoch")}
+    zeroed = [torch.where(done[:, None], torch.zeros_like(x), x) for x in latent_in]
+    with torch.no_grad():
+        stoch, deter = world.step(a2, zeroed[1], zeroed[0], plain_obs, g)
+    torch.backends.cudnn.deterministic = cudnn
+    check(torch.equal(out3.obs["deter"], deter) and torch.equal(out3.obs["stoch"], stoch),
+          "P2: done agents' latents were not zeroed before the update")
+    world_cpu = copy.deepcopy(world).cpu()
+    with torch.no_grad():
+        s_card, d_card = world.step(a2, *latent_in[::-1], plain_obs, deterministic=True)
+        s_cpu, d_cpu = world_cpu.step(a2.cpu(), *(x.cpu() for x in latent_in[::-1]),
+                                      {k: v.cpu() for k, v in plain_obs.items()},
+                                      deterministic=True)
+        recon = world.decode(out3.obs["deter"], out3.obs["stoch"])
+    lat_err = max(float((s_card.cpu() - s_cpu).abs().max()),
+                  float((d_card.cpu() - d_cpu).abs().max()))
+    check(tuple(recon.shape) == tuple(out3.obs["state"].shape), "P2: decode's shape")
+    print(f"phase 5 | path P2 card vs cpu: deter/stoch after one deterministic posterior step "
+          f"max |d| {lat_err:.3e}; the 16 done agents' latents zeroed before the update "
+          f"(bitwise); decode {tuple(recon.shape)}", flush=True)
+    check(lat_err <= OBS_TOL, f"P2 latents card vs cpu {lat_err} > {OBS_TOL}")
+    count("P2 card vs cpu", {"trace_analytic": 3})  # the reset and two steps
+    print(f"phase 4 | path P2 (world-model env): {sps['with']:.1f} env steps/s with the world "
+          f"model (deter 128, stoch 32), {sps['without']:.1f} without ({N_AGENTS} agents, 64x64 "
+          f"depth, 1 timed chunk of {CHUNK}) | {card}", flush=True)
+    del env2, world, world_cpu
+
+    # P2's PPO update: path G's recipe, the latent keys and depth
+    env_g = NavigationEnv(device=dev, **CLUTTERED_FLIGHT)
+    _, obs_g = env_g.reset(torch.Generator(device=dev).manual_seed(340))
+    env_g.initialize_latent(128, 32, create_world_model(obs_g, deter_dim=128, stoch_dim=32))
+    arch = dict(EXTRACTOR_ALIASES["LatentCombineExtractor"], depth={"cnn": 128})
+    kw = dict(PPO_TUNED, policy_kwargs=dict(PPO_TUNED["policy_kwargs"], net_arch=arch))
+    tr_l = PPO(env_g, **kw)
+    reset_launches()
+    st_l = tr_l.init(torch.Generator(device=dev).manual_seed(341))
+    before = snapshot(tr_l)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_l, m_l = tr_l.update(st_l)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    used = count("P2 PPO", {"trace_analytic": 1 + 2 * tr_l.n_steps})
+    check_trained("P2 PPO", tr_l, st_l, m_l, before, "loss", dev)
+    check({"deter", "stoch", "depth", "state"} <= set(st_l.obs), "P2 PPO: observation keys")
+    print(f"phase 4 | path P2 (PPO_tuned on cluttered_flight with the latents): {used} "
+          f"launches in 1 update | {dt * 1e3:.1f} ms an update ({env_g.num_envs} agents x "
+          f"{tr_l.n_steps} steps); loss {float(m_l['loss']):.4f}, gradient norm "
+          f"{float(m_l['grad_norm']):.4f} | {card}", flush=True)
+    del tr_l, st_l, env_g
+
+    # P3: the depth autoencoder on frames from B1
+    env3 = bench_env(dev)
+    reset_launches()
+    frames = collect_depth_frames(env3, 4096, torch.Generator(device=dev).manual_seed(350))
+    used = count("P3", {"trace_analytic": 1 + 4096 // N_AGENTS})
+    check(tuple(frames.shape) == (4096, 1, *RES) and float(frames.min()) >= 0
+          and float(frames.max()) <= 1, "P3: frames")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses = train_autoencoder(frames, latent_dim=64, batch_size=128, n_steps=200,
+                                      log_interval=0,
+                                      generator=torch.Generator(device=dev).manual_seed(351))
+    torch.cuda.synchronize()
+    ms3 = (time.perf_counter() - t0) / 200 * 1e3
+    first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    check(last < first, f"P3: the MSE did not fall ({first} -> {last})")
+    print(f"phase 4 | path P3 (depth autoencoder): {used} launches collecting 4096 frames | "
+          f"{ms3:.2f} ms a step (latent 64, batch 128, 200 steps); MSE of the first 20 steps "
+          f"{first:.5f}, of the last 20 {last:.5f} | {card}", flush=True)
+    # one Adam step card vs CPU, from the same parameters and batch, cuDNN deterministic
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    idx = torch.randint(0, 4096, (1, 128), generator=torch.Generator().manual_seed(352))
+    model_cpu = copy.deepcopy(model).cpu()
+    _, l_card = train_autoencoder(frames, n_steps=1, log_interval=0, model=model,
+                                  batch_idx=idx)
+    _, l_cpu = train_autoencoder(frames.cpu(), n_steps=1, log_interval=0, model=model_cpu,
+                                 batch_idx=idx)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    pa = torch.cat([p.detach().flatten().cpu() for p in model.parameters()])
+    pb = torch.cat([p.detach().flatten() for p in model_cpu.parameters()])
+    p_l2 = float(torch.linalg.vector_norm(pa - pb) / torch.linalg.vector_norm(pb))
+    print(f"phase 5 | path P3 card vs cpu (one Adam step, same parameters and batch): |d loss| "
+          f"{abs(l_card[0] - l_cpu[0]):.3e}, parameters l2 relative difference {p_l2:.3e}",
+          flush=True)
+    check(abs(l_card[0] - l_cpu[0]) <= 1e-5, "P3 loss card vs cpu")
+    check(p_l2 <= GRAD_TOL, f"P3 parameters card vs cpu {p_l2} > {GRAD_TOL}")
+    del env3, frames, model, model_cpu
+
+    # P5: data parallel in separate processes, two gloo ranks on the one card
+    # and one NCCL rank, against one process
+    single = {"hover": p_bptt_rank(_one_rank(dev), False, 128, 360),
+              "visual": p_bptt_rank(_one_rank(dev), True, 64, 361)}
+    for name, legs in (("gloo x 2", run_ranks(p_ranks, 2, 360, backend="gloo", device=dev,
+                                               timeout=600)),
+                       ("nccl x 1", run_ranks(p_ranks, 1, 360, backend="nccl", device=dev,
+                                               timeout=600))):
+        for leg, want in single.items():
+            outs = [r[leg] for r in legs]
+            d_loss = max(abs(a - b) / abs(b) for o in outs for a, b in zip(o["loss"], want["loss"]))
+            pa = outs[0]["params"]
+            p_l2 = float(torch.linalg.vector_norm(pa - want["params"])
+                         / torch.linalg.vector_norm(want["params"]))
+            pos = torch.cat([o["pos"] for o in outs])
+            d_pos = float((pos - want["pos"]).abs().max())
+            same = all(torch.equal(o["params"], pa) for o in outs)
+            renders = 1 + outs[0]["steps"] if leg == "visual" else 0
+            for r, o in enumerate(outs):
+                want_l = {"trace_analytic": renders} if renders else {}
+                got = {k: v for k, v in o["launches"].items() if v}
+                check(got == want_l, f"P5 {name} {leg} rank {r}: launches {got} != {want_l}")
+                for k, v in o["launches"].items():
+                    launches[k] += v
+            print(f"phase 5 | path P5 {name} {leg} ({o['device']}): loss relative difference "
+                  f"{d_loss:.3e}, parameters l2 {p_l2:.3e}, positions max |d| {d_pos:.3e}, ranks "
+                  f"{'equal' if same else 'DIFFER'}; {max(o['ms'] for o in outs):.1f} ms an "
+                  f"update (one process: {want['ms']:.1f}); B1 launches a rank "
+                  f"{outs[0]['launches']['trace_analytic']} | {card}", flush=True)
+            check(d_loss <= 1e-5, f"P5 {name} {leg}: loss {d_loss} > 1e-5")
+            check(p_l2 <= GRAD_TOL, f"P5 {name} {leg}: parameters {p_l2} > {GRAD_TOL}")
+            check(d_pos <= 1e-5, f"P5 {name} {leg}: positions {d_pos} > 1e-5")
+            check(same, f"P5 {name} {leg}: the ranks' parameters differ")
+    for leg, want in single.items():
+        for k, v in want["launches"].items():
+            launches[k] += v
+    print(f"phase 4 | path P: {time.perf_counter() - t_path:.1f} s | {card}", flush=True)
+
+
+def _one_rank(dev):
+    """The single process's place: no group, one rank."""
+    from visfly_tpu_torch.parallel import Mesh
+
+    return Mesh(0, 1, "none", dev)
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "visfly_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3457,6 +4011,7 @@ def main():
     del tr_g, st_g
     swarm_and_zoo_paths(dev, card, launches)
     scene_ingest_path(dev, card, launches)
+    policies_path(dev, card, launches)
 
     # 5. one step from the same state, card vs CPU plain path
     out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
@@ -3537,9 +4092,10 @@ def main():
                 "knockout B8b with body off "
                 "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
                 "(all others) triangles, at the split the wrapper picks (the diagnostics "
-                "and mx at 1 block a tile); launches add up the depth leg, paths A-O and the "
+                "and mx at 1 block a tile); launches add up the depth leg, paths A-P and the "
                 "diagnostics (path O: B1, B1-kid on the decomposed habitat scenes, camsoup on "
-                "the exact textured ones, its times in its phase 3 lines); library_ms is null "
+                "the exact textured ones, its times in its phase 3 lines; path P: B1 on P1-P5, "
+                "P5's counted in each rank's process and returned); library_ms is null "
                 "because no single PyTorch call computes a first hit"}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -175,8 +175,9 @@ def test_randomizer_kinds(kind):
 
 
 def test_unported_branches_raise(tmp_path):
-    """What is still to port raises, naming its ROADMAP item (world-model
-    latents). The scene sources and mesh render branches that raised until
+    """Nothing of the env is left to port. World-model latents (Queue A item
+    14) exist as zero observations without a world model. The scene sources
+    and mesh render branches that raised until
     Queue A items 18-20 were ported now build and render: a preset baked into
     a grid, a mesh file's decomposition, textures, shadow rays, the grid
     render opt-out and a grid scene without triangles; files that are not
@@ -199,8 +200,13 @@ def test_unported_branches_raise(tmp_path):
     env = nav()
     assert env.tensor_output and not env.is_train and not env.is_multi_drone
     assert env.sensitive_radius == 10.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nav(latent_dim=8)
+    latent = nav(latent_dim=8)
+    assert latent.world is None and latent.deter_dim == latent.stoch_dim == 8
+    st, obs = latent.reset(torch.Generator().manual_seed(0))
+    st, out = latent.step(st, torch.zeros(N, 4))
+    for o in (obs, out.obs):
+        assert o["deter"].shape == o["stoch"].shape == (N, 8)
+        assert not o["deter"].any() and not o["stoch"].any()
     from visfly_tpu_torch.scene import PrimitiveScene, SceneData
 
     grid = nav(scene_kwargs=dict(scene, backend="grid", sdf_spacing=0.25))

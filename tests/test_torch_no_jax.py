@@ -31,7 +31,9 @@ for sub in ("policies.common", "policies.extractors", "policies.networks", "algo
             "scene.templates", "render.noise", "run", "render.global_view", "utils.common",
             "utils.checkpoint", "utils.logger", "utils.figfashion", "utils.evaluate",
             "utils.profiling", "utils.debug", "utils.path_finder", "utils.sim2real",
-            "utils.dataloader", "scene.decompose", "scene.habitat_dataset", "scene.png"):
+            "utils.dataloader", "scene.decompose", "scene.habitat_dataset", "scene.png",
+            "policies.torch_backbones", "policies.compact_backbones", "policies.world_model",
+            "policies.autoencoder", "policies.transfer", "parallel", "parallel.mesh"):
     assert "visfly_tpu_torch." + sub in names, sub
 import chip_smoke, chip_profile
 banned = ("jax", "jaxlib", "flax", "optax", "visfly_tpu")
@@ -52,8 +54,8 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    # policies/, the trainers, the zoo, run.py, utils/, the scene ingest
-    assert n_modules >= 67, proc.stdout
+    # policies/, the trainers, the zoo, run.py, utils/, the scene ingest, parallel/
+    assert n_modules >= 74, proc.stdout
 
 
 def _run_smoke(cwd):

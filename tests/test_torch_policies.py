@@ -191,13 +191,18 @@ def test_initializers_have_the_jax_variance(name, kw, std):
 
 
 def test_unported_extractors_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        tx.MultiInputExtractor({"depth": (1, 16, 16)}, {"depth": {"backbone": "resnet18"}})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        tx.MultiInputExtractor({"depth": (1, 16, 16)}, {"depth": {"resnet": 64}})
-    for cls in (tx.TransCNN, tx.DecoderHead):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-            cls()
+    """The extractors once unported (Queue A item 14) build; an unknown
+    backbone name raises KeyError, as in the JAX package."""
+    with pytest.raises(KeyError):
+        tx.MultiInputExtractor({"depth": (1, 16, 16)}, {"depth": {"backbone": "resnet19"}})
+    ext = tx.MultiInputExtractor({"depth": (1, 16, 16)}, {"depth": {"backbone": "resnet18"}})
+    assert ext.out_features == 512
+    ext = tx.MultiInputExtractor({"depth": (1, 16, 16)}, {"depth": {"resnet": 64}})
+    assert ext({"depth": torch.zeros(2, 1, 16, 16)}).shape == (2, 64)
+    net = tx.TransCNN(8, (4,), output_channel=1)
+    assert net(torch.zeros(2, 8, 5, 5)).shape == (2, 1, 23, 23)
+    dec = tx.DecoderHead(16, (1, 32, 32), channels=(8, 4))
+    assert dec(torch.zeros(3, 16)).shape == (3, 1, 32, 32)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 The package mirrors the layout and module names of ``visfly_tpu`` (``core/``,
 ``dynamics/``, ``scene/``, ``render/``, ``envs/``, ``policies/``, ``algos/``,
-``utils/``, ``run.py``) so that each module's counterpart is easy to find. It
+``parallel/``, ``utils/``, ``run.py``) so that each module's counterpart is
+easy to find. It
 imports ``torch`` and numpy, never ``jax`` and never ``visfly_tpu``; it only
 reads the drone JSON data files under ``visfly_tpu/configs/drone/`` and the
 experiment configs under ``visfly_tpu/exps/``, and compiles the

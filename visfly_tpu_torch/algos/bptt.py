@@ -27,6 +27,11 @@ the closed-form implicit-function rule).
 The policy lives in ``trainer.actor`` (an ``nn.Module``) and is updated in
 place; ``BPTTState.params`` and ``.opt_state`` refer to it and to the
 optimiser for the shape of the JAX API.
+
+Data parallel (``parallel.shard_train_state``): each rank rolls out its block
+of agents with the action noise of the whole batch sliced to it, the
+gradients are averaged over the ranks before the clip (the loss is a mean
+over equal blocks), and the metrics are the global ones.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch
 from torch import Tensor
 
 from ..envs.base import DroneGymEnv, EnvState
+from ..parallel.mesh import all_reduce_, all_reduce_grads_
 from ..policies.networks import Actor, RecurrentActor
 from .common import AdamChain, TrainerMixin
 
@@ -84,6 +90,11 @@ class BPTT(TrainerMixin):
         self.learning_rate = learning_rate
         self.actor = None  # built from the first observation's shapes
         self.optimizer = None
+        self.mesh = None  # a parallel.Mesh when data-parallel
+
+    def set_mesh(self, mesh) -> None:
+        """Average gradients and metrics over ``mesh``'s ranks from now on."""
+        self.mesh = mesh
 
     # -- setup ---------------------------------------------------------------
 
@@ -141,7 +152,9 @@ class BPTT(TrainerMixin):
         loss = torch.zeros((n,), dtype=torch.float32, device=dev)
         rewards, dones, successes = [], [], []
         for i in range(self.H):
-            eps = None if noise is None else noise[i]
+            # the whole batch's draw, sliced where the env is a rank's block
+            eps = (env._rows_draw(torch.randn, gen, (env.action_size,), torch.float32)
+                   if noise is None else noise[i])
             if self.recurrent:
                 action, _logp, hidden = self.actor(obs, hidden, gen, noise=eps)
             else:
@@ -169,6 +182,7 @@ class BPTT(TrainerMixin):
         loss, (env_state, obs, hidden, metrics) = self._rollout_loss(
             st.env_state, st.obs, st.gen, st.hidden, noise)
         loss.backward()
+        all_reduce_grads_(self.actor.parameters(), self.mesh, "mean")  # no-op without a mesh
         grad_norm = self.optimizer.step()
 
         # truncate the graph between updates
@@ -178,14 +192,16 @@ class BPTT(TrainerMixin):
             hidden = hidden.detach()
 
         rewards, dones, succ = metrics
+        means = all_reduce_(torch.stack([loss.detach(), rewards.mean(), dones.float().mean(),
+                                         succ.float().mean()]), self.mesh, "mean")
         out_metrics = {
-            "actor_loss": loss.detach(),
-            "reward_mean": rewards.mean(),
-            "done_rate": dones.float().mean(),
-            "success_rate": succ.float().mean(),
+            "actor_loss": means[0],
+            "reward_mean": means[1],
+            "done_rate": means[2],
+            "success_rate": means[3],
             "grad_norm": grad_norm,
         }
-        return self._state(env_state, obs, st.gen, st.global_step + self.H * self.env.num_envs,
+        return self._state(env_state, obs, st.gen, st.global_step + self.H * self.env.global_rows[2],
                            hidden), out_metrics
 
     # -- host training loop ----------------------------------------------------

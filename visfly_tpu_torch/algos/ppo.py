@@ -31,6 +31,15 @@ The policy lives in ``trainer.policy`` and is updated in place;
 ``update`` takes the rollout's action noise (n_steps, N, A) and each epoch's
 permutation (n_epochs, n_steps·N; of the N agents when recurrent) as optional
 arguments, so that a test can feed both packages the same draws.
+
+Data parallel (``parallel.shard_train_state``, the flat policy): each rank
+rolls out its block of agents with the whole batch's action noise sliced to
+it; the epochs draw one permutation of the whole batch, and each rank trains
+on the part of a minibatch that falls in its block, normalising advantages
+with the minibatch's global mean and standard deviation (two all-reduces);
+its loss is its share of the minibatch mean, the gradients are summed over
+the ranks before the clip, the ``target_kl`` test reads the global KL, and
+the episode window is kept whole on every rank.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import torch
 from torch import Tensor
 
 from ..envs.base import DroneGymEnv, EnvState
+from ..parallel.mesh import all_reduce_, all_reduce_grads_, gather_rows
 from ..policies.networks import (
     ActorCriticPolicy,
     RecurrentActorCriticPolicy,
@@ -167,7 +177,15 @@ class PPO(TrainerMixin):
         self.save_path = save_path
         self.policy_kwargs = dict(policy_kwargs or {})
         self.recurrent = bool(self.policy_kwargs.get("recurrent", False))
-        n_env = env.num_envs
+        self._batch_size_arg = batch_size
+        self._layout(env.num_envs)
+        self.policy = None  # built from the first observation's shapes
+        self.optimizer = None
+        self.mesh = None  # a parallel.Mesh when data-parallel
+
+    def _layout(self, n_env: int) -> None:
+        """Minibatch size and count for a rollout of ``n_env`` agents."""
+        batch_size = self._batch_size_arg
         if self.recurrent:
             # minibatches are whole sequences over the agent axis
             mb_agents = (max(1, min(n_env, int(batch_size) // self.n_steps))
@@ -180,8 +198,12 @@ class PPO(TrainerMixin):
             total = self.n_steps * n_env
             self.batch_size = int(batch_size) if batch_size else total
             self.n_minibatches = max(1, total // self.batch_size)
-        self.policy = None  # built from the first observation's shapes
-        self.optimizer = None
+
+    def set_mesh(self, mesh) -> None:
+        """Train over ``mesh``'s ranks from now on: minibatches of the whole
+        batch, global statistics, summed gradients."""
+        self.mesh = mesh
+        self._layout(self.env.global_rows[2])
 
     # -- setup ---------------------------------------------------------------
 
@@ -243,8 +265,9 @@ class PPO(TrainerMixin):
         steps: List[tuple] = []
         for i in range(self.n_steps):
             mean, log_std, value, new_hidden = self._policy_fwd(obs, hidden)
-            eps = noise[i] if noise is not None else torch.randn(
-                mean.shape, generator=st.gen, dtype=mean.dtype, device=mean.device)
+            # the whole batch's draw, sliced where the env is a rank's block
+            eps = (env._rows_draw(torch.randn, st.gen, mean.shape[1:], mean.dtype)
+                   if noise is None else noise[i])
             action = mean + torch.exp(log_std) * eps
             logp = gaussian_log_prob(mean, log_std, action)
             env_state, out = env.step(env_state, torch.clamp(action, -1.0, 1.0))
@@ -254,8 +277,9 @@ class PPO(TrainerMixin):
                 _, _, term_value, _ = self._policy_fwd(out.info["terminal_observation"],
                                                        new_hidden)
                 reward = reward + self.gamma * term_value * out.info["TimeLimit.truncated"]
-            ep_stats = push_episode_stats(ep_stats, out.done, out.info["episode_return"],
-                                          out.info["episode_length"], out.info["is_success"])
+            ep_stats = push_episode_stats(ep_stats, *self._gather(
+                out.done, out.info["episode_return"], out.info["episode_length"],
+                out.info["is_success"]))
             if self.recurrent:
                 # the hidden state resets with the episode
                 new_hidden = new_hidden * (1.0 - out.done.to(new_hidden.dtype))[:, None]
@@ -271,24 +295,34 @@ class PPO(TrainerMixin):
         return compute_gae(b_rew, b_val, b_done, last_value, b_done[-1], gamma=self.gamma,
                            gae_lambda=self.gae_lambda)
 
-    def _ppo_losses(self, mean, log_std, value, old_logp, old_value, action, adv, ret):
+    def _gather(self, *xs):
+        """The whole batch's per-agent tensors on every rank (as they are
+        without a mesh)."""
+        return tuple(gather_rows(x, self.env.global_rows, self.mesh) for x in xs)
+
+    def _ppo_losses(self, mean, log_std, value, old_logp, old_value, action, adv, ret,
+                    n: int):
         """The loss and (pg_loss, v_loss, entropy, clip fraction, approx KL)
-        of a minibatch of any batch shape."""
+        of a minibatch of ``n`` samples over all ranks, of any batch shape;
+        each term is this rank's share of the minibatch mean."""
+        def reduce(x: Tensor) -> Tensor:
+            return x.sum() / n
+
         logp = gaussian_log_prob(mean, log_std, action)
         log_ratio = logp - old_logp
         ratio = torch.exp(log_ratio)
         pg1 = adv * ratio
         pg2 = adv * torch.clamp(ratio, 1.0 - self.clip_range, 1.0 + self.clip_range)
-        pg_loss = -torch.minimum(pg1, pg2).mean()
+        pg_loss = -reduce(torch.minimum(pg1, pg2))
         if self.clip_range_vf is not None:
             # predictions move at most clip_range_vf from the rollout's values
             value = old_value + torch.clamp(value - old_value, -self.clip_range_vf,
                                             self.clip_range_vf)
-        v_loss = torch.mean((ret - value) ** 2)
-        ent = gaussian_entropy(log_std).mean()
+        v_loss = reduce((ret - value) ** 2)
+        ent = reduce(gaussian_entropy(log_std))
         loss = pg_loss + self.vf_coef * v_loss - self.ent_coef * ent
-        approx_kl = torch.mean(ratio - 1.0 - log_ratio)
-        clip_frac = torch.mean(((ratio - 1.0).abs() > self.clip_range).to(ratio.dtype))
+        approx_kl = reduce(ratio - 1.0 - log_ratio)
+        clip_frac = reduce(((ratio - 1.0).abs() > self.clip_range).to(ratio.dtype))
         return loss, (pg_loss, v_loss, ent, clip_frac, approx_kl)
 
     def _minibatch(self, loss_fn, cont: bool, stats: list, norms: list) -> bool:
@@ -299,23 +333,30 @@ class PPO(TrainerMixin):
         if cont:
             self.optimizer.zero_grad()
             loss, aux = loss_fn()
+            vals = all_reduce_(torch.stack([loss.detach(), *(a.detach() for a in aux)]),
+                               self.mesh)
             if self.target_kl is not None:
                 # SB3 checks before applying the offending minibatch
-                cont = bool(aux[-1] <= 1.5 * self.target_kl)
+                cont = bool(vals[-1] <= 1.5 * self.target_kl)
             if cont:
                 loss.backward()
+                all_reduce_grads_(self.policy.parameters(), self.mesh)
                 norms.append(self.optimizer.step())
         else:
             with torch.no_grad():
                 loss, aux = loss_fn()
-        stats.append(torch.stack([loss.detach(), *(a.detach() for a in aux),
-                                  loss.new_tensor(float(cont))]))
+                vals = all_reduce_(torch.stack([loss, *aux]), self.mesh)
+        stats.append(torch.cat([vals, vals.new_tensor([float(cont)])]))
         return cont
 
-    def _normalize(self, adv: Tensor) -> Tensor:
-        if self.normalize_advantage:
-            return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-        return adv
+    def _normalize(self, adv: Tensor, n: int) -> Tensor:
+        """``adv`` normalised by the mean and standard deviation of the
+        minibatch of ``n`` samples it is this rank's share of."""
+        if not self.normalize_advantage:
+            return adv
+        mean = all_reduce_(adv.sum().reshape(1), self.mesh) / n
+        var = all_reduce_(((adv - mean) ** 2).sum().reshape(1), self.mesh) / n
+        return (adv - mean) / (var.sqrt() + 1e-8)
 
     def _permutation(self, gen, n: int, perms: Optional[Tensor], epoch: int) -> Tensor:
         if perms is not None:
@@ -323,11 +364,16 @@ class PPO(TrainerMixin):
         return torch.randperm(n, generator=gen, device=self.env.device)
 
     def _train_flat(self, gen, tape, advantages, returns, perms=None):
+        """Each minibatch of the whole batch's permutation, in (step, agent)
+        order, trains on the rows this env holds (all of them without a
+        mesh), with the minibatch's global advantage statistics."""
         b_obs, b_act, b_logp, b_val = tape[:4]
-        total = self.n_steps * self.env.num_envs
+        lo, hi, n_global = self.env.global_rows
+        n_local = hi - lo
+        total = self.n_steps * n_global
 
         def flat(x):
-            return x.reshape((total,) + tuple(x.shape[2:]))
+            return x.reshape((self.n_steps * n_local,) + tuple(x.shape[2:]))
 
         f_obs = {k: flat(v) for k, v in b_obs.items()}
         f_act, f_logp, f_adv, f_ret, f_val = (flat(x) for x in (b_act, b_logp, advantages,
@@ -336,14 +382,19 @@ class PPO(TrainerMixin):
         cont, stats, norms = True, [], []
         for epoch in range(self.n_epochs):
             perm = self._permutation(gen, total, perms, epoch)
-            for idx in perm[: self.n_minibatches * mb].reshape(self.n_minibatches, mb):
+            for g_idx in perm[: self.n_minibatches * mb].reshape(self.n_minibatches, mb):
+                idx = g_idx
+                if n_local < n_global:  # the rows this rank holds (a host sync)
+                    step, agent = g_idx // n_global, g_idx % n_global
+                    mine = (agent >= lo) & (agent < hi)
+                    idx = step[mine] * n_local + (agent[mine] - lo)
+                mb_adv = self._normalize(f_adv[idx], mb)
                 mb_obs = {k: v[idx] for k, v in f_obs.items()}
-                mb_adv = self._normalize(f_adv[idx])
 
                 def loss_fn(mb_obs=mb_obs, idx=idx, mb_adv=mb_adv):
                     mean, log_std, value = self.policy(mb_obs)
                     return self._ppo_losses(mean, log_std, value, f_logp[idx], f_val[idx],
-                                            f_act[idx], mb_adv, f_ret[idx])
+                                            f_act[idx], mb_adv, f_ret[idx], mb)
 
                 cont = self._minibatch(loss_fn, cont, stats, norms)
         return stats, norms
@@ -363,9 +414,10 @@ class PPO(TrainerMixin):
                                                                       mb_agents):
                 mb_obs = {k: v[:, idx] for k, v in b_obs.items()}
                 mb_done = b_done[:, idx].to(h0.dtype)
-                mb_adv = self._normalize(advantages[:, idx])
+                n_mb = self.n_steps * mb_agents
+                mb_adv = self._normalize(advantages[:, idx], n_mb)
 
-                def loss_fn(mb_obs=mb_obs, idx=idx, mb_done=mb_done, mb_adv=mb_adv):
+                def loss_fn(mb_obs=mb_obs, idx=idx, mb_done=mb_done, mb_adv=mb_adv, n_mb=n_mb):
                     h = h0[idx]
                     outs = []
                     for t in range(self.n_steps):
@@ -376,7 +428,7 @@ class PPO(TrainerMixin):
                     mean, log_std, value = (torch.stack(x) for x in zip(*outs))
                     return self._ppo_losses(mean, log_std, value, b_logp[:, idx],
                                             b_val[:, idx], b_act[:, idx], mb_adv,
-                                            returns[:, idx])
+                                            returns[:, idx], n_mb)
 
                 cont = self._minibatch(loss_fn, cont, stats, norms)
         return stats, norms
@@ -406,14 +458,14 @@ class PPO(TrainerMixin):
             "ep_rew_mean": ep_rew,
             "ep_len_mean": ep_len,
             "success_rate": succ_rate,
-            "reward_mean": tape[5].mean(),
+            "reward_mean": all_reduce_(tape[5].mean(), self.mesh, "mean"),
             # the mean global norm, before the clip, of the steps taken
             "grad_norm": torch.stack(norms).mean() if norms else loss.new_zeros(()),
         }
         if self.recurrent:
             hidden = hidden.detach()
         return self._state(env_state, obs, st.gen,
-                           st.global_step + self.n_steps * self.env.num_envs, ep_stats,
+                           st.global_step + self.n_steps * self.env.global_rows[2], ep_stats,
                            hidden), metrics
 
     # -- host training loop ----------------------------------------------------

@@ -14,8 +14,15 @@ Subclasses implement ``get_observation`` / ``get_reward`` / ``get_success``
 / ``get_failure``, and keep env-specific state in ``EnvState.aux`` through
 the hooks ``init_aux`` / ``reset_aux`` / ``step_aux`` /
 ``update_aux_from_sensors``; ``aggregate_success``, ``aggregate_done`` and
-``render_objects`` are the hooks a multi-drone env overrides. Not ported yet,
-and raising ``NotImplementedError``: world-model latents.
+``render_objects`` are the hooks a multi-drone env overrides.
+
+World-model latents: ``latent_dim=n`` (or ``initialize_latent(deter, stoch,
+world)``) adds ``deter`` and ``stoch`` observations, zeros at a reset, carried
+in ``EnvState.latent``. With a world model attached
+(``policies/world_model.py``) each step zeroes the latents of the agents that
+are done and then takes the posterior update from the step's action and
+observation, its noise drawn from ``EnvState.gen``; without one they stay
+zero. The terminal observation carries the latents from before the step.
 
 Dynamic objects (``scene_kwargs["obj_settings"]``: a JSON file's path, a
 dict with ``"path"``, or an inline list of settings; ``scene/objects.py``)
@@ -97,10 +104,6 @@ def _wind_fn_from_strings(settings):
     return wind_fn
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
-
-
 def _detach(x):
     """Detach every tensor of a (nested) NamedTuple, tuple or dict."""
     if isinstance(x, Tensor):
@@ -137,6 +140,7 @@ class EnvState(NamedTuple):
     returns: Tensor  # (N,) accumulated episode reward
     aux: Any = ()  # env-specific NamedTuple of tensors (pad centre, ...)
     objects: Any = ()  # ObjectsState of the dynamic objects, when the env has any
+    latent: Any = ()  # (deter (N, D), stoch (N, S)) world-model latents, when enabled
 
 
 class StepOutput(NamedTuple):
@@ -180,8 +184,6 @@ class DroneGymEnv:
         latent_dim: Optional[int] = None,
         dtype=torch.float32,
     ):
-        if latent_dim is not None:
-            raise _unported("world-model latents", "Queue A item 14, world_model.py")
         self.device = torch.device(device)
         self.num_agent_per_scene = int(num_agent_per_scene)
         self.num_scene = int(num_scene)
@@ -254,6 +256,49 @@ class DroneGymEnv:
 
         self.state_size = 13 if self.dyn_config.is_quat_output else 12
         self.action_size = 4
+
+        # rows (start, stop, n) of an env of n agents that this env holds
+        # (all of its own unless ``parallel.make_rank_env`` set a block of a
+        # larger one): spawns, reset clocks and IMU noise are drawn for all n
+        # agents and sliced
+        self.global_rows: Tuple[int, int, int] = (0, self.num_agent, self.num_agent)
+
+        self.world = None
+        self.deter_dim = self.stoch_dim = 0
+        if latent_dim is not None:
+            self.initialize_latent(latent_dim, latent_dim)
+
+    def initialize_latent(self, deter_dim: int, stoch_dim: int, world=None):
+        """Add ``deter`` / ``stoch`` latent observations, driven by the world
+        model ``world`` (``policies/world_model.py``) when one is given."""
+        self.deter_dim = int(deter_dim)
+        self.stoch_dim = int(stoch_dim)
+        if world is not None:
+            self.world = world
+
+    def _init_latent(self):
+        if not self.deter_dim:
+            return ()
+        n = self.num_agent
+        return (torch.zeros((n, self.deter_dim), dtype=self.dtype, device=self.device),
+                torch.zeros((n, self.stoch_dim), dtype=self.dtype, device=self.device))
+
+    def _update_latent(self, latent, action: Tensor, obs: Dict[str, Tensor], done: Tensor,
+                       gen: torch.Generator):
+        """The latents of done agents zeroed, then the world model's posterior
+        step with noise from ``gen``; zeros pass through without a model."""
+        deter, stoch = (torch.where(done[:, None], torch.zeros_like(x), x) for x in latent)
+        if self.world is None:
+            return deter, stoch
+        with torch.set_grad_enabled(self.requires_grad and torch.is_grad_enabled()):
+            stoch, deter = self.world.step(action, stoch, deter, obs, gen)
+        return deter.to(self.dtype), stoch.to(self.dtype)
+
+    def _attach_latent_obs(self, obs: Dict[str, Tensor], latent) -> Dict[str, Tensor]:
+        if self.deter_dim and latent != ():
+            obs = dict(obs)
+            obs["deter"], obs["stoch"] = latent
+        return obs
 
     # -- hooks for subclasses ------------------------------------------------
 
@@ -339,7 +384,7 @@ class DroneGymEnv:
         if self._imu_noise is not None:
             kind, a, b = self._imu_noise
             draw = torch.rand if kind == "uniform" else torch.randn
-            noise = draw(s.shape, generator=state.gen, dtype=s.dtype, device=s.device)
+            noise = self._rows_draw(draw, state.gen, s.shape[1:], s.dtype)
             if kind == "uniform":
                 noise = noise - 0.5
             s = s + (noise * b + a)
@@ -360,17 +405,50 @@ class DroneGymEnv:
             sid = torch.zeros((pos.shape[0],), dtype=torch.long, device=self.device)
         return point_is_collision(self.scene, pos, sid=sid, radius=1.0)
 
+    def _rows_draw(self, draw, gen: torch.Generator, tail, dtype) -> Tensor:
+        """``draw((N, *tail))`` from ``gen`` for this env's agents: where the
+        env holds rows of a larger one (``global_rows``), the draw is the
+        larger env's, sliced."""
+        lo, hi, n = self.global_rows
+        return draw((n, *tail), generator=gen, dtype=dtype, device=self.device)[lo:hi]
+
     def _spawn(self, gen: torch.Generator) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-        """Spawn states for ALL agents (one block per randomizer spec)."""
-        n_per = self.num_agent // max(len(self.randomizers), 1)
+        """Spawn states for ALL agents (one block per randomizer spec). Where
+        the env holds rows of a larger one, the larger env's draws are made and
+        sliced, and only this env's rows are tested for collisions."""
+        lo, hi, n = self.global_rows
+        n_per = n // max(len(self.randomizers), 1)
         target = getattr(self, "target", None)
         outs = [
             rnd.safe_sample(spec, gen, n_per,
-                            is_collision_fn=self.is_collision_fn if self.visual else None,
+                            is_collision_fn=self._spawn_collision(j, n_per) if self.visual
+                            else None,
                             target_pos=None if target is None else target[0])
-            for spec in self.randomizers
+            for j, spec in enumerate(self.randomizers)
         ]
-        return tuple(torch.cat(parts, dim=0).to(self.dtype) for parts in zip(*outs))
+        return tuple(torch.cat(parts, dim=0)[lo:hi].to(self.dtype) for parts in zip(*outs))
+
+    def _spawn_collision(self, block: int, n_per: int):
+        """The spawn rejection of randomizer block ``block`` (rows
+        ``block · n_per`` on) of the larger env's agents: ``is_collision_fn``
+        on the rows this env holds; the rest pass."""
+        lo, hi, n = self.global_rows
+        a, b = max(lo, block * n_per), min(hi, (block + 1) * n_per)
+
+        def fn(pos: Tensor) -> Tensor:
+            bad = torch.zeros((pos.shape[0],), dtype=torch.bool, device=pos.device)
+            if a < b:
+                rows = slice(a - block * n_per, b - block * n_per)
+                if n_per == n:  # one block: the rows are this env's agents, in their scenes
+                    bad[rows] = self.is_collision_fn(pos[rows])
+                else:  # as is_collision_fn tests a block of several: all in scene 0
+                    from ..scene import point_is_collision
+
+                    sid = torch.zeros((b - a,), dtype=torch.long, device=self.device)
+                    bad[rows] = point_is_collision(self.scene, pos[rows], sid=sid, radius=1.0)
+            return bad
+
+        return fn
 
     def _update_collision(self, dyn: DynState, once: Tensor, objects: Any = ()
                           ) -> Tuple[CollisionInfo, Tensor]:
@@ -438,12 +516,12 @@ class DroneGymEnv:
             episode_done=falses, success=falses, failure=falses,
             collision=collision, once_collided=falses,
             returns=torch.zeros((n,), dtype=self.dtype, device=self.device),
-            aux=self.init_aux(), objects=objects,
+            aux=self.init_aux(), objects=objects, latent=self._init_latent(),
         )
         st = st._replace(aux=self.reset_aux(st, torch.ones_like(falses)))
         sensor_obs = self.sensor_observations(st)
         st = self.update_aux_from_sensors(st, sensor_obs)
-        return st, self.get_observation(st, sensor_obs)
+        return st, self._attach_latent_obs(self.get_observation(st, sensor_obs), st.latent)
 
     def step(self, state: EnvState, action: Tensor, is_test: bool = False
              ) -> Tuple[EnvState, StepOutput]:
@@ -498,13 +576,17 @@ class DroneGymEnv:
         if self.terminal_obs_in_info:
             # what the agent saw at the end of the transition, before the
             # auto-reset respawns it (SB3's ``terminal_observation``)
-            term_obs = self.get_observation(st, pre_sensor_obs)
+            term_obs = self._attach_latent_obs(self.get_observation(st, pre_sensor_obs),
+                                               st.latent)
             info["terminal_observation"] = {k: v.detach() for k, v in term_obs.items()}
         if not is_test:
             st = self._auto_reset(st, done)
         sensor_obs = self.sensor_observations(st)
         st = self.update_aux_from_sensors(st, sensor_obs)
         obs = self.get_observation(st, sensor_obs)
+        if self.deter_dim and st.latent != ():
+            st = st._replace(latent=self._update_latent(st.latent, action, obs, done, st.gen))
+            obs = self._attach_latent_obs(obs, st.latent)
         if not self.requires_grad:
             obs = {k: v.detach() for k, v in obs.items()}
             reward = reward.detach()
@@ -527,8 +609,9 @@ class DroneGymEnv:
         spawned states carry no gradient; the selects let a live agent's
         gradient through and stop a done agent's."""
         pos, q, vel, omega = (x.detach() for x in self._spawn(st.gen))
+        clock = self._rows_draw(torch.rand, st.gen, (), st.dyn.pos.dtype) * 3.14 * 2
         dyn = dyn_mod.reset(self.dyn_config, self.params, st.dyn, mask=done, pos=pos, ori=q,
-                            vel=vel, ori_vel=omega, generator=st.gen)
+                            vel=vel, ori_vel=omega, t=clock, generator=st.gen)
         return self._reset_masked(st, done, dyn)
 
     def _reset_masked(self, st: EnvState, mask: Tensor, dyn: DynState) -> EnvState:

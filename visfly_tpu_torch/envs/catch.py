@@ -32,11 +32,11 @@ class CatchEnv(DroneGymEnv):
         return {"state_generator": {"class": "Uniform", "kwargs": [
             {"position": {"mean": [1.0, 0.0, 1.5], "half": [1.0, 2.0, 1.0]}}]}}
 
-    def _sample_ball(self, gen: torch.Generator, n: int):
+    def _sample_ball(self, gen: torch.Generator):
         """The ball's spawn: x = 1, y ∈ ±2, z ∈ 1.5 ± 1; horizontal speed
         within ±1 a component."""
         def u():
-            return 2 * torch.rand((n, 3), generator=gen, dtype=self.dtype, device=self.device) - 1
+            return 2 * self._rows_draw(torch.rand, gen, (3,), self.dtype) - 1
 
         pos = u() * torch.tensor([0.0, 2.0, 1.0], dtype=self.dtype, device=self.device) \
             + torch.tensor([1.0, 0.0, 1.5], dtype=self.dtype, device=self.device)
@@ -51,7 +51,7 @@ class CatchEnv(DroneGymEnv):
 
     def reset_aux(self, state: EnvState, mask: Tensor) -> BallState:
         aux: BallState = state.aux
-        pos, vel = self._sample_ball(state.gen, self.num_agent)
+        pos, vel = self._sample_ball(state.gen)
         m = mask[:, None]
         return BallState(pos=torch.where(m, pos, aux.pos), vel=torch.where(m, vel, aux.vel),
                          grounded=aux.grounded & ~mask)

@@ -11,6 +11,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from .core.types import Bound
 from .algos.buffers import ReplayBuffer
@@ -21,7 +22,19 @@ from .envs.base import CollisionInfo, EnvState
 from .envs.catch import BallState
 from .envs.landing import LandingAux
 from .envs.racing import RacingAux
-from .policies.extractors import MLP, GRUCell, ImageCNN
+from .policies.autoencoder import DepthAutoencoder
+from .policies.compact_backbones import EfficientNetV2, MobileNetV3
+from .policies.extractors import (
+    MLP,
+    DecoderHead,
+    GroupNorm,
+    GRUCell,
+    ImageCNN,
+    ResNetCNN,
+    TransCNN,
+)
+from .policies.torch_backbones import TorchResNet
+from .policies.world_model import WorldModel
 from .policies.networks import (
     Actor,
     ActorCriticPolicy,
@@ -101,9 +114,8 @@ def aux_from_numpy(aux, device=None):
             raise NotImplementedError("only NamedTuple aux states cross over")
         return ()
     if aux._fields not in _AUX_TYPES:
-        raise NotImplementedError(f"EnvState.aux of type {type(aux).__name__} is not ported "
-                                  "yet (ROADMAP: Queue A item 14, which brings the world "
-                                  "model's aux)")
+        raise NotImplementedError(f"EnvState.aux of type {type(aux).__name__} (fields "
+                                  f"{aux._fields}) has no counterpart in the port")
     return _AUX_TYPES[aux._fields](*(_t(x, device) for x in aux))
 
 
@@ -130,10 +142,7 @@ def env_state_from_numpy(st, gen: Optional[torch.Generator] = None,
     key has no counterpart; ``gen`` (default: a generator on ``device``
     seeded with 0) takes its place. ``aux`` crosses over for the envs the
     port has (``LandingAux``, ``RacingAux``, ``BallState``), and so do the
-    dynamic objects' state."""
-    if not isinstance(getattr(st, "latent", ()), tuple):
-        raise NotImplementedError("EnvState.latent is not ported yet "
-                                  "(ROADMAP: Queue A item 14, world_model.py)")
+    dynamic objects' state and the world-model latents (deter, stoch)."""
     if gen is None:
         gen = torch.Generator(device=device or "cpu").manual_seed(0)
     c = st.collision
@@ -155,6 +164,7 @@ def env_state_from_numpy(st, gen: Optional[torch.Generator] = None,
         returns=_t(st.returns, device),
         aux=aux_from_numpy(getattr(st, "aux", ()), device),
         objects=objects_state_from_numpy(getattr(st, "objects", ()), device),
+        latent=tuple(_t(x, device) for x in getattr(st, "latent", ())),
     )
 
 
@@ -199,9 +209,123 @@ def _load_gru(gru: GRUCell, g) -> None:
     _load_dense(gru.hn, g["hn"])
 
 
+def _load_conv(conv, p) -> None:
+    """A flax ``Conv`` {kernel (kh, kw, in, out), bias} into an
+    ``nn.Conv2d``: HWIO → OIHW (a depthwise kernel (kh, kw, 1, C) → (C, 1,
+    kh, kw))."""
+    conv.weight.copy_(_t(p["kernel"], conv.weight.device).permute(3, 2, 0, 1))
+    conv.bias.copy_(_t(p["bias"], conv.bias.device))
+
+
+def _load_conv_transpose(layer, p) -> None:
+    """A flax ``ConvTranspose`` (``transpose_kernel=False``) {kernel (kh, kw,
+    in, out), bias} into an ``nn.ConvTranspose2d``: torch's transposed
+    convolution flips the kernel, so it is flipped in both spatial axes and
+    laid out (in, out, kh, kw)."""
+    k = _t(p["kernel"], layer.weight.device)
+    layer.weight.copy_(torch.flip(k, (0, 1)).permute(2, 3, 0, 1))
+    layer.bias.copy_(_t(p["bias"], layer.bias.device))
+
+
+def _load_norm(norm, p) -> None:
+    """A flax ``LayerNorm`` or ``GroupNorm`` {scale, bias}."""
+    norm.weight.copy_(_t(p["scale"], norm.weight.device))
+    norm.bias.copy_(_t(p["bias"], norm.bias.device))
+
+
+def _load_dense_from_image(layer, p, chw) -> None:
+    """A Dense whose input is an NHWC image flattened: kernel rows (H, W, C)
+    → the port's (C, H, W)."""
+    c, h, w = chw
+    kernel = _t(p["kernel"], layer.weight.device)
+    layer.weight.copy_(kernel.reshape(h, w, c, -1).permute(3, 2, 0, 1).reshape(-1, c * h * w))
+    layer.bias.copy_(_t(p["bias"], layer.bias.device))
+
+
+def _load_dense_to_image(layer, p, chw) -> None:
+    """A Dense whose output is reshaped to an NHWC image: kernel columns and
+    bias (H, W, C) → the port's (C, H, W)."""
+    c, h, w = chw
+    kernel = _t(p["kernel"], layer.weight.device)
+    layer.weight.copy_(kernel.reshape(-1, h, w, c).permute(3, 1, 2, 0).reshape(c * h * w, -1))
+    layer.bias.copy_(_t(p["bias"], layer.bias.device).reshape(h, w, c).permute(2, 0, 1)
+                     .reshape(-1))
+
+
+def _load_resnet_cnn(net: ResNetCNN, p) -> None:
+    """flax ``ResNetCNN`` {Conv_0, ResNetBlock_i {Conv_0, GroupNorm_0, Conv_1,
+    GroupNorm_1, Conv_2 (the shortcut)}, Dense_0}."""
+    _load_conv(net.stem, p["Conv_0"])
+    for i, block in enumerate(net.blocks):
+        b = p[f"ResNetBlock_{i}"]
+        _load_conv(block.conv1, b["Conv_0"])
+        _load_norm(block.norm1, b["GroupNorm_0"])
+        _load_conv(block.conv2, b["Conv_1"])
+        _load_norm(block.norm2, b["GroupNorm_1"])
+        if block.shortcut is not None:
+            _load_conv(block.shortcut, b["Conv_2"])
+    _load_dense(net.proj, p["Dense_0"])
+
+
+def _load_backbone(net, p) -> None:
+    """flax ``TorchResNet`` ({conv1, layer<s>_<b> {conv1, conv2[, conv3],
+    [downsample]}}), ``MobileNetV3`` or ``EfficientNetV2`` (flat names) into
+    the port's module of the same arch."""
+    if isinstance(net, TorchResNet):
+        _load_conv(net.conv1, p["conv1"])
+        for name, block in net.named_children():
+            if not name.startswith("layer"):
+                continue
+            for b, blk in enumerate(block):
+                q = p[f"{name}_{b}"]
+                for conv_name, conv in blk.named_children():
+                    if conv is not None:
+                        _load_conv(conv, q[conv_name])
+    else:
+        for name, conv in net.named_children():
+            _load_conv(conv, p[name])
+
+
+def _load_trans_cnn(net: TransCNN, p) -> None:
+    """flax ``TransCNN`` {deconv_i, LayerNorm_i}."""
+    for i, layer in enumerate(net.deconv):
+        _load_conv_transpose(layer, p[f"deconv_{i}"])
+    for i, norm in enumerate(net.norm or ()):
+        _load_norm(norm, p[f"LayerNorm_{i}"])
+
+
+def module_params_from_flax(params, module):
+    """The parameters of one flax module of ``visfly_tpu/policies`` (its dict
+    of numpy arrays, with or without the ``"params"`` level) into the port's
+    module of the same class and settings, in place; returns the module.
+    Takes ``MLP``, ``ImageCNN``, ``ResNetCNN``, ``TorchResNet``,
+    ``MobileNetV3``, ``EfficientNetV2``, ``TransCNN`` and ``DecoderHead``."""
+    p = params.get("params", params)
+    with torch.no_grad():
+        if isinstance(module, MLP):
+            _load_mlp(module, p)
+        elif isinstance(module, ImageCNN):
+            _load_cnn(module, p)
+        elif isinstance(module, ResNetCNN):
+            _load_resnet_cnn(module, p)
+        elif isinstance(module, (TorchResNet, MobileNetV3, EfficientNetV2)):
+            _load_backbone(module, p)
+        elif isinstance(module, TransCNN):
+            _load_trans_cnn(module, p)
+        elif isinstance(module, DecoderHead):
+            _load_dense_to_image(module.proj, p["proj"], module.in_shape)
+            _load_trans_cnn(module.net, p["TransCNN_0"])
+        else:
+            raise TypeError(f"no flax counterpart for {type(module).__name__}")
+    return module
+
+
 def _load_extractor(extractor, p) -> None:
     for name, sub in extractor.extractors.items():
-        (_load_cnn if isinstance(sub, ImageCNN) else _load_mlp)(sub, p[name])
+        if isinstance(sub, nn.Linear):  # a backbone's <key>_proj
+            _load_dense(sub, p[name])
+        else:
+            module_params_from_flax(p[name], sub)
 
 
 def actor_params_from_flax(params, module):
@@ -254,6 +378,51 @@ def policy_params_from_flax(params, module):
             if hasattr(module, "gru"):
                 _load_gru(module.gru, p["gru"])
     return module
+
+
+def _load_gaussian_out(out, p, first: int) -> None:
+    """The mean and log-std Dense layers, flax's ``Dense_<first>`` and
+    ``Dense_<first + 1>``."""
+    _load_dense(out.mean, p[f"Dense_{first}"])
+    _load_dense(out.log_std, p[f"Dense_{first + 1}"])
+
+
+def world_model_params_from_flax(params, world: WorldModel) -> WorldModel:
+    """``visfly_tpu.policies.world_model.WorldModel.params`` (the three flax
+    trees ``sequence``, ``encoder``, ``decoder`` of numpy arrays) into the
+    port's ``WorldModel`` of the same sizes and observations, in place;
+    returns it."""
+    seq = params["sequence"].get("params", params["sequence"])
+    enc = params["encoder"].get("params", params["encoder"])
+    dec = params["decoder"].get("params", params["decoder"])
+    with torch.no_grad():
+        _load_dense(world.sequence.inp, seq["Dense_0"])
+        _load_gru(world.sequence.gru, seq["GRUCell_0"])
+        _load_dense(world.sequence.hid, seq["Dense_1"])
+        _load_gaussian_out(world.sequence.out, seq, 2)
+        _load_extractor(world.encoder.obs_extractor, enc["obs_extractor"])
+        _load_dense(world.encoder.hid, enc["Dense_0"])
+        _load_gaussian_out(world.encoder.out, enc, 1)
+        _load_mlp(world.decoder.mlp, dec["mlp"])
+        _load_dense(world.decoder.out, dec["Dense_0"])
+    return world
+
+
+def autoencoder_params_from_flax(params, model: DepthAutoencoder) -> DepthAutoencoder:
+    """``visfly_tpu.policies.autoencoder.DepthAutoencoder`` parameters
+    ({encoder {Conv_i, Dense_0}, decoder {Dense_0, ConvTranspose_i}}) into the
+    port's module of the same sizes, in place; returns it. The encoder's
+    Dense rows and the decoder's Dense columns go (H, W, C) → (C, H, W)."""
+    p = params.get("params", params)
+    enc, dec = p["encoder"], p["decoder"]
+    with torch.no_grad():
+        for i, conv in enumerate(model.encoder.conv):
+            _load_conv(conv, enc[f"Conv_{i}"])
+        _load_dense_from_image(model.encoder.proj, enc["Dense_0"], model.encoder.feat_shape)
+        _load_dense_to_image(model.decoder.proj, dec["Dense_0"], model.decoder.in_shape)
+        for i, layer in enumerate(model.decoder.deconv):
+            _load_conv_transpose(layer, dec[f"ConvTranspose_{i}"])
+    return model
 
 
 def _gen_and_obs(st, trainer, gen):
