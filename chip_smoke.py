@@ -40,12 +40,12 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   cluttered_flight -a PPO_tuned``): ``NavigationEnv`` with
   ``env_cfgs/cluttered_flight.yaml`` (48 agents, 64×64 depth) and ``PPO`` with
   ``alg_cfgs/cluttered_flight/PPO_tuned.yaml`` (256 steps, 10 epochs of one
-  minibatch of 12,288), one warm-up and 2 timed updates; the analytic kernel
+  minibatch of 12,288), one warm-up and 1 timed update; the analytic kernel
   renders twice a step (the terminal observation, then the observation after
   the auto-reset);
 - paths H and I: ``SHAC`` and ``APG`` with ``alg_cfgs/navigation2/`` on
   ``NavigationEnv2`` (96 agents, the garage for collisions, no camera,
-  ``requires_grad``), H = 32, one warm-up and 3 timed updates; path J:
+  ``requires_grad``), H = 32, one warm-up and 1 timed update; path J:
   ``SAC`` with ``alg_cfgs/navigation2/SAC.yaml`` (64 agents, buffer 500,000,
   batch 512, 32 gradient steps), collecting until ``learning_starts`` and then
   4 training env steps. These three use no kernel;
@@ -53,7 +53,7 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   PPO_tuned``): ``MultiNavigationEnv`` with ``env_cfgs/crossing.yaml`` (24
   scenes × 3 agents, 64×64 depth) and ``PPO`` with
   ``alg_cfgs/crossing/PPO_tuned.yaml`` (256 steps, 5 epochs of one minibatch
-  of 18,432), one warm-up and 2 timed updates; the analytic kernel renders the
+  of 18,432), one warm-up and 1 timed update; the analytic kernel renders the
   static scene twice a step and the other drones of each scene compose after
   it as posed quadrotor templates (plain PyTorch);
 - path L, dynamic objects: ``DynEnv``, 256 agents in
@@ -109,8 +109,8 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   256 × 1 × 64 × 64 depth; P2 the depth leg's env with a world model
   (``create_world_model``, deter 128, stoch 32, ``initialize_latent``), one
   warm-up and one timed chunk of 32 steps with and without it, and one
-  ``PPO_tuned`` update of path G's env and recipe with the latents attached
-  and ``LatentCombineExtractor``'s keys plus depth; P3 ``collect_depth_frames``
+  ``PPO_tuned`` update of path G's env and recipe, cut to 32 steps, with the
+  latents attached and ``LatentCombineExtractor``'s keys plus depth; P3 ``collect_depth_frames``
   on the depth leg's env (4,096 frames) and ``train_autoencoder`` (latent 64,
   batch 128, 200 steps); P4 P1's trained actor transplanted into a PPO policy
   of the same ``net_arch`` (``actor_to_policy_params``) and one PPO update of
@@ -118,7 +118,19 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   (``parallel.run_ranks``, spawned, a ``file://`` store): path E's BPTT update
   (``HoverEnv``, 128 agents, H = 32) and P1's env with path F's CNN (64
   agents, H = 8) on two gloo ranks on the one card and on a world-size-1
-  NCCL group, each against one process from the same state and draws.
+  NCCL group, each against one process from the same state and draws;
+- path Q, the published results through the port's example scripts
+  (``visfly_tpu_torch/examples/``): Q1 ``reproduce.run_row("navigation2")``
+  in full at seed 42 (``NavigationEnv2`` at 96 agents, BPTT at H = 32, 162
+  updates for 500,000 steps, then ``evaluate`` on the 48-agent eval env;
+  no camera, no kernel), in a process of its own started before path E and
+  joined after path P; Q2 ``distill_vision --teacher`` on Q1's checkpoint at
+  the script's defaults (96 agents, 64×64 depth through B1, 6 DAgger rounds
+  of 96 steps, 40 full-batch Adam epochs a round, the teacher and the student
+  evaluated on the same visual env); Q3 the ``landing2`` and ``racing2`` rows
+  through the same ``run_row`` cut to one update (racing2 with both gate
+  replays); Q4 ``train_imported_mesh`` on the 24-pillar garage OBJ cut to
+  one update and a 32-step ``TestBase`` evaluation (no camera).
 
 Phases, one line each; any failure exits non-zero:
 
@@ -203,7 +215,7 @@ Phases, one line each; any failure exits non-zero:
    keeping scenes 0, 1 and 3's rows (O1) or grids, triangles and texture
    tables (O2) bit for bit and moving only scene 2's agents, each kernel
    exactly once a render of each sensor that uses it, the approaching points
-   card vs CPU within 1e-3 m, one step at 4 agents a scene card vs CPU
+   card vs CPU within 1e-3 m, one step at 2 agents a scene card vs CPU
    (depth, colour and semantic as above), on O2 both checker colours on the
    textured objects and the id of every instance seen on 16 or more pixels
    in the semantic image with the stage's id 1, B1, B1-kid and the triangle
@@ -213,7 +225,15 @@ Phases, one line each; any failure exits non-zero:
    one camera; the grid renders card vs CPU; no kernel in a grid render;
    path P: B1 exactly once a render on P1-P5 (1 + 8 a P1 update, 1 + 2 a
    step of P2's PPO and P4's, 1 + 16 collecting P3's frames, on each rank of
-   P5's visual leg); P1 every trained parameter moved, the actor's forward
+   P5's visual leg); path Q: Q1 meets ``reproduce.py``'s own bar for the
+   row (eval success ≥ 0.57 − 0.12), after exactly 162 updates, every
+   trained parameter moved and the state on the card, with no launch; Q2 B1
+   exactly 1 + 6 × 96 + (1 + n) for each evaluation of n steps, the last
+   round's regression loss below the first round's, the student's success
+   at least the teacher's − 0.15; Q3 a finite loss, every trained parameter
+   moved, success in [0, 1] (landing2) and gates in [0, 4] (racing2), no
+   launch; Q4 the same, a checkpoint written, no launch; P1 every trained
+   parameter moved, the actor's forward
    and its first gradient (8 agents, H = 4, same parameters, state and noise;
    every parameter's gradient non-zero) card vs CPU within 1e-4 relative, each of the nine backbones card vs CPU
    on 8 images within atol 2e-4 + rtol 1e-3; P2 the latents card vs CPU
@@ -1810,7 +1830,7 @@ def training_paths(dev, card, launches):
 
     tr_g = PPO(NavigationEnv(device=dev, **CLUTTERED_FLIGHT), **PPO_TUNED)
     parts = timed_parts(tr_g, ("_collect", "_advantages", "_train_flat"))
-    n_env, n_steps, n_timed = tr_g.env.num_envs, tr_g.n_steps, 2
+    n_env, n_steps, n_timed = tr_g.env.num_envs, tr_g.n_steps, 1
     reset_launches()
     st = tr_g.init(torch.Generator(device=dev).manual_seed(90))
     st, m = tr_g.update(st)
@@ -1850,7 +1870,7 @@ def training_paths(dev, card, launches):
             ("path I (APG, navigation2)", APG, APG_NAV2, "loss",
              ("actor.head.log_std.weight", "actor.head.log_std.bias"))):
         tr = cls(NavigationEnv2(device=dev, **NAVIGATION2), **cfg)
-        n_timed = 3
+        n_timed = 1
         reset_launches()
         st = tr.init(torch.Generator(device=dev).manual_seed(100))
         st, m = tr.update(st)
@@ -2224,7 +2244,7 @@ def swarm_and_zoo_paths(dev, card, launches):
     # after B1, which renders twice a step and once at the reset
     tr = PPO(MultiNavigationEnv(device=dev, **CROSSING), **PPO_TUNED_CROSSING)
     parts = timed_parts(tr, ("_collect", "_advantages", "_train_flat"))
-    n_env, n_steps, n_timed = tr.env.num_envs, tr.n_steps, 2
+    n_env, n_steps, n_timed = tr.env.num_envs, tr.n_steps, 1
     reset_launches()
     st = tr.init(torch.Generator(device=dev).manual_seed(120))
     st, m = tr.update(st)
@@ -2484,6 +2504,10 @@ def noise_phase(dev, card):
 # the analytic kernel (O1) and baked with its exact, textured triangles and
 # per-instance ids for the triangle kernel (O2)
 O_SCENES, O_AGENTS, O_FILES, O_OBJECTS = 4, 64, 6, 32
+# agents a scene of the card-vs-CPU step: the CPU's exact render of 47,616
+# triangles a scene takes about 9 times as long at 4 agents as at 2 (89.7 s
+# against 10.2 s on an 8-core host)
+O_CHECK_AGENTS = 2
 O_SPACING = 0.15  # m: the decomposition's and the bake's grid cell
 O_VIEW = (480, 640)  # the global view's resolution
 O_SEED = 42  # the env's seed, and so its scene loader's
@@ -2828,39 +2852,49 @@ def o_drive(env, name, per_render, config, card):
     return state, launches
 
 
-def o_card_vs_cpu(name, env, card, seed):
-    """One step of 4 agents a scene in the env's scene on the card and on
-    the CPU from the same state (twins without cameras: state within
-    OBS_TOL), then the three cameras at the card's state after it on both:
-    depth within T_TOL on all but HIT_TOL of the pixels, colour and semantic
-    equal on all but COLOR_TOL. → (the twin with cameras, the state, the
-    card's images)."""
+def o_card_step(env, n, seed):
+    """``n`` agents a scene in the env's scene on the card (twins), reset and
+    stepped once with actions in [-0.3, 0.3], both drawn from ``seed`` → (the
+    twin with cameras, the state before the step, the actions, the state
+    after it, the step's output)."""
     import torch
 
     dev = env.device
-    twin = o_twin(dev, env.scene, 4, O_SCENES, O_SENSORS)
-    twin_cpu = o_twin("cpu", env.scene, 4, O_SCENES, O_SENSORS)
-    state, _ = twin.reset(torch.Generator(device=dev).manual_seed(seed))
+    twin = o_twin(dev, env.scene, n, O_SCENES, O_SENSORS)
+    state0, _ = twin.reset(torch.Generator(device=dev).manual_seed(seed))
     a = torch.rand((twin.num_agent, 4), device=dev,
                    generator=torch.Generator(device=dev).manual_seed(seed)) * 0.6 - 0.3
-    state_cpu = to_device(state, "cpu", torch.Generator().manual_seed(0))
-    state, out_gpu = o_twin(dev, env.scene, 4, O_SCENES, []).step(state, a, is_test=True)
-    _, out_cpu = o_twin("cpu", env.scene, 4, O_SCENES, []).step(state_cpu, a.cpu(), is_test=True)
+    state, out = o_twin(dev, env.scene, n, O_SCENES, []).step(state0, a, is_test=True)
+    return twin, state0, a, state, out
+
+
+def o_card_vs_cpu(name, env, card, seed):
+    """One step of ``O_CHECK_AGENTS`` agents a scene in the env's scene on
+    the card and on the CPU from the same state (twins without cameras: state
+    within OBS_TOL), then the three cameras at the card's state after it on
+    both: depth within T_TOL on all but HIT_TOL of the pixels, colour and
+    semantic equal on all but COLOR_TOL."""
+    import torch
+
+    n = O_CHECK_AGENTS
+    twin, state0, a, state, out_gpu = o_card_step(env, n, seed)
+    state_cpu = to_device(state0, "cpu", torch.Generator().manual_seed(0))
+    _, out_cpu = o_twin("cpu", env.scene, n, O_SCENES, []).step(state_cpu, a.cpu(), is_test=True)
     s_err = float((out_gpu.obs["state"].cpu() - out_cpu.obs["state"]).abs().max())
     check(s_err <= OBS_TOL, f"path O {name}: state obs card vs cpu {s_err} > {OBS_TOL}")
     imgs = twin.sensor_observations(state)
+    twin_cpu = o_twin("cpu", env.scene, n, O_SCENES, O_SENSORS)
     imgs_cpu = twin_cpu.sensor_observations(to_device(state, "cpu", torch.Generator()))
     d_flip, d_err = depth_off(imgs["depth"], imgs_cpu["depth"])
     c_off = float((imgs["color"].cpu() != imgs_cpu["color"]).any(dim=1).float().mean())
     s_off = float((imgs["semantic"].cpu() != imgs_cpu["semantic"]).float().mean())
-    print(f"phase 5 | path O {name} card vs cpu (4 agents a scene, {O_SCENES} scenes): one step, "
+    print(f"phase 5 | path O {name} card vs cpu ({n} agents a scene, {O_SCENES} scenes): one step, "
           f"state max|d|={s_err:.3e}; the cameras after it: depth max|d|={d_err:.3e} m on all but "
           f"{d_flip:.3e} of pixels, colour differs on {c_off:.3e}, semantic on {s_off:.3e} | "
           f"{card}", flush=True)
     check(d_flip <= HIT_TOL, f"path O {name}: depth card vs cpu off on {d_flip}")
     check(c_off <= COLOR_TOL, f"path O {name}: colour card vs cpu differs on {c_off}")
     check(s_off <= COLOR_TOL, f"path O {name}: semantic card vs cpu differs on {s_off}")
-    return twin, state, imgs
 
 
 def o_kernel_times(name, env, state, card):
@@ -3042,9 +3076,12 @@ def scene_ingest_path(dev, card, launches):
         print(f"phase 4 | path O {name}: global view {O_VIEW[0]}x{O_VIEW[1]} of scene 0 with "
               f"approaching lines in "
               f"{gv_s:.3f} s, {used} | {card}", flush=True)
-        # one step at 4 agents a scene, card vs CPU
-        twin, tst, imgs = o_card_vs_cpu(name, env, card, 93)
+        # one step at O_CHECK_AGENTS agents a scene, card vs CPU
+        o_card_vs_cpu(name, env, card, 93)
         if grid:
+            # the card's images of 4 agents a scene after one step
+            twin, _, _, tst, _ = o_card_step(env, 4, 93)
+            imgs = twin.sensor_observations(tst)
             sem, rgb = imgs["semantic"][:, 0], imgs["color"].int()
             # textures: red and blue checker cells on the textured objects
             red = (rgb[:, 0] > 2 * rgb[:, 2]) & (rgb[:, 0] > 2 * rgb[:, 1]) & (sem >= 2)
@@ -3082,6 +3119,7 @@ def scene_ingest_path(dev, card, launches):
             check(n_red >= 50 and n_blue >= 50, f"path O {name}: the checkerboard did not come "
                   f"through ({n_red} red, {n_blue} blue pixels)")
             check(not missing and n_ids >= n_vis, f"path O {name}: instance ids missing {missing}")
+            del twin
         t_cpu = time.perf_counter()
         o_kernel_times(name, env, state, card)
         print(f"phase 4 | path O {name}: {time.perf_counter() - t_path:.1f} s in all, of which the "
@@ -3090,7 +3128,7 @@ def scene_ingest_path(dev, card, launches):
               flush=True)
         if grid:
             o2_scene = env.scene
-        del env, twin
+        del env
     # separately, on O2's scene 0: shadow rays, the grid opt-out, a grid-only preset
     t_rest = time.perf_counter()
     scene0 = scene_zero(o2_scene)
@@ -3584,7 +3622,8 @@ def policies_path(dev, card, launches):
     _, obs_g = env_g.reset(torch.Generator(device=dev).manual_seed(340))
     env_g.initialize_latent(128, 32, create_world_model(obs_g, deter_dim=128, stoch_dim=32))
     arch = dict(EXTRACTOR_ALIASES["LatentCombineExtractor"], depth={"cnn": 128})
-    kw = dict(PPO_TUNED, policy_kwargs=dict(PPO_TUNED["policy_kwargs"], net_arch=arch))
+    # 32 steps of the recipe's 256
+    kw = dict(PPO_TUNED, n_steps=32, policy_kwargs=dict(PPO_TUNED["policy_kwargs"], net_arch=arch))
     tr_l = PPO(env_g, **kw)
     reset_launches()
     st_l = tr_l.init(torch.Generator(device=dev).manual_seed(341))
@@ -3681,6 +3720,214 @@ def policies_path(dev, card, launches):
     print(f"phase 4 | path P: {time.perf_counter() - t_path:.1f} s | {card}", flush=True)
 
 
+Q_STUDENT_MARGIN = 0.15  # the student's success may trail the teacher's by this much
+
+
+@contextlib.contextmanager
+def recorded(cls):
+    """While open, every trainer of ``cls`` records its parameters after
+    ``init`` (``rec["before"]``) and its last update's metrics
+    (``rec["metrics"]``, ``rec["updates"]``): what ``check_trained`` needs of
+    a run that an entry point drives."""
+    rec = {"before": None, "metrics": None, "updates": 0}
+    init, update = cls.init, cls.update
+
+    def init_(self, *args, **kwargs):
+        st = init(self, *args, **kwargs)
+        rec["before"] = snapshot(self)
+        return st
+
+    def update_(self, *args, **kwargs):
+        st, m = update(self, *args, **kwargs)
+        rec["metrics"], rec["updates"] = m, rec["updates"] + 1
+        return st, m
+
+    cls.init, cls.update = init_, update_
+    try:
+        yield rec
+    finally:
+        cls.init, cls.update = init, update
+
+
+def _q1_process(path):
+    """Q1 in a process of its own, beside paths E-P: ``reproduce.run_row
+    ("navigation2")`` in full at seed 42 on the card, checked as path G's
+    trainer is; the trained state saved to ``path`` (``.pt``) for Q2, the
+    numbers to ``path.json``, the output to ``path.log``."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from visfly_tpu_torch.algos import BPTT
+    from visfly_tpu_torch.examples import reproduce
+
+    dev = torch.device("cuda", 0)
+    with open(path + ".log", "w", buffering=1) as log, contextlib.redirect_stdout(log), \
+            contextlib.redirect_stderr(log):
+        reset_launches()
+        t0 = time.perf_counter()
+        with recorded(BPTT) as rec:
+            r = reproduce.run_row("navigation2", reproduce.ROWS["navigation2"], seed=42, device=dev)
+        row_s = time.perf_counter() - t0
+        counts = all_launches()
+        check(not any(counts.values()), f"Q1: launched {counts}")
+        check(r["n_updates"] == 162 and rec["updates"] == 162,
+              f"Q1: {r['n_updates']} updates ({rec['updates']} run), not 500,000 // (96 x 32)")
+        tr, m = r["model"], rec["metrics"]
+        check_trained("Q1", tr, r["state"], m, rec["before"], "actor_loss", dev)
+        teacher = tr.save(r["state"], path)
+    with open(path + ".json", "w") as f:
+        json.dump({"success": r["success"], "reward": r["reward"], "train_s": r["train_s"],
+                   "n_updates": r["n_updates"], "row_s": row_s, "agents": tr.env.num_envs,
+                   "H": tr.H, "loss": float(m["actor_loss"]), "teacher": teacher}, f)
+
+
+def start_q1():
+    """Start Q1's process (spawned, daemonic: it ends with the smoke) →
+    (the process, its temporary directory, the path its files share)."""
+    import multiprocessing
+
+    tmp = tempfile.TemporaryDirectory(prefix="visfly_q1_")
+    path = os.path.join(tmp.name, "navigation2_bptt_seed42")
+    proc = multiprocessing.get_context("spawn").Process(target=_q1_process, args=(path,),
+                                                        daemon=True)
+    proc.start()
+    return proc, tmp, path
+
+
+def published_results_path(dev, card, launches, q1):
+    """Path Q, the published results through the port's example scripts: Q1
+    the navigation2 row of ``reproduce.py`` in full (its process, started
+    before path E, joined here), Q2 the distillation on Q1's teacher, loaded
+    from its checkpoint as the script loads one, Q3 the landing2 and racing2
+    rows cut to one update, Q4 ``train_imported_mesh`` cut to one update and
+    a 32-step evaluation."""
+    import torch
+
+    from visfly_tpu_torch.algos import BPTT, PPO
+    from visfly_tpu_torch.examples import distill_vision, reproduce, train_imported_mesh
+    from visfly_tpu_torch.run import resolve
+
+    t_path = time.perf_counter()
+
+    # Q1: the row in full at its pinned seed; no camera, so no kernel
+    proc, tmp, path = q1
+    proc.join(timeout=900)
+    alive = proc.is_alive()
+    if alive:
+        proc.kill()
+        proc.join()
+    with open(path + ".log") as f:
+        tail = f.read().splitlines()[-12:]
+    check(not alive and proc.exitcode == 0,
+          f"Q1's process {'still running after 900 s' if alive else f'exit {proc.exitcode}'}: "
+          + "\n".join(tail))
+    with open(path + ".json") as f:
+        r = json.load(f)
+    spec = reproduce.ROWS["navigation2"]
+    print(f"phase 4 | path Q1 (reproduce.py navigation2, BPTT, seed 42, in full, in its own "
+          f"process beside paths E-P): no kernel launches | eval success {r['success']:.4f} "
+          f"(claim {spec['claim']} ± {spec['tol']}: bar {spec['claim'] - spec['tol']:.2f}), "
+          f"reward {r['reward']:.4f}; train {r['train_s']:.1f} s, "
+          f"{r['train_s'] / r['n_updates'] * 1e3:.1f} ms an update ({r['agents']} agents, "
+          f"H={r['H']}, {r['n_updates']} updates; last loss {r['loss']:.4f}); row "
+          f"{r['row_s']:.1f} s; joined {time.perf_counter() - t_path:.1f} s after path P | "
+          f"{card}", flush=True)
+    check(reproduce.passes(spec, r["success"]),
+          f"Q1: eval success {r['success']} misses the row's bar")
+
+    # Q2: the distillation at the script's defaults on Q1's teacher, loaded
+    # from its checkpoint; B1 once a render: the reset, 6 × 96 collection
+    # steps, and each evaluation's reset and steps
+    reset_launches()
+    t0 = time.perf_counter()
+    out = distill_vision.main(["--teacher", r["teacher"]], device=dev)
+    tmp.cleanup()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rounds, t_stats, s_stats = out["rounds"], out["teacher"], out["student"]
+    for i, rd in enumerate(rounds):
+        print(f"phase 4 | path Q2 round {i}: beta {rd['beta']:.2f}, dataset {rd['dataset']}, "
+              f"loss {rd['first_loss']:.5f} → {rd['loss']:.5f}, {rd['seconds']:.1f} s | {card}",
+              flush=True)
+    counts = all_launches()
+    want = {k: 0 for k in counts}
+    want["trace_analytic"] = 1 + 6 * 96 + (1 + t_stats["steps"]) + (1 + s_stats["steps"])
+    check(counts == want, f"Q2: kernel launches {counts} != expected {want}")
+    launches["trace_analytic"] += counts["trace_analytic"]
+    print(f"phase 4 | path Q2 (distill_vision.py --teacher <Q1's checkpoint>, 96 agents, 64x64 "
+          f"depth, 6 rounds x 96 steps, 40 epochs): {{'trace_analytic': "
+          f"{counts['trace_analytic']}}} "
+          f"launches = 1 + 6 x 96 + (1 + {t_stats['steps']}) + (1 + {s_stats['steps']}) | "
+          f"teacher success {t_stats['eval/success_rate']:.4f} (reward "
+          f"{t_stats['eval/ep_rew_mean']:.4f}), student {s_stats['eval/success_rate']:.4f} "
+          f"(reward {s_stats['eval/ep_rew_mean']:.4f}); {dt:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.1f} GiB | {card}", flush=True)
+    check(len(rounds) == 6 and rounds[-1]["dataset"] == 6 * 96 * 96, "Q2: rounds or dataset")
+    check(all(math.isfinite(rd["loss"]) for rd in rounds), "Q2: a loss is not finite")
+    check(rounds[-1]["loss"] < rounds[0]["loss"],
+          f"Q2: last round's loss {rounds[-1]['loss']} not below the first's {rounds[0]['loss']}")
+    check(s_stats["eval/success_rate"] >= t_stats["eval/success_rate"] - Q_STUDENT_MARGIN,
+          f"Q2: student success {s_stats['eval/success_rate']} more than {Q_STUDENT_MARGIN} "
+          f"below the teacher's {t_stats['eval/success_rate']}")
+    del out
+
+    # Q3: the landing2 and racing2 rows through the same run_row, one update
+    for name in ("landing2", "racing2"):
+        spec = reproduce.ROWS[name]
+        _, _, env_config, alg_config = resolve(name, spec["algo"])
+        n_env = env_config["env"]["num_agent_per_scene"]
+        n_steps = alg_config["algorithm"]["n_steps"]
+        reset_launches()
+        t0 = time.perf_counter()
+        with recorded(PPO) as rec:
+            r = reproduce.run_row(name, spec, seed=42, device=dev,
+                                  cut={"total_timesteps": n_env * n_steps})
+        dt = time.perf_counter() - t0
+        counts = all_launches()
+        check(not any(counts.values()), f"Q3 {name}: launched {counts}")
+        check(r["n_updates"] == rec["updates"] == 1, f"Q3 {name}: {rec['updates']} updates")
+        check_trained(f"Q3 {name}", r["model"], r["state"], rec["metrics"], rec["before"],
+                      "loss", dev)
+        if spec.get("metric") == "gates":
+            check(r["success"] == int(r["success"]) and 0 <= r["success"] <= 4
+                  and 0 <= r["sto_min"] <= r["sto_mean"] <= 4, f"Q3 {name}: gates {r}")
+            what = (f"min gates an agent {r['success']:.0f}, mean {r['reward']:.2f} "
+                    f"(deterministic replay); stochastic min {r['sto_min']:.0f}, mean "
+                    f"{r['sto_mean']:.2f}")
+        else:
+            check(0.0 <= r["success"] <= 1.0, f"Q3 {name}: success {r['success']}")
+            what = f"eval success {r['success']:.4f}, reward {r['reward']:.4f}"
+        print(f"phase 4 | path Q3 (reproduce.py {name}, PPO, one update): no kernel launches | "
+              f"{what}; loss {float(rec['metrics']['loss']):.4f}; train {r['train_s'] * 1e3:.1f} "
+              f"ms an update ({n_env} agents x {n_steps} steps); row {dt:.1f} s | {card}",
+              flush=True)
+        del r
+
+    # Q4: the imported garage, one update and a 32-step evaluation; no camera
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="visfly_q4_") as tmp, recorded(BPTT) as rec:
+        out = train_imported_mesh.train(timesteps=96 * 32, device=dev, save_dir=tmp,
+                                        eval_steps=32)
+        check(os.path.isfile(out["checkpoint"]), "Q4: no checkpoint")
+        dt = time.perf_counter() - t0
+    counts = all_launches()
+    check(not any(counts.values()), f"Q4: launched {counts}")
+    tr = out["trainer"]
+    check(rec["updates"] == 1 and tr.env.scene.triangles.shape[1] == 360,
+          f"Q4: {rec['updates']} updates, {tr.env.scene.triangles.shape[1]} triangles")
+    check_trained("Q4", tr, out["state"], rec["metrics"], rec["before"], "actor_loss", dev)
+    stats = out["stats"]
+    check(0.0 <= stats["success_rate"] <= 1.0 and math.isfinite(stats["mean_return"]),
+          f"Q4: evaluation {stats['success_rate']}, {stats['mean_return']}")
+    print(f"phase 4 | path Q4 (train_imported_mesh.py, 24-pillar garage OBJ, 360 triangles, "
+          f"grid backend, one update): no kernel launches | train {out['train_s'] * 1e3:.1f} ms "
+          f"an update (96 agents, H=32); TestBase 32 steps at 48 agents: success "
+          f"{stats['success_rate']:.4f}, return {stats['mean_return']:.4f}; {dt:.1f} s | {card}",
+          flush=True)
+    print(f"phase 4 | path Q: {time.perf_counter() - t_path:.1f} s | {card}", flush=True)
+
+
 def _one_rank(dev):
     """The single process's place: no group, one rank."""
     from visfly_tpu_torch.parallel import Mesh
@@ -3707,6 +3954,11 @@ def main():
     print(f"phase 1 | torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} | {torch.cuda.get_device_name(0)}", flush=True)
     print(card, flush=True)
+
+    t_smoke = time.perf_counter()
+
+    def clock(after):
+        print(f"clock | {time.perf_counter() - t_smoke:.1f} s after {after}", flush=True)
 
     # 2. build every kernel from the checkout's sources
     from visfly_tpu_torch.build import build_all
@@ -3831,6 +4083,7 @@ def main():
           f"(old yardstick: {old_ms:.4f} ms by {old_by}), share {kb_ms / kid_b:.4f} (device "
           f"{kb_ms / kid_dev:.4f}) | {card}", flush=True)
     gradient_phase(ks_b, o_b, d_b, g)
+    clock("phase 3's trace kernels")
 
     # the triangle kernel on path D's meshes: one OBJ per size, loaded as a
     # user would load it; the envs serve phases 4 and 5 as well
@@ -3851,6 +4104,7 @@ def main():
         if level == 3:
             variant_phase(env_m, state_m, card, errs, timing)
     mesh_dir.cleanup()
+    clock("phase 3")
 
     # 4. the paths
     launches = {m: 0 for m in KERNELS}
@@ -3972,6 +4226,9 @@ def main():
     print(f"phase 4 | diagnostics: { {k: v for k, v in counts.items() if v} } launches; stages "
           f"executed a tile mean {st['mean']:.2f} of {st['n_stage']} | {card}", flush=True)
 
+    clock("the depth leg, paths A-D and the diagnostics")
+    # path Q1 trains in a process of its own while paths E-P run
+    q1 = start_q1()
     # path E: the gradient leg; no kernel
     from visfly_tpu_torch.algos import BPTT
 
@@ -4006,12 +4263,20 @@ def main():
         report_bptt(f"path F (visual BPTT, {name})", tr_f, ms, sps, counts, m, 2,
                     "64x64 depth")
 
+    clock("paths E and F")
     tr_g, st_g = training_paths(dev, card, launches)
+    clock("paths G-J")
     experiment_layer_path(dev, card, launches, errs, timing, tr_g, st_g)
+    clock("path N")
     del tr_g, st_g
     swarm_and_zoo_paths(dev, card, launches)
+    clock("paths K-M")
     scene_ingest_path(dev, card, launches)
+    clock("path O")
     policies_path(dev, card, launches)
+    clock("path P")
+    published_results_path(dev, card, launches, q1)
+    clock("path Q")
 
     # 5. one step from the same state, card vs CPU plain path
     out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
@@ -4063,6 +4328,7 @@ def main():
     check(p_l2 <= GRAD_TOL, f"PPO parameters card vs cpu {p_l2} > {GRAD_TOL} (l2)")
 
     noise_phase(dev, card)
+    clock("phase 5")
 
     for mode, n_launch in launches.items():
         check(n_launch > 0, f"no main path launched {mode}")
@@ -4092,10 +4358,12 @@ def main():
                 "knockout B8b with body off "
                 "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
                 "(all others) triangles, at the split the wrapper picks (the diagnostics "
-                "and mx at 1 block a tile); launches add up the depth leg, paths A-P and the "
+                "and mx at 1 block a tile); launches add up the depth leg, paths A-Q and the "
                 "diagnostics (path O: B1, B1-kid on the decomposed habitat scenes, camsoup on "
                 "the exact textured ones, its times in its phase 3 lines; path P: B1 on P1-P5, "
-                "P5's counted in each rank's process and returned); library_ms is null "
+                "P5's counted in each rank's process and returned; path Q: B1 in Q2's "
+                "distillation, 1 + 6 x 96 for the reset and the DAgger collection and 1 + n "
+                "for each of its two evaluations of n steps); library_ms is null "
                 "because no single PyTorch call computes a first hit"}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,10 +33,12 @@ for sub in ("policies.common", "policies.extractors", "policies.networks", "algo
             "utils.profiling", "utils.debug", "utils.path_finder", "utils.sim2real",
             "utils.dataloader", "scene.decompose", "scene.habitat_dataset", "scene.png",
             "policies.torch_backbones", "policies.compact_backbones", "policies.world_model",
-            "policies.autoencoder", "policies.transfer", "parallel", "parallel.mesh"):
+            "policies.autoencoder", "policies.transfer", "parallel", "parallel.mesh",
+            "examples", "examples.reproduce", "examples.distill_vision",
+            "examples.train_imported_mesh", "examples.mesh_assets"):
     assert "visfly_tpu_torch." + sub in names, sub
 import chip_smoke, chip_profile
-banned = ("jax", "jaxlib", "flax", "optax", "visfly_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "visfly_tpu", "examples")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), bad)
 assert not bad, bad
@@ -54,8 +56,9 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    # policies/, the trainers, the zoo, run.py, utils/, the scene ingest, parallel/
-    assert n_modules >= 74, proc.stdout
+    # policies/, the trainers, the zoo, run.py, utils/, the scene ingest, parallel/,
+    # examples/
+    assert n_modules >= 79, proc.stdout
 
 
 def _run_smoke(cwd):

@@ -159,7 +159,7 @@ def test_ownership_rules_and_refusals():
     with pytest.raises(ValueError, match="evenly"):
         make_rank_env(HoverEnv, mesh, 5, **hover())
     shac = SHAC(HoverEnv(num_agent_per_scene=4, requires_grad=True, **hover()), horizon=2)
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(NotImplementedError, match="item 23"):
         shard_train_state(None, mesh, shac)
     rppo = PPO(env, n_steps=4, policy_kwargs={"recurrent": True})
     with pytest.raises(NotImplementedError, match="recurrent"):

@@ -211,10 +211,10 @@ def shard_train_state(st: Any, mesh: Mesh, trainer) -> Any:
 
     if not isinstance(trainer, (BPTT, PPO)):
         raise NotImplementedError(f"{type(trainer).__name__} is not data-parallel; BPTT and "
-                                  "PPO are (ROADMAP Queue A item 22)")
+                                  "PPO are (ROADMAP Queue A item 23)")
     if isinstance(trainer, PPO) and trainer.recurrent:
         raise NotImplementedError("the recurrent PPO policy is not data-parallel "
-                                  "(ROADMAP Queue A item 22)")
+                                  "(ROADMAP Queue A item 23)")
     if trainer.env.global_rows[2] != mesh.size * trainer.env.num_agent:
         raise ValueError("the trainer's env holds no block of a larger env: build it with "
                          "make_rank_env")
