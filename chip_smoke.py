@@ -130,7 +130,27 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   evaluated on the same visual env); Q3 the ``landing2`` and ``racing2`` rows
   through the same ``run_row`` cut to one update (racing2 with both gate
   replays); Q4 ``train_imported_mesh`` on the 24-pillar garage OBJ cut to
-  one update and a 32-step ``TestBase`` evaluation (no camera).
+  one update and a 32-step ``TestBase`` evaluation (no camera);
+- path R, scale-out for the other trainers (``parallel.run_ranks``), at the
+  full width of the repo's YAML files, each leg on two gloo ranks on the one
+  card and on a world-size-1 NCCL group against one process from the same
+  seed: R1 ``SHAC`` with ``alg_cfgs/cluttered_flight/SHAC.yaml`` on path G's
+  env (48 agents, 64×64 depth through B1, H = 32, the CNN), one update; R2
+  ``APG`` with ``alg_cfgs/navigation2/APG.yaml`` on paths H-J's env (96
+  agents), two updates; R3 ``SAC`` with ``alg_cfgs/navigation2/SAC.yaml``
+  (64 agents, ring 500,000, batch 512, 32 gradient steps), two collecting
+  env steps (``learning_starts`` cut to 128), a training step cut to one
+  gradient step (the one checked), then two training steps of 32, each
+  rank's ring bytes beside the one process's; R4 the recurrent policy
+  (``PPO_tuned.yaml`` with ``recurrent: true``) on path G's env, ``n_steps``
+  cut to 32, one update;
+- path S, the debugging and demo scripts, each once through its ``main`` at
+  its defaults, files in a temporary directory: S1 ``debug_obs`` (4 agents,
+  depth, colour and semantic at 64×64, 40 steps, the PNGs and the 480×640
+  top view), S2 ``habitat_dataset_demo`` (the dataset written, 2 decomposed
+  scenes × 4 agents at 32×32 depth, a swap, the grid reload of 2 agents),
+  S3 ``vision_grad_probe`` (16 agents, H = 16, 64×64 depth, both
+  ``grad_collision`` settings).
 
 Phases, one line each; any failure exits non-zero:
 
@@ -245,7 +265,20 @@ Phases, one line each; any failure exits non-zero:
    l2 norm); P4 the policy's mean equal to the actor's pre-tanh mean bitwise,
    ``mlp_vf`` and ``value`` moved; P5 each rank's loss within 1e-5 relative
    of one process's, parameters within 1e-4 in the l2 norm and equal on
-   every rank, positions within 1e-5.
+   every rank, positions within 1e-5; path R the same (the loss within 1e-5
+   relative plus 1e-6, as tests/test_torch_parallel.py holds PPO's metrics:
+   R4's PPO loss is a difference of terms of order 1; R3 after its first
+   training step, of one gradient step: Adam and the bootstrapped targets
+   grow the rounding of the sharded sums at every gradient step, so after
+   the 64 more the loss and parameters are printed beside one process's and
+   the ranks held equal), B1 exactly once a
+   render on each rank (R1 1 + 32, R4 1 + 2 × 32, none on R2 and R3), every
+   tensor of each state on the card, each rank's ring on R3 at most 51% of
+   the one process's; path S: S1 B1 1 + 40 + 1 and B1-kid 2 × (1 + 40 + 1)
+   + 1 (the view), seven files written; S2 B1 once (the reset), the
+   triangle kernel once (the grid reload), the swap changing a scene of the
+   same shape; S3 B1 2 × (1 + 16), every norm finite, the total's positive,
+   the detached query's ``col_dis`` gradient zero.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches in phase 4, error, times and bound; the last line is
@@ -421,6 +454,16 @@ SAC_NAV2_ENV = {"requires_grad": False, "num_agent_per_scene": 64}
 SAC_NAV2 = {"learning_rate": 3.0e-4, "buffer_size": 500000, "batch_size": 512,
             "gradient_steps": 32, "learning_starts": 10000, "tau": 0.005, "gamma": 0.99,
             "policy_kwargs": {"latent_dim": [128, 128]}}
+# path R1: the algorithm and env sections of
+# visfly_tpu/exps/alg_cfgs/cluttered_flight/SHAC.yaml on path G's env
+# (tests/test_torch_parallel_trainers.py holds them equal to the file)
+SHAC_CLUTTERED_ENV = {"requires_grad": True}
+SHAC_CLUTTERED = {"horizon": 32, "learning_rate": 1.0e-3, "policy_kwargs": {
+    "latent_dim": [128, 128], "net_arch": {"depth": {"cnn": 128}, "state": {"mlp": [128, 64]},
+                                           "target": {"mlp": [64]}}}}
+# path R: leg → (the renders B1 makes on a rank, the data-parallel run's cuts)
+R_LEGS = {"R1": 1 + 32, "R2": 0, "R3": 0, "R4": 1 + 2 * 32}
+R_SAC_COLLECT = 2  # collecting steps before R3's training steps (learning_starts 128)
 PATH_D = {
     0: (360, {"depth": "tri_trace_tile_sv", "depth48": "tri_trace_tile_mt"}),
     2: (5760, {"depth": "tri_trace_tile_sv"}),
@@ -3928,6 +3971,230 @@ def published_results_path(dev, card, launches, q1):
     print(f"phase 4 | path Q: {time.perf_counter() - t_path:.1f} s | {card}", flush=True)
 
 
+def r_leg(mesh, name, seed):
+    """Path R's leg ``name`` on ``mesh``'s rank (one process where the mesh
+    is ``_one_rank``'s): R1 SHAC on ``cluttered_flight`` (one update), R2 APG
+    on ``navigation2`` (two, the second timed), R3 SAC on ``navigation2`` (two
+    collecting env steps, one training step cut to one gradient step, then
+    two training steps of the file's 32, the second timed), R4 the recurrent
+    PPO_tuned on ``cluttered_flight`` cut to 32 steps (one update) → loss,
+    parameters and positions after the checked update (R3's first training
+    step; the parameters and loss after its last beside them as ``drift``),
+    ms, launches, ring bytes, whether every tensor of the state is on the
+    card."""
+    import torch
+
+    from visfly_tpu_torch.algos import APG, PPO, SAC, SHAC, buffers
+    from visfly_tpu_torch.envs import NavigationEnv, NavigationEnv2
+    from visfly_tpu_torch.parallel import make_rank_env, shard_train_state
+
+    def env_of(cls, kw):
+        kw = dict(kw)
+        return make_rank_env(cls, mesh, kw.pop("num_agent_per_scene"), device=mesh.device, **kw)
+
+    reset_launches()
+    if name == "R1":
+        tr = SHAC(env_of(NavigationEnv, dict(CLUTTERED_FLIGHT, **SHAC_CLUTTERED_ENV)),
+                  **SHAC_CLUTTERED)
+    elif name == "R2":
+        tr = APG(env_of(NavigationEnv2, NAVIGATION2), **APG_NAV2)
+    elif name == "R3":
+        tr = SAC(env_of(NavigationEnv2, dict(NAVIGATION2, **SAC_NAV2_ENV)),
+                 **dict(SAC_NAV2, learning_starts=R_SAC_COLLECT * SAC_NAV2_ENV[
+                     "num_agent_per_scene"]))
+    else:
+        tr = PPO(env_of(NavigationEnv, CLUTTERED_FLIGHT), **dict(
+            PPO_TUNED, n_steps=32, policy_kwargs=dict(PPO_TUNED["policy_kwargs"],
+                                                      recurrent=True)))
+    st = tr.init(torch.Generator(device=mesh.device).manual_seed(seed))
+    if mesh.size > 1 or mesh.backend == "nccl":
+        st = shard_train_state(st, mesh, tr)
+    nets = [getattr(tr, k) for k in ("actor", "critic", "critic_target", "policy")
+            if getattr(tr, k, None) is not None]
+
+    def params():
+        return torch.cat([p.detach().flatten().cpu() for net in nets for p in net.parameters()]
+                         + ([tr.log_alpha.detach().reshape(1).cpu()] if name == "R3" else []))
+
+    drift = None
+    if name == "R3":
+        for _ in range(R_SAC_COLLECT):
+            st, m = tr.step_and_train(st, train=False)
+        # the checked step: one gradient step from states equal to the one
+        # process's; 64 more steps of Adam and bootstrapped targets grow the
+        # rounding of the sharded sums (PERF.md §6), which "drift" shows
+        tr.gradient_steps = 1
+        st, m = tr.step_and_train(st, train=True)
+        checked = (float(m["critic_loss"]), float(m["grad_norm"]), params(),
+                   st.env_state.dyn.pos.detach().cpu())
+        tr.gradient_steps = SAC_NAV2["gradient_steps"]
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = tr.step_and_train(st, train=True)
+        drift = (float(m["critic_loss"]), params())
+    else:
+        for _ in range(2 if name == "R2" else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = tr.update(st)
+        loss_key = {"R1": "actor_loss", "R2": "loss", "R4": "loss"}[name]
+        checked = (float(m[loss_key]), float(m["grad_norm"]), params(),
+                   st.env_state.dyn.pos.detach().cpu())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    loss, grad_norm, p, pos = checked
+    return {"loss": loss, "grad_norm": grad_norm, "params": p, "pos": pos, "drift": drift,
+            "ms": ms, "launches": all_launches(),
+            "on_card": all(t.device == mesh.device for t in tensors_of(tuple(st))),
+            "ring_bytes": buffers.nbytes(st.buffer) if name == "R3" else 0,
+            "agents": tr.env.num_agent, "device": str(mesh.device)}
+
+
+def r_ranks(mesh, seed):
+    """Path R's legs on one rank, in order."""
+    return {name: r_leg(mesh, name, seed + i) for i, name in enumerate(R_LEGS)}
+
+
+def scale_out_path(dev, card, launches):
+    """Path R: data parallelism for SHAC, APG, SAC and the recurrent PPO at
+    their repo configurations' widths, two gloo ranks on the one card and a
+    world-size-1 NCCL group, each leg against one process from the same seed;
+    adds the launches of every process to ``launches``."""
+    import torch
+
+    from visfly_tpu_torch.parallel import run_ranks
+
+    t_path = time.perf_counter()
+    single = {name: r_leg(_one_rank(dev), name, 370 + i) for i, name in enumerate(R_LEGS)}
+    groups = (("gloo x 2", run_ranks(r_ranks, 2, 370, backend="gloo", device=dev, timeout=600)),
+              ("nccl x 1", run_ranks(r_ranks, 1, 370, backend="nccl", device=dev, timeout=600)))
+    for name, want in single.items():
+        renders = R_LEGS[name]
+        got = {k: v for k, v in want["launches"].items() if v}
+        check(got == ({"trace_analytic": renders} if renders else {}),
+              f"R {name} one process: launches {got}")
+        check(want["on_card"], f"R {name} one process: state tensors off the card")
+        for k, v in want["launches"].items():
+            launches[k] += v
+        for group, legs in groups:
+            outs = [r[name] for r in legs]
+            d_loss = max(abs(o["loss"] - want["loss"]) / abs(want["loss"]) for o in outs)
+            pa = outs[0]["params"]
+            p_l2 = float(torch.linalg.vector_norm(pa - want["params"])
+                         / torch.linalg.vector_norm(want["params"]))
+            d_pos = float((torch.cat([o["pos"] for o in outs]) - want["pos"]).abs().max())
+            same = all(torch.equal(o["params"], pa) for o in outs)
+            for r, o in enumerate(outs):
+                got = {k: v for k, v in o["launches"].items() if v}
+                check(got == ({"trace_analytic": renders} if renders else {}),
+                      f"R {name} {group} rank {r}: launches {got}, {renders} renders")
+                check(o["on_card"], f"R {name} {group} rank {r}: state tensors off the card")
+                for k, v in o["launches"].items():
+                    launches[k] += v
+            ring = ""
+            if name == "R3":
+                d_drift = max(abs(o["drift"][0] - want["drift"][0]) / abs(want["drift"][0])
+                              for o in outs)
+                p_drift = float(torch.linalg.vector_norm(outs[0]["drift"][1] - want["drift"][1])
+                                / torch.linalg.vector_norm(want["drift"][1]))
+                check(all(torch.equal(o["drift"][1], outs[0]["drift"][1]) for o in outs),
+                      f"R3 {group}: the ranks' parameters differ after 65 gradient steps")
+                ring = (f"; after 64 more gradient steps: loss relative difference "
+                        f"{d_drift:.3e}, parameters l2 {p_drift:.3e}, ranks equal; ring bytes a "
+                        f"rank {', '.join(str(o['ring_bytes']) for o in outs)} (one process "
+                        f"{want['ring_bytes']})")
+            print(f"phase 4 | path {name} {group} ({outs[0]['agents']} agents a rank, "
+                  f"{o['device']}): loss relative difference {d_loss:.3e}, parameters l2 "
+                  f"{p_l2:.3e}, positions max |d| {d_pos:.3e}, ranks "
+                  f"{'equal' if same else 'DIFFER'}; {max(o['ms'] for o in outs):.1f} ms "
+                  f"(one process: {want['ms']:.1f}); B1 launches a rank "
+                  f"{outs[0]['launches']['trace_analytic']}{ring} | {card}", flush=True)
+            # PPO's loss is a difference of terms of order 1 (R4: ~1e-2), so its
+            # rounding is held as tests/test_torch_parallel.py holds PPO's metrics
+            check(all(abs(o["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]) + 1e-6
+                      for o in outs), f"R {name} {group}: loss {d_loss} > 1e-5 (+ 1e-6)")
+            check(p_l2 <= GRAD_TOL, f"R {name} {group}: parameters {p_l2} > {GRAD_TOL}")
+            check(d_pos <= 1e-5, f"R {name} {group}: positions {d_pos} > 1e-5")
+            check(same, f"R {name} {group}: the ranks' parameters differ")
+            if name == "R3" and group == "gloo x 2":
+                check(all(o["ring_bytes"] < 0.51 * want["ring_bytes"] for o in outs),
+                      "R3: a rank holds more than its share of the ring and one step")
+    print(f"phase 4 | path R: {time.perf_counter() - t_path:.1f} s | {card}", flush=True)
+
+
+def user_scripts_path(dev, card, launches):
+    """Path S: the debugging and demo scripts, each once through ``main`` as
+    a user runs it, at its defaults, its files in a temporary directory."""
+    import numpy as np
+    import torch
+
+    from visfly_tpu_torch.examples import debug_obs, habitat_dataset_demo, vision_grad_probe
+
+    t_path = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="visfly_scripts_") as tmp:
+        # S1: 4 agents, 3 cameras, 40 steps, the frames and the 480x640 view
+        reset_launches()
+        t0 = time.perf_counter()
+        out = debug_obs.main(["--out", os.path.join(tmp, "obs")], device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        used = {k: v for k, v in all_launches().items() if v}
+        want = {"trace_analytic": 1 + 40 + 1, "trace_analytic_kid": 2 * (1 + 40 + 1) + 1}
+        check(used == want, f"S1 debug_obs: launches {used} != {want}")
+        check(len(out["files"]) == 7 and all(os.path.getsize(f) > 0 for f in out["files"]),
+              "S1: frames not written")
+        check(out["view"].shape == (480, 640, 3) and bool(np.isfinite(out["frames"]["depth"])
+                                                          .all()), "S1: frames malformed")
+        for k, v in used.items():
+            launches[k] += v
+        print(f"phase 4 | path S1 (debug_obs): {used} launches | depth "
+              f"[{out['frames']['depth'].min():.2f}, {out['frames']['depth'].max():.2f}] m, "
+              f"semantic ids {len(np.unique(out['frames']['semantic']))}; {dt:.1f} s | {card}",
+              flush=True)
+
+        # S2: the dataset written, two decomposed scenes (B1), a swap, the grid reload
+        reset_launches()
+        t0 = time.perf_counter()
+        out = habitat_dataset_demo.main([os.path.join(tmp, "habitat")], device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        used = {k: v for k, v in all_launches().items() if v}
+        tri = sum(v for k, v in used.items() if k.startswith("tri_"))
+        check(used.get("trace_analytic") == 1 and tri == 1 and len(used) == 2,
+              f"S2 habitat demo: launches {used}")
+        check(out["same_shape"] and out["changed"], "S2: the swap changed no scene")
+        check(bool(torch.isfinite(out["obs_exact"]["depth"]).all()), "S2: exact depth")
+        for k, v in used.items():
+            launches[k] += v
+        print(f"phase 4 | path S2 (habitat_dataset_demo): {used} launches | "
+              f"{out['env_exact'].scene.triangles.shape[1]} packed triangles, centre depth "
+              f"{float(out['obs_exact']['depth'][0, 0, 16, 16]):.3f} m; {dt:.1f} s | {card}",
+              flush=True)
+
+    # S3: per-term gradient norms, 16 agents, H = 16, 64x64 depth, both settings
+    reset_launches()
+    t0 = time.perf_counter()
+    out = vision_grad_probe.main([], device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    used = {k: v for k, v in all_launches().items() if v}
+    check(used == {"trace_analytic": 2 * (1 + vision_grad_probe.H)},
+          f"S3 vision_grad_probe: launches {used}")
+    for flag, norms in out.items():
+        check(norms["TOTAL"] > 0 and all(math.isfinite(v) for k, v in norms.items()
+                                         if not k.startswith("cos")),
+              f"S3 grad_collision={flag}: norms {norms}")
+    check(out[False]["col_dis"] == 0.0, "S3: a detached query gave col_dis a gradient")
+    for k, v in used.items():
+        launches[k] += v
+    print(f"phase 4 | path S3 (vision_grad_probe): {used} launches | TOTAL "
+          f"{out[False]['TOTAL']:.3e} / {out[True]['TOTAL']:.3e}, col_dis 0 / "
+          f"{out[True]['col_dis']:.3e} (detached / grad_collision); {dt:.1f} s | {card}",
+          flush=True)
+    print(f"phase 4 | path S: {time.perf_counter() - t_path:.1f} s | {card}", flush=True)
+
+
 def _one_rank(dev):
     """The single process's place: no group, one rank."""
     from visfly_tpu_torch.parallel import Mesh
@@ -4277,6 +4544,10 @@ def main():
     clock("path P")
     published_results_path(dev, card, launches, q1)
     clock("path Q")
+    scale_out_path(dev, card, launches)
+    clock("path R")
+    user_scripts_path(dev, card, launches)
+    clock("path S")
 
     # 5. one step from the same state, card vs CPU plain path
     out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
@@ -4358,12 +4629,14 @@ def main():
                 "knockout B8b with body off "
                 "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
                 "(all others) triangles, at the split the wrapper picks (the diagnostics "
-                "and mx at 1 block a tile); launches add up the depth leg, paths A-Q and the "
+                "and mx at 1 block a tile); launches add up the depth leg, paths A-S and the "
                 "diagnostics (path O: B1, B1-kid on the decomposed habitat scenes, camsoup on "
                 "the exact textured ones, its times in its phase 3 lines; path P: B1 on P1-P5, "
                 "P5's counted in each rank's process and returned; path Q: B1 in Q2's "
                 "distillation, 1 + 6 x 96 for the reset and the DAgger collection and 1 + n "
-                "for each of its two evaluations of n steps); library_ms is null "
+                "for each of its two evaluations of n steps; path R: B1 on R1 and R4, counted "
+                "in each process; path S: B1 and B1-kid in debug_obs, B1 and the triangle "
+                "kernel in the habitat demo, B1 in the gradient probe); library_ms is null "
                 "because no single PyTorch call computes a first hit"}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

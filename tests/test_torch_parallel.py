@@ -18,6 +18,7 @@ from visfly_tpu_torch.envs import HoverEnv, MultiNavigationEnv, NavigationEnv
 from visfly_tpu_torch.parallel import (
     Mesh,
     dryrun_multichip,
+    make_mesh,
     make_rank_env,
     run_ranks,
     shard_batch_pytree,
@@ -141,15 +142,17 @@ def test_ppo_sharded_update_matches_unsharded(case):
 def test_dryrun_multichip():
     outs = dryrun_multichip(RANKS, device="cpu", timeout=LIMIT)
     assert len(outs) == RANKS and all(o["visual"]["grad_norm"] > 0 for o in outs)
+    assert all(o["shac"]["grad_norm"] > 0 for o in outs)
 
 
-def test_ownership_rules_and_refusals():
+def test_ownership_rules_and_refusals(tmp_path):
     mesh = Mesh(1, RANKS, "gloo", torch.device("cpu"))  # rules only: no group joined
     env = make_rank_env(HoverEnv, mesh, N, **hover())
     assert env.num_agent == N // 2 and env.global_rows == (N // 2, N, N)
     env = make_rank_env(NavigationEnv, mesh, 4, num_scene=4, **visual_nav())
     assert env.num_scene == 2 and env.global_rows == (8, 16, 16)
     assert env.scene_kwargs["seed"] == 42 + 2  # scenes 2 and 3 of the presets
+    assert env.scene_kwargs["scenes_of"] == (2, 4)  # a rotation moves on by 4 scenes
     with pytest.raises(ValueError, match="evenly"):
         make_rank_env(NavigationEnv, mesh, 4, num_scene=3, **visual_nav())
     with pytest.raises(ValueError, match="whole scenes"):
@@ -158,14 +161,28 @@ def test_ownership_rules_and_refusals():
         make_rank_env(MultiNavigationEnv, mesh, 4, device="cpu")
     with pytest.raises(ValueError, match="evenly"):
         make_rank_env(HoverEnv, mesh, 5, **hover())
-    shac = SHAC(HoverEnv(num_agent_per_scene=4, requires_grad=True, **hover()), horizon=2)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        shard_train_state(None, mesh, shac)
-    rppo = PPO(env, n_steps=4, policy_kwargs={"recurrent": True})
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        shard_train_state(None, mesh, rppo)
+    # every trainer is accepted (SHAC and the recurrent PPO once were refused):
+    # on a group of one rank, its parameters broadcast and its mesh set
+    one = make_mesh(1, 0, f"file://{tmp_path / 'store'}", "gloo")
+    try:
+        shac = SHAC(HoverEnv(num_agent_per_scene=4, requires_grad=True, **hover()), horizon=2)
+        rppo = PPO(HoverEnv(num_agent_per_scene=4, **hover()), n_steps=4,
+                   policy_kwargs={"recurrent": True})
+        for tr in (shac, rppo):
+            st = tr.init()
+            assert shard_train_state(st, one, tr) is st and tr.mesh is one
+    finally:
+        torch.distributed.destroy_process_group()
+
+    class Other:  # a trainer shard_train_state does not know
+        env = make_rank_env(HoverEnv, mesh, N, **hover())
+
+    with pytest.raises(TypeError, match="Other"):
+        shard_train_state(None, mesh, Other())
     with pytest.raises(ValueError, match="make_rank_env"):
         shard_train_state(None, mesh, BPTT(HoverEnv(num_agent_per_scene=4, **hover())))
+    with pytest.raises(ValueError, match="make_rank_env"):
+        shard_train_state(None, mesh, SHAC(HoverEnv(num_agent_per_scene=4, **hover())))
     # the first axis of the batch's length is cut to the rank's block
     tree = {"a": torch.arange(N * 3).reshape(N, 3), "b": torch.zeros(5, N), "c": (1, "x")}
     part = shard_batch_pytree(tree, mesh, N)

@@ -7,6 +7,10 @@ An update rolls the deterministic actor (the squashed mean) out for
 done, then clips to the global norm and steps Adam (``AdamChain``). The
 carried env state and observation are detached between updates. The actor
 lives in ``trainer.actor`` and is updated in place.
+
+Data parallel (``parallel.shard_train_state``): each rank rolls out its block
+of agents, the gradients are averaged over the ranks before the clip (the
+loss is a mean over equal blocks), and the metrics are the global ones.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 from torch import Tensor
 
 from ..envs.base import DroneGymEnv, EnvState
+from ..parallel.mesh import all_reduce_, all_reduce_grads_
 from ..policies.networks import Actor
 from .common import AdamChain, TrainerMixin
 
@@ -56,6 +61,11 @@ class APG(TrainerMixin):
         self.save_path = save_path
         self.policy_kwargs = dict(policy_kwargs or {})
         self.actor = None  # built from the first observation's shapes
+        self.mesh = None  # a parallel.Mesh when data-parallel
+
+    def set_mesh(self, mesh) -> None:
+        """Average gradients and metrics over ``mesh``'s ranks from now on."""
+        self.mesh = mesh
 
     def build(self, obs: Dict[str, Tensor], generator: Optional[torch.Generator] = None):
         """The actor for observations shaped like ``obs`` and its optimiser;
@@ -104,15 +114,17 @@ class APG(TrainerMixin):
         self.optimizer.zero_grad()
         loss, (env_state, obs, rewards) = self._loss(st.env_state, st.obs)
         loss.backward()
+        all_reduce_grads_(self.actor.parameters(), self.mesh, "mean")  # no-op without a mesh
         grad_norm = self.optimizer.step()
-        metrics = {"loss": loss.detach(), "reward_mean": rewards.mean(), "grad_norm": grad_norm}
+        means = all_reduce_(torch.stack([loss.detach(), rewards.mean()]), self.mesh, "mean")
+        metrics = {"loss": means[0], "reward_mean": means[1], "grad_norm": grad_norm}
         return self._state(self.env.detach(env_state), {k: v.detach() for k, v in obs.items()},
-                           st.global_step + self.H * self.env.num_envs), metrics
+                           st.global_step + self.H * self.env.global_rows[2]), metrics
 
     def learn(self, total_timesteps: int, state: Optional[APGState] = None,
               log_interval: int = 10) -> APGState:
         st = self.init() if state is None else state
-        per = self.H * self.env.num_envs
+        per = self.H * self.env.global_rows[2]
         n_updates = max(1, int(total_timesteps) // per)
         t0 = time.time()
         try:

@@ -218,7 +218,7 @@ class BPTT(TrainerMixin):
     ) -> BPTTState:
         st = self.init() if state is None else state
         logger = self.make_logger(log_dir)
-        steps_per_update = self.H * self.env.num_envs
+        steps_per_update = self.H * self.env.global_rows[2]
         n_updates = max(1, int(total_timesteps) // steps_per_update)
         t0 = time.time()
         try:

@@ -32,14 +32,14 @@ The policy lives in ``trainer.policy`` and is updated in place;
 permutation (n_epochs, n_steps·N; of the N agents when recurrent) as optional
 arguments, so that a test can feed both packages the same draws.
 
-Data parallel (``parallel.shard_train_state``, the flat policy): each rank
+Data parallel (``parallel.shard_train_state``, either policy): each rank
 rolls out its block of agents with the whole batch's action noise sliced to
-it; the epochs draw one permutation of the whole batch, and each rank trains
-on the part of a minibatch that falls in its block, normalising advantages
-with the minibatch's global mean and standard deviation (two all-reduces);
-its loss is its share of the minibatch mean, the gradients are summed over
-the ranks before the clip, the ``target_kl`` test reads the global KL, and
-the episode window is kept whole on every rank.
+it; the epochs draw one permutation of the whole batch (of its agents when
+recurrent), and each rank trains on the part of a minibatch that falls in its
+block, normalising advantages with the minibatch's global mean and standard
+deviation (two all-reduces); its loss is its share of the minibatch mean, the
+gradients are summed over the ranks before the clip, the ``target_kl`` test
+reads the global KL, and the episode window is kept whole on every rank.
 """
 from __future__ import annotations
 
@@ -400,21 +400,25 @@ class PPO(TrainerMixin):
         return stats, norms
 
     def _train_recurrent(self, gen, h0, tape, advantages, returns, perms=None):
-        """Minibatches of whole sequences over the agent axis; each replays
-        the GRU from the rollout's first hidden state ``h0``, zeroing it at
-        the recorded dones."""
+        """Minibatches of whole sequences over the agent axis of the whole
+        batch's permutation; the minibatch's agents that this env holds (all
+        of them without a mesh) replay the GRU from the rollout's first hidden
+        state ``h0``, zeroing it at the recorded dones, with the minibatch's
+        global advantage statistics."""
         b_obs, b_act, b_logp, b_val = tape[:4]
         b_done = tape[6]
-        n_env = self.env.num_envs
-        mb_agents = n_env // self.n_minibatches
+        lo, hi, n_global = self.env.global_rows
+        mb_agents = n_global // self.n_minibatches
+        n_mb = self.n_steps * mb_agents
         cont, stats, norms = True, [], []
         for epoch in range(self.n_epochs):
-            perm = self._permutation(gen, n_env, perms, epoch)
+            perm = self._permutation(gen, n_global, perms, epoch)
             for idx in perm[: self.n_minibatches * mb_agents].reshape(self.n_minibatches,
                                                                       mb_agents):
+                if hi - lo < n_global:  # the agents this rank holds (a host sync)
+                    idx = idx[(idx >= lo) & (idx < hi)] - lo
                 mb_obs = {k: v[:, idx] for k, v in b_obs.items()}
                 mb_done = b_done[:, idx].to(h0.dtype)
-                n_mb = self.n_steps * mb_agents
                 mb_adv = self._normalize(advantages[:, idx], n_mb)
 
                 def loss_fn(mb_obs=mb_obs, idx=idx, mb_done=mb_done, mb_adv=mb_adv, n_mb=n_mb):
@@ -475,7 +479,7 @@ class PPO(TrainerMixin):
               eval_interval: int = 0) -> PPOState:
         st = self.init() if state is None else state
         logger = self.make_logger(log_dir)
-        per = self.n_steps * self.env.num_envs
+        per = self.n_steps * self.env.global_rows[2]
         n_updates = max(1, int(total_timesteps) // per)
         t0 = time.time()
         try:

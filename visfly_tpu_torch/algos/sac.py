@@ -25,6 +25,14 @@ as an optional dict, so that a test can feed both packages the same ones:
 ``"action"`` (N, A), and per gradient step ``"index"`` (G, batch),
 ``"next"`` and ``"pi"`` (G, batch, A), the noise of the target's and of the
 actor loss's actions.
+
+Data parallel (``parallel.shard_train_state``): each rank steps its block of
+agents with the whole batch's action noise sliced to it and stores only its
+agents' transitions, in a ring that keeps the one process's global positions
+(``buffers.create(rows=...)``). Every rank draws the same global rows and
+per-sample noise, computes each loss on the rows it holds, divided by the
+global batch size, and the gradients are summed over the ranks before each
+optimiser step; the metrics are the global ones.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 from torch import Tensor
 
 from ..envs.base import DroneGymEnv, EnvState
+from ..parallel.mesh import all_reduce_, all_reduce_grads_
 from ..policies.networks import Actor, QCritic
 from . import buffers
 from .common import AdamChain, TrainerMixin, frozen_copy, polyak_
@@ -84,7 +93,7 @@ class SAC(TrainerMixin):
         gs = int(gradient_steps)
         if gs < -1:
             raise ValueError(f"gradient_steps must be >= -1, got {gs}")
-        self.gradient_steps = env.num_envs if gs == -1 else gs
+        self.gradient_steps = env.global_rows[2] if gs == -1 else gs
         self.learning_starts = int(learning_starts)
         self.auto_ent = ent_coef == "auto"
         self.target_entropy = -float(env.action_size)
@@ -96,6 +105,11 @@ class SAC(TrainerMixin):
         env.terminal_obs_in_info = True
         self.policy_kwargs = dict(policy_kwargs or {})
         self.actor = self.critic = self.critic_target = self.log_alpha = None
+        self.mesh = None  # a parallel.Mesh when data-parallel
+
+    def set_mesh(self, mesh) -> None:
+        """Sum gradients and metrics over ``mesh``'s ranks from now on."""
+        self.mesh = mesh
 
     def build(self, obs: Dict[str, Tensor], generator: Optional[torch.Generator] = None):
         """Actor, twin critic, target critic and ``log_alpha`` (0) for
@@ -134,17 +148,33 @@ class SAC(TrainerMixin):
             gen = torch.Generator(device=dev).manual_seed(self.seed)
         env_state, obs = self.env.reset(gen)
         self.build(obs)
-        buf = buffers.create(self.buffer_size, obs, self.env.action_size)
+        buf = buffers.create(self.buffer_size, obs, self.env.action_size,
+                             rows=self.env.global_rows)
         return self._state(buf, env_state, obs, torch.Generator(device=dev).manual_seed(
             self.seed + 1), 0)
 
+    def _draws(self, buf, gen, draws, g: int):
+        """Gradient step ``g``'s sample indices, then the target's and the
+        actor loss's action noise, (batch, A) each: from ``draws`` or from
+        ``gen``, in the order the actor would draw them."""
+        if draws is not None:
+            return draws["index"][g], draws["next"][g], draws["pi"][g]
+        idx = buffers.sample_indices(buf, gen, self.batch_size)
+        shape = (self.batch_size, self.env.action_size)
+        return (idx, *(torch.randn(shape, generator=gen, dtype=torch.float32,
+                                   device=idx.device) for _ in range(2)))
+
     def _gradient_step(self, buf, gen, draws, g: int):
         """One critic, actor, temperature and target step on a fresh sample
-        → (critic loss, actor loss, the actor's gradient norm)."""
-        idx = None if draws is None else draws["index"][g]
-        b_obs, b_next, b_act, b_rew, b_done = buffers.sample(buf, gen, self.batch_size, idx)
-        eps_next = None if draws is None else draws["next"][g]
-        eps_pi = None if draws is None else draws["pi"][g]
+        → (critic loss, actor loss, the actor's gradient norm). Each loss is
+        the sum over the sample's rows this rank holds over the batch size,
+        so that the ranks' gradients sum to the whole sample's."""
+        idx, eps_next, eps_pi = self._draws(buf, gen, draws, g)
+        mine, rows = buffers.held(buf, idx)
+        b_obs, b_next, b_act, b_rew, b_done = buffers.take(buf, rows)
+        if mine is not None:
+            eps_next, eps_pi = eps_next[mine], eps_pi[mine]
+        n = self.batch_size
         alpha = torch.exp(self.log_alpha.detach())
         with torch.no_grad():
             next_a, next_logp = self.actor(b_next, gen, noise=eps_next)
@@ -152,32 +182,39 @@ class SAC(TrainerMixin):
             target_q = b_rew + self.gamma * (~b_done) * (q_next.min(dim=-1).values
                                                           - alpha * next_logp)
         self.critic_opt.zero_grad()
-        c_loss = torch.mean((self.critic(b_obs, b_act) - target_q[:, None]) ** 2)
+        q = self.critic(b_obs, b_act)
+        c_loss = ((q - target_q[:, None]) ** 2).sum() / (n * q.shape[-1])
         c_loss.backward()
+        all_reduce_grads_(self.critic.parameters(), self.mesh)  # no-op without a mesh
         self.critic_opt.step()
 
         self.actor_opt.zero_grad()
         a, logp = self.actor(b_obs, gen, noise=eps_pi)
         # the loss reaches the critic's parameters too; only the actor steps,
         # and the critic's next step starts from zeroed gradients
-        a_loss = torch.mean(alpha * logp - self.critic(b_obs, a).min(dim=-1).values)
+        a_loss = (alpha * logp - self.critic(b_obs, a).min(dim=-1).values).sum() / n
         a_loss.backward()
+        all_reduce_grads_(self.actor.parameters(), self.mesh)
         a_norm = self.actor_opt.step()
 
         if self.auto_ent:
             self.alpha_opt.zero_grad()
-            alpha_loss = -torch.mean(self.log_alpha * (logp.detach() + self.target_entropy))
+            alpha_loss = -(self.log_alpha * (logp.detach() + self.target_entropy)).sum() / n
             alpha_loss.backward()
+            all_reduce_grads_([self.log_alpha], self.mesh)
             self.alpha_opt.step()
         polyak_(self.critic_target, self.critic, self.tau)
-        return c_loss.detach(), a_loss.detach(), a_norm
+        losses = all_reduce_(torch.stack([c_loss.detach(), a_loss.detach()]), self.mesh)
+        return losses[0], losses[1], a_norm
 
     def step_and_train(self, st: SACState, train: bool, draws: Optional[dict] = None
                        ) -> Tuple[SACState, Dict[str, Tensor]]:
         """One env step of every agent and the transitions stored; with
         ``train``, ``gradient_steps`` gradient steps after them."""
         with torch.no_grad():
-            eps = None if draws is None else draws["action"]
+            # the whole batch's draw, sliced where the env is a rank's block
+            eps = (self.env._rows_draw(torch.randn, st.gen, (self.env.action_size,),
+                                       torch.float32) if draws is None else draws["action"])
             action, _ = self.actor(st.obs, st.gen, noise=eps)
             action = torch.clamp(action, -1.0, 1.0)
             env_state, out = self.env.step(st.env_state, action)
@@ -186,7 +223,7 @@ class SAC(TrainerMixin):
             next_obs = {k: torch.where(out.done.reshape((-1,) + (1,) * (v.dim() - 1)),
                                        term_obs[k], v) for k, v in out.obs.items()}
             buf = buffers.insert(st.buffer, st.obs, next_obs, action, out.reward, terminal)
-        metrics = {"reward_mean": out.reward.mean(),
+        metrics = {"reward_mean": all_reduce_(out.reward.mean(), self.mesh, "mean"),
                    "critic_loss": out.reward.new_zeros(()),
                    "actor_loss": out.reward.new_zeros(()),
                    "alpha": torch.exp(self.log_alpha.detach())}
@@ -197,21 +234,21 @@ class SAC(TrainerMixin):
                            alpha=torch.exp(self.log_alpha.detach()), grad_norm=a_norm)
         obs = {k: v.detach() for k, v in out.obs.items()}
         return self._state(buf, env_state, obs, st.gen,
-                           st.global_step + self.env.num_envs), metrics
+                           st.global_step + self.env.global_rows[2]), metrics
 
     def learn(self, total_timesteps: int, state: Optional[SACState] = None,
               log_interval: int = 500) -> SACState:
         st = self.init() if state is None else state
-        n_steps = max(1, int(total_timesteps) // self.env.num_envs)
+        n_env = self.env.global_rows[2]
+        n_steps = max(1, int(total_timesteps) // n_env)
         t0 = time.time()
         try:
             for i in range(n_steps):
-                train = (i * self.env.num_envs) >= self.learning_starts and (
-                    i % self.train_freq == 0)
+                train = (i * n_env) >= self.learning_starts and (i % self.train_freq == 0)
                 st, metrics = self.step_and_train(st, train)
                 if log_interval and (i % log_interval == 0 or i == n_steps - 1):
                     m = {k: float(v) for k, v in metrics.items()}
-                    fps = (i + 1) * self.env.num_envs / max(time.time() - t0, 1e-9)
+                    fps = (i + 1) * n_env / max(time.time() - t0, 1e-9)
                     print(f"[SAC] step {i + 1}/{n_steps} r̄={m['reward_mean']:.4f} "
                           f"c_loss={m['critic_loss']:.4f} α={m['alpha']:.3f} fps={fps:.0f}",
                           flush=True)

@@ -23,6 +23,13 @@ The networks live in ``trainer.actor``, ``trainer.critic`` and
 ``trainer.critic_target`` and are updated in place. ``update`` takes the
 rollout's action noise as an optional argument, (2, H, N, A): the action's
 noise and the bootstrap action's noise of each step.
+
+Data parallel (``parallel.shard_train_state``): each rank rolls out its block
+of agents with the whole batch's action noise sliced to it; the actor's
+gradient is averaged over the ranks before the clip, and so is each critic
+step's over the flattened H × N batch (equal blocks), so the critic, its
+target and their optimisers stay equal on every rank; the TD(λ) targets are
+per agent and stay local, and the metrics are the global ones.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from torch import Tensor
 
 from ..envs.base import DroneGymEnv, EnvState
+from ..parallel.mesh import all_reduce_, all_reduce_grads_
 from ..policies.networks import Actor, QCritic
 from .common import AdamChain, TrainerMixin, frozen_copy, polyak_
 from .returns import compute_td_returns
@@ -83,6 +91,11 @@ class SHAC(TrainerMixin):
         self.save_path = save_path
         self.policy_kwargs = dict(policy_kwargs or {})
         self.actor = self.critic = self.critic_target = None  # built from the first obs
+        self.mesh = None  # a parallel.Mesh when data-parallel
+
+    def set_mesh(self, mesh) -> None:
+        """Average gradients and metrics over ``mesh``'s ranks from now on."""
+        self.mesh = mesh
 
     def build(self, obs: Dict[str, Tensor], generator: Optional[torch.Generator] = None):
         """Actor, twin critic and target critic for observations shaped like
@@ -136,8 +149,12 @@ class SHAC(TrainerMixin):
         discount = torch.ones((n,), dtype=torch.float32, device=dev)
         loss = torch.zeros((n,), dtype=torch.float32, device=dev)
         tape = []
+        # the whole batch's draws, sliced where the env is a rank's block
+        def draw():
+            return env._rows_draw(torch.randn, gen, (env.action_size,), torch.float32)
+
         for i in range(self.H):
-            eps, eps_next = (None, None) if noise is None else (noise[0, i], noise[1, i])
+            eps = draw() if noise is None else noise[0, i]
             action, _ = self.actor(obs, gen, noise=eps)
             action = torch.clamp(action, -1.0, 1.0)
             env_state, out = env.step(env_state, action)
@@ -145,6 +162,7 @@ class SHAC(TrainerMixin):
             episode_done = out.info["episode_done"]
             with torch.no_grad():
                 next_obs = {k: v.detach() for k, v in out.obs.items()}
+                eps_next = draw() if noise is None else noise[1, i]
                 next_action, _ = self.actor(next_obs, gen, noise=eps_next)
                 q = self.critic_target(next_obs, torch.clamp(next_action, -1.0, 1.0))
                 next_values = q.min(dim=-1).values
@@ -169,6 +187,7 @@ class SHAC(TrainerMixin):
         self.actor_opt.zero_grad()
         actor_loss, (env_state, obs, tape) = self._rollout(st.env_state, st.obs, st.gen, noise)
         actor_loss.backward()
+        all_reduce_grads_(self.actor.parameters(), self.mesh, "mean")  # no-op without a mesh
         grad_norm = self.actor_opt.step()
         env_state = self.env.detach(env_state)
         obs = {k: v.detach() for k, v in obs.items()}
@@ -184,23 +203,26 @@ class SHAC(TrainerMixin):
             values = self.critic(flat_obs, flat_act).min(dim=-1).values
             critic_loss = torch.mean((flat_ret - values) ** 2)
             critic_loss.backward()
+            all_reduce_grads_(self.critic.parameters(), self.mesh, "mean")
             self.critic_opt.step()
             polyak_(self.critic_target, self.critic, self.tau)
 
+        means = all_reduce_(torch.stack([actor_loss.detach(), critic_loss.detach(), b_rew.mean(),
+                                         b_succ.float().mean()]), self.mesh, "mean")
         metrics = {
-            "actor_loss": actor_loss.detach(),
-            "critic_loss": critic_loss.detach(),
-            "reward_mean": b_rew.mean(),
-            "success_rate": b_succ.float().mean(),
+            "actor_loss": means[0],
+            "critic_loss": means[1],
+            "reward_mean": means[2],
+            "success_rate": means[3],
             "grad_norm": grad_norm,
         }
         return self._state(env_state, obs, st.gen,
-                           st.global_step + self.H * self.env.num_envs), metrics
+                           st.global_step + self.H * self.env.global_rows[2]), metrics
 
     def learn(self, total_timesteps: int, state: Optional[SHACState] = None,
               log_interval: int = 10) -> SHACState:
         st = self.init() if state is None else state
-        per = self.H * self.env.num_envs
+        per = self.H * self.env.global_rows[2]
         n_updates = max(1, int(total_timesteps) // per)
         t0 = time.time()
         try:

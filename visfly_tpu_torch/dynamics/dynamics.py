@@ -101,15 +101,23 @@ def reset(
     thrusts: Optional[Tensor] = None,
     t: Optional[Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    rows: Optional[Tuple[int, int, int]] = None,
 ) -> DynState:
     """Masked reset. ``mask`` (N,) bool selects the agents to reset; None
     resets all. A partial reset with a ``generator`` and no ``t`` draws the
     clock from ``U[0, 2·3.14)``; a full reset uses t = 0. With
     ``config.drag_random > 0`` a reset with a ``generator`` draws each reset
     agent's drag coefficients, ``mean · (clip((U − 0.5)·2·drag_random, −0.5,
-    0.5) + 1)``, linear then quadratic, after the clock."""
+    0.5) + 1)``, linear then quadratic, after the clock. Where the state is
+    the block ``rows`` = (start, stop, n) of n agents, each draw is the n
+    agents', sliced."""
     num = state.pos.shape[0]
     dtype, dev = state.pos.dtype, state.pos.device
+    lo, hi, n_draw = (0, num, num) if rows is None else rows
+
+    def draw(*tail):
+        return torch.rand((n_draw, *tail), generator=generator, dtype=dtype,
+                          device=dev)[lo:hi]
     full = mask is None
     if full:
         mask = torch.ones((num,), dtype=torch.bool, device=dev)
@@ -130,16 +138,14 @@ def reset(
         if full or generator is None:
             new_t = torch.zeros_like(state.t)
         else:
-            new_t = torch.rand((num,), generator=generator, dtype=dtype,
-                               device=dev) * 3.14 * 2
+            new_t = draw() * 3.14 * 2
     else:
         new_t = t
 
     linear_drag, quad_drag = state.linear_drag, state.quad_drag
     if config.drag_random and isinstance(linear_drag, Tensor) and generator is not None:
         def rand_coeffs(mean):
-            u = (torch.rand((num, 3), generator=generator, dtype=dtype, device=dev) - 0.5
-                 ) * 2 * config.drag_random
+            u = (draw(3) - 0.5) * 2 * config.drag_random
             return mean * (torch.clamp(u, -0.5, 0.5) + 1.0)
 
         linear_drag = pick(rand_coeffs(params.linear_drag_coeffs), linear_drag)

@@ -50,7 +50,8 @@ detached, to ``info["terminal_observation"]``; on a visual env it costs a
 second render a step, before the auto-reset. IMU noise
 (``random_kwargs["noise_kwargs"]["IMU"]``) is drawn from ``EnvState.gen``
 at every state observation. A reward returned as a dict (``{"reward": total,
-term: value, ...}``) logs each term as ``info["extra_<term>"]``.
+term: value, ...}``) logs each term as ``info["extra_<term>"]``, differentiable
+where the reward is.
 
 Gradients: with ``requires_grad=True`` a step is differentiable from the
 action and the carried state to ``obs`` and ``reward`` (through the dynamics,
@@ -259,8 +260,8 @@ class DroneGymEnv:
 
         # rows (start, stop, n) of an env of n agents that this env holds
         # (all of its own unless ``parallel.make_rank_env`` set a block of a
-        # larger one): spawns, reset clocks and IMU noise are drawn for all n
-        # agents and sliced
+        # larger one): spawns, reset clocks, drag, IMU, sensor and world-model
+        # noise are drawn for all n agents and sliced
         self.global_rows: Tuple[int, int, int] = (0, self.num_agent, self.num_agent)
 
         self.world = None
@@ -290,8 +291,12 @@ class DroneGymEnv:
         deter, stoch = (torch.where(done[:, None], torch.zeros_like(x), x) for x in latent)
         if self.world is None:
             return deter, stoch
+        # the prior's noise, then the posterior's, as the model draws them:
+        # the whole batch's draws, sliced where the env is a block of a larger one
+        dim, dtype = self.world.sequence.stoch_dim, next(self.world.parameters()).dtype
+        noise = tuple(self._rows_draw(torch.randn, gen, (dim,), dtype) for _ in range(2))
         with torch.set_grad_enabled(self.requires_grad and torch.is_grad_enabled()):
-            stoch, deter = self.world.step(action, stoch, deter, obs, gen)
+            stoch, deter = self.world.step(action, stoch, deter, obs, noise=noise)
         return deter.to(self.dtype), stoch.to(self.dtype)
 
     def _attach_latent_obs(self, obs: Dict[str, Tensor], latent) -> Dict[str, Tensor]:
@@ -570,7 +575,7 @@ class DroneGymEnv:
             "episode_length": step_count,
             "episode_time": step_count.to(self.dtype) * self.dyn_config.ctrl_dt,
             "collision": once,
-            **{f"extra_{k}": v.detach() for k, v in indiv.items()},
+            **{f"extra_{k}": v if self.requires_grad else v.detach() for k, v in indiv.items()},
         }
         st = st._replace(returns=returns, episode_done=episode_done)
         if self.terminal_obs_in_info:
@@ -611,7 +616,8 @@ class DroneGymEnv:
         pos, q, vel, omega = (x.detach() for x in self._spawn(st.gen))
         clock = self._rows_draw(torch.rand, st.gen, (), st.dyn.pos.dtype) * 3.14 * 2
         dyn = dyn_mod.reset(self.dyn_config, self.params, st.dyn, mask=done, pos=pos, ori=q,
-                            vel=vel, ori_vel=omega, t=clock, generator=st.gen)
+                            vel=vel, ori_vel=omega, t=clock, generator=st.gen,
+                            rows=self.global_rows)
         return self._reset_masked(st, done, dyn)
 
     def _reset_masked(self, st: EnvState, mask: Tensor, dyn: DynState) -> EnvState:
@@ -648,14 +654,16 @@ class DroneGymEnv:
 
     def reset_scenes(self, state: Optional[EnvState] = None) -> Optional[EnvState]:
         """Scene rotation: the next scenes of the env's source (a preset's
-        next seeds, as ``scene_kwargs["seed"]`` advances by ``num_scene``; a
+        next seeds, as ``scene_kwargs["seed"]`` advances by the scene count,
+        the larger env's where this env holds some of its scenes; a
         dataset's next files from its loader) and, given a state, every agent
         respawned in them. A primitive scene keeps at least its rows."""
         if self.scene is None:
             return state
         from ..scene import load_scenes_for_env
 
-        self.scene_kwargs["seed"] = self.scene_kwargs.get("seed", self.seed) + self.num_scene
+        total = self.scene_kwargs.get("scenes_of", (0, self.num_scene))[1]
+        self.scene_kwargs["seed"] = self.scene_kwargs.get("seed", self.seed) + total
         self.scene = load_scenes_for_env(self)
         self.bbox = self.scene.bbox
         if state is None:

@@ -10,22 +10,29 @@ the agents of one larger env (``env.global_rows``):
   otherwise the one scene's agents are split, which is refused for envs
   whose agents of a scene are coupled (the swarm envs aggregate done and
   success per scene, ``envs/multi.py``);
-* **draws**: the env's spawns, reset clocks, IMU noise and ``CatchEnv``'s
-  balls, and the trainers' action noise and minibatch permutations, are drawn as the one larger env
-  and trainer would draw them, from generators seeded alike on every rank,
-  and sliced; so the ranks together compute what one process computes
-  (sensor noise, ``drag_random`` and a world model's posterior noise are
-  drawn per rank, so an env with them trains alike but not to the bit);
+* **draws**: every draw of the env (spawns, reset clocks, ``drag_random``,
+  IMU and sensor noise, a world model's prior and posterior noise,
+  ``CatchEnv``'s balls) and of the trainers (action noise, minibatch
+  permutations, SAC's sample indices and per-sample noise) is made as the
+  one larger env and trainer would make it, from generators seeded alike on
+  every rank, and sliced to the rank's rows; so the ranks together compute
+  what one process computes, up to float reassociation;
+* **scenes**: a rank that owns whole scenes gets a preset's seeds or a
+  dataset's files as the larger env would put them at those indices, at
+  every rotation too;
 * **parameters** are broadcast from rank 0 (``shard_train_state``);
-* **gradients** are all-reduced before the global-norm clip: BPTT's as a
-  mean (its loss is a mean over equal shards), PPO's as a sum of each
-  rank's share of the minibatch mean, since a minibatch drawn over the whole
-  batch falls unevenly on the ranks; PPO normalises advantages with the
+* **gradients** are all-reduced before the global-norm clip: as a mean where
+  the loss is a mean over equal shards (BPTT, APG, SHAC's actor and each of
+  its critic steps over the flattened H × N batch), as a sum of each rank's
+  share of a minibatch's mean where a minibatch drawn over the whole batch
+  falls unevenly on the ranks (PPO, flat or recurrent; SAC's critic, actor
+  and temperature, each rank holding its agents' part of one global replay
+  ring, ``algos/buffers.py``); PPO normalises advantages with the
   minibatch's global mean and standard deviation and stops on the global
   KL; every metric is the global one.
 
-BPTT and PPO are data-parallel; ``shard_train_state`` refuses the other
-trainers and the recurrent PPO policy. The backend is an argument: ``"nccl"``
+Every trainer of ``algos/`` is data-parallel (``shard_train_state`` raises
+for a trainer it does not know). The backend is an argument: ``"nccl"``
 where each rank has a card of its own (rank r on ``cuda:r``), ``"gloo"`` on
 the CPU or for several ranks on one card (NCCL refuses two ranks on one
 device). :func:`run_ranks` starts the ranks as processes that meet through a
@@ -86,8 +93,10 @@ def make_rank_env(env_cls, mesh: Mesh, num_agent_per_scene: int = 1, num_scene: 
                   **kwargs):
     """This rank's env of ``env_cls(num_agent_per_scene, num_scene,
     **kwargs)``: whole scenes where there are at least as many scenes as
-    ranks, else a slice of the one scene's agents (refused for the swarm
-    envs, whose agents of a scene are coupled)."""
+    ranks (a preset's seeded as the larger env seeds them, a dataset's the
+    files its loader would put at those indices, at every rotation too),
+    else a slice of the one scene's agents (refused for the swarm envs, whose
+    agents of a scene are coupled)."""
     from ..envs.multi import MultiDroneGymEnv
     from ..scene.habitat_dataset import is_habitat_scene_path
 
@@ -95,12 +104,14 @@ def make_rank_env(env_cls, mesh: Mesh, num_agent_per_scene: int = 1, num_scene: 
     if S >= W:
         lo_scene, hi_scene = rows_of(mesh, S)
         scene_kw = dict(kwargs.get("scene_kwargs") or {})
-        path = str(scene_kw.get("path", ""))
-        if lo_scene and path and (os.path.isdir(path) or is_habitat_scene_path(path)):
-            raise NotImplementedError("a dataset's scenes come from its loader in order; "
-                                      "ranks owning scenes of a dataset are not supported")
-        if lo_scene and "data" not in scene_kw:
-            scene_kw["seed"] = scene_kw.get("seed", kwargs.get("seed", 42)) + lo_scene
+        if W > 1 and "data" not in scene_kw:
+            path = str(scene_kw.get("path", ""))
+            dataset = bool(path) and (os.path.isdir(path) or is_habitat_scene_path(path))
+            if lo_scene and not dataset:  # a preset's scene i has the seed seed + i
+                scene_kw["seed"] = scene_kw.get("seed", kwargs.get("seed", 42)) + lo_scene
+            # a dataset's loader deals each batch of S files out by scene index,
+            # and a rotation moves on by S scenes
+            scene_kw["scenes_of"] = (lo_scene, S)
             kwargs["scene_kwargs"] = scene_kw
         env = env_cls(num_agent_per_scene=A, num_scene=hi_scene - lo_scene, **kwargs)
         lo = lo_scene * A
@@ -134,13 +145,23 @@ def all_reduce_(x: Tensor, mesh: Optional[Mesh], op: str = "sum") -> Tensor:
 
 def all_reduce_grads_(params, mesh: Optional[Mesh], op: str = "sum") -> None:
     """Every parameter's gradient reduced over the ranks, flattened into one
-    collective."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if mesh is None or not grads:
+    collective. A parameter that has no gradient on this rank (its share of
+    a batch was empty) adds zeros, and has the reduced gradient afterwards
+    wherever some rank had one."""
+    params = list(params)
+    if mesh is None or not params:
         return
-    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh, op)
-    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(part.view_as(g))
+    had = [p.grad is not None for p in params]
+    parts = [(p.grad if h else torch.zeros_like(p)).reshape(-1) for p, h in zip(params, had)]
+    flat = torch.cat(parts + [parts[0].new_tensor(had)])
+    flat = all_reduce_(flat, mesh, op)
+    n = len(params)
+    for p, part, some in zip(params, flat[:-n].split([p.numel() for p in params]),
+                             flat[-n:].tolist()):
+        if some:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            p.grad.copy_(part.view_as(p))
 
 
 def gather_rows(x: Tensor, rows: Tuple[int, int, int], mesh: Optional[Mesh]) -> Tensor:
@@ -201,24 +222,24 @@ def replicate_pytree(tree: Any, mesh: Mesh) -> Any:
 
 
 def shard_train_state(st: Any, mesh: Mesh, trainer) -> Any:
-    """Make ``trainer`` (a BPTT or PPO over a ``make_rank_env`` env, whose
-    state ``st`` is already this rank's block of the larger env's) data
-    parallel over ``mesh``: the parameters broadcast from rank 0, the
-    gradients and metrics reduced over the ranks from now on. Returns the
-    state."""
-    from ..algos.bptt import BPTT
-    from ..algos.ppo import PPO
+    """Make ``trainer`` (a BPTT, PPO, SHAC, APG or SAC over a
+    ``make_rank_env`` env, whose state ``st`` is already this rank's block of
+    the larger env's) data parallel over ``mesh``: every parameter set of the
+    state (the actor or policy, a critic and its target, SAC's ``log_alpha``)
+    broadcast from rank 0, the gradients and metrics reduced over the ranks
+    from now on. Returns the state."""
+    from ..algos import APG, BPTT, PPO, SAC, SHAC
 
-    if not isinstance(trainer, (BPTT, PPO)):
-        raise NotImplementedError(f"{type(trainer).__name__} is not data-parallel; BPTT and "
-                                  "PPO are (ROADMAP Queue A item 23)")
-    if isinstance(trainer, PPO) and trainer.recurrent:
-        raise NotImplementedError("the recurrent PPO policy is not data-parallel "
-                                  "(ROADMAP Queue A item 23)")
+    if not isinstance(trainer, (BPTT, PPO, SHAC, APG, SAC)):
+        raise TypeError(f"{type(trainer).__name__} is not a trainer shard_train_state knows: "
+                        "BPTT, PPO, SHAC, APG and SAC are")
     if trainer.env.global_rows[2] != mesh.size * trainer.env.num_agent:
         raise ValueError("the trainer's env holds no block of a larger env: build it with "
                          "make_rank_env")
-    replicate_pytree(list(st.params.values()), mesh)
+    params = [list(getattr(st, f).values()) for f in st._fields if f.endswith("params")]
+    if isinstance(trainer, SAC):
+        params.append(st.log_alpha)
+    replicate_pytree(params, mesh)
     trainer.set_mesh(mesh)
     return st
 
@@ -268,13 +289,13 @@ def run_ranks(fn: Callable, world_size: int, *args, backend: str = "gloo", devic
 def dryrun_multichip(n_devices: int, backend: str = "gloo", device=None,
                      timeout: float = 600.0) -> List[dict]:
     """The counterpart of ``__graft_entry__.dryrun_multichip``: one BPTT
-    update of ``HoverEnv`` (4 agents a rank, H = 4) and one of a visual
-    ``NavigationEnv`` (2 agents a rank, 16×16 depth, H = 3) over
-    ``n_devices`` ranks; each loss finite, each gradient non-zero, and the
-    parameters after the update equal on every rank. Returns each rank's
-    metrics."""
+    update of ``HoverEnv`` (4 agents a rank, H = 4), one of a visual
+    ``NavigationEnv`` (2 agents a rank, 16×16 depth, H = 3) and one SHAC
+    update of the ``HoverEnv`` (H = 4, 2 critic steps) over ``n_devices``
+    ranks; each loss finite, each gradient non-zero, and the parameters
+    after the update equal on every rank. Returns each rank's metrics."""
     outs = run_ranks(_dryrun_rank, n_devices, backend=backend, device=device, timeout=timeout)
-    for name in ("hover", "visual"):
+    for name in ("hover", "visual", "shac"):
         for o in outs:
             m = o[name]
             if not (torch.isfinite(torch.tensor(m["loss"])) and m["grad_norm"] > 0):
@@ -285,7 +306,7 @@ def dryrun_multichip(n_devices: int, backend: str = "gloo", device=None,
 
 
 def _dryrun_rank(mesh: Mesh) -> dict:
-    from ..algos import BPTT
+    from ..algos import BPTT, SHAC
     from ..envs import HoverEnv, NavigationEnv
 
     out = {}
@@ -300,11 +321,14 @@ def _dryrun_rank(mesh: Mesh) -> dict:
         sensor_kwargs=[{"uuid": "depth", "sensor_type": "depth", "resolution": [16, 16]}],
         dynamics_kwargs=dict(dyn, dt=0.03, ctrl_dt=0.03), max_episode_steps=16,
         device=mesh.device)
-    for name, e, h, latent in (("hover", env, 4, (32, 32)), ("visual", venv, 3, (16, 16))):
-        tr = BPTT(e, horizon=h, policy_kwargs={"latent_dim": latent})
+    for name, e, h, latent in (("hover", env, 4, (32, 32)), ("visual", venv, 3, (16, 16)),
+                               ("shac", env, 4, (32, 32))):
+        kw = dict(horizon=h, policy_kwargs={"latent_dim": latent})
+        tr = SHAC(e, gradient_steps=2, **kw) if name == "shac" else BPTT(e, **kw)
         st = shard_train_state(tr.init(), mesh, tr)
         st, m = tr.update(st)
+        nets = [tr.actor] + ([tr.critic, tr.critic_target] if name == "shac" else [])
         out[name] = {"loss": float(m["actor_loss"]), "grad_norm": float(m["grad_norm"]),
                      "params": torch.cat([p.detach().flatten().cpu()
-                                          for p in tr.actor.parameters()])}
+                                          for net in nets for p in net.parameters()])}
     return out

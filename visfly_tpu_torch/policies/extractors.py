@@ -156,7 +156,7 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         n, c = x.shape[:2]
-        g = x.reshape(n, self.num_groups, -1)
+        g = x.reshape(n, self.num_groups, x.shape[1:].numel() // self.num_groups)
         mean = g.mean(-1, keepdim=True)
         var = torch.clamp((g * g).mean(-1, keepdim=True) - mean * mean, min=0.0)
         g = (g - mean) * torch.rsqrt(var + self.eps)
@@ -430,15 +430,16 @@ class MultiInputExtractor(nn.Module):
         feats = []
         for key in self.keys:
             x, sub = obs[key], self.extractors[f"{key}_extractor"]
-            batch = x.shape[0]
+            # explicit widths: a rank's share of a minibatch may hold no rows
+            batch, frames = x.shape[0], (x.shape[1] if x.dim() == 5 else 1)
             if x.dim() == 5:
                 x = x.reshape(-1, *x.shape[2:])
             if isinstance(sub, MLP) and x.dim() > 2:
-                x = x.reshape(x.shape[0], -1)
+                x = x.flatten(1)
             f = sub(x.to(torch.float32))
             if f"{key}_proj" in self.extractors:
                 f = F.relu(self.extractors[f"{key}_proj"](f))
-            feats.append(f.reshape(batch, -1))
+            feats.append(f.reshape(batch, frames * f.shape[1:].numel()))
         return torch.cat(feats, dim=-1)
 
 

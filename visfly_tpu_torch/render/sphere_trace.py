@@ -705,8 +705,9 @@ def render_camera(
 def render_sensors(env, state) -> Dict[str, Tensor]:
     """Render every sensor in ``env.sensor_kwargs``, keyed by uuid, with the
     env's dynamic objects (``env.render_objects``) in view and each sensor's
-    noise model applied, drawn from ``state.gen`` one sensor after another.
-    The env's lighting setup is baked once."""
+    noise model applied, drawn from ``state.gen`` one sensor after another
+    (the whole batch's draws, sliced, where the env is a block of a larger
+    one). The env's lighting setup is baked once."""
     if env.scene is None:
         return {}
     if not hasattr(env, "_baked_lighting"):
@@ -722,6 +723,6 @@ def render_sensors(env, state) -> Dict[str, Tensor]:
         for k, v in res.items():
             uuid = spec.get("uuid", k)
             if uuid in noise and uuid != "IMU":
-                v = apply_noise(state.gen, uuid, v, noise)
+                v = apply_noise(state.gen, uuid, v, noise, rows=env.global_rows)
             out[uuid] = v
     return out

@@ -21,6 +21,11 @@ package, so one seed gives the same scene in both.
   textures;
 - a directory of scene JSONs (``save_scene_spec``), one per scene from the
   loader;
+- of a dataset or a directory, an env that holds scenes ``first ..`` of a
+  larger env of ``total`` scenes (``scene_kwargs["scenes_of"] = (first,
+  total)``, set by ``parallel.make_rank_env``) takes, of each batch of
+  ``total`` files its loader gives, the files ``first ..``: the ones the
+  larger env would put there, at the first load and at every rotation;
 - a procedural preset, seeds ``seed, seed + 1, ...``; with
   ``backend: "grid"`` baked into a dense grid without triangles
   (:func:`bake_scenes`).
@@ -464,6 +469,13 @@ def _bake_meshes(env, meshes):
                                    max_cells=kw.get("max_cells", 384), device=env.device)
 
 
+def _next_files(env, kw) -> List[str]:
+    """The loader's next files for the env's scenes: of the next batch of
+    the larger env's scenes (``scenes_of``), the ones this env holds."""
+    first, total = kw.get("scenes_of", (0, env.num_scene))
+    return env._scene_loader.next(total)[first:first + env.num_scene]
+
+
 def load_scenes_for_env(env):
     """Build the device scene from an env's ``scene_kwargs`` (see the module
     docstring). What a later rotation or swap needs is kept on the env:
@@ -514,7 +526,7 @@ def load_scenes_for_env(env):
             cfg = (path if path.endswith(".scene_dataset_config.json")
                    else find_dataset_config(files[0]))
             env._habitat_dataset = HabitatDataset(cfg) if cfg else None
-        files = env._scene_loader.next(env.num_scene)
+        files = _next_files(env, kw)
         if grid:
             env._scene_meshes = [_habitat_mesh(env, f) for f in files]
             return _bake_meshes(env, env._scene_meshes)
@@ -533,7 +545,7 @@ def load_scenes_for_env(env):
 
         if getattr(env, "_scene_loader", None) is None:
             env._scene_loader = SimpleDataLoader(ChildrenPathDataset(path, seed=seed), seed=seed)
-        specs = [load_scene_spec(f) for f in env._scene_loader.next(env.num_scene)]
+        specs = [load_scene_spec(f) for f in _next_files(env, kw)]
     else:
         preset = resolve_scene_path(path)
         specs = [make_scene(preset, seed=seed + i, **kw.get("scene_gen_kwargs", {}))
