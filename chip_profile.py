@@ -8,6 +8,7 @@ without it.
 
     python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [G] [K] [O] [sv]
                             [probe] [floor] [split] [march] [analytic] [mx] [timing]
+                            [plane] [r4]
                             # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
@@ -122,6 +123,20 @@ Per round: every launch's duration from ``torch.profiler``'s kernel records,
 with the host's time between the launches, and again with the 20 launches
 queued behind a spin of the card, with the gaps between them; then
 ``device_ms`` beside the mean of the records.
+
+``plane`` is the evidence for taking the signed-volume tiers' t again on the
+winning triangle's plane (``tri_trace.py::_winner_plane_t``): on
+``tri_bench``'s first 8 cameras at 23,040 and 92,160 triangles with lists
+that hold the whole mesh, for each per-camera variant, the kernel's own t
+and the function's against a float64 brute force, beside the float32 brute
+force, with the worst ray's triangle (edges), t and the cosine of its
+incidence.
+
+``r4`` is the evidence for running path R with cuDNN's deterministic
+algorithms: path R4 (the recurrent PPO_tuned on ``cluttered_flight``, one
+update) in one process twice and on two gloo ranks, at 1 and 10 epochs,
+with cuDNN's default and its deterministic algorithms: the loss and the
+parameters (l2) of each against the first process's.
 
 Every line ends with the card's name and power limit.
 """
@@ -1062,6 +1077,82 @@ def timing(env_b, card):
                   f" | {card}", flush=True)
 
 
+def plane(card, dev=None, levels=(3, 4), cams=8):
+    """``plane``: the kernels' t and the function's against float64."""
+    from visfly_tpu_torch.examples import tri_bench
+    from visfly_tpu_torch.render import pack_triangles, tri_first_hit, tri_trace_brute
+    from visfly_tpu_torch.render.tri_trace import VARIANTS, plan_tiles, tri_trace_tiled
+
+    dev = dev or torch.device("cuda", 0)
+    res = cs.RES[1]
+    o, d = tri_bench.batch_rays(cams, res, dev)
+    op, dp = o.permute(1, 2, 0), d.permute(1, 2, 0)
+    for level in levels:
+        tris = torch.as_tensor(pack_triangles(*tri_bench.load_garage(level))[None], device=dev)
+        T = tris.shape[1]
+        b32 = tri_trace_brute(tris, op, dp, cs.MAX_DEPTH)
+        b64 = tri_trace_brute(tris.double(), op.double(), dp.double(), cs.MAX_DEPTH)
+        both = b32[1] & b64[1]
+        print(f"plane | T={T}: float32 brute force vs float64 max|dt| "
+              f"{float((b32[0].double() - b64[0]).abs()[both].max()):.3e} m, hit mismatches "
+              f"{int((b32[1] != b64[1]).sum())} of {o.shape[2]} | {card}", flush=True)
+
+        def off(t, hit, gid):
+            err = torch.where(hit & b64[1], (t.double() - b64[0]).abs(), 0.0)
+            i = int(err.reshape(-1).argmax())
+            row = tris[0, int(gid.reshape(-1)[i])].double().view(3, 3)
+            edges = ", ".join(f"{float((row[(k + 1) % 3] - row[k]).norm()):.4f}" for k in range(3))
+            n = torch.linalg.cross(row[1] - row[0], row[2] - row[0])
+            cos = float((n / n.norm() * dp[0, i].double()).sum().abs())
+            return (f"{float(err.max()):.3e} m (rays past 1e-3 m: {int((err > 1e-3).sum())}; worst "
+                    f"at t {float(b64[0].reshape(-1)[i]):.3f} m, edges {edges} m, |cos| {cos:.3f})")
+
+        for variant in VARIANTS:
+            plan = plan_tiles(tris, o, d, cs.MAX_DEPTH, T, res, res * res, variant=variant)
+            t, hit, gid = tri_first_hit(tris, plan.lists, plan.origins_c, plan.dirs_c,
+                                        cs.MAX_DEPTH, plan.form, plan.origin_tiles, plan.mode)
+            t, hit, gid = ((plan.unpack or (lambda y: y))(x) for x in (t, hit, gid))
+            t_f, hit_f, _, gid_f = tri_trace_tiled(tris, o, d, cs.MAX_DEPTH, T, res, res * res,
+                                                   variant=variant)
+            print(f"plane | T={T} {variant}: the kernel's t vs float64 {off(t, hit, gid)}; "
+                  f"tri_trace_tiled's {off(t_f, hit_f, gid_f)}; hit mismatches "
+                  f"{int((hit_f != b64[1]).sum())} | {card}", flush=True)
+
+
+def r4_leg(mesh, seed, epochs, deterministic):
+    """Path R4 with ``epochs`` and the given cuDNN algorithms → loss and
+    parameters (``run_ranks`` imports it by name)."""
+    torch.backends.cudnn.deterministic = deterministic
+    cs.PPO_TUNED["n_epochs"] = epochs
+    out = cs._r_leg(mesh, "R4", seed)
+    return {"loss": out["loss"], "params": out["params"]}
+
+
+def r4(card):
+    """``r4``: one process twice and two gloo ranks, against the first."""
+    from visfly_tpu_torch.parallel import run_ranks
+
+    dev = torch.device("cuda", 0)
+    epochs0, det0 = cs.PPO_TUNED["n_epochs"], torch.backends.cudnn.deterministic
+    for epochs in (1, 10):
+        for det in (False, True):
+            first = r4_leg(cs._one_rank(dev), 373, epochs, det)
+            again = r4_leg(cs._one_rank(dev), 373, epochs, det)
+            ranks = run_ranks(r4_leg, 2, 373, epochs, det, backend="gloo", device=dev,
+                              timeout=600)
+
+            def diff(x):
+                loss = abs(x["loss"] - first["loss"]) / abs(first["loss"])
+                l2 = float(torch.linalg.vector_norm(x["params"] - first["params"])
+                           / torch.linalg.vector_norm(first["params"]))
+                return f"loss {loss:.3e}, parameters l2 {l2:.3e}"
+
+            print(f"r4 | {epochs} epochs, cuDNN {'deterministic' if det else 'default'}: loss "
+                  f"{first['loss']:.6e}; the same process again: {diff(again)}; gloo x 2 rank 0: "
+                  f"{diff(ranks[0])}, rank 1: {diff(ranks[1])} | {card}", flush=True)
+    cs.PPO_TUNED["n_epochs"], torch.backends.cudnn.deterministic = epochs0, det0
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_profile.py needs one CUDA card", file=sys.stderr)
@@ -1101,6 +1192,10 @@ def main(argv):
             analytic(make_env["B"](), make_env["A"](), card)
         elif name == "timing":
             timing(make_env["B"](), card)
+        elif name == "plane":
+            plane(card)
+        elif name == "r4":
+            r4(card)
         elif name == "G":
             from visfly_tpu_torch.algos import PPO
             from visfly_tpu_torch.envs import NavigationEnv

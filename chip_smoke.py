@@ -150,7 +150,18 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   top view), S2 ``habitat_dataset_demo`` (the dataset written, 2 decomposed
   scenes × 4 agents at 32×32 depth, a swap, the grid reload of 2 agents),
   S3 ``vision_grad_probe`` (16 agents, H = 16, 64×64 depth, both
-  ``grad_collision`` settings).
+  ``grad_collision`` settings);
+- path T, the two benchmark scripts through their ``main``: T1 ``fps_test``
+  with ``--steps 100 --scenes 4 --mesh`` (200 agents; physics-only hover,
+  64×64 depth in one scene and in four, ``DynEnv`` with two moving spheres,
+  the garage OBJ decomposed for B1; one warm-up chunk of 50 steps); T2
+  ``tri_bench`` at its defaults (the 24-pillar garage subdivided to 5,760,
+  23,040 and 92,160 triangles, 256 cameras at 64×64, 20 iterations) with
+  ``--check``, then the per-camera kernel on its level-4 plan against its
+  plain version with its time and bound; T3 ``tri_bench`` at 92,160
+  triangles on 8 cameras with ``--cap 92160 --check``, for the default
+  body, ``--variant merged``, ``mx`` and ``wl`` and ``--cluster 64`` and
+  ``256``, 3 iterations each.
 
 Phases, one line each; any failure exits non-zero:
 
@@ -278,7 +289,19 @@ Phases, one line each; any failure exits non-zero:
    + 1 (the view), seven files written; S2 B1 once (the reset), the
    triangle kernel once (the grid reload), the swap changing a scene of the
    same shape; S3 B1 2 × (1 + 16), every norm finite, the total's positive,
-   the detached query's ``col_dis`` gradient zero.
+   the detached query's ``col_dis`` gradient zero; path T: T1 B1 exactly
+   1 + 50 + 100 on each of the four visual envs (one render at the reset
+   and one a step) and nothing on the physics-only one, five finite rates
+   above 0; T2 ``tri_trace_tile_sv`` at level 2 and ``tri_trace_camsoup``
+   at levels 3 and 4, each 2 × (1 + 20) + 1 launches a level (the frame
+   batch and the kernel alone once a call, the check once), on 8 cameras
+   at the default cap the rays of the tiles within the cap within
+   ``agree``'s limits of the brute force (the rest, where a tile dropped
+   its farthest blocks and a ray may see what lies behind them, printed), the
+   kernel at 92,160 triangles against its plain version with ``agree``'s
+   limits; T3 each run within ``agree``'s limits of the brute force (ids
+   where not tied), the two block sizes also of the default one, and
+   exactly 2 × (1 + 3) + 1 launches of its own kernel each.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches in phase 4, error, times and bound; the last line is
@@ -1750,8 +1773,10 @@ def triangle_phase(level, env, state, card, errs, timing):
                 check(bool((t_t >= t_b - T_TOL).all()), f"{mode} T={T}: a nearer hit at the cap")
 
         # the gradient through the kernel forward against the closed form on
-        # the plain forward's t, hit and ids
+        # the plain forward's t, hit and ids (its t taken on the winner's
+        # plane for the signed-volume bodies, as tri_trace_tiled takes it)
         from visfly_tpu_torch.render import normals_from_gid
+        from visfly_tpu_torch.render.tri_trace import _winner_plane_t
 
         g_t = torch.randn((1, n_rays), device=o_c.device,
                           generator=torch.Generator(device=o_c.device).manual_seed(3))
@@ -1760,6 +1785,9 @@ def triangle_phase(level, env, state, card, errs, timing):
         g_o, g_d = torch.autograd.grad((t_d * g_t).sum(), (o_in, d_in))
         unpack = plan.unpack or (lambda y: y)
         n_p = normals_from_gid(tris, gid_p, plan.dirs_c.permute(1, 2, 0), hit_p)
+        if plan.form != "mt":
+            t_p = _winner_plane_t(tris, gid_p, plan.origins_c.permute(1, 2, 0),
+                                  plan.dirs_c.permute(1, 2, 0), hit_p, t_p, MAX_DEPTH)
         t_u, hit_u, n_u = unpack(t_p), unpack(hit_p), unpack(n_p)
         denom = (n_u * d_c.permute(1, 2, 0)).sum(-1)
         scale = torch.where(hit_u & (denom.abs() > 1e-3), 1.0 / denom, 0.0)
@@ -3972,6 +4000,21 @@ def published_results_path(dev, card, launches, q1):
 
 
 def r_leg(mesh, name, seed):
+    """:func:`_r_leg` with cuDNN's deterministic algorithms. The default ones
+    differ from run to run in the last bits; over R4's ten epochs PPO's
+    clipped ratios once grew that to 1.9e-3 of the loss against one process
+    (PERF.md §6), where deterministic runs repeat to the bit."""
+    import torch
+
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _r_leg(mesh, name, seed)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+
+
+def _r_leg(mesh, name, seed):
     """Path R's leg ``name`` on ``mesh``'s rank (one process where the mesh
     is ``_one_rank``'s): R1 SHAC on ``cluttered_flight`` (one update), R2 APG
     on ``navigation2`` (two, the second timed), R3 SAC on ``navigation2`` (two
@@ -4193,6 +4236,199 @@ def user_scripts_path(dev, card, launches):
           f"{out[True]['col_dis']:.3e} (detached / grad_collision); {dt:.1f} s | {card}",
           flush=True)
     print(f"phase 4 | path S: {time.perf_counter() - t_path:.1f} s | {card}", flush=True)
+
+
+T1_STEPS = 100
+T_ITERS = 20  # tri_bench's default
+T3_ITERS = 3
+
+
+def t1_fps(dev, card, launches):
+    """T1: ``fps_test.main`` with four scenes and the imported OBJ, 200
+    agents, ``--steps 100``; each env's launches counted around its
+    ``measure`` (reset, the warm-up chunk and the timed steps)."""
+    import torch
+
+    from visfly_tpu_torch.examples import fps_test
+
+    per_env = {}
+    measure = fps_test.measure
+
+    def counted(env, steps, label):
+        reset_launches()
+        fps = measure(env, steps, label)
+        torch.cuda.synchronize()
+        per_env[label] = {k: v for k, v in all_launches().items() if v}
+        return fps
+
+    fps_test.measure = counted
+    t0 = time.perf_counter()
+    try:
+        rates = fps_test.main(["--steps", str(T1_STEPS), "--scenes", "4", "--mesh"], device=dev)
+    finally:
+        fps_test.measure = measure
+    dt = time.perf_counter() - t0
+    check(len(rates) == 5 and list(rates) == list(per_env), f"T1: envs {list(rates)}")
+    # one render at the reset and one a step: the warm-up chunk and the timed ones
+    renders = 1 + fps_test.CHUNK + T1_STEPS
+    for label, used in per_env.items():
+        want = {} if label == "physics-only" else {"trace_analytic": renders}
+        check(used == want, f"T1 {label}: launches {used} != {want}")
+        check(math.isfinite(rates[label]) and rates[label] > 0, f"T1 {label}: {rates[label]}")
+        for k, v in used.items():
+            launches[k] += v
+    print(f"phase 4 | path T1 (fps_test --steps {T1_STEPS} --scenes 4 --mesh, 200 agents): "
+          + "; ".join(f"{label} {rates[label]:.1f} agent steps/s, {per_env[label] or 'no kernel'}"
+                      for label in rates)
+          + f"; {dt:.1f} s | {card}", flush=True)
+
+
+def t_check_line(name, lv):
+    c = lv["check"]
+    return (f"{name} T={lv['T']} cap={lv['cap']} block {lv['block']} ({lv['tier']}): "
+            f"{lv['ms']:.3f} ms a frame batch, {lv['cam_fps']:.1f} cam-fps, "
+            f"{lv['mray_s']:.1f} Mray/s, prepass {lv['prepass_ms']:.3f} ms, kernel "
+            f"{lv['kernel_ms']:.3f} ms; check on {c['cams']} cameras: hit mismatches "
+            f"{c['hit_mismatches']} of {c['rays']}, depth err max {c['depth_err_max']:.3e} m, "
+            f"untied id mismatches {c['untied_id_mismatches']}; {c['rays_past_cap']} rays on "
+            f"tiles past the cap; on the others {c['hit_mismatches_within_cap']}, "
+            f"{c['depth_err_max_within_cap']:.3e} m, {c['untied_id_mismatches_within_cap']}")
+
+
+def t_within_cap(name, c):
+    """The check's rays of the tiles within the cap held to ``agree``'s
+    limits of the brute force."""
+    n = c["rays"] - c["rays_past_cap"]
+    check(n > 0, f"{name}: every tile past the cap")
+    check(c["depth_err_max_within_cap"] <= T_TOL,
+          f"{name}: depth err {c['depth_err_max_within_cap']} > {T_TOL} within the cap")
+    check(c["hit_mismatches_within_cap"] <= HIT_TOL * n,
+          f"{name}: {c['hit_mismatches_within_cap']} hit mismatches of {n} within the cap")
+    check(c["untied_id_mismatches_within_cap"] <= HIT_TOL * n,
+          f"{name}: {c['untied_id_mismatches_within_cap']} id mismatches of {n} within the cap")
+
+
+def t2_tri_bench(dev, card, launches):
+    """T2: ``tri_bench.main`` at its defaults (256 cameras at 64×64, levels
+    2, 3 and 4, 20 iterations) with ``--check``; the frame batch and the
+    kernel alone each launch once a call, the check once a level."""
+    from visfly_tpu_torch.examples import tri_bench
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = tri_bench.main(["--levels", "2", "3", "4", "--check"], device=dev)
+    dt = time.perf_counter() - t0
+    used = {k: v for k, v in all_launches().items() if v}
+    per_level = 2 * (1 + T_ITERS) + 1
+    tiers = {lv["level"]: lv["tier"] for lv in out["levels"]}
+    check(tiers == {2: "tri_trace_tile_sv", 3: "tri_trace_camsoup", 4: "tri_trace_camsoup"},
+          f"T2: tiers {tiers}")
+    want = {"tri_trace_tile_sv": per_level, "tri_trace_camsoup": 2 * per_level}
+    check(used == want, f"T2: launches {used} != {want}")
+    for k, v in used.items():
+        launches[k] += v
+    for lv in out["levels"]:
+        c = lv["check"]
+        print(f"phase 4 | path T2 {t_check_line('tri_bench', lv)} | {card}", flush=True)
+        check(all(math.isfinite(lv[k]) and lv[k] > 0 for k in ("ms", "prepass_ms", "kernel_ms")),
+              f"T2 level {lv['level']}: times")
+        t_within_cap(f"T2 level {lv['level']}", c)
+    print(f"phase 4 | path T2: {used} launches; {dt:.1f} s | {card}", flush=True)
+    return out
+
+
+def t2_kernel_at_92160(dev, card, errs, timing):
+    """The per-camera kernel (B6) on T2's level-4 plan, 92,160 triangles at
+    the default cap and 1,048,576 rays, against its plain version (its
+    stats give the bound), with its time and the prepass's."""
+    import torch
+
+    from visfly_tpu_torch.examples import tri_bench
+    from visfly_tpu_torch.render import default_tri_cap, pack_triangles
+    from visfly_tpu_torch.render.tri_kernel import tri_first_hit, tri_first_hit_reference
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    tris = torch.as_tensor(pack_triangles(*tri_bench.load_garage(4))[None], device=dev)
+    T = tris.shape[1]
+    cap = default_tri_cap(T)
+    o_c, d_c = tri_bench.batch_rays(256, RES[1], dev)
+    plan = plan_tiles(tris, o_c, d_c, MAX_DEPTH, cap, RES[1], RES[0] * RES[1])
+    args = (tris, plan.lists, plan.origins_c, plan.dirs_c, MAX_DEPTH, plan.form,
+            plan.origin_tiles)
+    stats = {}
+    got = tri_first_hit(*args)
+    t0 = time.perf_counter()
+    want = tri_first_hit_reference(*args, stats=stats)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = agree(f"tri_trace_camsoup at {T} triangles (cap {cap}) vs plain", got, want)
+    errs["tri_trace_camsoup"] = max(errs["tri_trace_camsoup"], err)
+    ms = cuda_ms(lambda: tri_first_hit(*args))
+    dev_ms = device_ms(lambda: tri_first_hit(*args))
+    prepass_ms = cuda_ms(lambda: plan_tiles(tris, o_c, d_c, MAX_DEPTH, cap, RES[1],
+                                            RES[0] * RES[1]), reps=5, warmup=1)
+    n_rays = o_c.shape[2]
+    b_ms, b_by, by_bytes = tri_bound_ms(plan.form, stats, n_rays, plan.lists)
+    print(f"phase 4 | path T2 tri_trace_camsoup at {T} triangles, {n_rays} rays, cap {cap} "
+          f"({plan.lists.lb.shape[-1]} stages, {stats['tests'] / n_rays:.1f} tests a ray): "
+          f"kernel {ms:.4f} ms (device {dev_ms:.4f}, queued), plain {plain_ms:.2f} ms (once), "
+          f"bound {b_ms:.4f} ms by {b_by} (bytes {by_bytes:.4f}), share {b_ms / dev_ms:.4f} "
+          f"on the device; prepass {prepass_ms:.3f} ms | {card}", flush=True)
+    timing["tri_trace_camsoup"]["ms_92160"] = ms
+    timing["tri_trace_camsoup"]["device_ms_92160"] = dev_ms
+    timing["tri_trace_camsoup"]["bound_ms_92160"] = b_ms
+
+
+def t3_exact(dev, card, launches):
+    """T3: level 4 on 8 cameras with ``--cap 92160 --check`` (lists that hold
+    the whole mesh): the default body, the three variants and block sizes 64
+    and 256 held to the brute force with ``agree``'s limits, and the two
+    block sizes also to the default one."""
+    from visfly_tpu_torch.examples import tri_bench
+
+    base = ["--levels", "4", "--cams", "8", "--cap", "92160", "--check", "--iters",
+            str(T3_ITERS)]
+    runs = {"scalar": [], "merged": ["--variant", "merged"], "mx": ["--variant", "mx"],
+            "wl": ["--variant", "wl"], "cluster 64": ["--cluster", "64"],
+            "cluster 256": ["--cluster", "256"]}
+    counted = {"scalar": "tri_trace_camsoup", "merged": "tri_trace_camsoup_merged",
+               "mx": "tri_trace_camsoup_mx", "wl": "tri_trace_worklist",
+               "cluster 64": "tri_trace_camsoup", "cluster 256": "tri_trace_camsoup"}
+    blocks = {"wl": 16, "cluster 64": 64, "cluster 256": 128}  # 256: two stages of 128
+    t0 = time.perf_counter()
+    results = {}
+    for name, extra in runs.items():
+        reset_launches()
+        lv = tri_bench.main(base + extra, device=dev)["levels"][0]
+        used = {k: v for k, v in all_launches().items() if v}
+        want = {counted[name]: 2 * (1 + T3_ITERS) + 1}
+        check(used == want, f"T3 {name}: launches {used} != {want}")
+        check(lv["T"] == 92160 and lv["cap"] == 92160 and lv["block"] == blocks.get(name, 128),
+              f"T3 {name}: T {lv['T']}, cap {lv['cap']}, block {lv['block']}")
+        for k, v in used.items():
+            launches[k] += v
+        c = lv["check"]
+        print(f"phase 4 | path T3 {t_check_line(name, lv)} | {card}", flush=True)
+        check(c["rays_past_cap"] == 0, f"T3 {name}: {c['rays_past_cap']} rays past cap = T")
+        agree(f"T3 {name} at 92160 triangles, cap 92160, vs the brute force", c["got"], c["want"],
+              lv["tris"], c["rays_c"])
+        results[name] = lv
+    ref = results["scalar"]
+    for name in ("cluster 64", "cluster 256"):
+        agree(f"T3 {name} vs the default block size", results[name]["check"]["got"],
+              ref["check"]["got"], ref["tris"], ref["check"]["rays_c"])
+    print(f"phase 4 | path T3: {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+
+def bench_scripts_path(dev, card, launches, errs, timing):
+    """Path T: the two benchmark scripts through their ``main``, and the
+    per-camera kernel at 92,160 triangles."""
+    t_path = time.perf_counter()
+    t1_fps(dev, card, launches)
+    t2_tri_bench(dev, card, launches)
+    t2_kernel_at_92160(dev, card, errs, timing)
+    t3_exact(dev, card, launches)
+    print(f"phase 4 | path T: {time.perf_counter() - t_path:.1f} s | {card}", flush=True)
 
 
 def _one_rank(dev):
@@ -4548,6 +4784,8 @@ def main():
     clock("path R")
     user_scripts_path(dev, card, launches)
     clock("path S")
+    bench_scripts_path(dev, card, launches, errs, timing)
+    clock("path T")
 
     # 5. one step from the same state, card vs CPU plain path
     out_gpu, out_cpu, s_err = card_vs_cpu(env_d, bench_env("cpu"), state_d, 40)
@@ -4636,7 +4874,11 @@ def main():
                 "distillation, 1 + 6 x 96 for the reset and the DAgger collection and 1 + n "
                 "for each of its two evaluations of n steps; path R: B1 on R1 and R4, counted "
                 "in each process; path S: B1 and B1-kid in debug_obs, B1 and the triangle "
-                "kernel in the habitat demo, B1 in the gradient probe); library_ms is null "
+                "kernel in the habitat demo, B1 in the gradient probe; path T: B1 in "
+                "fps_test's four visual envs, tile_sv and camsoup in tri_bench's levels 2-4, "
+                "camsoup, camsoup_merged, camsoup_mx and worklist in its exact checks at 92,160 "
+                "triangles; camsoup's *_92160 keys are its time and bound on tri_bench's "
+                "level-4 plan, 1,048,576 rays); library_ms is null "
                 "because no single PyTorch call computes a first hit"}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -36,7 +36,8 @@ for sub in ("policies.common", "policies.extractors", "policies.networks", "algo
             "policies.autoencoder", "policies.transfer", "parallel", "parallel.mesh",
             "examples", "examples.reproduce", "examples.distill_vision",
             "examples.train_imported_mesh", "examples.mesh_assets", "examples.debug_obs",
-            "examples.habitat_dataset_demo", "examples.vision_grad_probe"):
+            "examples.habitat_dataset_demo", "examples.vision_grad_probe",
+            "examples.fps_test", "examples.tri_bench"):
     assert "visfly_tpu_torch." + sub in names, sub
 import chip_smoke, chip_profile
 banned = ("jax", "jaxlib", "flax", "optax", "visfly_tpu", "examples")
@@ -58,8 +59,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     # policies/, the trainers, the zoo, run.py, utils/, the scene ingest, parallel/,
-    # examples/ (with the debugging and demo scripts)
-    assert n_modules >= 82, proc.stdout
+    # examples/ (with the debugging and demo scripts and the two benchmarks)
+    assert n_modules >= 84, proc.stdout
 
 
 def _run_smoke(cwd):

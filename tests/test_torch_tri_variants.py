@@ -234,8 +234,11 @@ def test_knockouts_match_their_definitions(body, pin_stage, work, scalar):
         want = tk.tri_first_hit(tris, first, plan.origins_c, plan.dirs_c, MAX_DEPTH, "sv_cam",
                                 plan.origin_tiles)[0]
         assert torch.equal(t, want) and bool((t < MAX_DEPTH).any())
-    else:
-        assert torch.equal(plan.unpack(t), scalar[0])
+    else:  # the scalar kernel's t; the function then takes t again on the winner's plane
+        want = tk.tri_first_hit(tris, plan.lists, plan.origins_c, plan.dirs_c, MAX_DEPTH,
+                                "sv_cam", plan.origin_tiles)[0]
+        assert torch.equal(t, want)
+        torch.testing.assert_close(plan.unpack(t), scalar[0], atol=1e-4, rtol=0)
     with pytest.raises(ValueError, match="merged"):
         tk.tri_first_hit(tris, plan.lists, plan.origins_c, plan.dirs_c, MAX_DEPTH, "sv_cam",
                          plan.origin_tiles, "scalar", body=False)

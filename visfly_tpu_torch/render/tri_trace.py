@@ -23,6 +23,9 @@ follow from the id by one gather.
   ``"mx"`` (the test as a matrix product); ``"wl"`` (16-triangle clusters on
   a flattened worklist under a budget, against each tile's own origin). The
   JAX package picks it with a module global; here it is an argument.
+  ``soup_cluster`` likewise sets the block size of that tier's lists (the
+  JAX package's ``_SOUP_CLUSTER_OVERRIDE``); a block larger than a kernel
+  stage reaches the kernel as consecutive stage-sized blocks.
 * :func:`stage_stats` and :func:`knockout_trace` — the diagnostics: stages
   executed per tile, and the per-camera kernel with its body or its staging
   traffic knocked out.
@@ -30,10 +33,13 @@ follow from the id by one gather.
   plane, so ∂t/∂o = −n/(n·d) and ∂t/∂d = −t·n/(n·d) exactly; no kernel runs
   backward.
 
-Overflow: a tile that sees more than ``cap`` keeps its ``cap`` nearest, so the
-near field stays exact and far geometry turns into background, never the
-reverse. The tile is the unit of that choice, which is why the tile size and
-the repack are part of the function and not of the kernel's schedule.
+Overflow: a tile that sees more than ``cap`` keeps the ``cap`` triangles or
+blocks whose centres are nearest its apex. A ray whose first hit lies in a
+dropped block (a large floor block whose centre is far, say) sees the next
+kept surface behind it, or background: the image is exact only on tiles
+within the cap. The tile is the unit of that choice, which is why the tile
+size and the repack are part of the function and not of the kernel's
+schedule.
 
 The thresholds between tiers are arguments, so a test reaches every tier
 with a small mesh.
@@ -138,6 +144,25 @@ def normals_from_gid(tris: Tensor, gid: Tensor, dirs: Tensor, hit: Tensor) -> Te
     n = n / (_norm3(n)[..., None] + 1e-12)
     n = torch.where(torch.sum(n * dirs, -1, keepdim=True) > 0, -n, n)
     return torch.where(hit[..., None], n, 0.0)
+
+
+def _winner_plane_t(tris: Tensor, gid: Tensor, origins: Tensor, dirs: Tensor, hit: Tensor,
+                   t: Tensor, max_depth: float) -> Tensor:
+    """t (S, R) of the rays that hit, recomputed on the winning triangle's
+    plane, ((a − o)·n) / (d·n) with n = (b − a) × (c − a) from its edges;
+    ``t`` elsewhere. ``origins`` and ``dirs`` are (S, R, 3).
+
+    The signed-volume bodies take t as a'·(b'×c') over the sum of the three
+    volumes, products of vectors from the origin that cancel down to the
+    plane's: on a sliver triangle (3.75 cm by 22 cm, 6.4 m away, 92,160
+    triangles) that was 1.16 mm off the float64 first hit on an H100, where
+    the winner itself was right (``chip_profile.py plane``). The edges'
+    cross product keeps float32's accuracy."""
+    rows = torch.gather(tris, 1, gid.to(torch.int64)[..., None].expand(*gid.shape, 9))
+    a = rows[..., 0:3]
+    n = torch.linalg.cross(rows[..., 3:6] - a, rows[..., 6:9] - a)
+    tp = torch.sum((a - origins) * n, -1) / torch.sum(dirs * n, -1)
+    return torch.where(hit, torch.clamp(tp, 0.0, max_depth), t)
 
 
 def tri_trace_brute(tris: Tensor, origins: Tensor, dirs: Tensor, max_depth: float = 20.0,
@@ -363,15 +388,18 @@ def _cluster_cull_compact(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_d
 
 
 def _cluster_ids_prepass(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float,
-                         cap: int, img_w: Optional[int], backface: bool = False
+                         cap: int, img_w: Optional[int], backface: bool = False,
+                         soup_cluster: Optional[int] = None
                          ) -> Tuple[Tensor, Tensor, Tensor, int]:
     """Dense-mesh prepass: per tile a list of block ids into the shared soup
     → (cids (S, tiles, cap_c) int32, counts (S, tiles) int32 of visible
     blocks, lb_c (S, tiles, cap_c), block size). Consecutive Morton clusters
-    pair into 128-triangle blocks where the mesh allows."""
+    pair into 128-triangle blocks where the mesh allows; ``soup_cluster``
+    asks for another block size. Either is halved until it divides the
+    mesh."""
     T = tris.shape[1]
     lo, hi = _tile_aabb(origins_c, dirs_c, max_depth)
-    cluster = 2 * CLUSTER if T % (2 * CLUSTER) == 0 else CLUSTER
+    cluster = soup_cluster or (2 * CLUSTER if T % (2 * CLUSTER) == 0 else CLUSTER)
     while T % cluster:
         cluster //= 2
     active, dist, lb_all = _cluster_activity(tris, origins_c, dirs_c, lo, hi, img_w,
@@ -485,17 +513,32 @@ def tile_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float
 
 
 def block_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float, cap: int,
-                img_w: Optional[int], backface: bool) -> TileLists:
+                img_w: Optional[int], backface: bool,
+                soup_cluster: Optional[int] = None) -> TileLists:
     """The dense tiers' prepass as the kernel takes it: one block a stage."""
     return _as_block_lists(*_cluster_ids_prepass(tris, origins_c, dirs_c, max_depth, cap, img_w,
-                                                 backface))
+                                                 backface, soup_cluster))
 
 
 def _as_block_lists(cids: Tensor, counts: Tensor, lb_c: Tensor, cluster: int) -> TileLists:
+    """Block lists, one block a stage. A block of ``k`` stages (the cull
+    decided at its size) becomes ``k`` consecutive stage-sized blocks:
+    block ``c`` turns into ids ``k·c … k·c + k − 1``, each with ``c``'s
+    bound, and a tile's count is multiplied by ``k``; the first hit is the
+    same function."""
     if cluster > MAX_CHUNK:
-        raise ValueError(f"blocks of {cluster} triangles exceed a stage of {MAX_CHUNK}")
+        if cluster % MAX_CHUNK:
+            raise ValueError(f"blocks of {cluster} triangles are no whole number of stages of "
+                             f"{MAX_CHUNK}")
+        k = cluster // MAX_CHUNK
+        S, tiles, cap_c = cids.shape
+        cids = (cids.to(torch.int64)[..., None] * k
+                + torch.arange(k, device=cids.device)).reshape(S, tiles, cap_c * k)
+        lb_c = lb_c.repeat_interleave(k, dim=-1)
+        counts = counts * k
+        cluster = MAX_CHUNK
     nst = torch.clamp(counts, 1, cids.shape[2]).to(torch.int32)
-    return TileLists(cids.contiguous(), nst, lb_c.contiguous(), cluster, cluster)
+    return TileLists(cids.to(torch.int32).contiguous(), nst, lb_c.contiguous(), cluster, cluster)
 
 
 def worklist_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float, cap: int,
@@ -573,8 +616,11 @@ class TilePlan(NamedTuple):
 def plan_tiles(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
                cap: int = 256, img_w: Optional[int] = None, cam_rays: Optional[int] = None,
                backface: bool = False, soup_min_t: int = SHARED_SOUP_MIN_T,
-               variant: str = "scalar", work_budget: Optional[int] = None) -> TilePlan:
-    """The repack, the tier and its cull prepass for rays (3, S, R)."""
+               variant: str = "scalar", work_budget: Optional[int] = None,
+               soup_cluster: Optional[int] = None) -> TilePlan:
+    """The repack, the tier and its cull prepass for rays (3, S, R);
+    ``soup_cluster`` is the block size of the lists above ``soup_min_t``
+    (:func:`_cluster_ids_prepass`; the worklist keeps its own)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}; got {variant!r}")
     _, S, R = origins_c.shape
@@ -604,7 +650,7 @@ def plan_tiles(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float
         if whole_cams and variant == "wl":
             lists = worklist_lists(tris, o_c, d_c, max_depth, cap, img_w, backface, work_budget)
             return TilePlan(o_c, d_c, lists, "sv_tile", 1, unpack)
-        lists = block_lists(tris, o_c, d_c, max_depth, cap, img_w, backface)
+        lists = block_lists(tris, o_c, d_c, max_depth, cap, img_w, backface, soup_cluster)
         if whole_cams:
             return TilePlan(o_c, d_c, lists, "sv_cam", cam_rays // TILE, unpack, variant)
         return TilePlan(o_c, d_c, lists, "mt", 1, unpack)
@@ -618,7 +664,7 @@ def tri_trace_tiled(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: 
                     cap: int = 256, img_w: Optional[int] = None,
                     cam_rays: Optional[int] = None, backface: bool = False,
                     soup_min_t: int = SHARED_SOUP_MIN_T, variant: str = "scalar",
-                    work_budget: Optional[int] = None
+                    work_budget: Optional[int] = None, soup_cluster: Optional[int] = None
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """(S, T, 9) × (3, S, R) → (t (S, R), hit (S, R), normal (S, R, 3),
     id (S, R) int32); R a multiple of 1,024. ``img_w`` says that a tile is
@@ -627,12 +673,16 @@ def tri_trace_tiled(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: 
     repack and, above ``soup_min_t``, the per-camera signed volumes.
     ``variant`` picks how that last tier runs (module docstring) and
     ``work_budget`` the stages a tile of its ``"wl"`` variant gets on
-    average."""
+    average; ``soup_cluster`` the block size of the lists above
+    ``soup_min_t`` (default 128 where the mesh allows)."""
     plan = plan_tiles(tris, origins_c, dirs_c, max_depth, cap, img_w, cam_rays, backface,
-                      soup_min_t, variant, work_budget)
+                      soup_min_t, variant, work_budget, soup_cluster)
     t, hit, gid = tri_first_hit(tris, plan.lists, plan.origins_c, plan.dirs_c, max_depth,
                                 plan.form, plan.origin_tiles, plan.mode)
-    out = (t, hit, normals_from_gid(tris, gid, plan.dirs_c.permute(1, 2, 0), hit), gid)
+    dirs = plan.dirs_c.permute(1, 2, 0)
+    if plan.form != "mt":  # the signed volumes' t, taken again on the winner's plane
+        t = _winner_plane_t(tris, gid, plan.origins_c.permute(1, 2, 0), dirs, hit, t, max_depth)
+    out = (t, hit, normals_from_gid(tris, gid, dirs, hit), gid)
     return out if plan.unpack is None else tuple(plan.unpack(y) for y in out)
 
 
@@ -651,7 +701,7 @@ class _TriTraceIFT(torch.autograd.Function):
         if kw["tiled"]:
             out = tri_trace_tiled(tris, origins_c, dirs_c, kw["max_depth"], kw["cap"],
                                   kw["img_w"], kw["cam_rays"], kw["backface"], kw["soup_min_t"],
-                                  kw["variant"], kw["work_budget"])
+                                  kw["variant"], kw["work_budget"], kw["soup_cluster"])
         else:
             out = tri_trace_brute(tris, origins_c.permute(1, 2, 0), dirs_c.permute(1, 2, 0),
                                   kw["max_depth"])
@@ -673,7 +723,7 @@ def tri_trace_diff(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: f
                    cap: int = 256, img_w: Optional[int] = None, tiled: bool = True,
                    cam_rays: Optional[int] = None, backface: bool = False,
                    soup_min_t: int = SHARED_SOUP_MIN_T, variant: str = "scalar",
-                   work_budget: Optional[int] = None
+                   work_budget: Optional[int] = None, soup_cluster: Optional[int] = None
                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Differentiable trace → (t, hit, normal, id), the counterpart of
     ``tri_trace_diff`` (``tiled`` is its ``use_pallas``). Gradients reach
@@ -681,5 +731,5 @@ def tri_trace_diff(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: f
     ∂t/∂d = −t·n/(n·d), zero where the ray missed or |n·d| ≤ 1e-3."""
     kw = dict(max_depth=max_depth, cap=cap, img_w=img_w, tiled=tiled, cam_rays=cam_rays,
               backface=backface, soup_min_t=soup_min_t, variant=variant,
-              work_budget=work_budget)
+              work_budget=work_budget, soup_cluster=soup_cluster)
     return _TriTraceIFT.apply(origins_c, dirs_c, tris, kw)
