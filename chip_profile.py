@@ -8,7 +8,7 @@ without it.
 
     python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [G] [K] [O] [sv]
                             [probe] [floor] [split] [march] [analytic] [mx] [timing]
-                            [plane] [r4]
+                            [plane] [r4] [tile]
                             # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
@@ -77,6 +77,19 @@ compiler made of the bodies (``cuobjdump -sass``: instructions, branches,
 reciprocals), and the kernel's fused per-test products beside the unfused
 plain version, each against a float64 brute force on 8 cameras with lists of
 the whole mesh, the garage moved 0, 20 and 40 m from the origin.
+
+``tile`` is the evidence for B4's tile kernel (``csrc/tri_tile.cu``): the
+copies of ``TILE_COPIES`` (the package's, each of its design's first three
+steps taken back: the whole tile a block, every slot of the walked stages,
+the next stage's gather waited for before the tests; and other block
+shapes), built side by side under ``build/profile/`` with each one's
+registers and spills, and the package's with its tiles launched in index
+order (the fourth step taken back); then in turns, forwards and backwards,
+each one's device time on path D's three uses of B4 (360 triangles at 64×64
+and 48×48, 5,760 at 64×64) and on ``chip_smoke.py``'s synthetic ragged
+lists, its share of the bound (the tests on the tiles' real slots) and
+whether it equals the cluster walk at k = 1, beside the cluster walk at
+k = 1 and at the k it would pick.
 
 ``march`` is the evidence for the march kernel's design (``csrc/trace_march.cu``)
 on path B's camera rays (256 agents, 64×64): for each of its three modes, the
@@ -464,8 +477,8 @@ def floor(env, card):
 
 
 # the instantiations of tri_trace_kernel: (form, mode, knock-out bits)
-INSTANTIATIONS = {"kMT (B4 mt, B5, B8a)": ("mt", "scalar", 0),
-                  "kSV (B4 sv, B6, B7c)": ("sv_cam", "scalar", 0),
+INSTANTIATIONS = {"kMT (B5, B8a; B4 mt at a split)": ("mt", "scalar", 0),
+                  "kSV (B6, B7c; B4 sv at a split)": ("sv_cam", "scalar", 0),
                   "kSV merged (B7a)": ("sv_cam", "merged", 0),
                   "kSV merged, body off (B8b)": ("sv_cam", "merged", 1),
                   "kSV merged, stage pinned (B8b)": ("sv_cam", "merged", 2),
@@ -899,6 +912,119 @@ def mx(env, card):
                      f"{label}: differs from the package's kernel")
 
 
+# the copies of csrc/tri_tile.cu that chip_profile.py tile builds: label ->
+# {line of the source: its replacement}; each takes one step of B4's design
+# back, or gives its blocks another shape
+TILE_COPIES = {
+    "the design: 256 threads x 2 rays, 2 blocks a tile (the package's)": {},
+    "step 1 back: 256 threads x 4 rays, the whole tile a block": {
+        "constexpr int kRays = 2;": "constexpr int kRays = 4;"},
+    "step 2 back: every slot of the walked stages": {
+        "const int n_real = max(0, min(cnt[tile_idx], min(nst[tile_idx], n_stage) * chunk));":
+        "const int n_real = min(nst[tile_idx], n_stage) * chunk;"},
+    "step 3 back: the next stage's gather waited for before the tests": {
+        "             min(chunk, n_real - (ci + 1) * chunk), soup, T);\n":
+        "             min(chunk, n_real - (ci + 1) * chunk), soup, T);\n"
+        "    asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"},
+    "128 threads x 4 rays, 2 blocks a tile": {
+        "constexpr int kThreads = 256;": "constexpr int kThreads = 128;",
+        "constexpr int kRays = 2;": "constexpr int kRays = 4;"},
+    "128 threads x 2 rays, 4 blocks a tile": {
+        "constexpr int kThreads = 256;": "constexpr int kThreads = 128;"},
+    "128 threads x 4 rays, at most 64 registers (8 blocks an SM)": {
+        "constexpr int kThreads = 256;": "constexpr int kThreads = 128;",
+        "constexpr int kRays = 2;": "constexpr int kRays = 4;",
+        "__launch_bounds__(kThreads)": "__launch_bounds__(kThreads, 8)"},
+}
+
+
+@contextlib.contextmanager
+def tile_library(lib):
+    """The tile tiers launch the kernel of the library ``lib`` inside the
+    block: the wrapper's own checks and arguments, another build."""
+    import ctypes
+
+    from visfly_tpu_torch.render import tri_kernel as tk
+
+    own = tk._tile_launchers
+    fn = ctypes.CDLL(lib).tri_tile_launch
+    fn.argtypes, fn.restype = own()[0].argtypes, own()[0].restype
+    tk._tile_launchers = lambda: (fn, own()[1])
+    try:
+        yield
+    finally:
+        tk._tile_launchers = own
+
+
+def tile(envs, card):
+    """B4's tile kernel, step by step (``TILE_COPIES``, and the package's
+    with its tiles launched in index order, step 4 back), on path D's three
+    uses of it and on the synthetic ragged lists of ``chip_smoke.py``: per
+    copy its registers and spills, then in turns, forwards and backwards, its
+    device time, its share of the bound and whether it equals the cluster walk
+    at k = 1 (t and hit to the bit, ids where the ray hits), beside the
+    cluster walk at k = 1 and at the k it would pick."""
+    import concurrent.futures
+
+    from visfly_tpu_torch.render import default_tri_cap, tri_first_hit, tri_first_hit_reference
+    from visfly_tpu_torch.render import tri_kernel as tk
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    with concurrent.futures.ThreadPoolExecutor(len(TILE_COPIES)) as pool:
+        libs = dict(zip(TILE_COPIES, pool.map(lambda kv: source_copy("tri_tile", kv[0], kv[1]),
+                                              TILE_COPIES.items())))
+    for label, lib in libs.items():
+        ptxas_report(lib, f"tile | {label}", card, only="tri_tile_kernel")
+    uses = []
+    for level, env in envs.items():
+        state, _ = env.reset(torch.Generator(device=env.device).manual_seed(0))
+        tris = env.scene.triangles
+        T = tris.shape[1]
+        for sensor in range(len(env.sensor_kwargs)):
+            o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, sensor)
+            plan = plan_tiles(tris, o_c, d_c, cs.MAX_DEPTH, default_tri_cap(T), img_w, cam_rays)
+            if not tk.tile_route(plan.form, plan.lists):
+                continue
+            h, w = env.sensor_kwargs[sensor]["resolution"]
+            args = (tris, plan.lists, plan.origins_c, plan.dirs_c, cs.MAX_DEPTH, plan.form,
+                    plan.origin_tiles)
+            uses.append((f"{plan.form} T={T} {h}x{w}", args,
+                         cs.kept_lists(plan.lists, plan.lists.count)))
+            if level == 0 and plan.form == "sv_tile":
+                ragged = cs.ragged_lists(plan.lists)
+                uses.append((f"{plan.form} T={T} {h}x{w} ragged lists {list(cs.RAGGED_COUNTS)}",
+                             (tris, ragged, *args[2:]), ragged))
+    first = next(iter(libs))
+    for use, args, kept in uses:
+        tris, lists, o_c, _, _, form, _ = args
+        n_rays = o_c.shape[2]
+        stats = {}
+        tri_first_hit_reference(tris, kept, *args[2:], stats=stats)
+        b_ms, b_by, _ = cs.tri_bound_ms(form, stats, n_rays, kept, form == "mt")
+        k = tk.default_split(lists, form, "scalar", o_c.device)
+        one = tri_first_hit(*args, split=1)
+        c = tk.real_counts(lists, tris.shape[1]).float() / lists.chunk
+        print(f"tile | {use} at {n_rays} rays: {c.numel()} tiles, real slots a tile in stages "
+              f"mean {float(c.mean()):.2f} p90 {float(c.quantile(0.9)):.2f} max "
+              f"{float(c.max()):.2f} of {lists.lb.shape[-1]}; {stats['real_tests'] / n_rays:.1f} "
+              f"tests a ray; bound {b_ms:.4f} ms by {b_by} | {card}", flush=True)
+        runs = [(label, lib, args) for label, lib in libs.items()]
+        runs.append(("step 4 back: the package's, tiles in index order", libs[first],
+                     (tris, lists._replace(order=None), *args[2:])))
+        for turn in (runs, runs[::-1]):
+            for kk in (1, k):
+                ms = cs.device_ms(lambda: tri_first_hit(*args, split=kk))
+                print(f"tile | {use} the cluster walk at k = {kk}: {ms:.4f} ms on the device, "
+                      f"{b_ms / ms:.3f} of the bound | {card}", flush=True)
+            for label, lib, a in turn:
+                with tile_library(lib):
+                    out = tri_first_hit(*a)
+                    ms = cs.device_ms(lambda: tri_first_hit(*a))
+                print(f"tile | {use} {label}: {ms:.4f} ms on the device, {b_ms / ms:.3f} of the "
+                      f"bound; equal to the cluster walk at k = 1 {cs.same_result(out, one)} | "
+                      f"{card}", flush=True)
+
+
 ANALYTIC_MIN_BLOCKS = (2, 3, 4, 8)  # blocks an SM of the copies chip_profile.py analytic builds
 
 
@@ -1186,6 +1312,8 @@ def main(argv):
             split({level: garage_env(level) for level in (0, 2, 3)}, card)
         elif name == "mx":
             mx(garage_env(3), card)
+        elif name == "tile":
+            tile({level: garage_env(level) for level in (0, 2)}, card)
         elif name == "march":
             march(make_env["B"](), card)
         elif name == "analytic":

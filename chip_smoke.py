@@ -188,7 +188,17 @@ Phases, one line each; any failure exits non-zero:
    1,048,576 (64×64) and 589,824 (48×48) rays against its plain version (same
    limits, ids compared on hits), against the brute force on 8 cameras with
    lists that hold the whole mesh (ids compared where the two winners are
-   not tied), its gradient, and its time apart from the prepass's; at 23,040
+   not tied), its gradient, and its time apart from the prepass's; B4's tile
+   kernel (``csrc/tri_tile.cu``) at 360 triangles (both bodies) and 5,760
+   against the cluster walk it replaced at k = 1 and at the k that walk would
+   pick (t and hit to the bit, ids where the ray hits), the plain version on
+   the lists with the slots past each tile's count emptied equal to it on
+   the full lists, and the device time of the three (``device_ms``) beside
+   the bound, the tile kernel no slower than the faster walk; at 360
+   triangles besides on a synthetic ragged list set cut from each sensor's
+   lists (tiles of 0, 64, 65, 256 and 1 real slots in turn) against its plain
+   version (same limits), the same lists with the counts derived from the
+   ids, and the cluster walk as above; at 23,040
    triangles the soup (B5) and per-camera (B6) tiers at the split k the
    wrapper picks (a tile's stages over a cluster of k blocks) against k = 1
    (same limits), the time at both, the stages executed a tile summed over
@@ -330,6 +340,10 @@ MAX_DEPTH = 20.0
 TRACE_STEPS = 40
 T_TOL = 1e-3  # m; grazing rays amplify rounding in the slab divisions
 HIT_TOL = 1e-5  # share of rays whose hit flag or id may differ (grazing rays)
+# the synthetic B4 lists' real slots, tile by tile in turn: an empty tile, a
+# count on a stage boundary, one a slot past it, a tile at the 360-triangle
+# mesh's cap, one triangle
+RAGGED_COUNTS = (0, 64, 65, 256, 1)
 OBS_TOL = 1e-4
 GRAD_TOL = 1e-4  # relative
 COLOR_TOL = 1e-4  # share of pixels: a silhouette pixel flips a whole uint8 triple
@@ -519,9 +533,9 @@ KERNELS = {
                            "visfly_tpu/render/pallas_trace.py:618"),
     "trace_march_packed": ("visfly_tpu_torch/csrc/trace_march.cu",
                            "visfly_tpu/render/pallas_trace.py:93"),
-    "tri_trace_tile_sv": ("visfly_tpu_torch/csrc/tri_trace.cu",
+    "tri_trace_tile_sv": ("visfly_tpu_torch/csrc/tri_tile.cu",
                           "visfly_tpu/render/tri_trace.py:553"),
-    "tri_trace_tile_mt": ("visfly_tpu_torch/csrc/tri_trace.cu",
+    "tri_trace_tile_mt": ("visfly_tpu_torch/csrc/tri_tile.cu",
                           "visfly_tpu/render/tri_trace.py:553"),
     "tri_trace_soup": ("visfly_tpu_torch/csrc/tri_trace.cu",
                        "visfly_tpu/render/tri_trace.py:809"),
@@ -1705,6 +1719,76 @@ def split_report(mode, case, args, plan, ms, b_ms, card):
           flush=True)
 
 
+def kept_lists(lists, counts):
+    """Padded per-triangle lists with every slot past a tile's ``counts`` (S,
+    tiles) emptied (−1) and each tile's stages cut to those that hold them (at
+    least one): the slots the tile kernel walks, as lists that every walk
+    takes alike. The stage bounds stay (the least of more slots is still a
+    bound)."""
+    import torch
+
+    from visfly_tpu_torch.render.tri_kernel import TileLists, longest_first
+
+    pos = torch.arange(lists.ids.shape[-1], device=lists.ids.device)
+    ids = torch.where(pos < counts[..., None], lists.ids, -1).contiguous()
+    nst = torch.clamp(-(-counts // lists.chunk), min=1).to(torch.int32).contiguous()
+    counts = counts.to(torch.int32).contiguous()
+    return TileLists(ids, nst, lists.lb, lists.chunk, 1, count=counts,
+                     order=longest_first(counts))
+
+
+def ragged_lists(lists, pattern=RAGGED_COUNTS):
+    """A synthetic list set from a plan's per-triangle lists: tile i keeps the
+    first ``pattern[i % len(pattern)]`` slots of its own list, at most the cap
+    (an empty tile, a count on a stage boundary, one a slot past it, a tile at
+    the cap, one triangle), the rest emptied (:func:`kept_lists`)."""
+    import torch
+
+    cap = lists.ids.shape[-1]
+    per = torch.tensor([min(c, cap) for c in pattern], dtype=torch.int32, device=lists.ids.device)
+    tiles = lists.n_stage.shape[1]
+    counts = per[torch.arange(tiles, device=per.device) % len(pattern)].expand_as(lists.n_stage)
+    return kept_lists(lists, counts.contiguous())
+
+
+def tile_report(mode, case, args, card, b_ms, b_by, n_rays):
+    """B4's tile kernel against the cluster walk it replaced, on one use of
+    it: equal to the walk at k = 1 and at the k the wrapper would pick for it
+    (:func:`same_result`), and the device time of each (:func:`device_ms`)
+    beside the bound, with registers and blocks an SM → the tile kernel's
+    device ms."""
+    from visfly_tpu_torch.render import tri_first_hit
+    from visfly_tpu_torch.render.tri_kernel import (TILE_BLOCK_RAYS, default_split, occupancy,
+                                                    tile_occupancy)
+
+    tris, lists, o_c, d_c, max_depth, form, origin_tiles = args
+    k = default_split(lists, form, "scalar", o_c.device)
+    new = tri_first_hit(*args)
+    one = tri_first_hit(*args, split=1)
+    at_k = tri_first_hit(*args, split=k)
+    check(same_result(new, one), f"{mode} {case}: the tile kernel differs from the cluster walk "
+                                 "at k = 1")
+    check(same_result(at_k, one), f"{mode} {case}: k = {k} differs from k = 1")
+    times = {}
+    for name, kw in (("old k = 1", {"split": 1}), ("new", {}), (f"old k = {k}", {"split": k})):
+        times[name] = device_ms(lambda: tri_first_hit(*args, **kw))
+    check(times["new"] <= min(times["old k = 1"], times[f"old k = {k}"]),
+          f"{mode} {case}: the tile kernel ({times['new']:.4f} ms) is slower than the cluster "
+          f"walk ({times['old k = 1']:.4f} ms at k = 1, {times[f'old k = {k}']:.4f} at k = {k})")
+    occ_t, occ_c = tile_occupancy(form, o_c.device), occupancy(form, device=o_c.device)
+    check(occ_t["rays"] == TILE_BLOCK_RAYS, f"the tile kernel's blocks take {occ_t['rays']} rays, "
+                                            f"TILE_BLOCK_RAYS says {TILE_BLOCK_RAYS}")
+    print(f"phase 3 | {mode} {case} at {n_rays} rays, on the device: tile kernel "
+          f"{times['new']:.4f} ms ({occ_t['threads']} threads x {occ_t['rays'] // occ_t['threads']}"
+          f" rays a block, {occ_t['regs']} registers, {occ_t['blocks_per_sm']} blocks an SM), "
+          f"share of bound {b_ms / times['new']:.3f}; the cluster walk {times['old k = 1']:.4f} ms "
+          f"at k = 1, {times[f'old k = {k}']:.4f} at the k = {k} it would pick ({occ_c['regs']} "
+          f"registers, {occ_c['blocks_per_sm']} blocks an SM), shares "
+          f"{b_ms / times['old k = 1']:.3f}, {b_ms / times[f'old k = {k}']:.3f}; bound {b_ms:.4f} "
+          f"ms by {b_by}; equal to the cluster walk at k = 1 and k = {k} | {card}", flush=True)
+    return times["new"]
+
+
 def triangle_phase(level, env, state, card, errs, timing):
     """Phase 3 for one mesh size: each sensor's kernel use against its plain
     version on the same lists, at the full ray count; against the brute force
@@ -1713,7 +1797,7 @@ def triangle_phase(level, env, state, card, errs, timing):
 
     from visfly_tpu_torch.render import (default_tri_cap, tri_first_hit, tri_first_hit_reference,
                                          tri_trace_brute, tri_trace_diff, tri_trace_tiled)
-    from visfly_tpu_torch.render.tri_kernel import count_name
+    from visfly_tpu_torch.render.tri_kernel import count_name, tile_route
     from visfly_tpu_torch.render.tri_trace import plan_tiles
 
     tris = env.scene.triangles
@@ -1749,6 +1833,21 @@ def triangle_phase(level, env, state, card, errs, timing):
         check(err <= T_TOL, f"{mode} T={T}: max |dt| {err} > {T_TOL}")
         check(flip <= HIT_TOL, f"{mode} T={T}: hit mismatch {flip} > {HIT_TOL}")
         check(gid_off <= HIT_TOL, f"{mode} T={T}: id mismatch {gid_off} > {HIT_TOL}")
+        tile = tile_route(plan.form, lists)
+        if tile:  # the bound counts the tests on the slots the tile kernel walks
+            kept = kept_lists(lists, lists.count)
+            kept_args = (tris, kept, *args[2:])
+            stats = {}
+            plain_kept = tri_first_hit_reference(*kept_args, stats=stats)
+            # ids where not tied: on the card the plain version's torch.min
+            # may take either of two equal t
+            d_t = int((plain_kept[0] != t_p).sum())
+            d_hit = int((plain_kept[1] != hit_p).sum())
+            d_id = int((not_tied(tris, plan.origins_c, plan.dirs_c, plain_kept[2], gid_p)
+                        & hit_p).sum())
+            check(d_t == d_hit == d_id == 0,
+                  f"{mode} T={T}: the slots past the tiles' counts change the plain version "
+                  f"({d_t} t, {d_hit} hit flags, {d_id} untied ids differ)")
 
         # against every triangle, on 8 cameras, with lists that hold the mesh
         r8 = 8 * h * w
@@ -1805,13 +1904,41 @@ def triangle_phase(level, env, state, card, errs, timing):
         b_ms, b_by, by_bytes = tri_bound_ms(plan.form, stats, n_rays, lists, plan.form == "mt")
         print(f"phase 3 | {mode} T={T} {h}x{w} at {n_rays} rays: kernel {ms:.4f} ms, prepass "
               f"{prepass_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
-              f"(bytes {by_bytes:.4f}); gradient max relative difference {rel:.3e} | {card}",
-              flush=True)
-        # a tile's stages split over a cluster of k blocks, against one block
-        split_report(mode, f"T={T} {h}x{w}", args, plan, ms, b_ms, card)
+              f"(bytes {by_bytes:.4f}; {stats['real_tests'] / n_rays:.1f} tests a ray"
+              f"{' on the real slots' if tile else ''}); gradient max relative difference "
+              f"{rel:.3e} | {card}", flush=True)
+        dev_ms = None
+        if tile:  # B4's tile kernel against the cluster walk it replaced
+            dev_ms = tile_report(mode, f"T={T} {h}x{w}", args, card, b_ms, b_by, n_rays)
+        else:  # a tile's stages split over a cluster of k blocks, against one block
+            split_report(mode, f"T={T} {h}x{w}", args, plan, ms, b_ms, card)
         errs[mode] = max(errs.get(mode, 0.0), err)
         if level in (0, 3):  # the sizes whose numbers stand in the kernels line
-            timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                **({"device_ms": dev_ms} if tile else {}))
+        if level == 0:  # the synthetic ragged lists on the same rays
+            ragged_phase(mode, f"T={T} {h}x{w}", args, card, errs)
+
+
+def ragged_phase(mode, case, args, card, errs):
+    """B4's tile kernel on :func:`ragged_lists` cut from the plan's lists:
+    against its plain version (the kernel limits), the same lists with the
+    counts derived from the ids, and the cluster walk (:func:`tile_report`)."""
+    from visfly_tpu_torch.render import tri_first_hit, tri_first_hit_reference
+
+    tris, lists, *rest = args
+    ragged = ragged_lists(lists)
+    r_args = (tris, ragged, *rest)
+    stats = {}
+    out = tri_first_hit(*r_args)
+    err = agree(f"{mode} {case} ragged lists {list(RAGGED_COUNTS)} vs plain", out,
+                tri_first_hit_reference(*r_args, stats=stats))
+    check(same_result(tri_first_hit(tris, ragged._replace(count=None), *rest), out),
+          f"{mode} {case} ragged lists: the counts derived from the ids differ")
+    n_rays = rest[0].shape[2]
+    b_ms, b_by, _ = tri_bound_ms(rest[3], stats, n_rays, ragged, rest[3] == "mt")
+    tile_report(mode, f"{case} ragged lists", r_args, card, b_ms, b_by, n_rays)
+    errs[mode] = max(errs.get(mode, 0.0), err)
 
 
 def drive(env, gen_seed, n_chunks, chunk, expect):
@@ -4610,7 +4737,7 @@ def main():
     clock("phase 3")
 
     # 4. the paths
-    launches = {m: 0 for m in KERNELS}
+    launches = {m: 0 for m in all_launches()}
 
     def report(name, env, sps, counts, dt, steps, what):
         used = {k: v for k, v in counts.items() if v}
@@ -4839,8 +4966,10 @@ def main():
     noise_phase(dev, card)
     clock("phase 5")
 
-    for mode, n_launch in launches.items():
-        check(n_launch > 0, f"no main path launched {mode}")
+    for mode in KERNELS:
+        check(launches[mode] > 0, f"no main path launched {mode}")
+    check(launches["tri_trace_tile_cluster"] == 0,
+          "a path walked the tile tiers' lists with the cluster walk")
     print(json.dumps({
         "kernels": [{
             "name": mode, "route": "cuda", "source": KERNELS[mode][0],
@@ -4858,9 +4987,11 @@ def main():
                 "colour; "
                 "trace_march (the per-tile cull, B2), trace_march_nocull (B3a) and "
                 "trace_march_packed (B3b) are instantiations of one march kernel, timed on path "
-                "B's camera rays; B2's bound counts the rows its tiles evaluate; the "
-                "tri_trace_* modes are flags and list modes of one source (tile_sv and tile_mt "
-                "the two bodies of B4, soup B5, camsoup B6, camsoup_merged B7a, camsoup_mx B7b "
+                "B's camera rays; B2's bound counts the rows its tiles evaluate; tri_trace_tile_sv "
+                "and tri_trace_tile_mt are the two bodies of B4, a kernel of its own (device_ms "
+                "by queued events; bound on the tests of each tile's real slots); the other "
+                "tri_trace_* modes are flags and list modes of one source (soup B5, camsoup B6, "
+                "camsoup_merged B7a, camsoup_mx B7b "
                 "with a kernel of its own on the tensor cores (its device_ms from "
                 "torch.profiler; its bound counts its TF32 products at the tensor rate), "
                 "worklist B7c, probe B8a, "

@@ -1,8 +1,7 @@
 // Exact ray-triangle first hit over per-tile triangle lists, for Hopper
-// (sm_90a).
+// (sm_90a): the cluster walk.
 //
 // Replaces the TPU kernels of visfly_tpu/render/tri_trace.py
-//   _tri_kernel            (tri_trace_pallas: per-tile culled lists, both bodies)
 //   _tri_kernel_soup       (_tri_trace_pallas_soup: block-id lists into the soup)
 //   _tri_kernel_camsoup    (_tri_trace_pallas_camsoup: per-camera signed volumes)
 //   _tri_kernel_camsoup2   (..._camsoup_v2: one merged output block)
@@ -10,7 +9,12 @@
 //   _tri_kernel_worklist   (_tri_trace_pallas_worklist: flattened worklist)
 // and the two diagnostic copies examples/_tri_probe.py::_probe_kernel (stages
 // executed per tile) and examples/_tri_kernel_exp.py::make_kernel (the body or
-// the page traffic knocked out).
+// the page traffic knocked out). The tile tiers of _tri_kernel (B4: lists of
+// triangle ids, per triangle or culled by 64-triangle clusters) have a kernel
+// of their own, csrc/tri_tile.cu; this one walks their lists only where a
+// caller asks for a split k (B4's former design, kept to be timed beside it)
+// or for the stage count (B8a).
+//
 // For every ray they compute the smallest accepted t over the list of the
 // ray's 1,024-ray tile, the id of the triangle that gave it (the first strict
 // minimum in list order), t clipped to [0, max_depth] and hit = t < max_depth.
@@ -130,94 +134,29 @@
 // the sequential walk with no cluster; the wrapper picks k so that the grid of
 // tiles x k blocks fills the card's SMs in whole rounds.
 //
-// The Moller-Trumbore body defers its division: u = dot(tv, p) / det and
-// v = dot(d, q) / det fail their sign tests when a numerator's sign differs
-// from det's and its magnitude exceeds |det| * 2^-125 (then the quotient is a
-// negative normal number, never -0), which most tests meet; only the rest
-// divide, and they form u, v and t exactly as before, so the result is the
-// former formula's to the bit.
+// The test of a ray against a staged triangle, and how it rounds, is
+// tri_body.cuh's, shared with tri_tile.cu.
 //
 // Bound: the kernel reads 24 bytes a ray and writes 9, which at 1,048,576
 // rays is 35 MB, 10 us at 3.35 TB/s; a test is ~35 (signed volumes) or ~40-55
 // (Moller-Trumbore) float32 instructions and a tile runs list length x 1,024
 // of them, so beyond a few triangles a tile the kernel is bound by
 // operations.
-//
-// Built with --fmad=false and without --use_fast_math, so nothing is fused
-// behind the source's back. The per-test dot and cross products are fused
-// explicitly with __fmaf_rn: measured on the H100 this takes 15% off the
-// per-camera tier and 5% off the soup tier, and moves t by at most 1.6e-4 m
-// against the unfused plain PyTorch version, nearer a float64 brute force
-// than the unfused form (chip_profile.py split). The staging keeps its
-// unfused products, so shared edges stay exact negations and the
-// signed-volume body stays watertight.
 
 #include <climits>
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "tri_body.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTile = 1024;    // rays a tile: the cull unit of the prepasses
 constexpr int kThreads = 256;  // threads a block, four rays each
 constexpr int kRays = kTile / kThreads;
-constexpr int kMaxChunk = 128;  // triangles a stage
-constexpr int kMaxSplit = 8;    // blocks a cluster (the portable limit)
-constexpr float kBig = 1e9f;
-
-enum Form { kMT = 0, kSV = 1 };
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-
-// The per-test products, fused: a*b - c*d and a three-term dot product.
-__device__ __forceinline__ float diff2(float a, float b, float c, float d) {
-  return __fmaf_rn(a, b, -(c * d));
-}
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
-                                      float bz) {
-  return __fmaf_rn(az, bz, __fmaf_rn(ay, by, ax * bx));
-}
-
-// The twelve floats a staged triangle occupies: for kMT [a | b-a | c-a | -],
-// for kSV [g0 | g1 | g2 | kt | -].
-template <int FORM>
-__device__ __forceinline__ void stage_triangle(float4* out, const float* __restrict__ row,
-                                               V3 o) {
-  if (row == nullptr) {  // a list slot with no triangle: never hits
-    out[0] = out[1] = out[2] = make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
-  }
-  const V3 a = {row[0], row[1], row[2]};
-  const V3 b = {row[3], row[4], row[5]};
-  const V3 c = {row[6], row[7], row[8]};
-  V3 p, q, r;
-  float k = 0.f;
-  if (FORM == kMT) {
-    p = a;
-    q = sub(b, a);
-    r = sub(c, a);
-  } else {
-    const V3 a_ = sub(a, o), b_ = sub(b, o), c_ = sub(c, o);
-    p = cross(b_, c_);
-    q = cross(c_, a_);
-    r = cross(a_, b_);
-    k = dot(a_, p);
-  }
-  out[0] = make_float4(p.x, p.y, p.z, q.x);
-  out[1] = make_float4(q.y, q.z, r.x, r.y);
-  out[2] = make_float4(r.z, k, 0.f, 0.f);
-}
+constexpr int kMaxSplit = 8;  // blocks a cluster (the portable limit)
 
 // Where a tile's stages begin, in stages from the start of `list` and `lb`:
 // padded lists give every tile n_stage of them; a CSR list (start given) holds
@@ -299,7 +238,7 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
     o_shared = {origins[r0], origins[plane + r0], origins[2 * plane + r0]};
   }
 
-  float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays];
+  float ox[kRays] = {}, oy[kRays] = {}, oz[kRays] = {}, dx[kRays], dy[kRays], dz[kRays];
   float tbest[kRays];
   int pbest[kRays];  // list position of the best, -1: none
 #pragma unroll
@@ -350,51 +289,9 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
         for (int j = 0; j < chunk; ++j) {
           const float4 r0 = rows[3 * j], r1 = rows[3 * j + 1], r2 = rows[3 * j + 2];
 #pragma unroll
-          for (int k = 0; k < kRays; ++k) {
-            if (FORM == kMT) {
-              // a = r0.xyz, e1 = (r0.w, r1.x, r1.y), e2 = (r1.z, r1.w, r2.x)
-              const float px = diff2(dy[k], r2.x, dz[k], r1.w);
-              const float py = diff2(dz[k], r1.z, dx[k], r2.x);
-              const float pz = diff2(dx[k], r1.w, dy[k], r1.z);
-              const float det = dot3(r0.w, r1.x, r1.y, px, py, pz);
-              if (fabsf(det) > 1e-9f) {
-                const float tx = ox[k] - r0.x, ty = oy[k] - r0.y, tz = oz[k] - r0.z;
-                const float un = dot3(tx, ty, tz, px, py, pz);
-                const float qx = diff2(ty, r1.y, tz, r1.x);
-                const float qy = diff2(tz, r0.w, tx, r1.y);
-                const float qz = diff2(tx, r1.x, ty, r0.w);
-                const float vn = dot3(dx[k], dy[k], dz[k], qx, qy, qz);
-                // un * (1/det) < 0 for certain where un * sign(det) * 2^125
-                // < -|det|; likewise vn
-                const float sg = copysignf(0x1p125f, det), lim = -fabsf(det);
-                if (un * sg >= lim && vn * sg >= lim) {
-                  const float inv = 1.0f / det;
-                  const float u = un * inv;
-                  const float v = vn * inv;
-                  const float tk = dot3(r1.z, r1.w, r2.x, qx, qy, qz) * inv;
-                  if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && tk > 1e-4f && tk < tbest[k]) {
-                    tbest[k] = tk;
-                    pbest[k] = pos0 + j;
-                  }
-                }
-              }
-            } else {
-              // g0 = r0.xyz, g1 = (r0.w, r1.x, r1.y), g2 = (r1.z, r1.w, r2.x), kt = r2.y
-              const float w0 = dot3(dx[k], dy[k], dz[k], r0.x, r0.y, r0.z);
-              const float w1 = dot3(dx[k], dy[k], dz[k], r0.w, r1.x, r1.y);
-              const float w2 = dot3(dx[k], dy[k], dz[k], r1.z, r1.w, r2.x);
-              // the three volumes share a sign; zero volumes and all-zero rows
-              // give tk = +-inf or NaN, which fails both comparisons below
-              if (w0 * w1 >= 0.0f && w0 * w2 >= 0.0f && w1 * w2 >= 0.0f) {
-                const float wsum = w0 + w1 + w2;
-                const float tk = r2.y * (1.0f / wsum);
-                if (tk > 1e-4f && tk < tbest[k]) {
-                  tbest[k] = tk;
-                  pbest[k] = pos0 + j;
-                }
-              }
-            }
-          }
+          for (int k = 0; k < kRays; ++k)
+            test_slot<FORM>(r0, r1, r2, dx[k], dy[k], dz[k], ox[k], oy[k], oz[k], pos0 + j,
+                            tbest[k], pbest[k]);
         }
       }
     }

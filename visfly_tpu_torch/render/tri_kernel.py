@@ -75,27 +75,42 @@ The acceptance rules are the TPU kernels' to the constant: ``|det| > 1e-9``,
 ``t > 1e-4``; the three pairwise products of the volumes ``>= 0`` and
 ``t = kt · (1 / wsum)``, so that ±inf and NaN fail the comparisons.
 
-:func:`tri_first_hit` launches ``csrc/tri_trace.cu`` on CUDA tensors (built at
-first use, bound with ctypes) or raises, and runs
-:func:`tri_first_hit_reference` on CPU tensors. The plain version does the
-kernel's arithmetic in the kernel's order, stage by stage with the same count
-skip and occlusion early-out per tile, except that the kernel fuses the
-per-test dot and cross products (``__fmaf_rn``), and the matrix form takes
-its products in split TF32 and votes on each lane's own best (which runs a
-few more stages, never a different result): the two agree within the smoke's
-limits (1.6e-4 m at most on path D's 23,040 triangles, 3.1e-4 m for mx).
+:func:`tri_first_hit` launches a CUDA kernel on CUDA tensors (built at first
+use, bound with ctypes) or raises, and runs :func:`tri_first_hit_reference`
+on CPU tensors. Two kernels share the test (``csrc/tri_body.cuh``): the tile
+tiers (``form`` ``"sv_tile"`` or ``"mt"`` over lists of triangle ids, B4) go
+to ``csrc/tri_tile.cu`` (:func:`tile_route`), every other call to the cluster
+walk of ``csrc/tri_trace.cu``. The plain version does the kernels' arithmetic
+in their order, stage by stage with the same count skip and occlusion
+early-out per tile, except that the kernels fuse the per-test dot and cross
+products (``__fmaf_rn``), and the matrix form takes its products in split
+TF32 and votes on each lane's own best (which runs a few more stages, never a
+different result): the two agree within the smoke's limits (1.6e-4 m at most
+on path D's 23,040 triangles, 3.1e-4 m for mx).
 
-The split: on the card a tile's stages are walked by a cluster of ``split``
-blocks (:func:`pick_split`), block ``c`` taking stages ``c, c + split, …``
-with its own running best and list position a ray. After every round of
-``split`` stages the blocks exchange their bests, and a block skips a stage
-whose bound lies past every ray's best in its own walk or past the cluster's
-least best (a bound equal to it still runs, so a tie goes to the earlier list
-position). At the end the blocks merge by (t, list position). That is the
-sequential walk's first strict minimum: t and hit are those of ``split = 1``
-to the bit, and so is the id of every ray that hits (a miss's id is whatever
-its walk last kept). The Möller–Trumbore body tests the signs of u and v
-before it divides (:func:`_mt_signs_pass`), which changes no result.
+The tile kernel splits a tile's rays: each of its blocks takes
+:data:`TILE_BLOCK_RAYS` of the tile's 1,024 rays and walks the whole list with
+its own running best and early-out vote, over the tile's real slots only
+(:func:`real_counts`; the slots past them hold no triangle the cull kept),
+its tiles' blocks launched longest walk first where the lists carry an order
+(:func:`longest_first`). Its result is the sequential walk's, ``split = 1``
+below: t and hit to the bit, and the id of every ray that hits.
+
+The split of the cluster walk: a tile's stages are walked by a cluster of
+``split`` blocks (:func:`pick_split`), block ``c`` taking stages
+``c, c + split, …`` with its own running best and list position a ray. After
+every round of ``split`` stages the blocks exchange their bests, and a block
+skips a stage whose bound lies past every ray's best in its own walk or past
+the cluster's least best (a bound equal to it still runs, so a tie goes to the
+earlier list position). At the end the blocks merge by (t, list position).
+That is the sequential walk's first strict minimum: t and hit are those of
+``split = 1`` to the bit, and so is the id of every ray that hits (a miss's id
+is whatever its walk last kept). The tile tiers do not split: their lists are
+a stage or two long, and a cluster's later blocks walked nothing there
+(``PERF.md``, B4); the cluster walk takes their lists only where a caller asks
+for a ``split`` (the old design, timed beside the tile kernel) or for the
+stage count. The Möller–Trumbore body tests the signs of u and v before it
+divides (:func:`_mt_signs_pass`), which changes no result.
 """
 from __future__ import annotations
 
@@ -114,13 +129,18 @@ MAX_CHUNK = 128  # triangles a stage: the kernel's staging buffer
 MAX_SPLIT = 8  # blocks a tile: a thread-block cluster's portable limit
 SPLIT_ROUNDS = 2  # rounds of resident blocks the split aims at (pick_split)
 MX_GROUP = 32  # triangles a product of the matrix form: N = 96 columns, three volumes of 32
+TILE_BLOCK_RAYS = 512  # rays a block of the tile kernel (csrc/tri_tile.cu: kBlockRays)
 FORMS = {"mt": 0, "sv_tile": 1, "sv_cam": 1}  # the kernel's body: 0 kMT, 1 kSV
-# Launches of the CUDA kernel by the tier that asked for it, since the counts
-# were last set to 0. The wrapper adds one where it launches and nowhere else.
 MODES = ("scalar", "merged", "mx")
+# Launches of the CUDA kernels by the tier that asked for it, since the counts
+# were last set to 0. The wrapper adds one where it launches and nowhere else.
+# The two tile entries count the tile kernel (B4); "tri_trace_tile_cluster"
+# counts the cluster walk on the tile tiers' lists, launched only where a
+# caller asks for a split (no render does).
 LAUNCHES = {"tri_trace_tile_sv": 0, "tri_trace_tile_mt": 0, "tri_trace_soup": 0,
             "tri_trace_camsoup": 0, "tri_trace_camsoup_merged": 0, "tri_trace_camsoup_mx": 0,
-            "tri_trace_worklist": 0, "tri_trace_probe": 0, "tri_trace_knockout": 0}
+            "tri_trace_worklist": 0, "tri_trace_probe": 0, "tri_trace_knockout": 0,
+            "tri_trace_tile_cluster": 0}
 # elements of the largest intermediate of the plain version
 _PLAIN_ELEMS = 1 << 24
 
@@ -161,6 +181,12 @@ class TileLists(NamedTuple):
              scene (CSR), ``ids (S, NW · chunk // block)`` and ``lb (S, NW)``
              over ``NW`` stages, of which a tile owns ``n_stage`` from
              ``start`` on
+    count    None, or (S, tiles) int32: a tile's real slots, those from the
+             first on that hold a triangle the cull kept (the tile kernel
+             walks no slot past them; :func:`real_counts`)
+    order    None, or (S · tiles,) int32: the tiles (``s · tiles + tile``)
+             in the order the tile kernel launches their blocks, most real
+             slots first (:func:`longest_first`); None: in index order
     """
 
     ids: Tensor
@@ -169,6 +195,8 @@ class TileLists(NamedTuple):
     chunk: int
     block: int
     start: Optional[Tensor] = None
+    count: Optional[Tensor] = None
+    order: Optional[Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -465,21 +493,62 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
 
 
 def pick_split(n_tiles: int, n_stage: int, slots: dict) -> int:
-    """Blocks a tile for a grid of ``n_tiles`` tiles of up to ``n_stage``
-    stages: the least ``k`` whose ``n_tiles · k`` blocks fill the card's
-    resident blocks ``slots[k]`` (SMs × blocks an SM; with clusters of ``k``,
-    resident clusters × ``k``) at least :data:`SPLIT_ROUNDS` times, so that the
-    last round is a small share of the work; else the largest ``k`` allowed,
-    at most :data:`MAX_SPLIT` and ``n_stage``. The rule sees the padded list
-    length, not the stages each tile owns (those live on the card): where most
-    tiles own a stage or two of a short list, the blocks past them only wait
-    at the cluster's barriers (B4's signed-volume lists at 360 triangles,
-    ``PERF.md``)."""
+    """Blocks a tile of the cluster walk for a grid of ``n_tiles`` tiles of up
+    to ``n_stage`` stages: the least ``k`` whose ``n_tiles · k`` blocks fill
+    the card's resident blocks ``slots[k]`` (SMs × blocks an SM; with clusters
+    of ``k``, resident clusters × ``k``) at least :data:`SPLIT_ROUNDS` times,
+    so that the last round is a small share of the work; else the largest
+    ``k`` allowed, at most :data:`MAX_SPLIT` and ``n_stage``. The rule sees
+    the padded list length, not the stages each tile owns (those live on the
+    card). The tile tiers do not split: they go to the tile kernel
+    (:func:`tile_route`), because where most tiles own a stage or two of a
+    short list the blocks past them only waited at the cluster's barriers
+    (B4's signed-volume lists at 360 triangles, ``PERF.md``); the rule still
+    gives the ``k`` the cluster walk would take on their lists."""
     k_max = max(1, min(MAX_SPLIT, n_stage))
     for k in range(1, k_max + 1):
         if n_tiles * k >= SPLIT_ROUNDS * slots[k]:
             return k
     return k_max
+
+
+def tile_route(form: str, lists: TileLists, mode: str = "scalar", count_stages: bool = False,
+               knockout: bool = False, split: Optional[int] = None) -> bool:
+    """Whether a call on the card goes to the tile kernel (B4,
+    ``csrc/tri_tile.cu``): a tile tier (``form`` ``"sv_tile"`` or ``"mt"``
+    over padded lists of triangle ids), the scalar output, neither diagnostic
+    and no ``split`` asked for. Every other call goes to the cluster walk of
+    ``csrc/tri_trace.cu``: the soup, per-camera, variant and worklist tiers,
+    the stage count and the knock-outs, and a tile tier at an explicit
+    ``split`` (the design B4 had before, kept to be timed beside it)."""
+    return (form in ("sv_tile", "mt") and lists.block == 1 and lists.start is None
+            and mode == "scalar" and not count_stages and not knockout and split is None)
+
+
+def real_counts(lists: TileLists, n_tris: int) -> Tensor:
+    """(S, tiles) int32: the slots of each tile's padded list that the tile
+    kernel walks, from the first on. ``lists.count`` where the prepass handed
+    it (:func:`~visfly_tpu_torch.render.tri_trace.tile_lists`: the triangles
+    the cull kept, at most the cap); else one past the last slot of the
+    tile's ``n_stage`` stages that holds a triangle (an id in
+    ``[0, n_tris)``), since an empty slot never hits. The kernel also stops at
+    the tile's ``n_stage`` stages."""
+    if lists.count is not None:
+        return lists.count
+    n_slots = lists.ids.shape[-1]
+    pos = torch.arange(1, n_slots + 1, dtype=torch.int32, device=lists.ids.device)
+    walked = pos <= (torch.clamp(lists.n_stage, max=lists.lb.shape[-1]) * lists.chunk)[..., None]
+    real = (lists.ids >= 0) & (lists.ids < n_tris) & walked
+    return torch.where(real, pos, 0).amax(-1).to(torch.int32)
+
+
+def longest_first(counts: Tensor) -> Tensor:
+    """(S · tiles,) int32: the tiles of ``counts`` (S, tiles), flattened to
+    ``s · tiles + tile``, most real slots first and in index order among
+    equals: the order in which the tile kernel launches their blocks, so that
+    the longest walks start in the first round of resident blocks and the
+    short ones fill the last (longest processing time first)."""
+    return torch.argsort(counts.flatten(), descending=True, stable=True).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +576,45 @@ def _launchers():
     for fn in fns:
         fn.restype = ctypes.c_int
     return fns
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_launchers():
+    """(tri_tile_launch, tri_tile_occupancy) of the built tile kernel."""
+    from ..build import load_library
+
+    lib = load_library("tri_tile")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # tris list nst cnt lb order origins dirs t hit gid | S T R n_stage chunk | max_depth |
+    # form | stream
+    lib.tri_tile_launch.argtypes = [p] * 11 + [i] * 5 + [f, i, p]
+    # form | regs threads rays blocks_per_sm
+    lib.tri_tile_occupancy.argtypes = [i] + [p] * 4
+    fns = (lib.tri_tile_launch, lib.tri_tile_occupancy)
+    for fn in fns:
+        fn.restype = ctypes.c_int
+    return fns
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_occupancy(device_index: int, form_id: int) -> dict:
+    regs, threads, rays, per_sm = (ctypes.c_int() for _ in range(4))
+    with torch.cuda.device(device_index):
+        rc = _tile_launchers()[1](form_id, *(ctypes.addressof(x)
+                                             for x in (regs, threads, rays, per_sm)))
+    if rc != 0:
+        raise RuntimeError(f"the occupancy query failed with CUDA error {rc}")
+    return {"regs": regs.value, "threads": threads.value, "rays": rays.value,
+            "blocks_per_sm": per_sm.value,
+            "sms": torch.cuda.get_device_properties(device_index).multi_processor_count}
+
+
+def tile_occupancy(form: str = "mt", device=None) -> dict:
+    """What the card holds of the tile kernel of ``form``: ``regs`` a thread,
+    ``threads`` and ``rays`` a block, ``blocks_per_sm`` and ``sms``."""
+    dev = torch.device("cuda" if device is None else device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _tile_occupancy(index, FORMS[form])
 
 
 @functools.lru_cache(maxsize=None)
@@ -588,10 +696,13 @@ def _check(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor, fo
                          f"{tuple(lists.lb.shape)}")
     if origin_tiles < 1 or tiles % origin_tiles:
         raise ValueError(f"{tiles} tiles are not whole cameras of {origin_tiles} tiles")
+    if lists.count is not None and tuple(lists.count.shape) != (S, tiles):
+        raise ValueError(f"count must be ({S}, {tiles}); got {tuple(lists.count.shape)}")
+    if lists.order is not None and tuple(lists.order.shape) != (S * tiles,):
+        raise ValueError(f"order must be ({S * tiles},); got {tuple(lists.order.shape)}")
     typed = [(tris, torch.float32), (origins_c, torch.float32), (dirs_c, torch.float32),
              (lists.lb, torch.float32), (lists.ids, torch.int32), (lists.n_stage, torch.int32)]
-    if lists.start is not None:
-        typed.append((lists.start, torch.int32))
+    typed += [(x, torch.int32) for x in (lists.start, lists.count, lists.order) if x is not None]
     for x, want in typed:
         if x.dtype != want:
             raise TypeError(f"expected {want}, got {x.dtype}")
@@ -616,9 +727,12 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
     :data:`MAX_SPLIT`) is the blocks that walk a tile; ``None`` picks it: on
     the card :func:`default_split`, except for the two diagnostics and the
     matrix form, which walk a tile as one block; on the CPU 1. Any ``split``
-    gives the same t and hit to the bit and the same ids where a ray hits. A
-    launch adds one to ``LAUNCHES``: a knock-out to ``tri_trace_knockout``,
-    else a counting launch to ``tri_trace_probe``, else to the tier's entry
+    gives the same t and hit to the bit and the same ids where a ray hits.
+    On the card the tile tiers go to the tile kernel where no ``split`` is
+    asked for (:func:`tile_route`), with the same result. A launch adds one
+    to ``LAUNCHES``: a knock-out to ``tri_trace_knockout``, else a counting
+    launch to ``tri_trace_probe``, else a tile tier at an explicit ``split``
+    to ``tri_trace_tile_cluster``, else to the tier's entry
     (:func:`count_name`)."""
     knockout = not body or pin_stage
     S, R = _check(tris, lists, origins_c, dirs_c, form, origin_tiles, mode, knockout)
@@ -632,12 +746,15 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
         out = tri_first_hit_reference(tris, lists, origins_c, dirs_c, max_depth, form,
                                       origin_tiles, stats, mode, body, pin_stage, split or 1)
         return (*out, stats["stages"]) if count_stages else out
-    if split is None:
+    tile = tile_route(form, lists, mode, count_stages, knockout, split)
+    if split is None and not tile:
         split = (1 if count_stages or knockout or mode == "mx"
                  else default_split(lists, form, mode, dev))
+    n_tris = tris.shape[1]
+    counts = real_counts(lists, n_tris) if tile else None
+    order = lists.order if tile else None
     tensors = [tris, lists.ids, lists.n_stage, lists.lb, origins_c, dirs_c]
-    if lists.start is not None:
-        tensors.append(lists.start)
+    tensors += [x for x in (lists.start, counts, order) if x is not None]
     for x in tensors:
         if not x.is_contiguous():
             raise ValueError("the triangle kernel takes contiguous tensors")
@@ -652,24 +769,32 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
         return None if x is None else x.data_ptr()
 
     if S and R:
-        launch, launch_mx, _ = _launchers()
         count = ("tri_trace_knockout" if knockout else "tri_trace_probe" if count_stages
                  else count_name(form, lists.block, mode, lists.start is not None))
+        if count in ("tri_trace_tile_sv", "tri_trace_tile_mt") and not tile:
+            count = "tri_trace_tile_cluster"
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if mode == "mx":
-                rc = launch_mx(tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
-                               lists.lb.data_ptr(), origins_c.data_ptr(), dirs_c.data_ptr(),
-                               ptr(t), ptr(hit), ptr(gid), ptr(stages), S, tris.shape[1], R,
-                               lists.lb.shape[-1], lists.chunk, int(origin_tiles),
-                               float(max_depth), stream)
+            if tile:
+                rc = _tile_launchers()[0](
+                    tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
+                    counts.data_ptr(), lists.lb.data_ptr(), ptr(order), origins_c.data_ptr(),
+                    dirs_c.data_ptr(), ptr(t), ptr(hit), ptr(gid), S, n_tris, R,
+                    lists.lb.shape[-1], lists.chunk, float(max_depth), FORMS[form], stream)
+            elif mode == "mx":
+                rc = _launchers()[1](
+                    tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
+                    lists.lb.data_ptr(), origins_c.data_ptr(), dirs_c.data_ptr(), ptr(t),
+                    ptr(hit), ptr(gid), ptr(stages), S, n_tris, R, lists.lb.shape[-1],
+                    lists.chunk, int(origin_tiles), float(max_depth), stream)
             else:
-                rc = launch(tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
-                            ptr(lists.start), lists.lb.data_ptr(), origins_c.data_ptr(),
-                            dirs_c.data_ptr(), ptr(t), ptr(hit), ptr(gid), ptr(stages), S,
-                            tris.shape[1], R, lists.lb.shape[-1], lists.chunk, lists.block,
-                            int(origin_tiles), float(max_depth), FORMS[form], int(merged),
-                            int(not body) + 2 * int(pin_stage), int(split), stream)
+                rc = _launchers()[0](
+                    tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
+                    ptr(lists.start), lists.lb.data_ptr(), origins_c.data_ptr(),
+                    dirs_c.data_ptr(), ptr(t), ptr(hit), ptr(gid), ptr(stages), S, n_tris, R,
+                    lists.lb.shape[-1], lists.chunk, lists.block, int(origin_tiles),
+                    float(max_depth), FORMS[form], int(merged),
+                    int(not body) + 2 * int(pin_stage), int(split), stream)
             LAUNCHES[count] += 1
         if rc != 0:
             raise RuntimeError(f"{count} kernel launch failed with CUDA error {rc}")

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from .tri_kernel import BIG, MAX_CHUNK, TILE, TileLists, tri_first_hit
+from .tri_kernel import BIG, MAX_CHUNK, TILE, TileLists, longest_first, tri_first_hit
 
 CLUSTER = 64  # triangles per cull cluster of the two-level path
 CLUSTER_CULL_MIN_T = 2048  # above: cull whole clusters, not triangles
@@ -497,7 +497,11 @@ def tile_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float
                img_w: Optional[int], backface: bool) -> TileLists:
     """The per-triangle and cluster tiers' prepass as the kernel takes it:
     slots in stages of 64 triangles (128 for caps above 1,024), padded with
-    empty slots to whole stages; a stage's bound is the least of its slots'."""
+    empty slots to whole stages; a stage's bound is the least of its slots';
+    ``count`` the visible triangles a tile kept, at most the cap (the slots
+    past it hold culled triangles or none; the tile kernel walks no slot past
+    it), ``order`` the tiles most of them first (the tile kernel's launch
+    order)."""
     ids, counts, lb = tri_cull_compact(tris, origins_c, dirs_c, max_depth, cap, img_w, backface)
     cap = ids.shape[2]  # the cluster path rounds to whole clusters
     counts = torch.clamp(counts, max=cap)
@@ -509,7 +513,9 @@ def tile_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float
     n_stage = (cap + pad) // chunk
     nst = torch.clamp((counts + chunk - 1) // chunk, min=1).to(torch.int32)
     lbc = lb.reshape(*lb.shape[:2], n_stage, chunk).amin(-1)
-    return TileLists(ids.contiguous(), nst, lbc.contiguous(), chunk, 1)
+    counts = counts.to(torch.int32).contiguous()
+    return TileLists(ids.contiguous(), nst, lbc.contiguous(), chunk, 1, count=counts,
+                     order=longest_first(counts))
 
 
 def block_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float, cap: int,
