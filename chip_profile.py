@@ -8,7 +8,7 @@ without it.
 
     python3 chip_profile.py [depth] [A] [B] [C] [D0] [D2] [D3] [E] [F] [G] [K] [O] [sv]
                             [probe] [floor] [split] [march] [analytic] [mx] [timing]
-                            [plane] [r4] [tile]
+                            [plane] [r4] [tile] [list] [sweep]
                             # default: A C
 
 ``D0``, ``D2`` and ``D3`` are path D, the imported garage mesh subdivided 0, 2
@@ -90,6 +90,33 @@ and 48×48, 5,760 at 64×64) and on ``chip_smoke.py``'s synthetic ragged
 lists, its share of the bound (the tests on the tiles' real slots) and
 whether it equals the cluster walk at k = 1, beside the cluster walk at
 k = 1 and at the k it would pick.
+
+``list`` is the evidence for the list walk on B7a and B7c (the merged and
+worklist tiers, ``csrc/tri_tile.cu``): the copies of ``LIST_COPIES`` (the
+package's; the block of 4 rays a thread, with the kSV body ``SV_SLOT`` and
+without, the real slots, the slot loop's body and unrolling and the 16-byte
+gather taken back or varied), built side by side with each one's
+registers and spills, and each one's slot loop read from its SASS
+(``cuobjdump -sass``: instructions a test on the common path, the accepted
+path apart, written to ``list_sass/`` under ``$VISFLY_PROFILE_OUT``, by
+default ``build/profile/``); then on path D's 64×64
+rays at 23,040 triangles, for B7a and B7c at their defaults and on a ragged
+set of each, in turns forwards and backwards, each copy's device time,
+the package's with its tiles in index order, and the
+cluster walk at k = 1 and its picked k in index order and at k = 2 longest
+first, with each one's share of the bound and the issue floor of the
+package's slot loop; last B6's own lists, with the count and longest-first
+order the plan gives B7a's, on the list walk, the package's and the 4-ray
+copies (routed so inside the command only), beside the cluster walk B6
+takes, at 23,040 and 92,160
+triangles (``tri_bench``'s level 4, 256 cameras).
+
+``sweep`` is the evidence for the list walk's stage shares
+(``tri_kernel.stage_parts``): B7a and B7c on path D's first 8, 16, 32, 64,
+128 and 256 cameras and on path T3's grid (92,160 triangles, 8 cameras,
+``cap = T``) at 1, 2, 4 and 8 shares a tile and at the wrapper's choice,
+beside the cluster walk at its picked k, each equal to the cluster walk at
+k = 1.
 
 ``march`` is the evidence for the march kernel's design (``csrc/trace_march.cu``)
 on path B's camera rays (256 agents, 64×64): for each of its three modes, the
@@ -912,29 +939,116 @@ def mx(env, card):
                      f"{label}: differs from the package's kernel")
 
 
+# the edits of csrc/tri_tile.cu that take back the steps of the list walk's
+# design (chip_profile.py tile and list)
+EVERY_SLOT = {"const int n_real = max(0, min(cnt[tile_idx], n_own * chunk));":
+              "const int n_real = n_own * chunk;"}
+GATHER_WAITED = {
+    "             min(chunk, n_real - (ci + P) * chunk), bs, vec, soup, T);\n":
+    "             min(chunk, n_real - (ci + P) * chunk), bs, vec, soup, T);\n"
+    "    asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"}
+SLOT_UNROLL = "#pragma unroll 8\n    for (int j = 0; j < m; ++j) {"
+SV2_BOUND = {"__launch_bounds__(kThreads)": "__launch_bounds__(kThreads, FORM == kSV ? 5 : 1)"}
+FOUR_RAYS = {"constexpr int kRays = 2;": "constexpr int kRays = 4;"}
+THREADS_128 = {"constexpr int kThreads = 256;": "constexpr int kThreads = 128;"}
+# the kSV body with the sign tests as one predicate chain and the accepted
+# path taken once a slot, where any of the thread's tests passed the gate
+# (design step 4): the same arithmetic and gate as test_slot<kSV>, to the bit
+SV_SLOT = {
+    "// No bound on the blocks an SM": """\
+// One staged triangle (r0, r1, r2) of the kSV body against the thread's RAYS
+// rays: test_slot<kSV>'s arithmetic and gate, with the three sign tests as one
+// predicate chain and the accepted path once a slot.
+template <int RAYS>
+__device__ __forceinline__ void sv_slot(float4 r0, float4 r1, float4 r2,
+                                        const float (&dx)[RAYS], const float (&dy)[RAYS],
+                                        const float (&dz)[RAYS], int pos, float (&tbest)[RAYS],
+                                        int (&pbest)[RAYS]) {
+  float w0[RAYS], w1[RAYS], w2[RAYS];
+  bool pass[RAYS];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < RAYS; ++k) {
+    w0[k] = dot3(dx[k], dy[k], dz[k], r0.x, r0.y, r0.z);
+    w1[k] = dot3(dx[k], dy[k], dz[k], r0.w, r1.x, r1.y);
+    w2[k] = dot3(dx[k], dy[k], dz[k], r1.z, r1.w, r2.x);
+    pass[k] = (w0[k] * w1[k] >= 0.0f) & (w0[k] * w2[k] >= 0.0f) & (w1[k] * w2[k] >= 0.0f);
+    any = any | pass[k];
+  }
+  if (__builtin_expect(any, 0)) {
+#pragma unroll
+    for (int k = 0; k < RAYS; ++k) {
+      if (!pass[k]) continue;
+      const float wsum = w0[k] + w1[k] + w2[k];
+      const float tk = r2.y * (1.0f / wsum);
+      if (tk > 1e-4f && tk < tbest[k]) {
+        tbest[k] = tk;
+        pbest[k] = pos;
+      }
+    }
+  }
+}
+
+// No bound on the blocks an SM""",
+    """#pragma unroll
+      for (int k = 0; k < kRays; ++k)
+        test_slot<FORM>(r0, r1, r2, dx[k], dy[k], dz[k], ox[k], oy[k], oz[k], pos0 + j,
+                        tbest[k], pbest[k]);""": """      if (FORM == kSV) {
+        sv_slot<kRays>(r0, r1, r2, dx, dy, dz, pos0 + j, tbest, pbest);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kRays; ++k)
+          test_slot<FORM>(r0, r1, r2, dx[k], dy[k], dz[k], ox[k], oy[k], oz[k], pos0 + j,
+                          tbest[k], pbest[k]);
+      }"""}
+
+
+def unrolled(n):
+    return {SLOT_UNROLL: SLOT_UNROLL.replace("unroll 8", f"unroll {n}")}
+
+
+def copy_rays(edits):
+    """Rays a thread of a copy of ``csrc/tri_tile.cu`` with ``edits``."""
+    return 4 if FOUR_RAYS.keys() <= edits.keys() else 2
+
+
 # the copies of csrc/tri_tile.cu that chip_profile.py tile builds: label ->
 # {line of the source: its replacement}; each takes one step of B4's design
-# back, or gives its blocks another shape
+# back, or gives its blocks another shape (a block is the copy's kThreads
+# threads of kRays rays each; the 4-ray shapes take the kSV body sv_slot,
+# which served them best)
 TILE_COPIES = {
     "the design: 256 threads x 2 rays, 2 blocks a tile (the package's)": {},
-    "step 1 back: 256 threads x 4 rays, the whole tile a block": {
-        "constexpr int kRays = 2;": "constexpr int kRays = 4;"},
-    "step 2 back: every slot of the walked stages": {
-        "const int n_real = max(0, min(cnt[tile_idx], min(nst[tile_idx], n_stage) * chunk));":
-        "const int n_real = min(nst[tile_idx], n_stage) * chunk;"},
-    "step 3 back: the next stage's gather waited for before the tests": {
-        "             min(chunk, n_real - (ci + 1) * chunk), soup, T);\n":
-        "             min(chunk, n_real - (ci + 1) * chunk), soup, T);\n"
-        "    asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"},
-    "128 threads x 4 rays, 2 blocks a tile": {
-        "constexpr int kThreads = 256;": "constexpr int kThreads = 128;",
-        "constexpr int kRays = 2;": "constexpr int kRays = 4;"},
-    "128 threads x 2 rays, 4 blocks a tile": {
-        "constexpr int kThreads = 256;": "constexpr int kThreads = 128;"},
+    "step 1 back: 256 threads x 4 rays, the whole tile a block": {**FOUR_RAYS, **SV_SLOT},
+    "step 2 back: every slot of the walked stages": EVERY_SLOT,
+    "step 3 back: the next stage's gather waited for before the tests": GATHER_WAITED,
+    "256 threads x 2 rays, at most 51 registers (kSV: 5 blocks an SM)": SV2_BOUND,
+    "the slot loop unrolled by 4": unrolled(4),
+    "the slot loop not unrolled": unrolled(1),
+    "128 threads x 4 rays, 2 blocks a tile": {**THREADS_128, **FOUR_RAYS, **SV_SLOT},
+    "128 threads x 2 rays, 4 blocks a tile": THREADS_128,
     "128 threads x 4 rays, at most 64 registers (8 blocks an SM)": {
-        "constexpr int kThreads = 256;": "constexpr int kThreads = 128;",
-        "constexpr int kRays = 2;": "constexpr int kRays = 4;",
+        **THREADS_128, **FOUR_RAYS, **SV_SLOT,
         "__launch_bounds__(kThreads)": "__launch_bounds__(kThreads, 8)"},
+}
+# the copies chip_profile.py list builds (B7a, B7c): label -> edits, each
+# taking one step of the design back (the order, step 1, is the wrapper's:
+# taken away by launching the package's in index order) or varying it
+LIST_COPIES = {
+    "the design: 256 threads x 2 rays, 2 blocks a tile (the package's)": {},
+    "step 2 back: 256 threads x 4 rays, the whole tile a block, sv_slot": {**FOUR_RAYS,
+                                                                          **SV_SLOT},
+    "256 threads x 4 rays, test_slot's body": FOUR_RAYS,
+    "step 3 back: every slot of the walked stages": EVERY_SLOT,
+    "sv_slot at 2 rays a thread": SV_SLOT,
+    "step 4 back: the slot loop not unrolled": unrolled(1),
+    "the slot loop unrolled by 2": unrolled(2),
+    "the slot loop unrolled by 4": unrolled(4),
+    "step 5 back: one float a copy": {
+        "const bool vec = bs % 4 == 0 && T % bs == 0 && (uintptr_t)tris % 16 == 0;":
+        "const bool vec = false;"},
+    "step 5 back: the next stage's gather waited for before the tests": GATHER_WAITED,
+    "at most 51 registers (kSV: 5 blocks an SM)": SV2_BOUND,
 }
 
 
@@ -1023,6 +1137,299 @@ def tile(envs, card):
                 print(f"tile | {use} {label}: {ms:.4f} ms on the device, {b_ms / ms:.3f} of the "
                       f"bound; equal to the cluster walk at k = 1 {cs.same_result(out, one)} | "
                       f"{card}", flush=True)
+
+
+def sass_listing(lib, kernel):
+    """[(offset, instruction)] of the function of the built library ``lib``
+    whose mangled name holds ``kernel`` (``cuobjdump -sass``)."""
+    from visfly_tpu_torch.build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        if kernel in name:
+            out[name] = [(int(m.group(1), 16), m.group(2).strip()) for m in
+                         re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;/]+);", block)]
+    cs.check(bool(out), f"no function {kernel} in {lib}")
+    return out
+
+
+def slot_loop(listing):
+    """The slot loop of a list walk's SASS: the innermost loop (a backward
+    branch with no other inside it) with the most fused multiply-adds →
+    (its instructions, the spans a forward branch inside it skips that hold
+    the reciprocal or a call: the accepted path, walked only where a test
+    passed the gate)."""
+    def target(ins):
+        m = re.search(r"\bBRA(?:\.\S+)?\s+`?\(?(0x[0-9a-f]+)", ins)
+        return int(m.group(1), 16) if m else None
+
+    loops = [(target(ins), off) for off, ins in listing
+             if target(ins) is not None and target(ins) <= off]
+    inner = [(a, b) for a, b in loops if not any(a <= c < d <= b and (c, d) != (a, b)
+                                                 for c, d in loops)]
+    body = max(([x for x in listing if a <= x[0] <= b] for a, b in inner),
+               key=lambda xs: sum("FFMA" in ins for _, ins in xs))
+    end = body[-1][0]
+    rare = set()
+    for off, ins in body:
+        to = target(ins)
+        if to is not None and off < to <= end:
+            span = [x for x in body if off < x[0] < to]
+            if any("MUFU" in i or "CALL" in i for _, i in span):
+                rare.update(x[0] for x in span)
+    return body, rare
+
+
+def sass_report(lib, label, card, rays, dump_dir=None):
+    """Per instantiation of the list walk in ``lib`` (``rays`` a thread):
+    its slot loop's instructions on the common path (the accepted path
+    apart), the slots an iteration serves (three shared-memory loads a staged
+    triangle) and the tests (slots x rays) → {(form, merged, stage shares):
+    instructions a test}. With ``dump_dir`` the loop's SASS is written there,
+    a file an instantiation."""
+    per_test = {}
+    for name, listing in sass_listing(lib, "tri_tile_kernel").items():
+        m = re.search(r"tri_tile_kernelILi(\d)ELb(\d)ELb(\d)E", name)
+        form, merged, split = (int(x) for x in m.groups())
+        body, rare = slot_loop(listing)
+        common = [ins for off, ins in body if off not in rare]
+        ops = [ins.split()[1] if ins.startswith("@") else ins.split()[0] for ins in common]
+        lds = sum(o.startswith("LDS") for o in ops)
+        slots = lds / 3
+        tests = slots * rays
+        n = len(common) / tests if tests else float("nan")
+        per_test[(form, merged, split)] = n
+        mix = {k: sum(o.startswith(k) for o in ops)
+               for k in ("FFMA", "FMUL", "FADD", "FSETP", "FMNMX", "PLOP3", "LDS", "ISETP", "IADD",
+                         "BRA", "BSSY", "MUFU")}
+        what = (f"form {'kSV' if form else 'kMT'}, {'merged' if merged else 'scalar'}, {rays} rays"
+                f"{', stage shares' if split else ''}")
+        print(f"{label} | sass slot loop ({what}): {len(body)} instructions, {len(rare)} of them "
+              f"the accepted path; {len(common)} on the common path for {slots:g} slots x {rays} "
+              f"rays = {tests:g} tests: {n:.2f} instructions a test; "
+              + ", ".join(f"{k} {v}" for k, v in mix.items() if v) + f" | {card}", flush=True)
+        if dump_dir:
+            os.makedirs(dump_dir, exist_ok=True)
+            with open(os.path.join(dump_dir, f"{form}{merged}{split}.sass"), "w") as f:
+                f.writelines(f"{off:06x}{' *' if off in rare else '  '} {ins}\n"
+                             for off, ins in body)
+    return per_test
+
+
+@contextlib.contextmanager
+def b6_on_the_list_walk():
+    """B6's calls (the scalar per-camera tier over block lists) go to the
+    list walk inside the block, with its scalar output; no render is
+    routed so."""
+    from visfly_tpu_torch.render import tri_kernel as tk
+
+    own = tk.list_route
+
+    def route(form, lists, mode="scalar", count_stages=False, knockout=False, split=None):
+        b6 = (form == "sv_cam" and mode == "scalar" and lists.start is None
+              and not count_stages and not knockout and split is None)
+        return b6 or own(form, lists, mode, count_stages, knockout, split)
+
+    tk.list_route = route
+    try:
+        yield
+    finally:
+        tk.list_route = own
+
+
+def list_uses(env, dev):
+    """(label, args, mode) of B7a and B7c on path D's 64×64 rays at 23,040
+    triangles (default cap and budget) and on a ragged set of each
+    (``chip_smoke.py``'s block lists cut to 0-45 blocks a tile, the worklist
+    at a budget for every stage)."""
+    from visfly_tpu_torch.render import default_tri_cap
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
+    tris = env.scene.triangles
+    T = tris.shape[1]
+    o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, 0)
+    cap = default_tri_cap(T)
+    uses = []
+    for variant, budget, cut in (("merged", None, False), ("wl", None, False),
+                                 ("merged", None, True), ("wl", 10 ** 6, False)):
+        plan = plan_tiles(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w, cam_rays, variant=variant,
+                          work_budget=budget)
+        lists = cs.ragged_blocks(plan.lists) if cut else plan.lists
+        name = {"merged": "B7a merged", "wl": "B7c worklist"}[variant]
+        name += (" ragged block lists" if cut else " budget for every stage" if budget
+                 else "")
+        uses.append((f"{name} T={T} 64x64", (tris, lists, plan.origins_c, plan.dirs_c,
+                                              cs.MAX_DEPTH, plan.form, plan.origin_tiles),
+                     plan.mode))
+    return uses
+
+
+def list_walk(env, card):
+    """B7a's and B7c's list walk, step by step (``LIST_COPIES``; the order
+    taken away; the cluster walk at k = 2 in the lists' order), with the SASS
+    count of the slot loop and the issue floor it sets; then B6's lists on
+    the list walk beside the cluster walk B6 takes (recorded, not routed), at
+    23,040 and 92,160 triangles."""
+    import concurrent.futures
+
+    from visfly_tpu_torch.examples import tri_bench
+    from visfly_tpu_torch.render import (default_tri_cap, pack_triangles, tri_first_hit,
+                                         tri_first_hit_reference)
+    from visfly_tpu_torch.render import tri_kernel as tk
+    from visfly_tpu_torch.render.tri_trace import plan_tiles, walk_order
+
+    dev = env.device
+    with concurrent.futures.ThreadPoolExecutor(len(LIST_COPIES)) as pool:
+        libs = dict(zip(LIST_COPIES, pool.map(lambda kv: source_copy("tri_tile", kv[0], kv[1]),
+                                              LIST_COPIES.items())))
+    first = next(iter(libs))
+    floors = {}
+    for label, lib in libs.items():
+        ptxas_report(lib, f"list | {label}", card, only="tri_tile_kernel")
+        out = os.environ.get("VISFLY_PROFILE_OUT", os.path.join(cs.REPO, "build", "profile"))
+        dump = os.path.join(out, "list_sass", re.sub(r"[^a-z0-9]+", "-", label.lower())[:40])
+        floors[label] = sass_report(lib, f"list | {label}", card, copy_rays(LIST_COPIES[label]),
+                                    dump)
+    for use, args, mode in list_uses(env, dev):
+        tris, lists, o_c, _, _, form, _ = args
+        n_rays = o_c.shape[2]
+        stats = {}
+        tri_first_hit_reference(*args, stats=stats, mode=mode)
+        b_ms, b_by, _ = cs.tri_bound_ms(form, stats, n_rays, lists,
+                                        out_bytes=8 if mode == "merged" else 9)
+        k = tk.default_split(lists, form, mode, dev)
+        index = (tris, lists._replace(order=None), *args[2:])
+        one = tri_first_hit(*index, mode=mode, split=1)
+        c = tk.real_counts(lists, tris.shape[1]).float() / lists.chunk
+        rays = tk.TILE_BLOCK_RAYS // 256
+        n_test = floors[first][(1, int(mode == "merged"), 0)]
+        floor_ms = stats["real_tests"] * n_test / (cs.PEAK_FP32_PER_S / 2) * 1e3
+        print(f"list | {use} at {n_rays} rays: {c.numel()} tiles, real slots a tile in stages "
+              f"mean {float(c.mean()):.2f} p90 {float(c.quantile(0.9)):.2f} max "
+              f"{float(c.max()):.2f}; {stats['real_tests'] / n_rays:.1f} tests a ray; bound "
+              f"{b_ms:.4f} ms by {b_by}; the issue floor of the package's slot loop "
+              f"({n_test:.2f} instructions a test at {rays} rays a thread) {floor_ms:.4f} ms, "
+              f"{b_ms / floor_ms:.3f} of the bound's time | {card}", flush=True)
+        runs = [(label, lib, args) for label, lib in libs.items()]
+        runs.append(("step 1 back: the package's, tiles in index order", libs[first], index))
+        walks = [("the cluster walk in index order", index, kk) for kk in sorted({1, k})]
+        walks += [("the cluster walk longest first (shape c)", args, kk) for kk in sorted({2, k})]
+        for turn in (runs, runs[::-1]):
+            for name, a, kk in walks:
+                ms = cs.device_ms(lambda: tri_first_hit(*a, mode=mode, split=kk))
+                print(f"list | {use} {name} at k = {kk}{' (picked)' if kk == k else ''}: "
+                      f"{ms:.4f} ms on the device, {b_ms / ms:.3f} of the bound | {card}",
+                      flush=True)
+            for label, lib, a in turn:
+                with tile_library(lib):
+                    out = tri_first_hit(*a, mode=mode)
+                    ms = cs.device_ms(lambda: tri_first_hit(*a, mode=mode))
+                print(f"list | {use} {label}: {ms:.4f} ms on the device, {b_ms / ms:.3f} of the "
+                      f"bound; equal to the cluster walk at k = 1 {cs.same_result(out, one)} | "
+                      f"{card}", flush=True)
+
+    # B6's lists on the list walk, beside the cluster walk B6 takes
+    state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
+    tris3 = env.scene.triangles
+    o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, 0)
+    tris4 = torch.as_tensor(pack_triangles(*tri_bench.load_garage(4))[None], device=dev)
+    o4, d4 = tri_bench.batch_rays(256, cs.RES[1], dev)
+    for tris, o, d, w, cam in ((tris3, o_c, d_c, img_w, cam_rays),
+                               (tris4, o4, d4, cs.RES[1], cs.RES[0] * cs.RES[1])):
+        T = tris.shape[1]
+        plan = plan_tiles(tris, o, d, cs.MAX_DEPTH, default_tri_cap(T), w, cam)
+        args = (tris, plan.lists, plan.origins_c, plan.dirs_c, cs.MAX_DEPTH, plan.form,
+                plan.origin_tiles)
+        stats = {}
+        tri_first_hit_reference(*args, stats=stats)
+        n_rays = o.shape[2]
+        b_ms, b_by, _ = cs.tri_bound_ms(plan.form, stats, n_rays, plan.lists)
+        k = tk.default_split(plan.lists, plan.form, "scalar", dev)
+        one = tri_first_hit(*args, split=1)
+        walked = (tris, walk_order(plan.lists), *args[2:])  # with the count and order B7a gets
+        for turn in range(2):
+            ms = cs.device_ms(lambda: tri_first_hit(*args))
+            print(f"list | B6 T={T} at {n_rays} rays ({stats['real_tests'] / n_rays:.1f} tests a "
+                  f"ray), its route, the cluster walk at k = {k}: {ms:.4f} ms on the device, "
+                  f"{b_ms / ms:.3f} of the bound ({b_ms:.4f} ms by {b_by}) | {card}", flush=True)
+            shapes = [(label, lib) for label, lib in libs.items() if "x 4 rays" in label]
+            shapes.insert(0, (first, libs[first]))
+            for label, lib in (shapes if turn == 0 else shapes[::-1]):
+                with b6_on_the_list_walk(), tile_library(lib):
+                    out = tri_first_hit(*walked)
+                    ms = cs.device_ms(lambda: tri_first_hit(*walked))
+                print(f"list | B6 T={T} on the list walk, {label} (not routed): "
+                      f"{ms:.4f} ms on the device, {b_ms / ms:.3f} of the bound; equal to the "
+                      f"cluster walk at k = 1 {cs.same_result(out, one)} | {card}", flush=True)
+
+
+@contextlib.contextmanager
+def stage_shares(parts):
+    """The list walk takes ``parts`` stage shares a tile inside the block
+    (None: the wrapper's own choice, :func:`tri_kernel.stage_parts`)."""
+    from visfly_tpu_torch.render import tri_kernel as tk
+
+    own = tk.stage_parts
+    if parts is not None:
+        tk.stage_parts = lambda n_blocks, resident: parts
+    try:
+        yield
+    finally:
+        tk.stage_parts = own
+
+
+def grid_sweep(env, card):
+    """B7a and B7c on few tiles: path D's first 8 to 256 cameras at 23,040
+    triangles (default cap and budget), and ``tri_bench``'s level 4 on 8
+    cameras at ``cap = T`` (path T3): the list walk at 1, 2, 4 and 8 stage
+    shares a tile and at the wrapper's choice, beside the cluster walk at its
+    picked k, each held to the cluster walk at k = 1."""
+    from visfly_tpu_torch.examples import tri_bench
+    from visfly_tpu_torch.render import default_tri_cap, pack_triangles, tri_first_hit
+    from visfly_tpu_torch.render import tri_kernel as tk
+    from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    dev = env.device
+    state, _ = env.reset(torch.Generator(device=dev).manual_seed(0))
+    tris3 = env.scene.triangles
+    o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, 0)
+    cases = [(f"T=23040 {n} cameras", tris3, o_c[:, :, :n * cam_rays].contiguous(),
+              d_c[:, :, :n * cam_rays].contiguous(), default_tri_cap(tris3.shape[1]))
+             for n in (8, 16, 32, 64, 128, 256)]
+    tris4 = torch.as_tensor(pack_triangles(*tri_bench.load_garage(4))[None], device=dev)
+    o4, d4 = tri_bench.batch_rays(8, cs.RES[1], dev)
+    cases.append(("T=92160 8 cameras, cap = T (path T3)", tris4, o4, d4, tris4.shape[1]))
+    for case, tris, o, d, cap in cases:
+        for variant in ("merged", "wl"):
+            plan = plan_tiles(tris, o, d, cs.MAX_DEPTH, cap, cs.RES[1], cs.RES[0] * cs.RES[1],
+                              variant=variant)
+            args = (tris, plan.lists, plan.origins_c, plan.dirs_c, cs.MAX_DEPTH, plan.form,
+                    plan.origin_tiles)
+            mode = plan.mode
+            one = tri_first_hit(*args, mode=mode, split=1)
+            k = tk.default_split(plan.lists, plan.form, mode, dev)
+            index = (tris, plan.lists._replace(order=None), *args[2:])
+            n_blocks = plan.lists.n_stage.numel() * (tk.TILE // tk.TILE_BLOCK_RAYS)
+            resident = tk._resident(dev, plan.form, mode)
+            times = {}
+            for parts in (None, 1, 2, 4, 8):
+                with stage_shares(parts):
+                    out = tri_first_hit(*args, mode=mode)
+                    times[parts] = cs.device_ms(lambda: tri_first_hit(*args, mode=mode))
+                cs.check(cs.same_result(out, one), f"{case} {variant}: {parts} stage shares "
+                                                   "differ from the cluster walk at k = 1")
+            old = cs.device_ms(lambda: tri_first_hit(*index, mode=mode, split=k))
+            print(f"list | sweep {variant} {case}: {n_blocks} blocks of the list walk, {resident} "
+                  f"resident, the wrapper's stage shares "
+                  f"{tk.stage_parts(n_blocks, resident)}: {times[None]:.4f} ms on the device; at 1 / "
+                  f"2 / 4 / 8 stage shares {times[1]:.4f} / {times[2]:.4f} / {times[4]:.4f} / "
+                  f"{times[8]:.4f}; the cluster walk in index order at its k = {k} {old:.4f}; each "
+                  f"equal to the cluster walk at k = 1 | {card}", flush=True)
 
 
 ANALYTIC_MIN_BLOCKS = (2, 3, 4, 8)  # blocks an SM of the copies chip_profile.py analytic builds
@@ -1314,6 +1721,10 @@ def main(argv):
             mx(garage_env(3), card)
         elif name == "tile":
             tile({level: garage_env(level) for level in (0, 2)}, card)
+        elif name == "list":
+            list_walk(garage_env(3), card)
+        elif name == "sweep":
+            grid_sweep(garage_env(3), card)
         elif name == "march":
             march(make_env["B"](), card)
         elif name == "analytic":

@@ -205,7 +205,16 @@ Phases, one line each; any failure exits non-zero:
    its blocks and the blocks an SM of the occupancy query; the three
    variants of the per-camera tier at 23,040 triangles against their plain
    versions, against ``"scalar"`` and against the brute force (same limits;
-   the worklist at its default budget held to "no nearer hit"); the matrix
+   the worklist at its default budget held to "no nearer hit"); the merged (B7a)
+   and worklist (B7c) tiers through the list walk (``csrc/tri_tile.cu``)
+   against the cluster walk they replaced at k = 1 and at the k it would
+   pick, in index order as before and in the lists' longest-first order (t
+   and hit to the bit, ids where the ray hits), with the device time of each
+   beside the bound, on path D's lists, on synthetic ragged ones (block
+   lists cut to 0-45 blocks a tile, the worklist at a budget for every
+   stage) and on path D's first 8 cameras (32 tiles: the walk splits each
+   tile's stages over 8 blocks), those also against their plain versions;
+   the matrix
    form on the tensor cores besides against its TF32 split's model, on rays
    through the midpoints of the mesh's flat shared edges (hit flags equal to
    the plain version's, no ray past 1e-3 m of it) and on the mesh twice over
@@ -344,6 +353,8 @@ HIT_TOL = 1e-5  # share of rays whose hit flag or id may differ (grazing rays)
 # count on a stage boundary, one a slot past it, a tile at the 360-triangle
 # mesh's cap, one triangle
 RAGGED_COUNTS = (0, 64, 65, 256, 1)
+# the synthetic B7a lists' blocks, tile by tile in turn (at most the tile's own)
+RAGGED_BLOCKS = (0, 45, 1, 12, 3, 30, 7, 45, 2, 20)
 OBS_TOL = 1e-4
 GRAD_TOL = 1e-4  # relative
 COLOR_TOL = 1e-4  # share of pixels: a silhouette pixel flips a whole uint8 triple
@@ -541,11 +552,11 @@ KERNELS = {
                        "visfly_tpu/render/tri_trace.py:809"),
     "tri_trace_camsoup": ("visfly_tpu_torch/csrc/tri_trace.cu",
                           "visfly_tpu/render/tri_trace.py:942"),
-    "tri_trace_camsoup_merged": ("visfly_tpu_torch/csrc/tri_trace.cu",
+    "tri_trace_camsoup_merged": ("visfly_tpu_torch/csrc/tri_tile.cu",
                                  "visfly_tpu/render/tri_trace.py:999"),
     "tri_trace_camsoup_mx": ("visfly_tpu_torch/csrc/tri_trace.cu",
                              "visfly_tpu/render/tri_trace.py:1274"),
-    "tri_trace_worklist": ("visfly_tpu_torch/csrc/tri_trace.cu",
+    "tri_trace_worklist": ("visfly_tpu_torch/csrc/tri_tile.cu",
                            "visfly_tpu/render/tri_trace.py:1454"),
     "tri_trace_probe": ("visfly_tpu_torch/csrc/tri_trace.cu", "examples/_tri_probe.py:30"),
     "tri_trace_knockout": ("visfly_tpu_torch/csrc/tri_trace.cu",
@@ -1616,8 +1627,38 @@ def variant_phase(env, state, card, errs, timing):
         if variant == "mx":  # a kernel of its own, on the tensor cores, one block a tile
             mx_phase(tris, o8, d8, img_w, cam_rays, args, plan, stats, n_rays, ms, b_ms, card,
                      timing[mode])
+            continue
+        # the list walk against the cluster walk it replaced, on the plan's
+        # lists and on a ragged set
+        timing[mode]["device_ms"] = list_report(mode, f"T={T} 64x64", args, plan.mode, card,
+                                                b_ms, b_by, n_rays)
+        if variant == "merged":
+            ragged, what = ragged_blocks(plan.lists), f"ragged block lists {list(RAGGED_BLOCKS)}"
         else:
-            split_report(mode, f"T={T} 64x64", args, plan, ms, b_ms, card)
+            ragged, what = plan_of("wl", cap, every).lists, "lists at a budget for every stage"
+        r_args = (tris, ragged, *args[2:])
+        stats = {}
+        err = agree(f"{mode} T={T} {what} vs plain", tri_first_hit(*r_args, mode=plan.mode),
+                    tri_first_hit_reference(*r_args, stats=stats, mode=plan.mode), tris,
+                    r_args[2:4])
+        errs[mode] = max(err, errs[mode])
+        r_ms, r_by, _ = tri_bound_ms(plan.form, stats, n_rays, ragged,
+                                     out_bytes=8 if variant == "merged" else 9)
+        list_report(mode, f"T={T} 64x64 {what}", r_args, plan.mode, card, r_ms, r_by, n_rays,
+                    full=False)
+        # few tiles (8 cameras: path T3's grid), where the walk splits a tile's stages too
+        few = plan_tiles(tris, o8, d8, MAX_DEPTH, cap, img_w, cam_rays, variant=variant)
+        f_args = (tris, few.lists, few.origins_c, few.dirs_c, MAX_DEPTH, few.form,
+                  few.origin_tiles)
+        stats = {}
+        err = agree(f"{mode} T={T} 8 cameras vs plain", tri_first_hit(*f_args, mode=plan.mode),
+                    tri_first_hit_reference(*f_args, stats=stats, mode=plan.mode), tris,
+                    f_args[2:4])
+        errs[mode] = max(err, errs[mode])
+        f_ms, f_by, _ = tri_bound_ms(plan.form, stats, r8, few.lists,
+                                     out_bytes=8 if variant == "merged" else 9)
+        list_report(mode, f"T={T} 64x64 8 cameras", f_args, plan.mode, card, f_ms, f_by, r8,
+                    full=False)
 
     # stages executed: the kernel's count against the plain version's, exactly,
     # on the 48×48 sensor's rays (the Moeller-Trumbore body over the soup, as
@@ -1749,6 +1790,80 @@ def ragged_lists(lists, pattern=RAGGED_COUNTS):
     tiles = lists.n_stage.shape[1]
     counts = per[torch.arange(tiles, device=per.device) % len(pattern)].expand_as(lists.n_stage)
     return kept_lists(lists, counts.contiguous())
+
+
+def ragged_blocks(lists, pattern=RAGGED_BLOCKS):
+    """A synthetic set from a plan's block lists: tile i keeps the first
+    ``pattern[i % len(pattern)]`` of the blocks it sees, the rest emptied (-1)
+    and its stages cut to those (at least one), with the count and the
+    longest-first order of what is left."""
+    import torch
+
+    from visfly_tpu_torch.render.tri_kernel import longest_first
+
+    per = torch.tensor(pattern, dtype=torch.int32, device=lists.ids.device)
+    tiles = lists.n_stage.shape[1]
+    want = per[torch.arange(tiles, device=per.device) % len(pattern)].expand_as(lists.n_stage)
+    blocks = torch.minimum(want, lists.count // lists.chunk)
+    entries = torch.arange(lists.ids.shape[-1], device=per.device)
+    ids = torch.where(entries < blocks[..., None], lists.ids, -1).contiguous()
+    count = (blocks * lists.chunk).to(torch.int32).contiguous()
+    return lists._replace(ids=ids, n_stage=torch.clamp(blocks, min=1).to(torch.int32).contiguous(),
+                          count=count, order=longest_first(count))
+
+
+def list_report(mode, case, args, var, card, b_ms, b_by, n_rays, full=True):
+    """B7a's or B7c's list walk against the cluster walk it replaced, on one
+    use of it: equal to the walk at k = 1 and at the k the wrapper would pick
+    for it, in index order and longest first (:func:`same_result`), and the
+    device time (:func:`device_ms`) of the list walk and of the cluster walk
+    at k in index order (the design before), beside the bound, with registers
+    and blocks an SM; ``full`` also times the cluster walk at k = 1 in index
+    order and at k in the lists' longest-first order -> the list walk's
+    device ms."""
+    from visfly_tpu_torch.render import tri_first_hit
+    from visfly_tpu_torch.render.tri_kernel import (TILE, TILE_BLOCK_RAYS, default_split,
+                                                    occupancy, stage_parts, tile_occupancy)
+
+    tris, lists, o_c, d_c, max_depth, form, origin_tiles = args
+    k = default_split(lists, form, var, o_c.device)
+    index = (tris, lists._replace(order=None), *args[2:])
+    new = tri_first_hit(*args, mode=var)
+    one = tri_first_hit(*index, mode=var, split=1)
+    check(same_result(new, one), f"{mode} {case}: the list walk differs from the cluster walk at "
+                                 "k = 1")
+    for a, kk in ((index, k), (args, 1), (args, k)):
+        check(same_result(tri_first_hit(*a, mode=var, split=kk), one),
+              f"{mode} {case}: the cluster walk at k = {kk} differs from k = 1")
+    runs = [("old k = 1", index, {"split": 1})] if full else []
+    runs += [("new", args, {}), ("old k", index, {"split": k})]
+    runs += [("ordered k", args, {"split": k})] if full else []
+    times = {}
+    for name, a, kw in runs:
+        times[name] = device_ms(lambda: tri_first_hit(*a, mode=var, **kw))
+    old = min(t for name, t in times.items() if name.startswith("old"))
+    check(times["new"] <= old,
+          f"{mode} {case}: the list walk ({times['new']:.4f} ms) is slower than the cluster walk "
+          f"in index order ({old:.4f} ms)")
+    occ_t = tile_occupancy(form, o_c.device, var)
+    occ_c = occupancy(form, var, device=o_c.device)
+    check(occ_t["rays"] == TILE_BLOCK_RAYS, f"the list walk's blocks take {occ_t['rays']} rays, "
+                                            f"TILE_BLOCK_RAYS says {TILE_BLOCK_RAYS}")
+    n_blocks = lists.n_stage.numel() * (TILE // TILE_BLOCK_RAYS)
+    parts = stage_parts(n_blocks, occ_t["blocks_per_sm"] * occ_t["sms"])
+    more = (f"{times['old k = 1']:.4f} ms at k = 1 (share {b_ms / times['old k = 1']:.3f}), "
+            if full else "")
+    last = f"; at k = {k} longest first {times['ordered k']:.4f} ms" if full else ""
+    print(f"phase 3 | {mode} {case} at {n_rays} rays, on the device: list walk "
+          f"{times['new']:.4f} ms ({occ_t['threads']} threads x {occ_t['rays'] // occ_t['threads']}"
+          f" rays a block, {parts} stage shares a tile, {n_blocks * parts} blocks, "
+          f"{occ_t['regs']} registers, {occ_t['blocks_per_sm']} blocks an SM), "
+          f"share of bound {b_ms / times['new']:.3f}; the cluster walk in index order {more}"
+          f"{times['old k']:.4f} ms at the k = {k} it would pick ({occ_c['regs']} registers, "
+          f"{occ_c['blocks_per_sm']} blocks an SM, share {b_ms / times['old k']:.3f}){last}; "
+          f"bound {b_ms:.4f} ms by {b_by}; equal to the cluster walk at k = 1 and k = {k} | "
+          f"{card}", flush=True)
+    return times["new"]
 
 
 def tile_report(mode, case, args, card, b_ms, b_by, n_rays):
@@ -4970,6 +5085,8 @@ def main():
         check(launches[mode] > 0, f"no main path launched {mode}")
     check(launches["tri_trace_tile_cluster"] == 0,
           "a path walked the tile tiers' lists with the cluster walk")
+    check(launches["tri_trace_list_cluster"] == 0,
+          "a path walked the merged or worklist tier's lists with the cluster walk")
     print(json.dumps({
         "kernels": [{
             "name": mode, "route": "cuda", "source": KERNELS[mode][0],
@@ -4988,13 +5105,15 @@ def main():
                 "trace_march (the per-tile cull, B2), trace_march_nocull (B3a) and "
                 "trace_march_packed (B3b) are instantiations of one march kernel, timed on path "
                 "B's camera rays; B2's bound counts the rows its tiles evaluate; tri_trace_tile_sv "
-                "and tri_trace_tile_mt are the two bodies of B4, a kernel of its own (device_ms "
-                "by queued events; bound on the tests of each tile's real slots); the other "
+                "and tri_trace_tile_mt are the two bodies of B4, and tri_trace_camsoup_merged "
+                "(B7a) and tri_trace_worklist (B7c) the merged output and the CSR lists of the "
+                "same list walk, tri_tile.cu (device_ms by queued events; bound on the tests of "
+                "each tile's real slots); the other "
                 "tri_trace_* modes are flags and list modes of one source (soup B5, camsoup B6, "
-                "camsoup_merged B7a, camsoup_mx B7b "
+                "camsoup_mx B7b "
                 "with a kernel of its own on the tensor cores (its device_ms from "
                 "torch.profiler; its bound counts its TF32 products at the tensor rate), "
-                "worklist B7c, probe B8a, "
+                "probe B8a, "
                 "knockout B8b with body off "
                 "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
                 "(all others) triangles, at the split the wrapper picks (the diagnostics "

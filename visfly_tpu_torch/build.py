@@ -25,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -77,7 +78,7 @@ def build(name: str) -> str:
         return lib
     out_dir = os.path.dirname(lib)
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"  # one a building thread
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -126,7 +127,7 @@ def build_native(name: str = "mesh_sdf") -> str:
     if os.path.isfile(lib):
         return lib
     os.makedirs(os.path.dirname(lib), exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"  # one a building thread
     cxx = _host_compiler()
     openmp = has_openmp(cxx)
     cmd = [cxx, *CXX_FLAGS, *(["-fopenmp"] if openmp else []), src, "-o", tmp]

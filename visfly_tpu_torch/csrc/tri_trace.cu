@@ -10,10 +10,11 @@
 // and the two diagnostic copies examples/_tri_probe.py::_probe_kernel (stages
 // executed per tile) and examples/_tri_kernel_exp.py::make_kernel (the body or
 // the page traffic knocked out). The tile tiers of _tri_kernel (B4: lists of
-// triangle ids, per triangle or culled by 64-triangle clusters) have a kernel
-// of their own, csrc/tri_tile.cu; this one walks their lists only where a
-// caller asks for a split k (B4's former design, kept to be timed beside it)
-// or for the stage count (B8a).
+// triangle ids, per triangle or culled by 64-triangle clusters), the merged
+// per-camera tier (B7a) and the worklist (B7c) have a kernel of their own,
+// csrc/tri_tile.cu (the list walk); this one walks their lists only where a
+// caller asks for a split k (their former design, kept to be timed beside
+// it), the stage count (B8a) or a knock-out (B8b).
 //
 // For every ray they compute the smallest accepted t over the list of the
 // ray's 1,024-ray tile, the id of the triangle that gave it (the first strict
@@ -132,7 +133,10 @@
 // position winning a tie: that is the first strict minimum of the sequential
 // walk, so the merge takes no atomic operation and no second pass. k = 1 is
 // the sequential walk with no cluster; the wrapper picks k so that the grid of
-// tiles x k blocks fills the card's SMs in whole rounds.
+// tiles x k blocks fills the card's SMs in whole rounds. Tiles launch in index
+// order, or in `order` where one is given (the wrapper gives B7a's and B7c's
+// lists theirs, longest walk first, when a split is asked of it; B5, B6 and
+// the diagnostics launch in index order).
 //
 // The test of a ray against a staged triangle, and how it rounds, is
 // tri_body.cuh's, shared with tri_tile.cu.
@@ -202,6 +206,7 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
                  const int* __restrict__ list,       // stages of chunk/bs entry ids, -1: none
                  const int* __restrict__ nst,        // (S, tiles) stages to walk
                  const int* __restrict__ start,      // (S, tiles) first stage, or null
+                 const int* __restrict__ order,      // S * tiles tiles in launch order, or null
                  const float* __restrict__ lb,       // a lower bound a stage
                  const float* __restrict__ origins,  // (3, S, R)
                  const float* __restrict__ dirs,     // (3, S, R)
@@ -220,12 +225,15 @@ tri_trace_kernel(const float* __restrict__ tris,     // (S, T, 9)
   __shared__ int block_ran;
 
   const int tiles = R / kTile;
-  const int ti = blockIdx.x / split, s = blockIdx.y;
+  // the blocks of a grid (tiles x split, S) launch x first: item is the
+  // launch position of the block's tile
+  const size_t item = (size_t)blockIdx.y * tiles + blockIdx.x / split;
+  const size_t tile_idx = order != nullptr ? (size_t)order[item] : item;
+  const int ti = (int)(tile_idx % tiles), s = (int)(tile_idx / tiles);
   const int rank = split > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const size_t plane = (size_t)S * R;
   const size_t ray_base = (size_t)s * R + (size_t)ti * kTile;
   const size_t ray0 = ray_base + threadIdx.x;
-  const size_t tile_idx = (size_t)s * tiles + ti;
   const size_t stage0 = first_stage(start, tile_idx, s, n_stage);
   const int* tile_list = list + stage0 * (chunk / bs);
   const float* tile_lb = lb + stage0;
@@ -613,9 +621,9 @@ tri_trace_mx_kernel(const float* __restrict__ tris,     // (S, T, 9)
 
 }  // namespace
 
-using TriKernel = void (*)(const float*, const int*, const int*, const int*, const float*,
-                           const float*, const float*, float*, bool*, int*, int*, int, int, int,
-                           int, int, int, int, int, float);
+using TriKernel = void (*)(const float*, const int*, const int*, const int*, const int*,
+                           const float*, const float*, const float*, float*, bool*, int*, int*,
+                           int, int, int, int, int, int, int, int, float);
 
 // The instantiation of a (form, out, knock) triple, null if there is none.
 static TriKernel kernel_of(int form, int out, int knock) {
@@ -650,15 +658,18 @@ static cudaLaunchConfig_t launch_config(dim3 grid, int split, cudaStream_t strea
 // form: 0 Moller-Trumbore, 1 signed volumes against the origin of ray 0 of
 // every `origin_tiles` tiles. R must be a multiple of 1,024, chunk at most 128
 // and a multiple of bs. `start` null: padded lists of n_stage stages a tile;
-// else a CSR list of n_stage stages a scene. out: 0 t, hit and id; 1 the merged
+// else a CSR list of n_stage stages a scene. order null: the tiles in index
+// order; else the S * tiles tile indices (s * tiles + tile) in the order their
+// blocks launch. out: 0 t, hit and id; 1 the merged
 // block in t_out (signed volumes only). knock: bit 0 no body, bit 1 the stage
 // pinned (merged output only). split: blocks a tile, 1 to 8, launched as one
 // thread-block cluster. cnt_out may be null. Returns the CUDA error of the
 // launch (0: none).
 extern "C" int tri_trace_launch(const float* tris, const int* list, const int* nst,
-                                const int* start, const float* lb, const float* origins,
-                                const float* dirs, float* t_out, bool* hit_out, int* gid_out,
-                                int* cnt_out, int S, int T, int R, int n_stage, int chunk,
+                                const int* start, const int* order, const float* lb,
+                                const float* origins, const float* dirs, float* t_out,
+                                bool* hit_out, int* gid_out, int* cnt_out, int S, int T, int R,
+                                int n_stage, int chunk,
                                 int bs, int origin_tiles, float max_depth, int form, int out,
                                 int knock, int split, cudaStream_t stream) {
   const TriKernel kernel = kernel_of(form, out, knock);
@@ -667,9 +678,10 @@ extern "C" int tri_trace_launch(const float* tris, const int* list, const int* n
     return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(dim3(R / kTile * split, S), split, stream, &attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, tris, list, nst, start, lb, origins,
-                                             dirs, t_out, hit_out, gid_out, cnt_out, S, T, R,
-                                             n_stage, chunk, bs, origin_tiles, split, max_depth);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, tris, list, nst, start, order, lb,
+                                             origins, dirs, t_out, hit_out, gid_out, cnt_out, S,
+                                             T, R, n_stage, chunk, bs, origin_tiles, split,
+                                             max_depth);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 

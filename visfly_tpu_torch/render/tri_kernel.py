@@ -77,24 +77,29 @@ The acceptance rules are the TPU kernels' to the constant: ``|det| > 1e-9``,
 
 :func:`tri_first_hit` launches a CUDA kernel on CUDA tensors (built at first
 use, bound with ctypes) or raises, and runs :func:`tri_first_hit_reference`
-on CPU tensors. Two kernels share the test (``csrc/tri_body.cuh``): the tile
-tiers (``form`` ``"sv_tile"`` or ``"mt"`` over lists of triangle ids, B4) go
-to ``csrc/tri_tile.cu`` (:func:`tile_route`), every other call to the cluster
-walk of ``csrc/tri_trace.cu``. The plain version does the kernels' arithmetic
-in their order, stage by stage with the same count skip and occlusion
+on CPU tensors. Two kernels share the test (``csrc/tri_body.cuh``): the list
+walk of ``csrc/tri_tile.cu`` takes the tile tiers (``form`` ``"sv_tile"`` or
+``"mt"`` over lists of triangle ids, B4; :func:`tile_route`), the merged
+per-camera tier (B7a) and the worklist (B7c) (:func:`list_route`); every other
+call goes to the cluster walk of ``csrc/tri_trace.cu``. The plain version
+does the kernels' arithmetic in their order, stage by stage with the same count skip and occlusion
 early-out per tile, except that the kernels fuse the per-test dot and cross
 products (``__fmaf_rn``), and the matrix form takes its products in split
 TF32 and votes on each lane's own best (which runs a few more stages, never a
 different result): the two agree within the smoke's limits (1.6e-4 m at most
 on path D's 23,040 triangles, 3.1e-4 m for mx).
 
-The tile kernel splits a tile's rays: each of its blocks takes
-:data:`TILE_BLOCK_RAYS` of the tile's 1,024 rays and walks the whole list with
-its own running best and early-out vote, over the tile's real slots only
-(:func:`real_counts`; the slots past them hold no triangle the cull kept),
-its tiles' blocks launched longest walk first where the lists carry an order
-(:func:`longest_first`). Its result is the sequential walk's, ``split = 1``
-below: t and hit to the bit, and the id of every ray that hits.
+The list walk splits a tile's rays, not its stages: each of its blocks takes
+:data:`TILE_BLOCK_RAYS` of the tile's 1,024 rays and walks the whole list
+with its own running best and early-out vote, over the tile's real slots only
+(:func:`real_counts`; the slots past them hold no triangle the cull kept), its
+tiles' blocks launched longest walk first where the lists carry an order
+(:func:`longest_first`).
+On B7a and B7c, where its blocks would not fill the card (a few cameras),
+each block's rays are walked by :func:`stage_parts` blocks, each over every
+``P``-th stage, merged by (t, list position) by the last to finish. Its
+result is the sequential walk's, ``split = 1`` below: t and hit to the bit,
+and the id of every ray that hits.
 
 The split of the cluster walk: a tile's stages are walked by a cluster of
 ``split`` blocks (:func:`pick_split`), block ``c`` taking stages
@@ -105,11 +110,11 @@ the cluster's least best (a bound equal to it still runs, so a tie goes to the
 earlier list position). At the end the blocks merge by (t, list position).
 That is the sequential walk's first strict minimum: t and hit are those of
 ``split = 1`` to the bit, and so is the id of every ray that hits (a miss's id
-is whatever its walk last kept). The tile tiers do not split: their lists are
-a stage or two long, and a cluster's later blocks walked nothing there
-(``PERF.md``, B4); the cluster walk takes their lists only where a caller asks
-for a ``split`` (the old design, timed beside the tile kernel) or for the
-stage count. The Möller–Trumbore body tests the signs of u and v before it
+is whatever its walk last kept). The tile, merged and worklist tiers do not
+split: the list walk takes them (``PERF.md``, B4, B7a, B7c); the cluster walk
+takes their lists only where a caller asks for a ``split`` (the old design,
+timed beside the list walk; B7a's and B7c's lists then launch in their
+``order``) or for a diagnostic. The Möller–Trumbore body tests the signs of u and v before it
 divides (:func:`_mt_signs_pass`), which changes no result.
 """
 from __future__ import annotations
@@ -129,18 +134,21 @@ MAX_CHUNK = 128  # triangles a stage: the kernel's staging buffer
 MAX_SPLIT = 8  # blocks a tile: a thread-block cluster's portable limit
 SPLIT_ROUNDS = 2  # rounds of resident blocks the split aims at (pick_split)
 MX_GROUP = 32  # triangles a product of the matrix form: N = 96 columns, three volumes of 32
-TILE_BLOCK_RAYS = 512  # rays a block of the tile kernel (csrc/tri_tile.cu: kBlockRays)
+TILE_BLOCK_RAYS = 512  # rays a block of the list walk, 2 blocks a tile (csrc/tri_tile.cu)
+MAX_STAGE_PARTS = 8  # stage shares a tile of the list walk (csrc/tri_tile.cu: kMaxStageParts)
+STAGE_ROUNDS = 3  # rounds of resident blocks the list walk's stage shares aim at (stage_parts)
 FORMS = {"mt": 0, "sv_tile": 1, "sv_cam": 1}  # the kernel's body: 0 kMT, 1 kSV
 MODES = ("scalar", "merged", "mx")
 # Launches of the CUDA kernels by the tier that asked for it, since the counts
 # were last set to 0. The wrapper adds one where it launches and nowhere else.
-# The two tile entries count the tile kernel (B4); "tri_trace_tile_cluster"
-# counts the cluster walk on the tile tiers' lists, launched only where a
-# caller asks for a split (no render does).
+# The two tile entries, "tri_trace_camsoup_merged" and "tri_trace_worklist"
+# count the list walk (B4, B7a, B7c); "tri_trace_tile_cluster" and
+# "tri_trace_list_cluster" count the cluster walk on those tiers' lists,
+# launched only where a caller asks for a split (no render does).
 LAUNCHES = {"tri_trace_tile_sv": 0, "tri_trace_tile_mt": 0, "tri_trace_soup": 0,
             "tri_trace_camsoup": 0, "tri_trace_camsoup_merged": 0, "tri_trace_camsoup_mx": 0,
             "tri_trace_worklist": 0, "tri_trace_probe": 0, "tri_trace_knockout": 0,
-            "tri_trace_tile_cluster": 0}
+            "tri_trace_tile_cluster": 0, "tri_trace_list_cluster": 0}
 # elements of the largest intermediate of the plain version
 _PLAIN_ELEMS = 1 << 24
 
@@ -182,10 +190,10 @@ class TileLists(NamedTuple):
              over ``NW`` stages, of which a tile owns ``n_stage`` from
              ``start`` on
     count    None, or (S, tiles) int32: a tile's real slots, those from the
-             first on that hold a triangle the cull kept (the tile kernel
-             walks no slot past them; :func:`real_counts`)
+             first slot of its list on that hold a triangle the cull kept (the
+             list walk walks no slot past them; :func:`real_counts`)
     order    None, or (S · tiles,) int32: the tiles (``s · tiles + tile``)
-             in the order the tile kernel launches their blocks, most real
+             in the order the list walk launches their blocks, most real
              slots first (:func:`longest_first`); None: in index order
     """
 
@@ -514,38 +522,76 @@ def pick_split(n_tiles: int, n_stage: int, slots: dict) -> int:
 
 def tile_route(form: str, lists: TileLists, mode: str = "scalar", count_stages: bool = False,
                knockout: bool = False, split: Optional[int] = None) -> bool:
-    """Whether a call on the card goes to the tile kernel (B4,
-    ``csrc/tri_tile.cu``): a tile tier (``form`` ``"sv_tile"`` or ``"mt"``
-    over padded lists of triangle ids), the scalar output, neither diagnostic
-    and no ``split`` asked for. Every other call goes to the cluster walk of
-    ``csrc/tri_trace.cu``: the soup, per-camera, variant and worklist tiers,
-    the stage count and the knock-outs, and a tile tier at an explicit
-    ``split`` (the design B4 had before, kept to be timed beside it)."""
+    """Whether a call on the card is B4 going to the list walk
+    (``csrc/tri_tile.cu``, :data:`TILE_BLOCK_RAYS` a block): a tile tier
+    (``form`` ``"sv_tile"`` or ``"mt"`` over padded lists of triangle ids),
+    the scalar output, neither diagnostic and no ``split`` asked for. A tile
+    tier at an explicit ``split`` goes to the cluster walk of
+    ``csrc/tri_trace.cu`` (the design B4 had before, kept to be timed beside
+    it); so do the soup, per-camera and matrix tiers and the diagnostics. The
+    merged and worklist tiers: :func:`list_route`."""
     return (form in ("sv_tile", "mt") and lists.block == 1 and lists.start is None
             and mode == "scalar" and not count_stages and not knockout and split is None)
 
 
+def list_route(form: str, lists: TileLists, mode: str = "scalar", count_stages: bool = False,
+               knockout: bool = False, split: Optional[int] = None) -> bool:
+    """Whether a call on the card is B7a or B7c going to the list walk
+    (``csrc/tri_tile.cu``, :data:`TILE_BLOCK_RAYS` a block): the merged
+    per-camera tier (``mode="merged"``, ``form="sv_cam"``, padded block
+    lists) or a CSR list (the worklist), neither diagnostic and no ``split``
+    asked for. At an explicit ``split`` their lists go to the cluster walk
+    (their design before, counted as ``tri_trace_list_cluster``); B6 (the
+    scalar per-camera tier), B5 (the soup), the matrix form and the
+    diagnostics keep the cluster walk and the tensor-core kernel."""
+    listed = ((mode == "merged" and form == "sv_cam" and lists.start is None)
+              or (mode == "scalar" and lists.start is not None))
+    return listed and not count_stages and not knockout and split is None
+
+
 def real_counts(lists: TileLists, n_tris: int) -> Tensor:
-    """(S, tiles) int32: the slots of each tile's padded list that the tile
-    kernel walks, from the first on. ``lists.count`` where the prepass handed
-    it (:func:`~visfly_tpu_torch.render.tri_trace.tile_lists`: the triangles
-    the cull kept, at most the cap); else one past the last slot of the
-    tile's ``n_stage`` stages that holds a triangle (an id in
-    ``[0, n_tris)``), since an empty slot never hits. The kernel also stops at
-    the tile's ``n_stage`` stages."""
+    """(S, tiles) int32: the slots of each tile's list that the list walk
+    walks, from the tile's first on. ``lists.count`` where the prepass handed
+    it (``tile_lists``, ``walk_order`` for B7a's block lists, ``worklist_lists``
+    of :mod:`~visfly_tpu_torch.render.tri_trace`: the slots of what the cull
+    kept, at most the cap); else one past the last slot of the tile's
+    ``n_stage`` stages that holds a triangle (an entry ``e`` holds slots
+    ``e·block + j`` for ``j < block``, those below ``n_tris``), since an empty
+    slot never hits. The kernel also stops at the tile's ``n_stage`` stages."""
     if lists.count is not None:
         return lists.count
-    n_slots = lists.ids.shape[-1]
-    pos = torch.arange(1, n_slots + 1, dtype=torch.int32, device=lists.ids.device)
-    walked = pos <= (torch.clamp(lists.n_stage, max=lists.lb.shape[-1]) * lists.chunk)[..., None]
-    real = (lists.ids >= 0) & (lists.ids < n_tris) & walked
-    return torch.where(real, pos, 0).amax(-1).to(torch.int32)
+    p = padded_lists(lists)  # a CSR list as its tiles' own stages
+    bs = p.block
+    dev = p.ids.device
+    first = torch.arange(p.ids.shape[-1], dtype=torch.int64, device=dev) * bs  # an entry's slot 0
+    entry = p.ids.to(torch.int64)
+    last = first + torch.clamp(n_tris - entry * bs, max=bs)  # one past its last real slot
+    walked = (torch.clamp(p.n_stage, max=p.lb.shape[-1]) * p.chunk).to(torch.int64)[..., None]
+    real = (entry >= 0) & (entry * bs < n_tris) & (first < walked)
+    return torch.where(real, torch.minimum(last, walked), 0).amax(-1).to(torch.int32)
+
+
+def stage_parts(n_blocks: int, resident: int) -> int:
+    """Stage shares a tile the list walk takes on B7a and B7c: the least
+    ``P`` whose ``n_blocks · P`` blocks (``n_blocks``: tiles × blocks a tile's
+    rays take) fill the card's ``resident`` blocks :data:`STAGE_ROUNDS` times,
+    at most :data:`MAX_STAGE_PARTS`. A tile's ``P`` blocks of the same rays
+    walk its stages ``c, c + P, …`` and the last to finish merges them by (t,
+    list position): the sequential walk's first strict minimum. On the H100
+    the least time at 8 to 256 cameras of path D fell where the grid first
+    reached three rounds (``chip_profile.py sweep``; ``PERF.md`` §6); few
+    tiles with long lists (8 cameras at ``cap = T``) leave the card idle
+    without it."""
+    for parts in range(1, MAX_STAGE_PARTS + 1):
+        if n_blocks * parts >= STAGE_ROUNDS * resident:
+            return parts
+    return MAX_STAGE_PARTS if n_blocks else 1
 
 
 def longest_first(counts: Tensor) -> Tensor:
     """(S · tiles,) int32: the tiles of ``counts`` (S, tiles), flattened to
     ``s · tiles + tile``, most real slots first and in index order among
-    equals: the order in which the tile kernel launches their blocks, so that
+    equals: the order in which the list walk launches their blocks, so that
     the longest walks start in the first round of resident blocks and the
     short ones fill the last (longest processing time first)."""
     return torch.argsort(counts.flatten(), descending=True, stable=True).to(torch.int32)
@@ -564,9 +610,9 @@ def _launchers():
 
     lib = load_library("tri_trace")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # tris list nst start lb origins dirs t hit gid cnt | S T R n_stage chunk bs
+    # tris list nst start order lb origins dirs t hit gid cnt | S T R n_stage chunk bs
     # origin_tiles | max_depth | form out knock split | stream
-    lib.tri_trace_launch.argtypes = [p] * 11 + [i] * 7 + [f] + [i] * 4 + [p]
+    lib.tri_trace_launch.argtypes = [p] * 12 + [i] * 7 + [f] + [i] * 4 + [p]
     # tris list nst lb origins dirs t hit gid cnt | S T R n_stage chunk origin_tiles |
     # max_depth | stream
     lib.tri_trace_mx_launch.argtypes = [p] * 10 + [i] * 6 + [f, p]
@@ -580,16 +626,16 @@ def _launchers():
 
 @functools.lru_cache(maxsize=None)
 def _tile_launchers():
-    """(tri_tile_launch, tri_tile_occupancy) of the built tile kernel."""
+    """(tri_tile_launch, tri_tile_occupancy) of the built list walk."""
     from ..build import load_library
 
     lib = load_library("tri_tile")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # tris list nst cnt lb order origins dirs t hit gid | S T R n_stage chunk | max_depth |
-    # form | stream
-    lib.tri_tile_launch.argtypes = [p] * 11 + [i] * 5 + [f, i, p]
-    # form | regs threads rays blocks_per_sm
-    lib.tri_tile_occupancy.argtypes = [i] + [p] * 4
+    # tris list nst start cnt lb order origins dirs t hit gid part_t part_pos part_done |
+    # S T R n_stage chunk bs origin_tiles P | max_depth | form merged | stream
+    lib.tri_tile_launch.argtypes = [p] * 15 + [i] * 8 + [f] + [i] * 2 + [p]
+    # form merged | regs threads rays blocks_per_sm
+    lib.tri_tile_occupancy.argtypes = [i] * 2 + [p] * 4
     fns = (lib.tri_tile_launch, lib.tri_tile_occupancy)
     for fn in fns:
         fn.restype = ctypes.c_int
@@ -597,11 +643,11 @@ def _tile_launchers():
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_occupancy(device_index: int, form_id: int) -> dict:
+def _tile_occupancy(device_index: int, form_id: int, merged: int) -> dict:
     regs, threads, rays, per_sm = (ctypes.c_int() for _ in range(4))
     with torch.cuda.device(device_index):
-        rc = _tile_launchers()[1](form_id, *(ctypes.addressof(x)
-                                             for x in (regs, threads, rays, per_sm)))
+        rc = _tile_launchers()[1](form_id, merged, *(ctypes.addressof(x)
+                                                     for x in (regs, threads, rays, per_sm)))
     if rc != 0:
         raise RuntimeError(f"the occupancy query failed with CUDA error {rc}")
     return {"regs": regs.value, "threads": threads.value, "rays": rays.value,
@@ -609,12 +655,19 @@ def _tile_occupancy(device_index: int, form_id: int) -> dict:
             "sms": torch.cuda.get_device_properties(device_index).multi_processor_count}
 
 
-def tile_occupancy(form: str = "mt", device=None) -> dict:
-    """What the card holds of the tile kernel of ``form``: ``regs`` a thread,
-    ``threads`` and ``rays`` a block, ``blocks_per_sm`` and ``sms``."""
+def _resident(dev, form: str, mode: str) -> int:
+    """Blocks of the list walk the card holds at once."""
+    occ = tile_occupancy(form, dev, mode)
+    return occ["blocks_per_sm"] * occ["sms"]
+
+
+def tile_occupancy(form: str = "mt", device=None, mode: str = "scalar") -> dict:
+    """What the card holds of the list walk of ``form`` (``mode`` "merged":
+    its merged output): ``regs`` a thread, ``threads`` and ``rays`` a block,
+    ``blocks_per_sm`` and ``sms``."""
     dev = torch.device("cuda" if device is None else device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _tile_occupancy(index, FORMS[form])
+    return _tile_occupancy(index, FORMS[form], int(mode == "merged"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -728,11 +781,13 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
     the card :func:`default_split`, except for the two diagnostics and the
     matrix form, which walk a tile as one block; on the CPU 1. Any ``split``
     gives the same t and hit to the bit and the same ids where a ray hits.
-    On the card the tile tiers go to the tile kernel where no ``split`` is
-    asked for (:func:`tile_route`), with the same result. A launch adds one
-    to ``LAUNCHES``: a knock-out to ``tri_trace_knockout``, else a counting
-    launch to ``tri_trace_probe``, else a tile tier at an explicit ``split``
-    to ``tri_trace_tile_cluster``, else to the tier's entry
+    On the card the tile, merged and worklist tiers go to the list walk where
+    no ``split`` is asked for (:func:`tile_route`, :func:`list_route`), with
+    the same result. A launch adds one to ``LAUNCHES``: a knock-out to
+    ``tri_trace_knockout``, else a counting launch to ``tri_trace_probe``,
+    else a tile tier at an explicit ``split`` to ``tri_trace_tile_cluster``,
+    the merged or worklist tier at one to ``tri_trace_list_cluster`` (its
+    tiles launched in ``lists.order``), else to the tier's entry
     (:func:`count_name`)."""
     knockout = not body or pin_stage
     S, R = _check(tris, lists, origins_c, dirs_c, form, origin_tiles, mode, knockout)
@@ -747,12 +802,15 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
                                       origin_tiles, stats, mode, body, pin_stage, split or 1)
         return (*out, stats["stages"]) if count_stages else out
     tile = tile_route(form, lists, mode, count_stages, knockout, split)
-    if split is None and not tile:
+    walk = tile or list_route(form, lists, mode, count_stages, knockout, split)
+    # B7a's and B7c's lists at an explicit split: the cluster walk in their order
+    list_cluster = split is not None and list_route(form, lists, mode, count_stages, knockout)
+    if split is None and not walk:
         split = (1 if count_stages or knockout or mode == "mx"
                  else default_split(lists, form, mode, dev))
     n_tris = tris.shape[1]
-    counts = real_counts(lists, n_tris) if tile else None
-    order = lists.order if tile else None
+    counts = real_counts(lists, n_tris) if walk else None
+    order = lists.order if walk or list_cluster else None
     tensors = [tris, lists.ids, lists.n_stage, lists.lb, origins_c, dirs_c]
     tensors += [x for x in (lists.start, counts, order) if x is not None]
     for x in tensors:
@@ -773,14 +831,27 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
                  else count_name(form, lists.block, mode, lists.start is not None))
         if count in ("tri_trace_tile_sv", "tri_trace_tile_mt") and not tile:
             count = "tri_trace_tile_cluster"
+        if list_cluster:
+            count = "tri_trace_list_cluster"
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if tile:
+            if walk:
+                n_blocks = S * tiles * (TILE // TILE_BLOCK_RAYS)
+                parts = 1 if tile else stage_parts(n_blocks, _resident(dev, form, mode))
+                part_t = part_pos = part_done = None
+                if parts > 1:  # the stage shares' results, and a zeroed counter a tile's rays
+                    part_t = torch.empty(S * tiles * parts * TILE, dtype=torch.float32,
+                                         device=dev)
+                    part_pos = torch.empty(S * tiles * parts * TILE, dtype=torch.int32,
+                                           device=dev)
+                    part_done = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
                 rc = _tile_launchers()[0](
                     tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
-                    counts.data_ptr(), lists.lb.data_ptr(), ptr(order), origins_c.data_ptr(),
-                    dirs_c.data_ptr(), ptr(t), ptr(hit), ptr(gid), S, n_tris, R,
-                    lists.lb.shape[-1], lists.chunk, float(max_depth), FORMS[form], stream)
+                    ptr(lists.start), counts.data_ptr(), lists.lb.data_ptr(), ptr(order),
+                    origins_c.data_ptr(), dirs_c.data_ptr(), ptr(t), ptr(hit), ptr(gid),
+                    ptr(part_t), ptr(part_pos), ptr(part_done), S, n_tris, R,
+                    lists.lb.shape[-1], lists.chunk, lists.block, int(origin_tiles), parts,
+                    float(max_depth), FORMS[form], int(merged), stream)
             elif mode == "mx":
                 rc = _launchers()[1](
                     tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
@@ -790,7 +861,7 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
             else:
                 rc = _launchers()[0](
                     tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
-                    ptr(lists.start), lists.lb.data_ptr(), origins_c.data_ptr(),
+                    ptr(lists.start), ptr(order), lists.lb.data_ptr(), origins_c.data_ptr(),
                     dirs_c.data_ptr(), ptr(t), ptr(hit), ptr(gid), ptr(stages), S, n_tris, R,
                     lists.lb.shape[-1], lists.chunk, lists.block, int(origin_tiles),
                     float(max_depth), FORMS[form], int(merged),

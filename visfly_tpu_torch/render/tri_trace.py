@@ -4,7 +4,8 @@
 An imported stage renders as its true triangles: per 1,024-ray tile a cull
 prepass (plain PyTorch, as it is plain XLA in the JAX package) keeps the
 ``cap`` nearest triangles, or blocks of triangles, that the tile can see, and
-one kernel (``render/tri_kernel.py``, ``csrc/tri_trace.cu``) finds each ray's
+a kernel (``render/tri_kernel.py``: the list walk of ``csrc/tri_tile.cu`` or
+the cluster walk of ``csrc/tri_trace.cu``) finds each ray's
 first hit on its tile's list and the id of the winning triangle; normals
 follow from the id by one gather.
 
@@ -547,6 +548,16 @@ def _as_block_lists(cids: Tensor, counts: Tensor, lb_c: Tensor, cluster: int) ->
     return TileLists(cids.to(torch.int32).contiguous(), nst, lb_c.contiguous(), cluster, cluster)
 
 
+def walk_order(lists: TileLists) -> TileLists:
+    """Block lists with ``count``, the slots of the blocks the cull kept (a
+    block's bound is BIG where it did not, and the kept come first; a tile
+    that sees none walks nothing), and ``order``, the tiles most of them
+    first: what the list walk takes of B7a, and no other tier of block lists
+    reads."""
+    count = ((lists.lb < BIG).sum(-1) * lists.chunk).to(torch.int32).contiguous()
+    return lists._replace(count=count, order=longest_first(count))
+
+
 def worklist_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float, cap: int,
                    img_w: Optional[int], backface: bool,
                    work_budget: Optional[int] = None) -> TileLists:
@@ -561,9 +572,11 @@ def worklist_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: f
     share ``min(1, free / needed)`` rounded down, so an over-budget scene drops
     each tile's farthest stages (far geometry turns into background, never the
     reverse). ``start`` is the prefix sum of the quotas. Slots past a tile's
-    count of visible clusters are empty (−1). The JAX function splits a scene's
-    tiles into groups that fit its scalar memory and budgets each group on
-    its own; here a scene is one group."""
+    count of visible clusters are empty (−1): ``count`` is the slots of the
+    visible clusters a tile's quota holds, ``order`` the tiles most of them
+    first (the list walk's real slots and launch order). The JAX function
+    splits a scene's tiles into groups that fit its scalar memory and
+    budgets each group on its own; here a scene is one group."""
     S, T = tris.shape[0], tris.shape[1]
     tiles = origins_c.shape[2] // TILE
     cluster, per = WL_CLUSTER, WL_CHUNK // WL_CLUSTER
@@ -601,8 +614,10 @@ def worklist_lists(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: f
     slot = (stage[..., None] * per + torch.arange(per, device=dev)).reshape(S, NW * per)
     ids_w = torch.gather(cids.reshape(S, -1), 1, slot)
     ids_w = torch.where(valid.repeat_interleave(per, dim=-1), ids_w, -1)
+    kept = (torch.minimum(counts, quota * per) * cluster).to(torch.int32).contiguous()
     return TileLists(ids_w.to(torch.int32).contiguous(), quota.to(torch.int32).contiguous(),
-                     lb_w.contiguous(), WL_CHUNK, cluster, start.to(torch.int32).contiguous())
+                     lb_w.contiguous(), WL_CHUNK, cluster, start.to(torch.int32).contiguous(),
+                     count=kept, order=longest_first(kept))
 
 
 class TilePlan(NamedTuple):
@@ -658,6 +673,8 @@ def plan_tiles(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float
             return TilePlan(o_c, d_c, lists, "sv_tile", 1, unpack)
         lists = block_lists(tris, o_c, d_c, max_depth, cap, img_w, backface, soup_cluster)
         if whole_cams:
+            if variant == "merged":  # B7a: the list walk's real slots, longest walk first
+                lists = walk_order(lists)
             return TilePlan(o_c, d_c, lists, "sv_cam", cam_rays // TILE, unpack, variant)
         return TilePlan(o_c, d_c, lists, "mt", 1, unpack)
     lists = tile_lists(tris, o_c, d_c, max_depth, cap, img_w, backface)
