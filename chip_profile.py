@@ -57,13 +57,20 @@ gathers), and the device-busy share of 8 steps.
 
 ``probe`` and ``floor`` are the triangle kernel's two diagnostics at 23,040
 triangles (the counterparts of ``examples/_tri_probe.py`` and
-``examples/_tri_kernel_exp.py``). ``probe``: stages executed per tile (mean,
-p50, p90, max) beside the blocks a tile sees, for the soup tier's walk of
-path D's 48×48 and 64×64 rays at the default cap and with lists of the whole
+``examples/_tri_kernel_exp.py``), both on the list walk of ``csrc/tri_tile.cu``
+that renders launch, each timed beside the cluster walk at k = 1 that took
+them before. ``probe``: stages executed per tile (mean, p50, p90, max; the
+list walk's count, summed over a tile's two blocks, beside the cluster walk's
+tile-wide vote) and the blocks a tile sees, for the soup tier's walk of path
+D's 48×48 and 64×64 rays at the default cap and with lists of the whole
 mesh, with the sphere bound and with the exact box bound (``exact_aabb``).
 ``floor``: the merged per-camera kernel's time with its body and its staging
 traffic knocked out, which splits it into launch and barrier floor, staging
-and arithmetic.
+and arithmetic, on each walk; the registers and blocks an SM of the list
+walk's instances, and the SASS count of every instance's slot loop
+(instructions a test, as ``list``), the render instances beside those of the
+checkout at ``$VISFLY_PARENT`` where it is set (say a ``git archive`` of the
+parent commit under ``build/``): the diagnostics' flags must add none.
 
 ``split`` is the evidence for the triangle kernel's split of a tile over a
 cluster of k blocks, for every use of it on path D: B4 at 360 and 5,760
@@ -455,8 +462,11 @@ def crossing_parts(env):
 
 
 def probe(env, card):
-    """Stages executed per tile of the soup tier's walk (``stage_stats``)."""
-    from visfly_tpu_torch.render import default_tri_cap, stage_stats
+    """Stages executed per tile of the soup tier's walk (``stage_stats``, the
+    list walk's count) beside the cluster walk's at k = 1, with the device
+    time of each counting launch on the same lists."""
+    from visfly_tpu_torch.render import default_tri_cap, stage_stats, tri_first_hit
+    from visfly_tpu_torch.render.tri_trace import _exact_aabb_lists, block_lists, walk_order
 
     state, _ = env.reset(torch.Generator(device=env.device).manual_seed(0))
     tris = env.scene.triangles
@@ -469,18 +479,57 @@ def probe(env, card):
                 st = stage_stats(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w, exact_aabb=exact)
                 ms = cs.cuda_ms(lambda: stage_stats(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w,
                                                     exact_aabb=exact), reps=5, warmup=1)
+                lists = block_lists(tris, o_c, d_c, cs.MAX_DEPTH, cap, img_w, False)
+                lists = walk_order(_exact_aabb_lists(tris, o_c, lists) if exact else lists)
+                args = (tris, lists, o_c, d_c, cs.MAX_DEPTH, "mt", 1)
+                one = tri_first_hit(*args, count_stages=True, split=1)
+                cs.check(cs.same_result(one, (st["t"], st["hit"], one[2])),
+                         "probe: the list walk differs from the cluster walk at k = 1")
+                new = cs.device_ms(lambda: tri_first_hit(*args, count_stages=True))
+                old = cs.device_ms(lambda: tri_first_hit(*args, count_stages=True, split=1))
                 print(f"probe | T={T} {res}, {o_c.shape[2] // 1024} tiles, cap {cap}, "
                       f"{'exact box' if exact else 'sphere'} bound: stages executed a tile mean "
                       f"{st['mean']:.2f} p50 {st['p50']:.0f} p90 {st['p90']:.0f} max {st['max']} "
-                      f"of {st['n_stage']}; blocks seen mean {st['visible_mean']:.2f}; hit "
-                      f"{st['hit_frac']:.4f}; prepass and kernel {ms:.3f} ms | {card}", flush=True)
+                      f"of {st['n_stage']} (summed over blocks of {st['block_rays']} rays; the "
+                      f"cluster walk's tile-wide vote {float(one[3].float().mean()):.2f}); blocks "
+                      f"seen mean {st['visible_mean']:.2f}; hit {st['hit_frac']:.4f}; prepass and "
+                      f"kernel {ms:.3f} ms; on the device the list walk's count {new:.4f} ms, the "
+                      f"cluster walk's at k = 1 {old:.4f} ms | {card}", flush=True)
+
+
+KNOCKS = {(True, False): 0, (False, False): 1, (True, True): 2, (False, True): 3}
 
 
 def floor(env, card):
     """The merged per-camera kernel with its body and its staging knocked
-    out, on path D's 64×64 rays."""
-    from visfly_tpu_torch.render import default_tri_cap, knockout_trace
+    out, on path D's 64×64 rays, on the list walk (``knockout_trace``) and
+    on the cluster walk at k = 1; the list walk's instances' registers and
+    blocks an SM, and every instance's slot loop in SASS, beside those of
+    the checkout at ``$VISFLY_PARENT`` where it is set."""
+    from visfly_tpu_torch import build as vb
+    from visfly_tpu_torch.render import default_tri_cap, knockout_trace, tri_first_hit
+    from visfly_tpu_torch.render.tri_kernel import tile_occupancy
     from visfly_tpu_torch.render.tri_trace import plan_tiles
+
+    libs = {"the package's": vb.build("tri_tile")}
+    parent = os.environ.get("VISFLY_PARENT")
+    if parent:
+        libs["the parent's"] = source_copy("tri_tile", "parent", {},
+                                           os.path.join(parent, "visfly_tpu_torch", "csrc"))
+    for label, lib in libs.items():
+        ptxas_report(lib, f"floor | {label}", card, only="tri_tile_kernel")
+        sass_report(lib, f"floor | {label}", card, copy_rays({}))
+    for (form, mode, count), what in (
+            (("mt", "scalar", True), "kMT count (B8a on the soup)"),
+            (("sv_cam", "scalar", True), "kSV count (B8a per camera)"),
+            (("sv_cam", "merged", False), "kSV merged (B7a)")):
+        occ = tile_occupancy(form, mode=mode, count_stages=count)
+        print(f"floor | {what}: {occ['regs']} registers, {occ['blocks_per_sm']} blocks an SM | "
+              f"{card}", flush=True)
+    for knock in (1, 2, 3):
+        occ = tile_occupancy("sv_cam", mode="merged", knock=knock)
+        print(f"floor | kSV merged, knock-out bits {knock} (B8b): {occ['regs']} registers, "
+              f"{occ['blocks_per_sm']} blocks an SM | {card}", flush=True)
 
     state, _ = env.reset(torch.Generator(device=env.device).manual_seed(0))
     tris = env.scene.triangles
@@ -488,19 +537,25 @@ def floor(env, card):
     o_c, d_c, img_w, cam_rays = cs.mesh_camera_rays(env, state, 0)
     plan = plan_tiles(tris, o_c, d_c, cs.MAX_DEPTH, default_tri_cap(T), img_w, cam_rays,
                       variant="merged")
+    args = (tris, plan.lists, plan.origins_c, plan.dirs_c, cs.MAX_DEPTH, plan.form,
+            plan.origin_tiles)
+    walks = {"the list walk": lambda body, pin: knockout_trace(
+                 tris, o_c, d_c, body=body, pin_stage=pin, plan=plan),
+             "the cluster walk at k = 1": lambda body, pin: tri_first_hit(
+                 *args, mode="merged", body=body, pin_stage=pin, split=1)}
     for round_ in range(3):  # three rounds: a reading far from the others shows as such
-        ms = {}
-        for body in (True, False):
-            for pin in (False, True):
-                ms[(body, pin)] = cs.cuda_ms(lambda: knockout_trace(
-                    tris, o_c, d_c, body=body, pin_stage=pin, plan=plan))
-                print(f"floor | round {round_}, T={T} 64x64 at {o_c.shape[2]} rays, body "
+        for walk, fn in (walks.items() if round_ % 2 == 0 else list(walks.items())[::-1]):
+            ms = {}
+            for body, pin in KNOCKS:
+                ms[(body, pin)] = cs.device_ms(lambda: fn(body, pin))
+                print(f"floor | round {round_}, {walk}, T={T} 64x64 at {o_c.shape[2]} rays, body "
                       f"{'on' if body else 'off'}, stage {'pinned' if pin else 'walked'}: "
-                      f"{ms[(body, pin)]:.4f} ms | {card}", flush=True)
-        full, nobody, neither = ms[(True, False)], ms[(False, False)], ms[(False, True)]
-        print(f"floor | round {round_}, the kernel's {full:.4f} ms: launch, votes and barriers "
-              f"{neither:.4f} ms, staging the walked blocks {nobody - neither:.4f} ms, arithmetic "
-              f"{full - nobody:.4f} ms | {card}", flush=True)
+                      f"{ms[(body, pin)]:.4f} ms on the device | {card}", flush=True)
+            full, nobody, neither = ms[(True, False)], ms[(False, False)], ms[(False, True)]
+            print(f"floor | round {round_}, {walk}: the kernel's {full:.4f} ms: launch, votes and "
+                  f"barriers {neither:.4f} ms, staging the walked blocks {nobody - neither:.4f} "
+                  f"ms, arithmetic {full - nobody:.4f} ms ({(full - nobody) / full:.3f}) | "
+                  f"{card}", flush=True)
 
 
 # the instantiations of tri_trace_kernel: (form, mode, knock-out bits)
@@ -818,15 +873,17 @@ MX_COPIES = {
 }
 
 
-def source_copy(name, label, edits):
+def source_copy(name, label, edits, csrc=None):
     """The library of ``csrc/<name>.cu`` with ``edits`` (text: replacement)
     applied, built under ``build/profile/`` with the package's flags; the
-    package's own library where there is no edit."""
+    package's own library where there is no edit and no other ``csrc``
+    directory (another checkout's sources) is named."""
     from visfly_tpu_torch import build as vb
 
-    if not edits:
+    if not edits and csrc is None:
         return vb.build(name)
-    with open(os.path.join(vb.CSRC, f"{name}.cu")) as f:
+    csrc = csrc or vb.CSRC
+    with open(os.path.join(csrc, f"{name}.cu")) as f:
         src = f.read()
     for a, b in edits.items():
         cs.check(a in src, f"{name}.cu has no {a!r}")
@@ -837,7 +894,7 @@ def source_copy(name, label, edits):
     cu, lib = os.path.join(out, f"{name}.cu"), os.path.join(out, f"lib{name}.so")
     with open(cu, "w") as f:
         f.write(src)
-    proc = subprocess.run([vb.nvcc_path(), *vb.NVCC_FLAGS, "-I", vb.CSRC, "-o", lib, cu],
+    proc = subprocess.run([vb.nvcc_path(), *vb.NVCC_FLAGS, "-I", csrc, "-o", lib, cu],
                           capture_output=True, text=True)
     cs.check(proc.returncode == 0, f"nvcc failed for {cu}:\n{proc.stdout}{proc.stderr}")
     with open(os.path.join(out, "build.log"), "w") as f:
@@ -944,8 +1001,8 @@ def mx(env, card):
 EVERY_SLOT = {"const int n_real = max(0, min(cnt[tile_idx], n_own * chunk));":
               "const int n_real = n_own * chunk;"}
 GATHER_WAITED = {
-    "             min(chunk, n_real - (ci + P) * chunk), bs, vec, soup, T);\n":
-    "             min(chunk, n_real - (ci + P) * chunk), bs, vec, soup, T);\n"
+    "             PIN ? m_pin : min(chunk, n_real - (ci + P) * chunk), bs, vec, soup, T);\n":
+    "             PIN ? m_pin : min(chunk, n_real - (ci + P) * chunk), bs, vec, soup, T);\n"
     "    asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"}
 SLOT_UNROLL = "#pragma unroll 8\n    for (int j = 0; j < m; ++j) {"
 SV2_BOUND = {"__launch_bounds__(kThreads)": "__launch_bounds__(kThreads, FORM == kSV ? 5 : 1)"}
@@ -1188,13 +1245,19 @@ def sass_report(lib, label, card, rays, dump_dir=None):
     """Per instantiation of the list walk in ``lib`` (``rays`` a thread):
     its slot loop's instructions on the common path (the accepted path
     apart), the slots an iteration serves (three shared-memory loads a staged
-    triangle) and the tests (slots x rays) → {(form, merged, stage shares):
-    instructions a test}. With ``dump_dir`` the loop's SASS is written there,
-    a file an instantiation."""
+    triangle) and the tests (slots x rays) → {(form, merged, stage shares,
+    count, body, pin): instructions a test} (the flags a source without the
+    diagnostics lacks take their render values). Instances with the body
+    knocked out have no slot loop. With ``dump_dir`` the loop's SASS is
+    written there, a file an instantiation."""
     per_test = {}
     for name, listing in sass_listing(lib, "tri_tile_kernel").items():
-        m = re.search(r"tri_tile_kernelILi(\d)ELb(\d)ELb(\d)E", name)
-        form, merged, split = (int(x) for x in m.groups())
+        m = re.search(r"tri_tile_kernelILi(\d)E((?:Lb\dE)+)", name)
+        flags = [int(x) for x in re.findall(r"Lb(\d)E", m.group(2))]
+        form, merged, split, count, test, pin = (int(m.group(1)), *flags,
+                                                 *(0, 1, 0)[len(flags) - 2:])
+        if not test:
+            continue
         body, rare = slot_loop(listing)
         common = [ins for off, ins in body if off not in rare]
         ops = [ins.split()[1] if ins.startswith("@") else ins.split()[0] for ins in common]
@@ -1202,19 +1265,21 @@ def sass_report(lib, label, card, rays, dump_dir=None):
         slots = lds / 3
         tests = slots * rays
         n = len(common) / tests if tests else float("nan")
-        per_test[(form, merged, split)] = n
+        per_test[(form, merged, split, count, test, pin)] = n
         mix = {k: sum(o.startswith(k) for o in ops)
                for k in ("FFMA", "FMUL", "FADD", "FSETP", "FMNMX", "PLOP3", "LDS", "ISETP", "IADD",
                          "BRA", "BSSY", "MUFU")}
         what = (f"form {'kSV' if form else 'kMT'}, {'merged' if merged else 'scalar'}, {rays} rays"
-                f"{', stage shares' if split else ''}")
+                f"{', stage shares' if split else ''}{', count' if count else ''}"
+                f"{', stage pinned' if pin else ''}")
         print(f"{label} | sass slot loop ({what}): {len(body)} instructions, {len(rare)} of them "
               f"the accepted path; {len(common)} on the common path for {slots:g} slots x {rays} "
               f"rays = {tests:g} tests: {n:.2f} instructions a test; "
               + ", ".join(f"{k} {v}" for k, v in mix.items() if v) + f" | {card}", flush=True)
         if dump_dir:
             os.makedirs(dump_dir, exist_ok=True)
-            with open(os.path.join(dump_dir, f"{form}{merged}{split}.sass"), "w") as f:
+            with open(os.path.join(dump_dir, f"{form}{merged}{split}{count}{test}{pin}.sass"),
+                      "w") as f:
                 f.writelines(f"{off:06x}{' *' if off in rare else '  '} {ins}\n"
                              for off, ins in body)
     return per_test
@@ -1307,7 +1372,7 @@ def list_walk(env, card):
         one = tri_first_hit(*index, mode=mode, split=1)
         c = tk.real_counts(lists, tris.shape[1]).float() / lists.chunk
         rays = tk.TILE_BLOCK_RAYS // 256
-        n_test = floors[first][(1, int(mode == "merged"), 0)]
+        n_test = floors[first][(1, int(mode == "merged"), 0, 0, 1, 0)]
         floor_ms = stats["real_tests"] * n_test / (cs.PEAK_FP32_PER_S / 2) * 1e3
         print(f"list | {use} at {n_rays} rays: {c.numel()} tiles, real slots a tile in stages "
               f"mean {float(c.mean()):.2f} p90 {float(c.quantile(0.9)):.2f} max "

@@ -220,10 +220,13 @@ Phases, one line each; any failure exits non-zero:
    the plain version's, no ray past 1e-3 m of it) and on the mesh twice over
    (every id equal to the plain version's), with its device time, its SASS
    (TF32 tensor instructions), registers and the floor of its design; the
-   stages
-   executed per tile against the plain count, exactly; the four knock-out
-   combinations against their plain results, and the split of the
-   per-camera kernel's time they give;
+   two diagnostics on the list walk (B8a, B8b: template flags of B7a's
+   kernel): the stages executed per tile over the soup's 48×48 lists and the
+   per-camera lists against the plain count at 512 rays a block, exactly,
+   t and hit against the cluster walk at k = 1 to the bit; the four
+   knock-out combinations against their plain results and the cluster walk
+   at k = 1; each walk's device time, and the split of the merged kernel's
+   time that the list walk's knock-outs give;
 4. each path: reset, 1 warm-up chunk, timed chunks; every render must have
    launched exactly its kernel mode, outputs finite and in range; the two
    diagnostics through their library functions; paths E and F: loss and
@@ -558,8 +561,8 @@ KERNELS = {
                              "visfly_tpu/render/tri_trace.py:1274"),
     "tri_trace_worklist": ("visfly_tpu_torch/csrc/tri_tile.cu",
                            "visfly_tpu/render/tri_trace.py:1454"),
-    "tri_trace_probe": ("visfly_tpu_torch/csrc/tri_trace.cu", "examples/_tri_probe.py:30"),
-    "tri_trace_knockout": ("visfly_tpu_torch/csrc/tri_trace.cu",
+    "tri_trace_probe": ("visfly_tpu_torch/csrc/tri_tile.cu", "examples/_tri_probe.py:30"),
+    "tri_trace_knockout": ("visfly_tpu_torch/csrc/tri_tile.cu",
                            "examples/_tri_kernel_exp.py:39"),
 }
 
@@ -1548,8 +1551,8 @@ def variant_phase(env, state, card, errs, timing):
     from visfly_tpu_torch.render import (default_tri_cap, knockout_trace, stage_stats,
                                          tri_first_hit, tri_first_hit_reference,
                                          tri_trace_brute, tri_trace_tiled)
-    from visfly_tpu_torch.render.tri_kernel import count_name
-    from visfly_tpu_torch.render.tri_trace import plan_tiles
+    from visfly_tpu_torch.render.tri_kernel import TILE_BLOCK_RAYS, count_name, tile_occupancy
+    from visfly_tpu_torch.render.tri_trace import plan_tiles, walk_order
 
     tris = env.scene.triangles
     T = tris.shape[1]
@@ -1660,74 +1663,130 @@ def variant_phase(env, state, card, errs, timing):
         list_report(mode, f"T={T} 64x64 8 cameras", f_args, plan.mode, card, f_ms, f_by, r8,
                     full=False)
 
-    # stages executed: the kernel's count against the plain version's, exactly,
-    # on the 48×48 sensor's rays (the Moeller-Trumbore body over the soup, as
-    # the TPU probe) and on the per-camera tier
+    # B8a, stages executed, on the list walk: the kernel's count against the
+    # plain version's at 512 rays a block (TILE_BLOCK_RAYS), exactly, on the
+    # 48x48 sensor's rays (the Moeller-Trumbore body over the soup's lists with
+    # the count and longest-first order stage_stats gives them, as the TPU
+    # probe) and on the per-camera tier's lists (neither: the count derived
+    # from the ids, index order); t and hit against the cluster walk's at
+    # k = 1 to the bit, and the two timed side by side
     o48, d48, w48, cam48 = mesh_camera_rays(env, state, 1)
     soup = plan_tiles(tris, o48, d48, MAX_DEPTH, cap, w48, cam48)
+    soup = soup._replace(lists=walk_order(soup.lists))
     for name, plan in (("soup, 48x48", soup), ("per-camera, 64x64", base)):
         args = args_of(plan)
-        t_k, hit_k, gid_k, cnt_k = tri_first_hit(*args, count_stages=True)
-        stats = {}
-        t_p, hit_p, gid_p = tri_first_hit_reference(*args, stats=stats)
+        reset_launches()
+        out_k = tri_first_hit(*args, count_stages=True)
+        out_c = tri_first_hit(*args, count_stages=True, split=1)
         torch.cuda.synchronize()
-        check(torch.equal(cnt_k, stats["stages"]), f"tri_trace_probe {name}: stage counts differ")
-        err = agree(f"tri_trace_probe T={T} {name} vs its plain version", (t_k, hit_k, gid_k),
-                    (t_p, hit_p, gid_p))
-        print(f"phase 3 | tri_trace_probe T={T} {name}: stages executed equal on "
-              f"{cnt_k.numel()} tiles, mean {float(cnt_k.float().mean()):.2f} of "
-              f"{plan.lists.lb.shape[2]}", flush=True)
+        got = {k: v for k, v in all_launches().items() if v}
+        check(got == {"tri_trace_probe": 1, "tri_trace_probe_cluster": 1},
+              f"tri_trace_probe {name}: launched {got}")
+        stats, s_whole = {}, {}
+        out_p = tri_first_hit_reference(*args, stats=stats, block_rays=TILE_BLOCK_RAYS)
+        tri_first_hit_reference(*args, stats=s_whole)
+        check(torch.equal(out_k[3], stats["stages"]), f"tri_trace_probe {name}: stage counts "
+                                                      "differ from the plain version's")
+        check(torch.equal(out_c[3], s_whole["stages"]), f"tri_trace_probe {name}: the cluster "
+                                                        "walk's counts differ from its plain version's")
+        check(same_result(out_k, out_c), f"tri_trace_probe {name}: the list walk differs from the "
+                                         "cluster walk at k = 1")
+        err = agree(f"tri_trace_probe T={T} {name} vs its plain version", out_k[:3], out_p)
+        occ = tile_occupancy(plan.form, tris.device, count_stages=True)
+        new_ms = device_ms(lambda: tri_first_hit(*args, count_stages=True))
+        old_ms = device_ms(lambda: tri_first_hit(*args, count_stages=True, split=1))
+        n = args[2].shape[2]
+        b_ms, b_by, _ = tri_bound_ms(plan.form, stats, n, plan.lists, plan.form == "mt",
+                                     9 + 8 / 1024)
+        w_ms = tri_bound_ms(plan.form, s_whole, n, plan.lists, plan.form == "mt", 9 + 4 / 1024)[0]
+        print(f"phase 3 | tri_trace_probe T={T} {name}: stages executed equal to the plain "
+              f"version's on {out_k[3].numel()} tiles, mean {float(out_k[3].float().mean()):.2f} "
+              f"summed over 2 blocks of {TILE_BLOCK_RAYS} rays (the cluster walk's tile-wide vote "
+              f"{float(out_c[3].float().mean()):.2f}) of {plan.lists.lb.shape[2]}; t and hit equal "
+              f"to the cluster walk at k = 1; on the device the list walk {new_ms:.4f} ms "
+              f"({occ['regs']} registers, {occ['blocks_per_sm']} blocks an SM), the cluster walk "
+              f"at k = 1 {old_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} on the list walk's "
+              f"{stats['real_tests'] / n:.1f} tests a ray (shares {b_ms / new_ms:.3f}, "
+              f"{b_ms / old_ms:.3f}); the tile-wide vote's {s_whole['real_tests'] / n:.1f} tests a "
+              f"ray bound it at {w_ms:.4f} ms (shares {w_ms / new_ms:.3f}, {w_ms / old_ms:.3f}) | "
+              f"{card}", flush=True)
         if plan is soup:
             ms = cuda_ms(lambda: tri_first_hit(*args, count_stages=True))
-            plain_ms = cuda_ms(lambda: tri_first_hit_reference(*args), reps=3, warmup=1)
-            b_ms, b_by, _ = tri_bound_ms("mt", stats, o48.shape[2], plan.lists, True, 9 + 4 / 1024)
+            plain_ms = cuda_ms(lambda: tri_first_hit_reference(*args, block_rays=TILE_BLOCK_RAYS),
+                               reps=3, warmup=1)
             errs["tri_trace_probe"] = err
             timing["tri_trace_probe"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                             bound_by=b_by)
+                                             bound_by=b_by, device_ms=new_ms,
+                                             cluster_k1_device_ms=old_ms)
     torch.cuda.synchronize()
     reset_launches()
     st = stage_stats(tris, o48, d48, MAX_DEPTH, cap, w48)
     check(all_launches()["tri_trace_probe"] == 1, "stage_stats did not launch the probe")
     print(f"phase 3 | stage_stats T={T} 48x48, cap {cap}: stages executed a tile mean "
           f"{st['mean']:.2f} p50 {st['p50']:.0f} p90 {st['p90']:.0f} max {st['max']} of "
-          f"{st['n_stage']}, blocks seen mean {st['visible_mean']:.2f}, hit {st['hit_frac']:.4f} | "
-          f"{card}", flush=True)
+          f"{st['n_stage']} (summed over blocks of {st['block_rays']} rays), blocks seen mean "
+          f"{st['visible_mean']:.2f}, hit {st['hit_frac']:.4f} | {card}", flush=True)
 
-    # the knock-outs of the merged kernel against their plain results
+    # B8b, the knock-outs of the merged kernel, on the list walk (B7a's own
+    # launch): each against its plain version at 512 rays a block and against
+    # the cluster walk at k = 1, both timed; the split read from the list walk
     merged = plan_of("merged", cap)
     args = args_of(merged)
-    floor = {}
+    new, old = {}, {}
     for body in (True, False):
         for pin in (False, True):
+            name = f"body {'on' if body else 'off'}, stage {'pinned' if pin else 'walked'}"
+            reset_launches()
             t_k = knockout_trace(tris, o_c, d_c, body=body, pin_stage=pin, plan=merged)
+            t_c = tri_first_hit(*args, mode="merged", body=body, pin_stage=pin, split=1)[0]
+            torch.cuda.synchronize()
+            got = {k: v for k, v in all_launches().items() if v}
+            want = ({"tri_trace_camsoup_merged": 1, "tri_trace_list_cluster": 1}
+                    if body and not pin else
+                    {"tri_trace_knockout": 1, "tri_trace_knockout_cluster": 1})
+            check(got == want, f"tri_trace_knockout {name}: launched {got}, expected {want}")
             stats = {}
             t_p = tri_first_hit_reference(*args, stats=stats, mode="merged", body=body,
-                                          pin_stage=pin)[0]
-            torch.cuda.synchronize()
+                                          pin_stage=pin, block_rays=TILE_BLOCK_RAYS)[0]
             err = float((t_k - t_p).abs().max())
-            name = f"body {'on' if body else 'off'}, stage {'pinned' if pin else 'walked'}"
             check(err <= T_TOL, f"tri_trace_knockout {name}: max |dt| {err} > {T_TOL}")
+            check(torch.equal(t_k, t_c), f"tri_trace_knockout {name}: t differs from the cluster "
+                                         "walk's at k = 1")
             if not body:
                 check(bool((t_k == MAX_DEPTH).all()), f"tri_trace_knockout {name}: a hit")
-            floor[(body, pin)] = cuda_ms(
+            new[(body, pin)] = device_ms(
                 lambda: knockout_trace(tris, o_c, d_c, body=body, pin_stage=pin, plan=merged))
+            old[(body, pin)] = device_ms(lambda: tri_first_hit(
+                *args, mode="merged", body=body, pin_stage=pin, split=1))
             print(f"phase 3 | tri_trace_knockout T={T} {name}: max|dt|={err:.3e} m vs its plain "
-                  f"result, mean t {float(t_k.mean()):.3f} m, kernel {floor[(body, pin)]:.4f} ms | "
-                  f"{card}", flush=True)
+                  f"result, equal to the cluster walk at k = 1, mean t {float(t_k.mean()):.3f} m; on "
+                  f"the device the list walk {new[(body, pin)]:.4f} ms, the cluster walk at k = 1 "
+                  f"{old[(body, pin)]:.4f} ms | {card}", flush=True)
             if (body, pin) == (False, False):
+                ms = cuda_ms(
+                    lambda: knockout_trace(tris, o_c, d_c, body=body, pin_stage=pin, plan=merged))
                 plain_ms = cuda_ms(lambda: tri_first_hit_reference(
-                    *args, mode="merged", body=False), reps=3, warmup=1)
+                    *args, mode="merged", body=False, block_rays=TILE_BLOCK_RAYS), reps=3,
+                    warmup=1)
                 b_ms, b_by, _ = tri_bound_ms(None, stats, n_rays, merged.lists,
                                              out_bytes=8)  # the real rows staged, no operation
+                occ = tile_occupancy("sv_cam", tris.device, "merged", knock=1)
+                print(f"phase 3 | tri_trace_knockout T={T} {name}: {ms:.4f} ms by events around "
+                      f"the call, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}, share "
+                      f"{b_ms / new[(body, pin)]:.3f} on the device; {occ['regs']} registers, "
+                      f"{occ['blocks_per_sm']} blocks an SM | {card}", flush=True)
                 errs["tri_trace_knockout"] = err
-                timing["tri_trace_knockout"] = dict(ms=floor[(body, pin)], plain_ms=plain_ms,
-                                                    bound_ms=b_ms, bound_by=b_by)
-    full, nobody, pinned, neither = (floor[k] for k in ((True, False), (False, False),
-                                                        (True, True), (False, True)))
-    print(f"phase 3 | the per-camera kernel's {full:.4f} ms split by the knock-outs: launch, "
-          f"votes and barriers {neither:.4f} ms; staging the walked blocks {nobody - neither:.4f} "
-          f"ms; arithmetic {full - nobody:.4f} ms (pinned stage with the body: {pinned:.4f} ms) | "
-          f"{card}", flush=True)
+                timing["tri_trace_knockout"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                                    bound_by=b_by, device_ms=new[(body, pin)],
+                                                    cluster_k1_device_ms=old[(body, pin)])
+    for walk, ms in (("the list walk", new), ("the cluster walk at k = 1", old)):
+        full, nobody, pinned, neither = (ms[k] for k in ((True, False), (False, False),
+                                                         (True, True), (False, True)))
+        print(f"phase 3 | {walk}: the merged kernel's {full:.4f} ms on the device split by its "
+              f"own knock-outs: launch, votes and barriers {neither:.4f} ms; staging the walked "
+              f"blocks {nobody - neither:.4f} ms; arithmetic {full - nobody:.4f} ms "
+              f"({(full - nobody) / full:.3f} of it; pinned stage with the body: {pinned:.4f} ms) "
+              f"| {card}", flush=True)
 
 
 def same_result(a, b):
@@ -4965,11 +5024,14 @@ def main():
     want = {k: 0 for k in counts}
     want.update({"tri_trace_probe": 1, "tri_trace_knockout": 3, "tri_trace_camsoup_merged": 1})
     check(counts == want, f"diagnostics launched {counts}, expected {want}")
-    check(0 < st["mean"] <= st["n_stage"], f"stages executed {st['mean']}")
+    # the list walk's count sums a tile's blocks
+    check(0 < st["mean"] <= st["n_stage"] * (1024 // st["block_rays"]),
+          f"stages executed {st['mean']}")
     for k, v in counts.items():
         launches[k] += v
     print(f"phase 4 | diagnostics: { {k: v for k, v in counts.items() if v} } launches; stages "
-          f"executed a tile mean {st['mean']:.2f} of {st['n_stage']} | {card}", flush=True)
+          f"executed a tile mean {st['mean']:.2f} of {st['n_stage']}, summed over blocks of "
+          f"{st['block_rays']} rays | {card}", flush=True)
 
     clock("the depth leg, paths A-D and the diagnostics")
     # path Q1 trains in a process of its own while paths E-P run
@@ -5087,6 +5149,8 @@ def main():
           "a path walked the tile tiers' lists with the cluster walk")
     check(launches["tri_trace_list_cluster"] == 0,
           "a path walked the merged or worklist tier's lists with the cluster walk")
+    check(launches["tri_trace_probe_cluster"] == launches["tri_trace_knockout_cluster"] == 0,
+          "a path ran a diagnostic on the cluster walk")
     print(json.dumps({
         "kernels": [{
             "name": mode, "route": "cuda", "source": KERNELS[mode][0],
@@ -5105,19 +5169,20 @@ def main():
                 "trace_march (the per-tile cull, B2), trace_march_nocull (B3a) and "
                 "trace_march_packed (B3b) are instantiations of one march kernel, timed on path "
                 "B's camera rays; B2's bound counts the rows its tiles evaluate; tri_trace_tile_sv "
-                "and tri_trace_tile_mt are the two bodies of B4, and tri_trace_camsoup_merged "
-                "(B7a) and tri_trace_worklist (B7c) the merged output and the CSR lists of the "
-                "same list walk, tri_tile.cu (device_ms by queued events; bound on the tests of "
-                "each tile's real slots); the other "
-                "tri_trace_* modes are flags and list modes of one source (soup B5, camsoup B6, "
-                "camsoup_mx B7b "
+                "and tri_trace_tile_mt are the two bodies of B4, tri_trace_camsoup_merged "
+                "(B7a) and tri_trace_worklist (B7c) the merged output and the CSR lists, and "
+                "tri_trace_probe (B8a, the stage count over the soup's 48x48 lists) and "
+                "tri_trace_knockout (B8b, body off and the stage walked) flags of the "
+                "same list walk, tri_tile.cu (device_ms by queued events, and for B8a and B8b "
+                "the cluster walk's at k = 1 beside it; bound on the tests of "
+                "each tile's real slots that the list walk's votes ran); the other "
+                "tri_trace_* modes are flags and list modes of one source, tri_trace.cu (soup "
+                "B5, camsoup B6, camsoup_mx B7b "
                 "with a kernel of its own on the tensor cores (its device_ms from "
-                "torch.profiler; its bound counts its TF32 products at the tensor rate), "
-                "probe B8a, "
-                "knockout B8b with body off "
-                "and the stage walked), timed without their prepass at 360 (tile) and 23,040 "
-                "(all others) triangles, at the split the wrapper picks (the diagnostics "
-                "and mx at 1 block a tile); launches add up the depth leg, paths A-S and the "
+                "torch.profiler; its bound counts its TF32 products at the tensor rate)), "
+                "timed without their prepass at 360 (tile) and 23,040 "
+                "(all others) triangles, at the split the wrapper picks (mx "
+                "at 1 block a tile); launches add up the depth leg, paths A-S and the "
                 "diagnostics (path O: B1, B1-kid on the decomposed habitat scenes, camsoup on "
                 "the exact textured ones, its times in its phase 3 lines; path P: B1 on P1-P5, "
                 "P5's counted in each rank's process and returned; path Q: B1 in Q2's "

@@ -3,9 +3,11 @@ through the list walk (``csrc/tri_tile.cu``), and what the host hands it
 (``render/tri_kernel.py``, ``render/tri_trace.py``).
 
 - The routing rule (:func:`list_route`, beside :func:`tile_route`): the
-  merged per-camera tier and CSR lists go to the list walk; B6 (scalar), B5
-  (the soup), the matrix form, an explicit ``split``, the stage count and the
-  knock-outs do not.
+  merged per-camera tier and CSR lists go to the list walk, with the stage
+  count (CSR lists) and the knock-outs (the merged tier); B6 (scalar), B5
+  (the soup), the matrix form and an explicit ``split`` do not, nor does the
+  merged tier's count (``tests/test_torch_tri_diag.py`` has the rest of the
+  diagnostics' rule).
 - The real counts and the tile order that the plan hands B7a's block lists
   and ``worklist_lists`` B7c's equal their definitions, and the counts
   derived from the ids (:func:`real_counts`) agree with them; B6's block
@@ -86,9 +88,9 @@ def _lists(block=1, start=False):
     ("sv_cam", _lists(block=128), {"mode": "mx"}, False),  # B7b, the tensor cores
     ("sv_cam", _lists(block=128), {"mode": "merged", "split": 1}, False),  # the cluster walk
     ("sv_tile", _lists(block=16, start=True), {"split": 2}, False),
-    ("sv_cam", _lists(block=128), {"mode": "merged", "count_stages": True}, False),  # B8a
-    ("sv_tile", _lists(block=16, start=True), {"count_stages": True}, False),
-    ("sv_cam", _lists(block=128), {"mode": "merged", "knockout": True}, False),  # B8b
+    ("sv_cam", _lists(block=128), {"mode": "merged", "count_stages": True}, False),  # refused
+    ("sv_tile", _lists(block=16, start=True), {"count_stages": True}, True),  # B8a
+    ("sv_cam", _lists(block=128), {"mode": "merged", "knockout": True}, True),  # B8b
     ("sv_tile", _lists(), {}, False),  # B4: tile_route's
     ("mt", _lists(), {}, False),
 ])
@@ -215,15 +217,19 @@ def test_real_counts_of_entries():
 
 
 def list_walk(tris, lists, o_c, d_c, max_depth, form, origin_tiles, block_rays, mode="scalar",
-              parts=1):
-    """A plain walk of ``csrc/tri_tile.cu`` → (t, hit, gid): the tiles in
-    ``lists.order``, each block of ``block_rays`` rays of a tile and stage
+              parts=1, body=True, pin=False):
+    """A plain walk of ``csrc/tri_tile.cu`` → (t, hit, gid, stages): the tiles
+    in ``lists.order``, each block of ``block_rays`` rays of a tile and stage
     share ``sp`` of ``parts`` walking the tile's real slots
     (:func:`real_counts`) in its stages ``sp, sp + parts, …`` counted from the
     tile's own first stage (``start`` for a CSR list), its own rays voting on
     each stage's bound, with its own running best and list position a ray;
     the shares then merge by (t, list position). Slot ``p`` holds triangle
-    ``ids[p // block] · block + p % block``."""
+    ``ids[p // block] · block + p % block``. ``stages`` (S, tiles) counts the
+    stages the blocks' votes ran, summed over a tile's blocks. The knock-outs:
+    ``body=False`` tests nothing; ``pin`` gives every stage the real slots of
+    the tile's first stage, a win at position ``p`` that stage's slot
+    ``p % chunk``."""
     _, S, R = o_c.shape
     tiles = R // TILE
     n_tris = tris.shape[1]
@@ -233,6 +239,7 @@ def list_walk(tris, lists, o_c, d_c, max_depth, form, origin_tiles, block_rays, 
     order = range(S * tiles) if lists.order is None else lists.order.tolist()
     t = torch.empty((S, R))
     gid = torch.zeros((S, R), dtype=torch.int32)
+    stages = torch.zeros((S, tiles), dtype=torch.int32)
     for tile_idx in order:
         s, ti = divmod(tile_idx, tiles)
         if lists.start is None:
@@ -253,9 +260,13 @@ def list_walk(tris, lists, o_c, d_c, max_depth, form, origin_tiles, block_rays, 
             for ci in range(sp, -(-n_real // chunk), parts):
                 if not bool((lb[ci] < torch.clamp(tbest, max=max_depth)).any()):
                     continue
-                pos = torch.arange(ci * chunk, min((ci + 1) * chunk, n_real))
-                entry = ids[pos // bs]
-                g = entry * bs + pos % bs
+                stages[s, ti] += 1
+                if not body:
+                    continue
+                at = torch.arange(min(chunk, n_real)) if pin else torch.arange(
+                    ci * chunk, min((ci + 1) * chunk, n_real))
+                entry = ids[at // bs]
+                g = entry * bs + at % bs
                 real = (entry >= 0) & (g < n_tris)
                 rows = torch.where(real[:, None], tris[s, torch.where(real, g, 0)], 0.0)
                 if form == "mt":
@@ -276,11 +287,12 @@ def list_walk(tris, lists, o_c, d_c, max_depth, form, origin_tiles, block_rays, 
                 t_m, p_m = torch.where(take, tbest, t_m), torch.where(take, pbest, p_m)
             t[s, r0:r0 + block_rays] = torch.clamp(t_m, 0.0, max_depth)
             at = torch.clamp(p_m, min=0)
+            at = at % chunk if pin else at
             win = ids[at // bs] * bs + at % bs
             gid[s, r0:r0 + block_rays] = torch.where(p_m >= 0, win, 0).to(torch.int32)
     if mode == "merged":  # t and the id through one float32 block
         gid = gid.to(torch.float32).to(torch.int32)
-    return t, t < max_depth, gid
+    return t, t < max_depth, gid, stages
 
 
 def _same(a, b):

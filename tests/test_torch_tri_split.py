@@ -210,10 +210,11 @@ def test_wrapper_checks_the_split(walled):
         tk.tri_first_hit(tris, lists, o_c, d_c, MAX_DEPTH, form, origin_tiles, split=0)
     with pytest.raises(ValueError, match="one block"):
         tk.tri_first_hit(tris, lists, o_c, d_c, MAX_DEPTH, form, origin_tiles, "mx", split=2)
-    # on the CPU the wrapper walks as one block unless told otherwise
+    # on the CPU the wrapper walks as one block unless told otherwise; its
+    # count is the list walk's, whose blocks take 512 of a tile's rays each
     s = {}
     plain = tk.tri_first_hit_reference(tris, lists, o_c, d_c, MAX_DEPTH, form, origin_tiles,
-                                       stats=s)
+                                       stats=s, block_rays=tk.TILE_BLOCK_RAYS)
     *out, stages = tk.tri_first_hit(tris, lists, o_c, d_c, MAX_DEPTH, form, origin_tiles,
                                     count_stages=True)
     assert all(torch.equal(a, b) for a, b in zip(out, plain)) and torch.equal(stages, s["stages"])
@@ -264,7 +265,8 @@ def test_soup_tier_at_the_card_split_matches_jax(interpret_pallas, monkeypatch):
 
 def test_count_stages_sums_the_blocks(walled):
     """The stage count of a split walk is the sum over a tile's blocks, and
-    the B8a diagnostic's sequential count is the ``k = 1`` walk's."""
+    the B8a diagnostic's count is the list walk's, as the wrapper's without a
+    split."""
     tris, o_c, d_c = walled
     lists, form, origin_tiles, _ = lists_of("block_mt", tris, o_c, d_c)
     *_, one = tk.tri_first_hit(tris, lists, o_c, d_c, MAX_DEPTH, form, origin_tiles,

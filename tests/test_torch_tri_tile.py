@@ -128,7 +128,7 @@ def _lists(block=1, start=False):
     ("sv_cam", _lists(block=64), {"mode": "merged"}, False),  # B7a
     ("sv_cam", _lists(block=64), {"mode": "mx"}, False),  # B7b
     ("sv_tile", _lists(start=True), {}, False),  # the worklist, B7c
-    ("sv_tile", _lists(), {"count_stages": True}, False),  # the stage count, B8a
+    ("sv_tile", _lists(), {"count_stages": True}, True),  # with the stage count, B8a
     ("mt", _lists(), {"knockout": True}, False),
     ("sv_tile", _lists(), {"split": 1}, False),  # the cluster walk asked for
     ("mt", _lists(), {"split": 2}, False),

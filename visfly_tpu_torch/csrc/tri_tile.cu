@@ -1,5 +1,6 @@
 // The list walk of the exact ray-triangle first hit, for Hopper (sm_90a):
-// B4, the tile tiers, and B7a and B7c, the merged and worklist tiers.
+// B4, the tile tiers, B7a and B7c, the merged and worklist tiers, and the
+// two diagnostics B8a (stages executed) and B8b (the knock-outs).
 //
 // Replaces, in visfly_tpu/render/tri_trace.py,
 //   _tri_kernel           (:553, behind tri_trace_pallas :653) on its two tile
@@ -16,15 +17,21 @@
 //   _tri_kernel_worklist  (:1454, B7c): signed volumes against the tile's
 //                         origin over a CSR list (a scene's stages in one
 //                         array, a tile's from `start` on, `nst` of them) of
-//                         16-triangle clusters, eight to a stage.
+//                         16-triangle clusters, eight to a stage;
+// and in examples/
+//   _tri_probe.py::_probe_kernel (:30, B8a): the soup kernel (Moller-Trumbore
+//                         over lists of 64- or 128-triangle blocks) counting
+//                         the stages a tile executes (COUNT, any list above);
+//   _tri_kernel_exp.py::make_kernel (:39, B8b): B7a with its tests (BODY off)
+//                         or its gathers (PIN) knocked out.
 // For every ray it computes the smallest accepted t over its 1,024-ray
 // tile's list, clipped to [0, max_depth], hit = t < max_depth, and the id of
 // the triangle that gave it: the first strict minimum in list order, 0 where
 // nothing was accepted. The test is tri_body.cuh's arithmetic, shared with
 // the cluster walk of tri_trace.cu, which served all three tiers before this
-// kernel and still serves the soup (B5), per-camera (B6) and diagnostic
-// (B8a, B8b) tiers: t and hit equal the cluster walk's at k = 1 to the bit,
-// and so does the id of every ray that hits.
+// kernel and still serves the soup (B5) and per-camera (B6) tiers: t and hit
+// equal the cluster walk's at k = 1 to the bit, and so does the id of every
+// ray that hits.
 //
 // An entry of a list is `bs` consecutive triangles of the scene's soup (bs =
 // 1: a triangle id; 16: a worklist cluster; 128: a Morton block), a stage
@@ -32,6 +39,19 @@
 // or a template flag here: `start` (null: padded lists of n_stage stages a
 // tile), the origin shared by `origin_tiles` tiles (1: each tile's own), the
 // merged output (MERGED), and the stage shares (SPLIT).
+//
+// The diagnostics are template flags of the same walk, so that they measure
+// the kernel that renders launch; every render instance has them off, which
+// compiles them away:
+//   COUNT  each block writes the stages its own rays voted to run into its own
+//          slot of cnt_out (S * tiles * 2; the wrapper sums a tile's two);
+//   BODY   off: a stage is gathered and staged and one staged value read, but
+//          nothing is tested, so every ray ends at max_depth;
+//   PIN    every stage gathers the rows of the list's first stage (its real
+//          slots), and a win's id is that stage's slot at the win's position
+//          in its stage. BODY off and PIN together leave the launch, the votes
+//          and the barriers: B8b splits B7a's time into those, the staging of
+//          the walked stages and the tests.
 //
 // What bounds it on the H100: operations, and the issue of them. A kSV test
 // is three fused dot products and three sign products to its gate: the bound
@@ -110,8 +130,10 @@
 //      (stage_triangle) from shared memory after its vote. Waiting for the
 //      gather before the tests measured the same (the soup sits in L2).
 // The wrapper (render/tri_kernel.py::tri_first_hit) routes the three tiers
-// here; chip_smoke.py phase 3 holds the result to the cluster walk at k = 1
-// and at its picked k (t and hit to the bit, ids wherever a ray hits).
+// and the two diagnostics here unless a caller asks for a split k of the
+// cluster walk; chip_smoke.py phase 3 holds the result to the cluster walk at
+// k = 1 and at its picked k (t and hit to the bit, ids wherever a ray hits),
+// and the stage count and the knock-outs to their plain versions.
 
 #include <climits>
 #include <cstdint>
@@ -184,7 +206,8 @@ __device__ __forceinline__ void gather(float* __restrict__ dst, const int* __res
 }
 
 // No bound on the blocks an SM: tri_tile_occupancy reports what ptxas gave.
-template <int FORM, bool MERGED, bool SPLIT>
+template <int FORM, bool MERGED, bool SPLIT, bool COUNT = false, bool BODY = true,
+          bool PIN = false>
 __global__ void __launch_bounds__(kThreads)
 tri_tile_kernel(const float* __restrict__ tris,     // (S, T, 9)
                 const int* __restrict__ list,       // stages of chunk / bs entry ids, -1: none
@@ -200,10 +223,12 @@ tri_tile_kernel(const float* __restrict__ tris,     // (S, T, 9)
                 float* __restrict__ part_t,          // (S * tiles, P, 1024) or null (P = 1)
                 int* __restrict__ part_pos,          // the same
                 unsigned* __restrict__ part_done,    // (S * tiles * kParts) zeros, or null
+                int* __restrict__ cnt_out,           // COUNT: (S * tiles * kParts) stages run
                 int S, int T, int R, int n_stage, int chunk, int bs, int origin_tiles,
                 int stage_parts, bool vec, float max_depth) {
   const int P = SPLIT ? stage_parts : 1;  // stage shares a tile: without SPLIT the code has none
   static_assert(kTile % kBlockRays == 0, "a block takes an equal share of a tile's rays");
+  static_assert(!(COUNT && SPLIT), "a counting block walks all of its tile's stages");
   __shared__ __align__(16) float raw[2][kRawFloats];  // raw rows of the stage tested and the next
   __shared__ float4 rows[kMaxChunk * 3];              // the stage being tested, staged
   __shared__ bool last;                               // P > 1: the tile's last block to finish
@@ -224,6 +249,8 @@ tri_tile_kernel(const float* __restrict__ tris,     // (S, T, 9)
   const int n_own = start != nullptr ? nst[tile_idx] : min(nst[tile_idx], n_stage);
   const int n_real = max(0, min(cnt[tile_idx], n_own * chunk));
   const int n_walk = (n_real + chunk - 1) / chunk;
+  const int m_pin = min(chunk, n_real);  // PIN: the real slots of the first stage
+  int n_ran = 0;                         // COUNT: stages the block's vote ran
 
   V3 o_shared = {0.f, 0.f, 0.f};
   if (FORM == kSV) {  // ray 0 of the tile, or of the camera the tile belongs to
@@ -250,7 +277,8 @@ tri_tile_kernel(const float* __restrict__ tris,     // (S, T, 9)
   }
 
   if (sp < n_walk)
-    gather(raw[0], tile_list, sp * chunk, min(chunk, n_real - sp * chunk), bs, vec, soup, T);
+    gather(raw[0], tile_list, PIN ? 0 : sp * chunk, PIN ? m_pin : min(chunk, n_real - sp * chunk),
+           bs, vec, soup, T);
   for (int ci = sp, it = 0; ci < n_walk; ci += P, ++it) {
     const float bound = tile_lb[ci];
     bool open = false;
@@ -262,13 +290,19 @@ tri_tile_kernel(const float* __restrict__ tris,     // (S, T, 9)
     // next gather fills (the previous stage's)
     const bool run = __syncthreads_or(open);
     if (ci + P < n_walk)
-      gather(raw[(it + 1) & 1], tile_list, (ci + P) * chunk,
-             min(chunk, n_real - (ci + P) * chunk), bs, vec, soup, T);
+      gather(raw[(it + 1) & 1], tile_list, PIN ? 0 : (ci + P) * chunk,
+             PIN ? m_pin : min(chunk, n_real - (ci + P) * chunk), bs, vec, soup, T);
     if (!run) continue;
-    const int m = min(chunk, n_real - ci * chunk);
+    if (COUNT) ++n_ran;
+    const int m = PIN ? m_pin : min(chunk, n_real - ci * chunk);
     for (int j = threadIdx.x; j < m; j += kThreads)
       stage_triangle<FORM>(rows + 3 * j, raw[it & 1] + 9 * j, o_shared);
     __syncthreads();
+    if (!BODY) {  // the stage is staged and one value of it is read; no test
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) tbest[k] = fminf(tbest[k], kBig + fabsf(rows[0].x));
+      continue;
+    }
 
     const int pos0 = ci * chunk;
 #pragma unroll 8
@@ -281,6 +315,7 @@ tri_tile_kernel(const float* __restrict__ tris,     // (S, T, 9)
     }
   }
 
+  if (COUNT && threadIdx.x == 0) cnt_out[tile_idx * kParts + part] = n_ran;
   if (SPLIT) {  // stage shares: the tile's last block merges them by (t, list position)
     const size_t part0 = tile_idx * P * kTile;
 #pragma unroll
@@ -317,7 +352,8 @@ tri_tile_kernel(const float* __restrict__ tris,     // (S, T, 9)
     const int i = i0 + k * kThreads;
     const float t = fminf(fmaxf(tbest[k], 0.0f), max_depth);
     const int p = pbest[k];
-    const int gid = p < 0 ? 0 : bs == 1 ? tile_list[p] : tile_list[p / bs] * bs + p % bs;
+    const int q = PIN ? p % chunk : p;  // the slot of the list that won
+    const int gid = p < 0 ? 0 : bs == 1 ? tile_list[q] : tile_list[q / bs] * bs + q % bs;
     if (MERGED) {
       const size_t idx = tile_idx * (2 * kTile) + i;
       t_out[idx] = t;
@@ -332,13 +368,32 @@ tri_tile_kernel(const float* __restrict__ tris,     // (S, T, 9)
 
 using TileKernel = void (*)(const float*, const int*, const int*, const int*, const int*,
                             const float*, const int*, const float*, const float*, float*, bool*,
-                            int*, float*, int*, unsigned*, int, int, int, int, int, int, int, int,
-                            bool, float);
+                            int*, float*, int*, unsigned*, int*, int, int, int, int, int, int, int,
+                            int, bool, float);
 
-// The instantiation of (form, merged, stage shares > 1), null if there is
-// none: the merged output and the stage shares belong to the signed-volume
-// body.
-TileKernel tile_kernel_of(int form, int merged, bool split) {
+// The instantiation of (form, merged, stage shares > 1, count, knock-out
+// bits: 1 the body off, 2 the stage pinned), null if there is none: the
+// merged output and the stage shares belong to the signed-volume body, the
+// count to the scalar output of either body at one share, the knock-outs to
+// the merged output.
+TileKernel tile_kernel_of(int form, int merged, bool split, int count, int knock) {
+  if (count) {
+    if (merged || split || knock) return nullptr;
+    if (form == kMT) return tri_tile_kernel<kMT, false, false, true>;
+    return form == kSV ? tri_tile_kernel<kSV, false, false, true> : nullptr;
+  }
+  if (knock) {
+    if (form != kSV || !merged) return nullptr;
+    switch (knock) {
+      case 1: return split ? tri_tile_kernel<kSV, true, true, false, false, false>
+                           : tri_tile_kernel<kSV, true, false, false, false, false>;
+      case 2: return split ? tri_tile_kernel<kSV, true, true, false, true, true>
+                           : tri_tile_kernel<kSV, true, false, false, true, true>;
+      case 3: return split ? tri_tile_kernel<kSV, true, true, false, false, true>
+                           : tri_tile_kernel<kSV, true, false, false, false, true>;
+      default: return nullptr;
+    }
+  }
   if (form == kMT && !merged && !split) return tri_tile_kernel<kMT, false, false>;
   if (form != kSV) return nullptr;
   if (split) return merged ? tri_tile_kernel<kSV, true, true> : tri_tile_kernel<kSV, false, true>;
@@ -359,36 +414,42 @@ TileKernel tile_kernel_of(int form, int merged, bool split) {
 // tile's rays walks its stages sp, sp + P, ... and the tile's last block to
 // finish merges the shares by (t, list position), through part_t and part_pos
 // (S * tiles * P * 1,024 each) and part_done (S * tiles * 2 counters, zero on
-// the call); all three may be null where P is 1. Returns the CUDA error of the
-// launch (0: none).
+// the call); all three may be null where P is 1. count: each block writes the
+// stages it ran to cnt_out[tile * 2 + block] (P 1, the scalar output). knock
+// (the merged output): bit 0 no test, bit 1 every stage the first stage's
+// rows. Returns the CUDA error of the launch (0: none).
 extern "C" int tri_tile_launch(const float* tris, const int* list, const int* nst,
                                const int* start, const int* cnt, const float* lb, const int* order,
                                const float* origins, const float* dirs, float* t_out,
                                bool* hit_out, int* gid_out, float* part_t, int* part_pos,
-                               unsigned* part_done, int S, int T, int R, int n_stage, int chunk,
-                               int bs, int origin_tiles, int P, float max_depth, int form,
-                               int merged, cudaStream_t stream) {
-  const TileKernel kernel = tile_kernel_of(form, merged, P > 1);
+                               unsigned* part_done, int* cnt_out, int S, int T, int R,
+                               int n_stage, int chunk, int bs, int origin_tiles, int P,
+                               float max_depth, int form, int merged, int count, int knock,
+                               cudaStream_t stream) {
+  const TileKernel kernel = tile_kernel_of(form, merged, P > 1, count, knock);
   const long long blocks = (long long)S * (R / kTile) * kParts * P;
   if (kernel == nullptr || S < 0 || R < 0 || R % kTile != 0 || chunk < 1 ||
       chunk > kMaxChunk || bs < 1 || chunk % bs != 0 || origin_tiles < 1 || n_stage < 1 ||
       P < 1 || P > kMaxStageParts || blocks > INT_MAX ||
-      (P > 1 && (part_t == nullptr || part_pos == nullptr || part_done == nullptr)))
+      (P > 1 && (part_t == nullptr || part_pos == nullptr || part_done == nullptr)) ||
+      (count && cnt_out == nullptr))
     return (int)cudaErrorInvalidValue;
   if (blocks == 0) return 0;
   const bool vec = bs % 4 == 0 && T % bs == 0 && (uintptr_t)tris % 16 == 0;
   kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(tris, list, nst, start, cnt, lb, order,
                                                     origins, dirs, t_out, hit_out, gid_out,
-                                                    part_t, part_pos, part_done, S, T, R, n_stage,
-                                                    chunk, bs, origin_tiles, P, vec, max_depth);
+                                                    part_t, part_pos, part_done, cnt_out, S, T,
+                                                    R, n_stage, chunk, bs, origin_tiles, P, vec,
+                                                    max_depth);
   return (int)cudaGetLastError();
 }
 
-// What the card holds of the kernel of (form, merged): registers a thread,
-// threads and rays a block, blocks an SM. Returns the CUDA error (0: none).
-extern "C" int tri_tile_occupancy(int form, int merged, int* regs, int* threads, int* rays,
-                                  int* blocks_per_sm) {
-  const TileKernel kernel = tile_kernel_of(form, merged, false);
+// What the card holds of the kernel of (form, merged, count, knock) at one
+// stage share: registers a thread, threads and rays a block, blocks an SM.
+// Returns the CUDA error (0: none).
+extern "C" int tri_tile_occupancy(int form, int merged, int count, int knock, int* regs,
+                                  int* threads, int* rays, int* blocks_per_sm) {
+  const TileKernel kernel = tile_kernel_of(form, merged, false, count, knock);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes fa;
   const cudaError_t err = cudaFuncGetAttributes(&fa, kernel);

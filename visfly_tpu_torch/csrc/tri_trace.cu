@@ -11,10 +11,10 @@
 // executed per tile) and examples/_tri_kernel_exp.py::make_kernel (the body or
 // the page traffic knocked out). The tile tiers of _tri_kernel (B4: lists of
 // triangle ids, per triangle or culled by 64-triangle clusters), the merged
-// per-camera tier (B7a) and the worklist (B7c) have a kernel of their own,
-// csrc/tri_tile.cu (the list walk); this one walks their lists only where a
-// caller asks for a split k (their former design, kept to be timed beside
-// it), the stage count (B8a) or a knock-out (B8b).
+// per-camera tier (B7a), the worklist (B7c) and the two diagnostics (B8a,
+// B8b) have a kernel of their own, csrc/tri_tile.cu (the list walk); this one
+// walks their lists only where a caller asks for a split k (their former
+// design, kept to be timed beside it).
 //
 // For every ray they compute the smallest accepted t over the list of the
 // ray's 1,024-ray tile, the id of the triangle that gave it (the first strict

@@ -65,11 +65,13 @@ The worklist tier is a list mode, not a body: :class:`TileLists` with
 an offset and a quota), walked by the ``"sv_tile"`` body.
 
 Diagnostics: ``count_stages`` also returns, per tile, the stages that passed
-the count skip and the early-out vote; ``body=False`` (every stage is staged
-and one staged value read, no test runs: every ray ends at ``max_depth``) and
-``pin_stage=True`` (every stage loads the list's first stage) knock parts of
-the merged kernel out, to split its time into launch and barrier floor,
-staging and arithmetic.
+the count skip and the early-out vote, summed over the tile's blocks;
+``body=False`` (every stage is staged and one staged value read, no test runs:
+every ray ends at ``max_depth``) and ``pin_stage=True`` (every stage loads the
+list's first stage) knock parts of the merged kernel out, to split its time
+into launch and barrier floor, staging and arithmetic. Both run on the list
+walk that renders launch (B8a, B8b), unless a ``split`` of the cluster walk is
+asked for.
 
 The acceptance rules are the TPU kernels' to the constant: ``|det| > 1e-9``,
 ``t > 1e-4``; the three pairwise products of the volumes ``>= 0`` and
@@ -80,8 +82,9 @@ use, bound with ctypes) or raises, and runs :func:`tri_first_hit_reference`
 on CPU tensors. Two kernels share the test (``csrc/tri_body.cuh``): the list
 walk of ``csrc/tri_tile.cu`` takes the tile tiers (``form`` ``"sv_tile"`` or
 ``"mt"`` over lists of triangle ids, B4; :func:`tile_route`), the merged
-per-camera tier (B7a) and the worklist (B7c) (:func:`list_route`); every other
-call goes to the cluster walk of ``csrc/tri_trace.cu``. The plain version
+per-camera tier (B7a), the worklist (B7c) and the two diagnostics
+(:func:`list_route`); every other call goes to the cluster walk of
+``csrc/tri_trace.cu``. The plain version
 does the kernels' arithmetic in their order, stage by stage with the same count skip and occlusion
 early-out per tile, except that the kernels fuse the per-test dot and cross
 products (``__fmaf_rn``), and the matrix form takes its products in split
@@ -112,9 +115,9 @@ That is the sequential walk's first strict minimum: t and hit are those of
 ``split = 1`` to the bit, and so is the id of every ray that hits (a miss's id
 is whatever its walk last kept). The tile, merged and worklist tiers do not
 split: the list walk takes them (``PERF.md``, B4, B7a, B7c); the cluster walk
-takes their lists only where a caller asks for a ``split`` (the old design,
-timed beside the list walk; B7a's and B7c's lists then launch in their
-``order``) or for a diagnostic. The Möller–Trumbore body tests the signs of u and v before it
+takes their lists, and the diagnostics, only where a caller asks for a
+``split`` (the old design, timed beside the list walk; B7a's and B7c's lists
+then launch in their ``order``). The Möller–Trumbore body tests the signs of u and v before it
 divides (:func:`_mt_signs_pass`), which changes no result.
 """
 from __future__ import annotations
@@ -141,14 +144,16 @@ FORMS = {"mt": 0, "sv_tile": 1, "sv_cam": 1}  # the kernel's body: 0 kMT, 1 kSV
 MODES = ("scalar", "merged", "mx")
 # Launches of the CUDA kernels by the tier that asked for it, since the counts
 # were last set to 0. The wrapper adds one where it launches and nowhere else.
-# The two tile entries, "tri_trace_camsoup_merged" and "tri_trace_worklist"
-# count the list walk (B4, B7a, B7c); "tri_trace_tile_cluster" and
-# "tri_trace_list_cluster" count the cluster walk on those tiers' lists,
-# launched only where a caller asks for a split (no render does).
+# The two tile entries, "tri_trace_camsoup_merged", "tri_trace_worklist" and
+# the two diagnostics, "tri_trace_probe" and "tri_trace_knockout", count the
+# list walk (B4, B7a, B7c, B8a, B8b); the "*_cluster" entries count the cluster
+# walk on those tiers' lists and the diagnostics, launched only where a caller
+# asks for a split (no render does).
 LAUNCHES = {"tri_trace_tile_sv": 0, "tri_trace_tile_mt": 0, "tri_trace_soup": 0,
             "tri_trace_camsoup": 0, "tri_trace_camsoup_merged": 0, "tri_trace_camsoup_mx": 0,
             "tri_trace_worklist": 0, "tri_trace_probe": 0, "tri_trace_knockout": 0,
-            "tri_trace_tile_cluster": 0, "tri_trace_list_cluster": 0}
+            "tri_trace_tile_cluster": 0, "tri_trace_list_cluster": 0,
+            "tri_trace_probe_cluster": 0, "tri_trace_knockout_cluster": 0}
 # elements of the largest intermediate of the plain version
 _PLAIN_ELEMS = 1 << 24
 
@@ -390,7 +395,7 @@ def padded_lists(lists: TileLists) -> TileLists:
 def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Tensor,
                             max_depth: float = 20.0, form: str = "mt", origin_tiles: int = 1,
                             stats: dict = None, mode: str = "scalar", body: bool = True,
-                            pin_stage: bool = False, split: int = 1
+                            pin_stage: bool = False, split: int = 1, block_rays: int = TILE
                             ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the kernels → (t (S, R), hit (S, R), gid (S, R)
     int32), walked as the kernel walks it with ``split`` blocks a tile: block
@@ -398,22 +403,38 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
     blocks exchange their bests after every round of ``split`` stages, and
     their results merge by (t, list position) (module docstring). A stage is
     taken in slices so that the (S, tiles, slice, 1024) intermediates stay
-    bounded. ``stats`` gains, over the stages that ran in all blocks:
-    ``"tests"`` the ray–slot tests (empty slots of a stage included, as the
-    kernel stages them), ``"real_tests"`` those against a triangle,
-    ``"gated"`` those of them past the body's gate (the sign test of the
-    volumes, or ``|det| > 1e-9``), ``"divided"`` those for which the kernel
-    divides (past the sign test of the volumes, or of u and v), and
-    ``"stages"`` the (S, tiles) int32 count of stages that ran, summed over a
-    tile's blocks. ``mode``, ``body`` and ``pin_stage`` as in
-    :func:`tri_first_hit`."""
+    bounded.
+
+    ``block_rays`` below :data:`TILE` (``split`` 1) is the list walk's own
+    walk (``csrc/tri_tile.cu``, :data:`TILE_BLOCK_RAYS`): each block of
+    ``block_rays`` consecutive rays of a tile votes on its own rays, over the
+    tile's real slots only (:func:`real_counts`). The default, the whole tile,
+    is the vote of the cluster walk at ``split = 1`` and of the JAX kernels.
+
+    ``stats`` gains, over the stages that ran in all blocks: ``"tests"`` the
+    ray–slot tests (empty slots of a stage included, as the kernel stages
+    them), ``"real_tests"`` those against a triangle, ``"gated"`` those of
+    them past the body's gate (the sign test of the volumes, or
+    ``|det| > 1e-9``), ``"divided"`` those for which the kernel divides (past
+    the sign test of the volumes, or of u and v), and ``"stages"`` the
+    (S, tiles) int32 count of stages that ran, summed over a tile's blocks.
+    ``mode``, ``body`` and ``pin_stage`` as in :func:`tri_first_hit`."""
     _, S, R = origins_c.shape
     tiles = R // TILE
     T = tris.shape[1]
+    if not (1 <= block_rays <= TILE and TILE % block_rays == 0) or (block_rays < TILE
+                                                                     and split != 1):
+        raise ValueError(f"blocks of {block_rays} rays walk a tile's whole list: a divisor of "
+                         f"{TILE}, with split 1; got split {split}")
+    n_blocks = TILE // block_rays
+    n_real = real_counts(lists, T).to(torch.int64) if n_blocks > 1 else None
     lists = padded_lists(lists)
     chunk, bs = lists.chunk, lists.block
     n_stage = lists.lb.shape[2]
     dev = origins_c.device
+    if n_real is not None:  # the real slots of the tile's own stages
+        n_real = torch.clamp(torch.minimum(n_real, torch.clamp(lists.n_stage, max=n_stage)
+                                           .to(torch.int64) * chunk), min=0)
     o4 = origins_c.reshape(3, S, tiles, 1, TILE)
     d = tuple(dirs_c.reshape(3, S, tiles, 1, TILE))
     if form == "mt":
@@ -427,6 +448,7 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
     xmin = torch.full((S, tiles, TILE), BIG, dtype=origins_c.dtype, device=dev)  # exchanged
     step = max(1, min(chunk, _PLAIN_ELEMS // max(S * tiles * TILE, 1)))
     within = torch.arange(bs, device=dev)
+    slots = torch.arange(chunk, device=dev)
     ran = torch.zeros((S, tiles), dtype=torch.int32, device=dev)
     count = {"tests": 0, "real_tests": 0, "gated": 0, "divided": 0}
     test_sv = _test_sv_mx if mode == "mx" else _test_sv
@@ -436,22 +458,29 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
             if ci >= n_stage:
                 break
             bound = lists.lb[:, :, ci]
-            if split == 1:
-                run = bound < torch.clamp(tbest[c].amax(-1), max=max_depth)
+            if split == 1:  # each block of the tile votes on its own rays
+                worst = tbest[c].reshape(S, tiles, n_blocks, block_rays).amax(-1)
+                run = bound[..., None] < torch.clamp(worst, max=max_depth)
             else:
                 run = ((bound[..., None] < torch.clamp(tbest[c], max=max_depth))
-                       & (bound[..., None] <= xmin)).any(-1)
-            run = run & (ci < lists.n_stage)  # (S, tiles)
-            ran = ran + run.to(torch.int32)
-            count["tests"] += int(run.sum()) * chunk * TILE
+                       & (bound[..., None] <= xmin)).any(-1, keepdim=True)
+            run = run & (ci < lists.n_stage)[..., None]  # (S, tiles, blocks)
             ce = 0 if pin_stage else ci
             entry = lists.ids[:, :, ce * chunk // bs:(ce + 1) * chunk // bs].to(torch.int64)
             gid = torch.where(entry[..., None] < 0, -1, entry[..., None] * bs + within)
             gid = gid.reshape(S, tiles, chunk)
             real = (gid >= 0) & (gid < T)
-            count["real_tests"] += int((real & run[..., None]).sum()) * TILE
+            staged = torch.full((S, tiles), chunk, device=dev)
+            if n_real is not None:  # the list walk stages the real slots only
+                run = run & (ci * chunk < n_real)[..., None]
+                real = real & (ce * chunk + slots < n_real[..., None])
+                staged = torch.clamp(n_real - ce * chunk, 0, chunk)
+            ran = ran + run.sum(-1).to(torch.int32)
+            count["tests"] += int((run.sum(-1) * staged).sum()) * block_rays
+            count["real_tests"] += int((run.sum(-1) * real.sum(-1)).sum()) * block_rays
             if not body:  # the knocked-out body stages its rows and accepts nothing
                 continue
+            run_ray = run.repeat_interleave(TILE // run.shape[-1], dim=-1)  # (S, tiles, TILE)
             gid = torch.where(real, gid, 0)
             for j0 in range(0, chunk, step):
                 g = gid[:, :, j0:j0 + step]
@@ -464,7 +493,7 @@ def tri_first_hit_reference(tris: Tensor, lists: TileLists, origins_c: Tensor, d
                     tk, gate, divide = test_sv(
                         (*(tuple(x[..., None] for x in g) for g in (g0, g1, g2)), kt[..., None]),
                         d)
-                live = real[:, :, j0:j0 + step, None] & run[:, :, None, None]
+                live = real[:, :, j0:j0 + step, None] & run_ray[:, :, None, :]
                 count["gated"] += int((gate & live).sum())
                 count["divided"] += int((divide & live).sum())
                 tk = torch.where(live, tk, BIG)
@@ -525,28 +554,35 @@ def tile_route(form: str, lists: TileLists, mode: str = "scalar", count_stages: 
     """Whether a call on the card is B4 going to the list walk
     (``csrc/tri_tile.cu``, :data:`TILE_BLOCK_RAYS` a block): a tile tier
     (``form`` ``"sv_tile"`` or ``"mt"`` over padded lists of triangle ids),
-    the scalar output, neither diagnostic and no ``split`` asked for. A tile
-    tier at an explicit ``split`` goes to the cluster walk of
-    ``csrc/tri_trace.cu`` (the design B4 had before, kept to be timed beside
-    it); so do the soup, per-camera and matrix tiers and the diagnostics. The
-    merged and worklist tiers: :func:`list_route`."""
+    the scalar output, with or without the stage count, and no ``split``
+    asked for. A tile tier at an explicit ``split`` goes to the cluster walk
+    of ``csrc/tri_trace.cu`` (the design B4 had before, kept to be timed
+    beside it); so do the soup, per-camera and matrix tiers. The merged and
+    worklist tiers and the other diagnostics: :func:`list_route`."""
     return (form in ("sv_tile", "mt") and lists.block == 1 and lists.start is None
-            and mode == "scalar" and not count_stages and not knockout and split is None)
+            and mode == "scalar" and not knockout and split is None)
 
 
 def list_route(form: str, lists: TileLists, mode: str = "scalar", count_stages: bool = False,
                knockout: bool = False, split: Optional[int] = None) -> bool:
-    """Whether a call on the card is B7a or B7c going to the list walk
-    (``csrc/tri_tile.cu``, :data:`TILE_BLOCK_RAYS` a block): the merged
-    per-camera tier (``mode="merged"``, ``form="sv_cam"``, padded block
-    lists) or a CSR list (the worklist), neither diagnostic and no ``split``
-    asked for. At an explicit ``split`` their lists go to the cluster walk
-    (their design before, counted as ``tri_trace_list_cluster``); B6 (the
-    scalar per-camera tier), B5 (the soup), the matrix form and the
-    diagnostics keep the cluster walk and the tensor-core kernel."""
-    listed = ((mode == "merged" and form == "sv_cam" and lists.start is None)
-              or (mode == "scalar" and lists.start is not None))
-    return listed and not count_stages and not knockout and split is None
+    """Whether a call on the card goes to the list walk (``csrc/tri_tile.cu``,
+    :data:`TILE_BLOCK_RAYS` a block) and is not :func:`tile_route`'s: B7a,
+    the merged per-camera tier (``mode="merged"``, ``form="sv_cam"``, padded
+    block lists), with or without a knock-out (B8b); B7c, a CSR list (the
+    worklist); and the stage count (B8a) of every tier of the scalar output,
+    the soup (B5) and the per-camera tier (B6) among them; each with no
+    ``split`` asked for. At an explicit ``split`` their lists go to the
+    cluster walk (counted as ``tri_trace_list_cluster``,
+    ``tri_trace_probe_cluster`` and ``tri_trace_knockout_cluster``); B6 and
+    B5 without a count, and the matrix form, keep the cluster walk and the
+    tensor-core kernel. The count of the merged output has no list walk: the
+    wrapper refuses it without a ``split``."""
+    if split is not None or tile_route(form, lists, mode, count_stages, knockout, split):
+        return False
+    if count_stages:
+        return mode == "scalar"
+    return ((mode == "merged" and form == "sv_cam" and lists.start is None)
+            or (mode == "scalar" and lists.start is not None))
 
 
 def real_counts(lists: TileLists, n_tris: int) -> Tensor:
@@ -631,11 +667,12 @@ def _tile_launchers():
 
     lib = load_library("tri_tile")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # tris list nst start cnt lb order origins dirs t hit gid part_t part_pos part_done |
-    # S T R n_stage chunk bs origin_tiles P | max_depth | form merged | stream
-    lib.tri_tile_launch.argtypes = [p] * 15 + [i] * 8 + [f] + [i] * 2 + [p]
-    # form merged | regs threads rays blocks_per_sm
-    lib.tri_tile_occupancy.argtypes = [i] * 2 + [p] * 4
+    # tris list nst start cnt lb order origins dirs t hit gid part_t part_pos part_done
+    # cnt_out | S T R n_stage chunk bs origin_tiles P | max_depth | form merged count knock |
+    # stream
+    lib.tri_tile_launch.argtypes = [p] * 16 + [i] * 8 + [f] + [i] * 4 + [p]
+    # form merged count knock | regs threads rays blocks_per_sm
+    lib.tri_tile_occupancy.argtypes = [i] * 4 + [p] * 4
     fns = (lib.tri_tile_launch, lib.tri_tile_occupancy)
     for fn in fns:
         fn.restype = ctypes.c_int
@@ -643,11 +680,11 @@ def _tile_launchers():
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_occupancy(device_index: int, form_id: int, merged: int) -> dict:
+def _tile_occupancy(device_index: int, form_id: int, merged: int, count: int, knock: int) -> dict:
     regs, threads, rays, per_sm = (ctypes.c_int() for _ in range(4))
     with torch.cuda.device(device_index):
-        rc = _tile_launchers()[1](form_id, merged, *(ctypes.addressof(x)
-                                                     for x in (regs, threads, rays, per_sm)))
+        rc = _tile_launchers()[1](form_id, merged, count, knock,
+                                  *(ctypes.addressof(x) for x in (regs, threads, rays, per_sm)))
     if rc != 0:
         raise RuntimeError(f"the occupancy query failed with CUDA error {rc}")
     return {"regs": regs.value, "threads": threads.value, "rays": rays.value,
@@ -661,13 +698,15 @@ def _resident(dev, form: str, mode: str) -> int:
     return occ["blocks_per_sm"] * occ["sms"]
 
 
-def tile_occupancy(form: str = "mt", device=None, mode: str = "scalar") -> dict:
+def tile_occupancy(form: str = "mt", device=None, mode: str = "scalar",
+                   count_stages: bool = False, knock: int = 0) -> dict:
     """What the card holds of the list walk of ``form`` (``mode`` "merged":
-    its merged output): ``regs`` a thread, ``threads`` and ``rays`` a block,
-    ``blocks_per_sm`` and ``sms``."""
+    its merged output; with the stage count, or the knock-out bits ``knock``,
+    1 the body off and 2 the stage pinned): ``regs`` a thread, ``threads``
+    and ``rays`` a block, ``blocks_per_sm`` and ``sms``."""
     dev = torch.device("cuda" if device is None else device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _tile_occupancy(index, FORMS[form], int(mode == "merged"))
+    return _tile_occupancy(index, FORMS[form], int(mode == "merged"), int(count_stages), knock)
 
 
 @functools.lru_cache(maxsize=None)
@@ -777,37 +816,46 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
     :func:`tri_first_hit_reference`. ``mode`` picks the variant of the
     per-camera body (module docstring); ``body=False`` and ``pin_stage=True``
     are the knock-outs of the merged kernel. ``split`` (1 to
-    :data:`MAX_SPLIT`) is the blocks that walk a tile; ``None`` picks it: on
-    the card :func:`default_split`, except for the two diagnostics and the
-    matrix form, which walk a tile as one block; on the CPU 1. Any ``split``
+    :data:`MAX_SPLIT`) is the blocks of the cluster walk that walk a tile;
+    ``None`` picks it: on the card :func:`default_split`, except for the
+    matrix form, which walks a tile as one block; on the CPU 1. Any ``split``
     gives the same t and hit to the bit and the same ids where a ray hits.
-    On the card the tile, merged and worklist tiers go to the list walk where
-    no ``split`` is asked for (:func:`tile_route`, :func:`list_route`), with
-    the same result. A launch adds one to ``LAUNCHES``: a knock-out to
-    ``tri_trace_knockout``, else a counting launch to ``tri_trace_probe``,
-    else a tile tier at an explicit ``split`` to ``tri_trace_tile_cluster``,
-    the merged or worklist tier at one to ``tri_trace_list_cluster`` (its
-    tiles launched in ``lists.order``), else to the tier's entry
-    (:func:`count_name`)."""
+    On the card the tile, merged and worklist tiers and the two diagnostics
+    go to the list walk where no ``split`` is asked for (:func:`tile_route`,
+    :func:`list_route`), with the same result; the stage count is then the
+    list walk's, each of a tile's blocks of :data:`TILE_BLOCK_RAYS` rays
+    voting on its own rays, and the CPU counts it alike
+    (:func:`tri_first_hit_reference` at that ``block_rays``). The count of the
+    merged output asks for a ``split``. A launch adds one to ``LAUNCHES``: a
+    knock-out to ``tri_trace_knockout``, else a counting launch to
+    ``tri_trace_probe`` (the matrix form's to ``tri_trace_camsoup_mx``), each
+    with ``_cluster`` at an explicit ``split``; else a tile tier at an
+    explicit ``split`` to ``tri_trace_tile_cluster``, the merged or worklist
+    tier at one to ``tri_trace_list_cluster`` (its tiles launched in
+    ``lists.order``), else to the tier's entry (:func:`count_name`)."""
     knockout = not body or pin_stage
     S, R = _check(tris, lists, origins_c, dirs_c, form, origin_tiles, mode, knockout)
     if split is not None and not 1 <= split <= MAX_SPLIT:
         raise ValueError(f"split must be 1..{MAX_SPLIT} blocks a tile; got {split}")
     if mode == "mx" and split not in (None, 1):
         raise ValueError(f"the matrix form walks a tile as one block; got split {split}")
+    if count_stages and mode == "merged" and split is None:
+        raise ValueError("the list walk counts stages on the scalar output; the merged output's "
+                         "count is the cluster walk's, at an explicit split")
+    tile = tile_route(form, lists, mode, count_stages, knockout, split)
+    walk = tile or list_route(form, lists, mode, count_stages, knockout, split)
+    diag = count_stages or knockout
     dev = origins_c.device
     if dev.type == "cpu":
         stats = {}
         out = tri_first_hit_reference(tris, lists, origins_c, dirs_c, max_depth, form,
-                                      origin_tiles, stats, mode, body, pin_stage, split or 1)
+                                      origin_tiles, stats, mode, body, pin_stage, split or 1,
+                                      TILE_BLOCK_RAYS if walk and diag else TILE)
         return (*out, stats["stages"]) if count_stages else out
-    tile = tile_route(form, lists, mode, count_stages, knockout, split)
-    walk = tile or list_route(form, lists, mode, count_stages, knockout, split)
     # B7a's and B7c's lists at an explicit split: the cluster walk in their order
-    list_cluster = split is not None and list_route(form, lists, mode, count_stages, knockout)
+    list_cluster = split is not None and not diag and list_route(form, lists, mode)
     if split is None and not walk:
-        split = (1 if count_stages or knockout or mode == "mx"
-                 else default_split(lists, form, mode, dev))
+        split = 1 if mode == "mx" else default_split(lists, form, mode, dev)
     n_tris = tris.shape[1]
     counts = real_counts(lists, n_tris) if walk else None
     order = lists.order if walk or list_cluster else None
@@ -821,23 +869,31 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
     t = torch.empty((S, tiles, 2, TILE) if merged else (S, R), dtype=torch.float32, device=dev)
     hit = None if merged else torch.empty((S, R), dtype=torch.bool, device=dev)
     gid = None if merged else torch.empty((S, R), dtype=torch.int32, device=dev)
-    stages = torch.zeros((S, tiles), dtype=torch.int32, device=dev) if count_stages else None
+    stages = None
+    if count_stages:  # the list walk: a slot a block of the tile's rays
+        stages = torch.zeros((S, tiles, TILE // TILE_BLOCK_RAYS if walk else 1),
+                             dtype=torch.int32, device=dev)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     if S and R:
-        count = ("tri_trace_knockout" if knockout else "tri_trace_probe" if count_stages
-                 else count_name(form, lists.block, mode, lists.start is not None))
-        if count in ("tri_trace_tile_sv", "tri_trace_tile_mt") and not tile:
-            count = "tri_trace_tile_cluster"
-        if list_cluster:
-            count = "tri_trace_list_cluster"
+        if diag and mode != "mx":
+            count = "tri_trace_knockout" if knockout else "tri_trace_probe"
+            count += "" if walk else "_cluster"
+        else:
+            count = count_name(form, lists.block, mode, lists.start is not None)
+            if count in ("tri_trace_tile_sv", "tri_trace_tile_mt") and not tile:
+                count = "tri_trace_tile_cluster"
+            if list_cluster:
+                count = "tri_trace_list_cluster"
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             if walk:
                 n_blocks = S * tiles * (TILE // TILE_BLOCK_RAYS)
-                parts = 1 if tile else stage_parts(n_blocks, _resident(dev, form, mode))
+                # the knock-outs take the stage shares of B7a's own launch
+                parts = (1 if tile or count_stages
+                         else stage_parts(n_blocks, _resident(dev, form, mode)))
                 part_t = part_pos = part_done = None
                 if parts > 1:  # the stage shares' results, and a zeroed counter a tile's rays
                     part_t = torch.empty(S * tiles * parts * TILE, dtype=torch.float32,
@@ -849,9 +905,10 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
                     tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
                     ptr(lists.start), counts.data_ptr(), lists.lb.data_ptr(), ptr(order),
                     origins_c.data_ptr(), dirs_c.data_ptr(), ptr(t), ptr(hit), ptr(gid),
-                    ptr(part_t), ptr(part_pos), ptr(part_done), S, n_tris, R,
+                    ptr(part_t), ptr(part_pos), ptr(part_done), ptr(stages), S, n_tris, R,
                     lists.lb.shape[-1], lists.chunk, lists.block, int(origin_tiles), parts,
-                    float(max_depth), FORMS[form], int(merged), stream)
+                    float(max_depth), FORMS[form], int(merged), int(count_stages),
+                    int(not body) + 2 * int(pin_stage), stream)
             elif mode == "mx":
                 rc = _launchers()[1](
                     tris.data_ptr(), lists.ids.data_ptr(), lists.n_stage.data_ptr(),
@@ -872,4 +929,6 @@ def tri_first_hit(tris: Tensor, lists: TileLists, origins_c: Tensor, dirs_c: Ten
     if merged:
         t, gid = t[:, :, 0].reshape(S, R), t[:, :, 1].reshape(S, R).to(torch.int32)
         hit = t < max_depth
+    if count_stages:
+        stages = stages.sum(-1, dtype=torch.int32)
     return (t, hit, gid, stages) if count_stages else (t, hit, gid)

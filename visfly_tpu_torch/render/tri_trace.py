@@ -28,8 +28,8 @@ follow from the id by one gather.
   JAX package's ``_SOUP_CLUSTER_OVERRIDE``); a block larger than a kernel
   stage reaches the kernel as consecutive stage-sized blocks.
 * :func:`stage_stats` and :func:`knockout_trace` — the diagnostics: stages
-  executed per tile, and the per-camera kernel with its body or its staging
-  traffic knocked out.
+  executed per tile, and the merged per-camera kernel with its body or its
+  staging traffic knocked out, both on the list walk that renders launch.
 * :func:`tri_trace_diff` — differentiable in the rays: the hit surface is a
   plane, so ∂t/∂o = −n/(n·d) and ∂t/∂d = −t·n/(n·d) exactly; no kernel runs
   backward.
@@ -53,7 +53,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from .tri_kernel import BIG, MAX_CHUNK, TILE, TileLists, longest_first, tri_first_hit
+from .tri_kernel import (BIG, MAX_CHUNK, TILE, TILE_BLOCK_RAYS, TileLists, longest_first,
+                         tri_first_hit)
 
 CLUSTER = 64  # triangles per cull cluster of the two-level path
 CLUSTER_CULL_MIN_T = 2048  # above: cull whole clusters, not triangles
@@ -449,8 +450,12 @@ def stage_stats(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: floa
     the blocks it sees, and the share of rays that hit (the counterpart of
     ``examples/_tri_probe.py::probe``: the Möller–Trumbore body over 64- or
     128-triangle blocks, ``cap`` by default the whole mesh). ``exact_aabb``
-    swaps in the per-axis box distance as the bound and sorts by it. Also
-    returns ``"stages"`` (S, tiles) int32, ``"t"`` and ``"hit"``."""
+    swaps in the per-axis box distance as the bound and sorts by it. The
+    count is the list walk's, on the card and on the CPU alike: a tile's
+    stages summed over its blocks of ``"block_rays"`` rays, each voting on
+    its own rays over the blocks the cull kept (:func:`walk_order`), so at
+    most ``1024 / block_rays`` times the blocks it sees. Also returns
+    ``"stages"`` (S, tiles) int32, ``"t"`` and ``"hit"``."""
     T = tris.shape[1]
     o_c, d_c = origins_c.detach().contiguous(), dirs_c.detach().contiguous()
     prepass = _cluster_ids_prepass(tris, o_c, d_c, max_depth, T if cap is None else min(cap, T),
@@ -458,13 +463,14 @@ def stage_stats(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: floa
     lists, visible = _as_block_lists(*prepass), prepass[1]
     if exact_aabb:
         lists = _exact_aabb_lists(tris, o_c, lists)
-    t, hit, _, stages = tri_first_hit(tris, lists, o_c, d_c, max_depth, "mt", 1,
+    t, hit, _, stages = tri_first_hit(tris, walk_order(lists), o_c, d_c, max_depth, "mt", 1,
                                       count_stages=True)
     c = stages.cpu().numpy()
     return {"mean": float(c.mean()), "p50": float(np.percentile(c, 50)),
             "p90": float(np.percentile(c, 90)), "max": int(c.max()),
             "visible_mean": float(visible.float().mean()), "n_stage": int(lists.lb.shape[2]),
-            "hit_frac": float(hit.float().mean()), "stages": stages, "t": t, "hit": hit}
+            "block_rays": TILE_BLOCK_RAYS, "hit_frac": float(hit.float().mean()),
+            "stages": stages, "t": t, "hit": hit}
 
 
 def knockout_trace(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: float = 20.0,
@@ -476,7 +482,9 @@ def knockout_trace(tris: Tensor, origins_c: Tensor, dirs_c: Tensor, max_depth: f
     camsoup_exp``): ``body=False`` keeps the guard and the staging and removes
     the tests, so every ray ends at ``max_depth``; ``pin_stage=True`` makes
     every stage load the list's first block, so t is the first hit over that
-    block alone. The rays must be whole cameras on a mesh of whole
+    block alone. All four cases run the list walk that B7a's render launches
+    (``csrc/tri_tile.cu``), with its stage shares. The rays must be whole
+    cameras on a mesh of whole
     64-triangle clusters (the per-camera tier is forced, whatever the mesh
     size); ``plan`` reuses a prepass."""
     if plan is None:
@@ -552,8 +560,8 @@ def walk_order(lists: TileLists) -> TileLists:
     """Block lists with ``count``, the slots of the blocks the cull kept (a
     block's bound is BIG where it did not, and the kept come first; a tile
     that sees none walks nothing), and ``order``, the tiles most of them
-    first: what the list walk takes of B7a, and no other tier of block lists
-    reads."""
+    first: what the list walk takes of B7a and of the soup's stage count
+    (:func:`stage_stats`), and no other tier of block lists reads."""
     count = ((lists.lb < BIG).sum(-1) * lists.chunk).to(torch.int32).contiguous()
     return lists._replace(count=count, order=longest_first(count))
 
