@@ -29,18 +29,28 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   ``mx``, ``wl``: the variants of the per-camera tier);
 - path E, the gradient leg of ``bench.py``: ``HoverEnv``, 128 agents,
   ``requires_grad=True``, ``BPTT(env, horizon=32)`` with the default actor,
-  one warm-up update and 5 timed ones. It uses no kernel;
+  one warm-up update and 2 timed ones. It uses no kernel;
 - path F, visual BPTT: ``NavigationEnv2``, 64 agents, one 64×64 depth sensor,
   ``BPTT(env, horizon=8)`` with a CNN on the depth image, one warm-up and 2
   timed updates, in ``garage_simple_l_medium`` (the analytic kernel forward,
   the implicit-function rule backward) and in the 23,040-triangle garage with
   ``tri_variant: "merged"`` (the merged per-camera kernel forward, the planar
   rule backward). No kernel runs backward;
+- path U, the XLA render route (``render_backend: "xla"``, plain PyTorch, no
+  kernel): U1 the depth leg's env in its three modes (analytic, the default;
+  march with ``render_dtype: "float32"``; march at the default bfloat16),
+  each one warm-up and one timed chunk of 32 steps beside the kernel route
+  (the depth leg, B1, in the same call), with a render's time, the device's
+  busy time in it (``torch.profiler``) and its peak memory; U2 path F's visual BPTT on the XLA
+  route in analytic mode, one warm-up and 1 timed update, beside path F's
+  kernel route;
 - path G, the system's default training run (``python -m visfly_tpu.run -e
   cluttered_flight -a PPO_tuned``): ``NavigationEnv`` with
   ``env_cfgs/cluttered_flight.yaml`` (48 agents, 64×64 depth) and ``PPO`` with
   ``alg_cfgs/cluttered_flight/PPO_tuned.yaml`` (256 steps, 10 epochs of one
-  minibatch of 12,288), one warm-up and 1 timed update; the analytic kernel
+  minibatch of 12,288), 1 timed update with no warm-up (the env and its
+  kernel are warm from the paths before, and the rollout is 97% of the
+  update); the analytic kernel
   renders twice a step (the terminal observation, then the observation after
   the auto-reset);
 - paths H and I: ``SHAC`` and ``APG`` with ``alg_cfgs/navigation2/`` on
@@ -53,7 +63,8 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   PPO_tuned``): ``MultiNavigationEnv`` with ``env_cfgs/crossing.yaml`` (24
   scenes × 3 agents, 64×64 depth) and ``PPO`` with
   ``alg_cfgs/crossing/PPO_tuned.yaml`` (256 steps, 5 epochs of one minibatch
-  of 18,432), one warm-up and 1 timed update; the analytic kernel renders the
+  of 18,432), 1 timed update with no warm-up, as path G; the analytic kernel
+  renders the
   static scene twice a step and the other drones of each scene compose after
   it as posed quadrotor templates (plain PyTorch);
 - path L, dynamic objects: ``DynEnv``, 256 agents in
@@ -63,9 +74,9 @@ Drives the port's paths on one CUDA card, through ``Env(...)``,
   composes after the kernel; 2 chunks of 32 steps each;
 - path M, the rest of the zoo: ``racing2`` with ``PPO`` (``RacingEnv2``, 64
   agents, its YAML files' recipe; 1 warm-up and 1 timed update),
-  ``tracking`` with ``BPTT`` (``TrackEnv``, 64 agents, H = 48; 1 and 2), a
+  ``tracking`` with ``BPTT`` (``TrackEnv``, 64 agents, H = 48; 1 and 1), a
   ``CatchEnv`` rollout of 32 steps, and path C's ``HoverEnv`` with a string
-  wind of two fields and ``drag_random`` 0.3 (2 chunks of 125). No kernel;
+  wind of two fields and ``drag_random`` 0.3 (1 and 1 chunk of 125). No kernel;
 - path N, the experiment layer at path G's width: path G's state after its
   timed updates saved, continued one update through ``learn(log_dir=...)``
   (its ``progress.csv`` carries ``train/loss`` and ``time/fps``), and resumed
@@ -234,7 +245,9 @@ Phases, one line each; any failure exits non-zero:
    an update, launches equal to the renders; paths G-J: the same, and every
    trained parameter moved and every tensor of the state on the card; path G's
    and path K's analytic launches exactly 2 × 256 an update; path L's analytic
-   and id kernels once a render each; path M launches nothing;
+   and id kernels once a render each; path M launches nothing; path U's XLA
+   route launches nothing (the depth leg, B1, is the kernel route beside it), U2's
+   loss finite, norm > 0 and every trained parameter moved;
 5. one step from the same state on the card and on the CPU plain path, for
    the depth leg and path D at 360 triangles (depth within 1e-3 m on all but
    ≤ 1e-5 of pixels) and for path A (colour equal on all but ≤ 1e-4 of
@@ -256,7 +269,15 @@ Phases, one line each; any failure exits non-zero:
    deviation within 5% of the model's on the depth leg's camera, Redwood
    depth noise unbiased within 1% on flat pixels, salt and pepper within 5%
    of the model's shares on path A's camera, and every model on constant
-   images within tests/test_scene_render.py's limits; path N's resume
+   images within tests/test_scene_render.py's limits; path U1's float32
+   modes rendered from the same state at 2 agents on the card and on the CPU
+   (depth as above), its bfloat16 march card vs CPU (p99 |Δ| ≤ 3 cm, hits
+   differing on ≤ 2 pixels a 1,024, and each device's p99 against a float32
+   256-step trace of the same rays within 1 cm of the other's; the p99 at
+   256 agents printed beside the JAX docstring's 3 cm, which neither package
+   holds in this scene), and the analytic route against B1 on the depth
+   leg's 1,048,576 rays (|Δt| ≤ 1e-3 m where both hit, on all but ≤ 1e-5 of
+   rays, the hit flags' differences counted among them); path N's resume
    against the continuation (loss within 1e-5, every parameter within 1e-4
    relative in the l2 norm, generator states and ``AdamChain.count`` equal,
    whether the whole state is bitwise equal printed with its largest
@@ -679,11 +700,13 @@ def hover_grad_env(device, n=128):
                     device=device)
 
 
-def visual_grad_env(device, scene_kwargs, spawn, variant=None, n=64):
-    """Path F's env: one 64×64 depth camera an agent, differentiable."""
+def visual_grad_env(device, scene_kwargs, spawn, variant=None, n=64, extra=None):
+    """Path F's env: one 64×64 depth camera an agent, differentiable;
+    ``extra`` adds sensor-spec keys."""
     from visfly_tpu_torch.envs import NavigationEnv2
 
-    sensor = {"uuid": "depth", "sensor_type": "depth", "resolution": list(RES)}
+    sensor = dict({"uuid": "depth", "sensor_type": "depth", "resolution": list(RES)},
+                  **(extra or {}))
     if variant is not None:
         sensor["tri_variant"] = variant
     return NavigationEnv2(
@@ -2205,10 +2228,7 @@ def training_paths(dev, card, launches):
     n_env, n_steps, n_timed = tr_g.env.num_envs, tr_g.n_steps, 1
     reset_launches()
     st = tr_g.init(torch.Generator(device=dev).manual_seed(90))
-    st, m = tr_g.update(st)
     before = snapshot(tr_g)
-    for k in parts:
-        parts[k] = 0.0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_timed):
@@ -2217,7 +2237,7 @@ def training_paths(dev, card, launches):
     dt = time.perf_counter() - t0
     counts = all_launches()
     want = {k: 0 for k in counts}
-    want["trace_analytic"] = 1 + 2 * n_steps * (n_timed + 1)
+    want["trace_analytic"] = 1 + 2 * n_steps * n_timed
     check(counts == want, f"path G: kernel launches {counts} != expected {want}")
     check_trained("path G", tr_g, st, m, before, "loss", dev)
     check(tr_g.n_minibatches == 1 and tr_g.env.terminal_obs_in_info, "path G: PPO's layout")
@@ -2230,7 +2250,7 @@ def training_paths(dev, card, launches):
         f"{ms['_collect']:.1f} ms, GAE {ms['_advantages']:.1f} ms, epochs "
         f"{ms['_train_flat']:.1f} ms; {n_env * n_steps / (ms['_collect'] / 1e3):.1f} env steps/s "
         f"of the rollout; trace_analytic {counts['trace_analytic'] - 1} launches in "
-        f"{n_timed + 1} updates = 2 x {n_steps} x {n_timed + 1}; loss {float(m['loss']):.4f}, "
+        f"{n_timed} update = 2 x {n_steps} x {n_timed}; loss {float(m['loss']):.4f}, "
         f"gradient norm {float(m['grad_norm']):.4f}, approx KL {float(m['approx_kl']):.5f}")
     st_g = st
 
@@ -2619,10 +2639,7 @@ def swarm_and_zoo_paths(dev, card, launches):
     n_env, n_steps, n_timed = tr.env.num_envs, tr.n_steps, 1
     reset_launches()
     st = tr.init(torch.Generator(device=dev).manual_seed(120))
-    st, m = tr.update(st)
     before = snapshot(tr)
-    for k in parts:
-        parts[k] = 0.0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_timed):
@@ -2631,7 +2648,7 @@ def swarm_and_zoo_paths(dev, card, launches):
     dt = time.perf_counter() - t0
     counts = all_launches()
     want = {k: 0 for k in counts}
-    want["trace_analytic"] = 1 + 2 * n_steps * (n_timed + 1)
+    want["trace_analytic"] = 1 + 2 * n_steps * n_timed
     check(counts == want, f"path K: kernel launches {counts} != expected {want}")
     check_trained("path K", tr, st, m, before, "loss", dev)
     check(tr.n_minibatches == 1 and tr.batch_size == n_env * n_steps == 18432
@@ -2646,7 +2663,7 @@ def swarm_and_zoo_paths(dev, card, launches):
           f"{n_env * n_steps}): rollout {ms['_collect']:.1f} ms, GAE {ms['_advantages']:.1f} ms, "
           f"epochs {ms['_train_flat']:.1f} ms; {n_env * n_steps / (ms['_collect'] / 1e3):.1f} "
           f"env steps/s of the rollout; trace_analytic {counts['trace_analytic'] - 1} launches in "
-          f"{n_timed + 1} updates = 2 x {n_steps} x {n_timed + 1}; loss {float(m['loss']):.4f}, "
+          f"{n_timed} update = 2 x {n_steps} x {n_timed}; loss {float(m['loss']):.4f}, "
           f"gradient norm {float(m['grad_norm']):.4f} | {card}", flush=True)
 
     # drones in view, card vs CPU: agent 0's camera sees agent 1 as a flat
@@ -2730,7 +2747,7 @@ def swarm_and_zoo_paths(dev, card, launches):
     st = tr.init(torch.Generator(device=dev).manual_seed(150))
     st, m = tr.update(st)
     before = snapshot(tr)
-    n_timed = 2
+    n_timed = 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_timed):
@@ -4732,6 +4749,179 @@ def bench_scripts_path(dev, card, launches, errs, timing):
     print(f"phase 4 | path T: {time.perf_counter() - t_path:.1f} s | {card}", flush=True)
 
 
+# path U: the XLA render route (``render_backend: "xla"``), plain PyTorch
+U_MODES = {"analytic": {}, "march float32": {"trace_mode": "march", "render_dtype": "float32"},
+           "march bfloat16": {"trace_mode": "march"}}
+U_CHECK_AGENTS = 2
+U_BF16_P99 = 0.03  # m: the JAX docstring's p99 bound of its bfloat16 march
+U_BF16_SPREAD = 0.01  # m: the card's p99 against the CPU's on the same rays
+U_RAY_FLIPS = 2 / 1024  # share of pixels whose hit may differ (the render parity allowance)
+
+
+def xla_sensors(extra):
+    return [dict({"uuid": "depth", "sensor_type": "depth", "render_backend": "xla"}, **extra)]
+
+
+def busy_ms(fn):
+    """The card's busy milliseconds in one call of ``fn`` after a warm-up:
+    the sum of ``torch.profiler``'s kernel rows, and how many kernels it
+    traced. For a render of hundreds of launches, which :func:`device_ms`
+    cannot queue behind one spin."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    check(busy > 0, "torch.profiler recorded no device time")
+    return busy, sum(e.count for e in events)
+
+
+def point_rays(env, state):
+    """The point-major rays (1, N·H·W, 3) the XLA route traces."""
+    from visfly_tpu_torch.render import camera_rays
+
+    spec = env.sensor_kwargs[0]
+    n, hw = env.num_agent, spec["resolution"][0] * spec["resolution"][1]
+    o, d, _ = camera_rays(spec, state.dyn.pos, state.dyn.q)
+    return o[:, None].expand(n, hw, 3).reshape(1, n * hw, 3), d.reshape(1, n * hw, 3)
+
+
+def bf16_error(env, o, d):
+    """|Δt| of the bfloat16 march (40 steps) against a float32 256-step
+    trace of the same rays where the latter hits, and both traces."""
+    import torch
+
+    from visfly_tpu_torch.render import trace_grouped
+
+    t, hit = trace_grouped(env.scene, o, d, n_steps=TRACE_STEPS)
+    t_ref, hit_ref = trace_grouped(env.scene, o, d, n_steps=256, compute_dtype=torch.float32)
+    return (t - t_ref).abs()[hit_ref], t, hit
+
+
+def quantile(x, p):
+    import torch
+
+    return float(torch.quantile(x.float().cpu(), p))
+
+
+def xla_route_path(dev, card, launches, env_k, state_k, sps_k, f_ms):
+    """Path U: the depth leg's env with ``render_backend: "xla"`` in its three
+    modes beside the kernel route (U1: the depth leg's own env ``env_k``, its
+    state and env steps/s in this call), and path F's visual BPTT on it
+    (U2). The route launches no kernel."""
+    import torch
+
+    from visfly_tpu_torch.algos import BPTT
+    from visfly_tpu_torch.render import prepare_kernel_scene, trace_analytic, trace_grouped
+
+    def u1_line(name, env, state, what, sps):
+        render = lambda: env.sensor_observations(state)  # noqa: E731
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = cuda_ms(render, reps=5, warmup=1)
+        busy, n_k = busy_ms(render)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        print(f"phase 4 | path U1 ({name}): {what} | {sps:.1f} env steps/s ({env.num_agent} "
+              f"agents, 64x64 depth) | a render {ev:.3f} ms (CUDA events around the call), device "
+              f"busy {busy:.3f} ms over {n_k} kernels (torch.profiler), its peak memory {peak:.2f} "
+              f"GiB above the resident | {card}", flush=True)
+
+    u1_line("kernel route, B1: the depth leg", env_k, state_k, "its launches counted there",
+            sps_k)
+    for mode, extra in U_MODES.items():
+        env = bench_env(dev, xla_sensors(extra))
+        state, out, sps, counts, _ = drive(env, 91, 1, CHUNK, lambda steps: {})
+        check(not any(counts.values()), f"path U1 {mode}: launched {counts}")
+        depth = out.obs["depth"]
+        check(tuple(depth.shape) == (N_AGENTS, 1, *RES), f"path U1 {mode}: depth shape")
+        check(bool(((depth >= 0) & (depth <= MAX_DEPTH)).all()), f"path U1 {mode}: depth range")
+        check(float((depth < MAX_DEPTH).float().mean()) > 0.5, f"path U1 {mode}: no hits")
+        u1_line(f"XLA route, {mode}, speed {sps / sps_k:.3f} of the kernel route's", env, state,
+                f"no kernel launches in {CHUNK * 2} steps", sps)
+
+        # card vs CPU on the same state, 2 agents
+        env_c = bench_env(dev, xla_sensors(extra), n=U_CHECK_AGENTS)
+        env_cpu = bench_env("cpu", xla_sensors(extra), n=U_CHECK_AGENTS)
+        st_c, _ = env_c.reset(torch.Generator(device=dev).manual_seed(92))
+        for i in range(4):
+            a = torch.rand((U_CHECK_AGENTS, 4), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(93 + i)) * 0.6 - 0.3
+            st_c, _ = env_c.step(st_c, a)
+        st_cpu = to_device(st_c, "cpu", torch.Generator().manual_seed(0))
+        d_card = env_c.sensor_observations(st_c)["depth"].cpu()
+        d_cpu = env_cpu.sensor_observations(st_cpu)["depth"]
+        diff = (d_card - d_cpu).abs()
+        flips = float(((d_card < MAX_DEPTH) != (d_cpu < MAX_DEPTH)).float().mean())
+        if mode != "march bfloat16":
+            off = diff > T_TOL
+            share = float(off.float().mean())
+            print(f"phase 5 | path U1 ({mode}) card vs cpu, {U_CHECK_AGENTS} agents: depth "
+                  f"max|d|={float(diff[~off].max()):.3e} m on all but {int(off.sum())} of "
+                  f"{diff.numel()} pixels (share {share:.3e})", flush=True)
+            check(share <= HIT_TOL, f"path U1 {mode}: depth card vs cpu off by > {T_TOL} m on "
+                                    f"{share} of pixels")
+            continue
+        # the bfloat16 march: the same statistics on both devices
+        err_card, _, _ = bf16_error(env_c, *point_rays(env_c, st_c))
+        err_cpu, _, _ = bf16_error(env_cpu, *point_rays(env_cpu, st_cpu))
+        spread = abs(quantile(err_card, 0.99) - quantile(err_cpu, 0.99))
+        err_full, _, _ = bf16_error(env, *point_rays(env, state))
+        print(f"phase 5 | path U1 (march bfloat16) card vs cpu, {U_CHECK_AGENTS} agents: depth "
+              f"p50 / p99 |d| {quantile(diff, 0.5):.3e} / {quantile(diff, 0.99):.3e} m, hits differ on "
+              f"{flips:.3e} of pixels; |t - t(float32, 256 steps)| p99 {quantile(err_card, 0.99):.4f} m "
+              f"on the card, {quantile(err_cpu, 0.99):.4f} m on the cpu; at {N_AGENTS} agents on the "
+              f"card p50 / p90 / p99 {quantile(err_full, 0.5):.4f} / {quantile(err_full, 0.9):.4f} / "
+              f"{quantile(err_full, 0.99):.4f} m (the JAX docstring's bound {U_BF16_P99} m)", flush=True)
+        check(quantile(diff, 0.99) <= U_BF16_P99, "path U1 bfloat16: card vs cpu p99 past 3 cm")
+        check(flips <= U_RAY_FLIPS, f"path U1 bfloat16: hits card vs cpu differ on {flips}")
+        check(spread <= U_BF16_SPREAD, f"path U1 bfloat16: p99 card {quantile(err_card, 0.99)} vs cpu "
+                                       f"{quantile(err_cpu, 0.99)}")
+
+    # the analytic XLA route against B1 on the same state, 1,048,576 rays
+    o, d = point_rays(env_k, state_k)
+    t_x, hit_x = trace_grouped(env_k.scene, o, d, n_steps=TRACE_STEPS, mode="analytic")
+    o_c, d_c = camera_rays_of(env_k, state_k)
+    t_b, hit_b = trace_analytic(prepare_kernel_scene(env_k.scene), o_c, d_c, MAX_DEPTH)[:2]
+    # the XLA route adds one residual evaluation: a ray past 1e-3 m counts as
+    # a mismatch, as a silhouette pixel does card vs CPU
+    dt = (t_x - t_b).abs()
+    off = (hit_x != hit_b) | ((hit_x & hit_b) & (dt > T_TOL))
+    share = float(off.float().mean())
+    print(f"phase 5 | path U1 analytic XLA route vs B1 on {o.shape[1]} rays: max|dt| "
+          f"{float(dt[~off].max()):.3e} m where both hit on all but {int(off.sum())} rays "
+          f"(share {share:.3e}; hits differ on {int((hit_x != hit_b).sum())}, largest |dt| "
+          f"{float(dt[hit_x & hit_b].max()):.3e} m)", flush=True)
+    check(share <= HIT_TOL, f"path U1: the analytic XLA route and B1 differ on {share} of rays")
+
+    # U2: path F's visual BPTT on the XLA route (analytic)
+    env_f = visual_grad_env(dev, {"path": "garage_simple_l_medium", "trace_steps": TRACE_STEPS},
+                            {"mean": [1.0, 0.0, 1.5], "half": [0.5, 2.0, 1.0]},
+                            extra={"render_backend": "xla"})
+    tr = BPTT(env_f, horizon=8, policy_kwargs=VISUAL_POLICY)
+    reset_launches()
+    st = tr.init(torch.Generator(device=dev).manual_seed(94))
+    st, m = tr.update(st)
+    before = snapshot(tr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, m = tr.update(st)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = all_launches()
+    check(not any(counts.values()), f"path U2 launched {counts}")
+    check_trained("path U2", tr, st, m, before, "actor_loss", dev)
+    print(f"phase 4 | path U2 (visual BPTT, XLA route, analytic): no kernel launches in 2 "
+          f"updates | {ms:.1f} ms an update beside path F's kernel route {f_ms:.1f} ({env_f.num_envs}"
+          f" agents, H=8, 64x64 depth; loss {float(m['actor_loss']):.4f}, gradient norm "
+          f"{float(m['grad_norm']):.4f}) | {card}", flush=True)
+
+
 def _one_rank(dev):
     """The single process's place: no group, one rank."""
     from visfly_tpu_torch.parallel import Mesh
@@ -4922,9 +5112,10 @@ def main():
               flush=True)
 
     # depth leg: one render at the reset and one a step
-    n_chunks = 3
+    n_chunks = 2
     state_d, out, sps, counts, dt = drive(env_d, 0, n_chunks, CHUNK,
                                           lambda steps: {"trace_analytic": 1 + steps})
+    sps_d = sps
     depth = out.obs["depth"]
     check(tuple(depth.shape) == (N_AGENTS, 1, *RES), f"depth shape {tuple(depth.shape)}")
     check(bool(((depth >= 0) & (depth <= MAX_DEPTH)).all()), "depth outside [0, 20]")
@@ -4932,7 +5123,7 @@ def main():
 
     # path A: one render at the reset, two a step (before the reward, after
     # the auto-reset)
-    n_chunks = 6
+    n_chunks = 2
     state_a, out, sps, counts, dt = drive(env_a, 10, n_chunks, CHUNK,
                                           lambda steps: {"trace_analytic_kid": 1 + 2 * steps})
     color = out.obs["color"]
@@ -4966,7 +5157,7 @@ def main():
     check(max(med) < 1e-2, f"march sensors disagree: median |d| {med}")
 
     # path C: state only
-    n_chunks = 4
+    n_chunks = 1
     _, out, sps, counts, dt = drive(env_c, 30, n_chunks, 125, lambda steps: {})
     report("path C (physics leg)", env_c, sps, counts, dt, 125 * (n_chunks + 1),
            "no scene, 8 substeps")
@@ -5049,12 +5240,13 @@ def main():
               f"{float(m['grad_norm']):.4f}) | {card}", flush=True)
 
     tr_e = BPTT(hover_grad_env(dev), horizon=32)
-    ms, sps, counts, m = drive_bptt(tr_e, 70, 5, lambda steps: {})
-    report_bptt("path E (BPTT, hover)", tr_e, ms, sps, counts, m, 5, "state only")
+    ms, sps, counts, m = drive_bptt(tr_e, 70, 2, lambda steps: {})
+    report_bptt("path E (BPTT, hover)", tr_e, ms, sps, counts, m, 2, "state only")
 
     # path F: visual BPTT, one render at the reset and one a step, through the
     # analytic kernel in the primitive scene and the merged per-camera kernel
     # in the 23,040-triangle mesh; the backward pass launches no kernel
+    f_ms = {}
     for name, env_f, mode in (
             ("primitive scene", visual_grad_env(
                 dev, {"path": "garage_simple_l_medium", "trace_steps": TRACE_STEPS},
@@ -5069,8 +5261,11 @@ def main():
               f"path F ({name}): no gradient reached the CNN")
         report_bptt(f"path F (visual BPTT, {name})", tr_f, ms, sps, counts, m, 2,
                     "64x64 depth")
+        f_ms[name] = ms
 
     clock("paths E and F")
+    xla_route_path(dev, card, launches, env_d, state_d, sps_d, f_ms["primitive scene"])
+    clock("path U")
     tr_g, st_g = training_paths(dev, card, launches)
     clock("paths G-J")
     experiment_layer_path(dev, card, launches, errs, timing, tr_g, st_g)

@@ -1,5 +1,5 @@
 from . import integrator, quaternion
-from .types import ACTION_TYPE_ALIAS, ActionType, Bound
+from .types import ACTION_TYPE_ALIAS, ActionType, Bound, Normal, PID, Uniform
 
 __all__ = [
     "quaternion",
@@ -7,4 +7,7 @@ __all__ = [
     "ActionType",
     "ACTION_TYPE_ALIAS",
     "Bound",
+    "Uniform",
+    "Normal",
+    "PID",
 ]

@@ -99,6 +99,18 @@ def x_axis(q: Tensor) -> Tensor:
     )
 
 
+def xz_axis(q: Tensor) -> Tensor:
+    """(..., 2, 3) stacked body x and z axes in the world frame. The first
+    row is the rotation matrix's row [R00, R01, R02], not its x column: the
+    reference's formula, kept for parity."""
+    w, x, y, z = q.unbind(-1)
+    row_x = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                        dim=-1)
+    row_z = torch.stack([2 * (x * z + y * w), 2 * (y * z - x * w), 1 - 2 * (x * x + y * y)],
+                        dim=-1)
+    return torch.stack([row_x, row_z], dim=-2)
+
+
 def to_euler(q: Tensor, order: str = "zyx") -> Tensor:
     """(..., 3) [roll, pitch, yaw]."""
     w, x, y, z = q.unbind(-1)
@@ -139,6 +151,34 @@ def from_euler(roll: Tensor, pitch: Tensor, yaw_: Tensor, order: str = "zyx") ->
     else:
         raise ValueError(f"unknown euler order {order!r}")
     return torch.stack([w, x, y, z], dim=-1)
+
+
+def extract_yaw_only(q: Tensor) -> Tensor:
+    """The quaternion of q's yaw alone."""
+    half = yaw(q) * 0.5
+    w, z = torch.cos(half), torch.sin(half)
+    zeros = torch.zeros_like(w)
+    return torch.stack([w, zeros, zeros, z], dim=-1)
+
+
+def world_to_head(q: Tensor, v: Tensor) -> Tensor:
+    """A world vector in the heading (yaw-only) frame."""
+    return inv_rotate(extract_yaw_only(q), v)
+
+
+def local_to_head(q: Tensor, v: Tensor) -> Tensor:
+    """A body vector in the heading frame: body → world → heading."""
+    return world_to_head(q, rotate(q, v))
+
+
+def extract_pitch_roll(q: Tensor) -> Tensor:
+    """The quaternion of q's pitch and roll alone."""
+    w, x, y, z = q.unbind(-1)
+    pitch = torch.atan2(2 * (w * y + x * z), 1 - 2 * (x * x + z * z))
+    roll = torch.atan2(2 * (w * x - y * z), 1 - 2 * (y * y + z * z))
+    hp, hr = pitch / 2, roll / 2
+    return torch.stack([torch.cos(hp) * torch.cos(hr), torch.sin(hr) * torch.cos(hp),
+                        torch.sin(hp) * torch.cos(hr), torch.sin(hp) * torch.sin(hr)], dim=-1)
 
 
 def omega_derivative(q: Tensor, omega: Tensor) -> Tensor:

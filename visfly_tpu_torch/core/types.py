@@ -5,6 +5,7 @@ from __future__ import annotations
 import enum
 from typing import NamedTuple, Union
 
+import torch
 from torch import Tensor
 
 
@@ -30,3 +31,40 @@ class Bound(NamedTuple):
 
     min: Union[float, Tensor]
     max: Union[float, Tensor]
+
+
+class Uniform(NamedTuple):
+    """Uniform distribution as mean ± half-range.
+
+    ``sample`` draws ``(U[0,1) − 0.5) · half + mean``: the *full* width is
+    ``half``, a quirk of the reference kept for parity."""
+
+    mean: Tensor
+    half: Tensor
+
+    def sample(self, gen: torch.Generator, shape=()) -> Tensor:
+        mean = torch.as_tensor(self.mean, device=gen.device)
+        u = torch.rand((*shape, *mean.shape), generator=gen, device=gen.device)
+        return (u - 0.5) * self.half + mean
+
+
+class Normal(NamedTuple):
+    """Gaussian distribution."""
+
+    mean: Tensor
+    std: Tensor
+
+    def sample(self, gen: torch.Generator, shape=()) -> Tensor:
+        mean = torch.as_tensor(self.mean, device=gen.device)
+        n = torch.randn((*shape, *mean.shape), generator=gen, device=gen.device)
+        return n * self.std + mean
+
+
+class PID(NamedTuple):
+    """Diagonal PID gains, each a (3,) diagonal (the reference keeps full
+    3×3 matrices whose off-diagonal entries are zero in every drone
+    config)."""
+
+    p: Tensor
+    i: Tensor
+    d: Tensor

@@ -2,6 +2,7 @@ from .config import GRAVITY, DroneConfig, DroneParams, make_drone_params
 from .dynamics import (
     DynState,
     direction,
+    extend_state,
     full_state,
     get_state,
     init_state,
@@ -21,6 +22,7 @@ __all__ = [
     "step",
     "get_state",
     "full_state",
+    "extend_state",
     "velocity",
     "direction",
 ]

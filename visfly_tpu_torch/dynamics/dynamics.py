@@ -186,6 +186,18 @@ def _de_normalize(config: DroneConfig, params: DroneParams, action: Tensor) -> T
     return torch.cat([c0, c123], dim=-1)
 
 
+def normalize_command(config: DroneConfig, params: DroneParams, command: Tensor) -> Tensor:
+    """Physical command → [-1, 1] action, the inverse of ``_de_normalize``.
+    BODYRATE commands are [z-acceleration, body rates]: the acceleration,
+    not the collective thrust, as in the reference."""
+    if config.action_type == ActionType.THRUST:
+        return (command / params.mass - params.bias0) / params.scale0
+    c0 = (command[:, :1] - params.bias0) / torch.where(params.scale0 == 0, 1.0, params.scale0)
+    c123 = (command[:, 1:] - params.bias123) / torch.where(params.scale123 == 0, 1.0,
+                                                           params.scale123)
+    return torch.cat([c0, c123], dim=-1)
+
+
 def _so3_attitude(params: DroneParams, state: DynState, f_des: Tensor,
                   yaw_des: Tensor, yaw_gain: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """SO(3) attitude machinery shared by VELOCITY/POSITION.
@@ -393,3 +405,10 @@ def full_state(state: DynState) -> Tensor:
     """22-dim state (+motor ω, thrusts, t)."""
     return torch.cat([state.pos, state.q, velocity(state), state.omega,
                       state.motor_omega, state.thrusts, state.t[:, None]], dim=-1)
+
+
+def extend_state(state: DynState) -> Tensor:
+    """28-dim state (+ linear and angular acceleration)."""
+    return torch.cat([state.pos, state.q, velocity(state), state.omega, state.acc,
+                      state.angular_acc, state.motor_omega, state.thrusts, state.t[:, None]],
+                     dim=-1)

@@ -17,6 +17,13 @@ meet it, as the JAX kernel does; default on), ``march_omega`` (over-relaxed
 march), ``trace_steps_override`` and
 ``tile`` (> 1: one conservative cone per tile of pixels warm-starts the
 per-pixel march, which then takes half the steps; march mode only).
+``render_backend: "xla"`` takes the JAX package's XLA route instead
+(:func:`trace_grouped`, plain PyTorch on either device, no kernel): the
+march in ``render_dtype`` ("bfloat16" by default, "float32") with t in
+float32 and a float32 residual step, or the closed-form candidate and
+``analytic_refine`` march steps; objects without templates as spheres;
+pixels shaded by the nearest primitive, object pixels too. Any other value,
+or none, keeps the kernel route.
 
 A mesh scene (``SceneData`` with triangles) renders its true triangles;
 its sensor-spec keys are ``tri_cap`` (per-tile list length, default by mesh
@@ -236,8 +243,32 @@ def _shade_primitive_indexed(scene: PrimitiveScene, p_hit: Tensor, hit: Tensor, 
 
 
 # ---------------------------------------------------------------------------
-# cone prepass (plain PyTorch, as it is plain XLA in the JAX package)
+# the scene SDF and the cone prepass (plain PyTorch, as they are plain XLA in
+# the JAX package)
 # ---------------------------------------------------------------------------
+
+
+def _scene_sdf_fn(params: Tensor, obj_pos: Optional[Tensor], obj_radius: Optional[Tensor],
+                  origins: Optional[Tensor] = None):
+    """One scene's SDF, points (R, 3) → (R,): the rows ``params`` (K, 12)
+    and the objects as spheres. Where ``origins`` (R, 3) is given, an object
+    within its radius + 0.05 of a ray's origin is left out for that ray (a
+    drone's own body does not occlude its camera)."""
+    excl = None
+    if obj_pos is not None and origins is not None:
+        d0 = torch.linalg.vector_norm(origins[:, None, :] - obj_pos[None], dim=-1)
+        excl = d0 <= obj_radius[None] + 0.05
+
+    def sdf(p):
+        d = prim_sdf(params, p)
+        if obj_pos is not None:
+            do = torch.linalg.vector_norm(p[:, None, :] - obj_pos[None], dim=-1) - obj_radius[None]
+            if excl is not None:
+                do = torch.where(excl, torch.full((), BIG, dtype=do.dtype, device=do.device), do)
+            d = torch.minimum(d, torch.amin(do, dim=-1))
+        return d
+
+    return sdf
 
 
 def _trace_cones_one_scene(params, origins, dirs, tan, obj_pos, obj_radius, n_steps: int,
@@ -246,18 +277,7 @@ def _trace_cones_one_scene(params, origins, dirs, tan, obj_pos, obj_radius, n_st
     t·tanθ; the returned t cannot overshoot the first hit of ANY pixel ray
     inside the cone. The damped step (÷(1 + tanθ)) keeps that between
     samples for off-axis rays. origins/dirs (T, 3), tan (T,) → (T,)."""
-    excl = None
-    if obj_pos is not None:  # an object that holds the origin is invisible
-        d0 = torch.linalg.vector_norm(origins[:, None, :] - obj_pos[None], dim=-1)
-        excl = d0 <= obj_radius[None] + 0.05
-
-    def sdf(p):
-        d = prim_sdf(params, p)
-        if obj_pos is not None:
-            do = torch.linalg.vector_norm(p[:, None, :] - obj_pos[None], dim=-1) - obj_radius
-            d = torch.minimum(d, torch.amin(do.masked_fill(excl, BIG), dim=-1))
-        return d
-
+    sdf = _scene_sdf_fn(params, obj_pos, obj_radius, origins)
     damp = 1.0 / (1.0 + tan)
     t = torch.zeros_like(tan)
     done = torch.zeros_like(tan, dtype=torch.bool)
@@ -279,6 +299,184 @@ def trace_cones_grouped(scene: PrimitiveScene, origins: Tensor, dirs: Tensor, ta
         out.append(_trace_cones_one_scene(scene.params[s], origins[s], dirs[s], tan[s], op,
                                           orad, n_steps, max_depth, eps))
     return torch.stack(out)
+
+
+# ---------------------------------------------------------------------------
+# the XLA route: the scene SDF traced in plain PyTorch (``render_backend:
+# "xla"``; plain XLA in the JAX package), on either device
+# ---------------------------------------------------------------------------
+
+
+def _analytic_t0(params: Tensor, o: Tensor, d: Tensor, obj_pos: Optional[Tensor],
+                 obj_radius: Optional[Tensor], max_depth: float, eps: float = 0.0) -> Tensor:
+    """The closed-form first hit (R,) of rays o/d (R, 3) against one scene's
+    rows (K, 12) and object spheres, min-reduced: slab tests for yaw-rotated
+    boxes and inverted rooms, a quadratic for spheres, cylinder and cap
+    quadratics for capsules. A general rounded box (half-extents and radius
+    both non-zero, which no preset makes) takes the slab entry of the
+    radius-inflated box, a lower bound the refine march converges from. An
+    origin inside a solid gives 0, a miss ``max_depth``; ``eps`` dilates the
+    solids (0 by default: exact)."""
+    big = torch.full((), BIG, dtype=o.dtype, device=o.device)
+    c, he, rad = params[:, 0:3], params[:, 3:6], params[:, 6]
+    cy, sy = params[:, 7], params[:, 8]
+    sign, fam, act = params[:, 9], params[:, 10], params[:, 11]
+
+    # family 0 in the box's yaw frame, (R, K)
+    rx = o[:, None, 0] - c[None, :, 0]
+    ry = o[:, None, 1] - c[None, :, 1]
+    px = cy * rx + sy * ry
+    py = -sy * rx + cy * ry
+    pz = o[:, None, 2] - c[None, :, 2]
+    vx = cy * d[:, None, 0] + sy * d[:, None, 1]
+    vy = -sy * d[:, None, 0] + cy * d[:, None, 1]
+    vz = d[:, None, 2].expand_as(px)
+
+    def slab(p, v, h):
+        safe = torch.where(torch.abs(v) < 1e-9, torch.where(v >= 0, 1e-9, -1e-9), v)
+        t1 = (-h - p) / safe
+        t2 = (h - p) / safe
+        return torch.minimum(t1, t2), torch.maximum(t1, t2)
+
+    def box(h):
+        n1, f1 = slab(px, vx, h[None, :, 0])
+        n2, f2 = slab(py, vy, h[None, :, 1])
+        n3, f3 = slab(pz, vz, h[None, :, 2])
+        return (torch.maximum(n1, torch.maximum(n2, n3)),
+                torch.minimum(f1, torch.minimum(f2, f3)))
+
+    tn, tf = box(he + (rad[:, None] + eps))  # radius- and eps-inflated halves
+    t_solid = torch.where((tn <= tf) & (tf > 0.0), torch.clamp(tn, min=0.0), big)
+    # inverted room: from inside, the exit of the radius-inflated box; an
+    # origin outside lies in the solid complement
+    tnr, tfr = box(he + rad[:, None])
+    t_room = torch.where(tnr <= 0.0, torch.clamp(tfr, min=0.0), 0.0)
+
+    # sphere (he = 0): exact quadratic
+    oc = o[:, None, :] - c[None]
+    b_s = torch.sum(oc * d[:, None, :], dim=-1)
+    c_s = torch.sum(oc * oc, dim=-1) - (rad[None] + eps) ** 2
+    disc = b_s * b_s - c_s
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t_in, t_out = -b_s - sq, -b_s + sq
+    t_sphere = torch.where(disc > 0.0,
+                           torch.where(t_in >= 0.0, t_in, torch.where(t_out > 0.0, 0.0, big)), big)
+    is_sphere = (torch.sum(he, dim=-1) < 1e-6)[None]
+    t_fam0 = torch.where(sign[None] < 0.0, t_room, torch.where(is_sphere, t_sphere, t_solid))
+
+    # family 1: capsule = cylinder body and two cap spheres
+    a, bp = params[:, 0:3], params[:, 3:6]
+    ba = bp - a  # (K, 3)
+    oa = o[:, None, :] - a[None]  # (R, K, 3)
+    baba = torch.sum(ba * ba, dim=-1)[None]
+    bard = torch.sum(ba[None] * d[:, None, :], dim=-1)
+    baoa = torch.sum(ba[None] * oa, dim=-1)
+    rdoa = torch.sum(d[:, None, :] * oa, dim=-1)
+    oaoa = torch.sum(oa * oa, dim=-1)
+    re_ = rad[None] + eps
+    A = baba - bard * bard
+    B = baba * rdoa - baoa * bard
+    Cq = baba * oaoa - baoa * baoa - re_ ** 2 * baba
+    hq = B * B - A * Cq
+    t_cyl = (-B - torch.sqrt(torch.clamp(hq, min=0.0))) / torch.clamp(A, min=1e-9)
+    ycyl = baoa + t_cyl * bard
+    cyl_ok = (hq > 0.0) & (A > 1e-7) & (ycyl >= 0.0) & (ycyl <= baba) & (t_cyl >= 0.0)
+
+    def cap_sphere(center):
+        occ = o[:, None, :] - center[None]
+        bb = torch.sum(occ * d[:, None, :], dim=-1)
+        cc = torch.sum(occ * occ, dim=-1) - re_ ** 2
+        dd = bb * bb - cc
+        ti = -bb - torch.sqrt(torch.clamp(dd, min=0.0))
+        return torch.where((dd > 0.0) & (ti >= 0.0), ti, big)
+
+    t_cap = torch.minimum(torch.where(cyl_ok, t_cyl, big),
+                          torch.minimum(cap_sphere(a), cap_sphere(bp)))
+    # an origin inside a capsule: hit at t = 0, as the march has it
+    h0 = torch.clamp(baoa / torch.clamp(baba, min=1e-9), 0.0, 1.0)
+    e0 = oa - ba[None] * h0[..., None]
+    t_cap = torch.where(torch.sum(e0 * e0, dim=-1) <= re_ ** 2, 0.0, t_cap)
+
+    t_prim = torch.where(fam[None] < 0.5, t_fam0, t_cap)
+    t_prim = torch.where(act[None] > 0.5, t_prim, big)
+    t0 = torch.amin(t_prim, dim=-1)
+
+    # objects: spheres, left out where they hold the ray's origin
+    if obj_pos is not None:
+        oco = o[:, None, :] - obj_pos[None]
+        bo = torch.sum(oco * d[:, None, :], dim=-1)
+        oo = torch.sum(oco * oco, dim=-1)
+        do = bo * bo - (oo - (obj_radius[None] + eps) ** 2)
+        tio = -bo - torch.sqrt(torch.clamp(do, min=0.0))
+        excl = oo <= (obj_radius[None] + 0.05) ** 2
+        t_obj = torch.where((do > 0.0) & (tio >= 0.0) & ~excl, tio, big)
+        t0 = torch.minimum(t0, torch.amin(t_obj, dim=-1))
+    return torch.clamp(t0, 0.0, max_depth)
+
+
+def _trace_one_scene(params: Tensor, origins: Tensor, dirs: Tensor, obj_pos: Optional[Tensor],
+                     obj_radius: Optional[Tensor], n_steps: int, max_depth: float, eps: float,
+                     t_init: Tensor, compute_dtype: torch.dtype = torch.bfloat16):
+    """R rays (origins, dirs (R, 3)) against one scene from ``t_init`` (R,):
+    ``n_steps`` march steps whose distances are evaluated in
+    ``compute_dtype`` while t accumulates in float32, then one residual step
+    in float32. A ray that runs out of steps reports its marched t (a lower
+    bound of its depth) as a hit. → (t (R,), max_depth where it missed;
+    hit (R,))."""
+    sdf_f32 = _scene_sdf_fn(params, obj_pos, obj_radius, origins)
+    if compute_dtype == torch.float32:
+        sdf_march = sdf_f32
+    else:
+        cast = (lambda x: None if x is None else x.to(compute_dtype))  # noqa: E731
+        sdf_c = _scene_sdf_fn(cast(params), cast(obj_pos), cast(obj_radius),
+                              None if obj_pos is None else cast(origins))
+        sdf_march = lambda p: sdf_c(p.to(compute_dtype)).to(torch.float32)  # noqa: E731
+    t = t_init.to(origins.dtype)
+    done = torch.zeros(origins.shape[0], dtype=torch.bool, device=origins.device)
+    for _ in range(n_steps):
+        d = sdf_march(origins + dirs * t[:, None])
+        done = done | (d < eps) | (t >= max_depth)
+        t = torch.where(done, t, t + d)
+    t = torch.clamp(t + sdf_f32(origins + dirs * t[:, None]), 0.0, max_depth)
+    hit = t < max_depth
+    return torch.where(hit, t, max_depth), hit
+
+
+def trace_grouped(scene: PrimitiveScene, origins: Tensor, dirs: Tensor, objects=None,
+                  n_steps: int = 40, max_depth: float = DEFAULT_MAX_DEPTH,
+                  t_init: Optional[Tensor] = None, compute_dtype=torch.bfloat16,
+                  mode: str = "march", refine_steps: int = 0):
+    """The XLA route's trace, plain PyTorch on either device (no kernel):
+    rays origins/dirs (S, R, 3) against each scene's rows and its objects
+    ((positions (S, M, 3), radii (S, M), ...) or None) as spheres, one scene
+    at a time. ``mode="march"``: :func:`_trace_one_scene` from ``t_init``
+    (S, R) (zeros where None) in ``compute_dtype`` (a torch dtype or its
+    name; bfloat16 by default, its ulp absorbed by the march and the float32
+    residual step). ``mode="analytic"``: the closed-form candidate
+    (:func:`_analytic_t0`, detached: the gradient flows through the residual
+    step at the hit) then ``refine_steps`` march steps, all in float32.
+    → (t (S, R), max_depth where it missed; hit (S, R))."""
+    eps = float(scene.eps)
+    analytic = mode == "analytic"
+    if analytic:
+        n_steps, compute_dtype = refine_steps, torch.float32
+    elif isinstance(compute_dtype, str):
+        compute_dtype = getattr(torch, compute_dtype)
+    if t_init is None:
+        t_init = torch.zeros(origins.shape[:2], dtype=origins.dtype, device=origins.device)
+    ts, hits = [], []
+    for s in range(origins.shape[0]):
+        op, orad = (None, None) if objects is None else (objects[0][s], objects[1][s])
+        prm, o, d = scene.params[s], origins[s], dirs[s]
+        if analytic:
+            with torch.no_grad():
+                t0 = _analytic_t0(prm, o, d, op, orad, max_depth)
+        else:
+            t0 = t_init[s]
+        t, hit = _trace_one_scene(prm, o, d, op, orad, n_steps, max_depth, eps, t0, compute_dtype)
+        ts.append(t)
+        hits.append(hit)
+    return torch.stack(ts), torch.stack(hits)
 
 
 # ---------------------------------------------------------------------------
@@ -635,26 +833,39 @@ def render_camera(
     n = pos.shape[0]
     S = data.num_scene if num_scene is None else num_scene
     R = (n // S) * H * W
-    analytic = str(spec.get("trace_mode", "analytic")) == "analytic"
+    trace_mode = str(spec.get("trace_mode", "analytic"))
+    analytic = trace_mode == "analytic"
     # analytic tracing discards warm starts, so the cone prepass would be
     # dead work: it is skipped
     tile = 1 if analytic else int(spec.get("tile", 1))
-    kscene = prepare_kernel_scene(data, kern_objects)
+    cones = tile > 1 and H % tile == 0 and W % tile == 0 and H >= tile
     kid = None
 
-    if tile > 1 and H % tile == 0 and W % tile == 0 and H >= tile:
-        # one conservative cone per tile, then the packed march from the tile
-        # depth with half the steps
+    xla = str(spec.get("render_backend", "")) == "xla"
+    if xla or cones:
         origins, dirs, cos_f = camera_rays(spec, pos, q)
         o_pm = origins[:, None, :].expand(n, H * W, 3).reshape(S, R, 3).contiguous()
         d_pm = dirs.reshape(S, R, 3)
-        t_init = cone_warm_start(data, spec, tile, origins, q, S, kern_objects, n_steps,
-                                 max_depth)
-        pixel_steps = n_steps if t_init is None else max(8, n_steps // 2)
-        t, hit, _ = trace_diff(kscene, o_pm, d_pm, t_init, pixel_steps, max_depth,
-                               packed=True, img_w=W if (H * W) % TILE == 0 else None)
+        t_init, pixel_steps = None, n_steps
+        if cones:
+            # one conservative cone per tile, then the march from the tile
+            # depth with half the steps
+            t_init = cone_warm_start(data, spec, tile, origins, q, S, kern_objects, n_steps,
+                                     max_depth)
+            pixel_steps = n_steps if t_init is None else max(8, n_steps // 2)
+        if xla:
+            # the XLA route, asked for by name: plain PyTorch on either
+            # device, no kernel; its pixels shade by the nearest primitive
+            t, hit = trace_grouped(data, o_pm, d_pm, kern_objects, pixel_steps, max_depth,
+                                   t_init, str(spec.get("render_dtype", "bfloat16")), trace_mode,
+                                   int(spec.get("analytic_refine", 0)))
+        else:
+            t, hit, _ = trace_diff(prepare_kernel_scene(data, kern_objects), o_pm, d_pm, t_init,
+                                   pixel_steps, max_depth, packed=True,
+                                   img_w=W if (H * W) % TILE == 0 else None)
         cos_f = cos_f[:1]
     else:
+        kscene = prepare_kernel_scene(data, kern_objects)
         # component-major: rays never exist as (R, 3) tensors on the way in
         o_c, d_c, cos_f = camera_rays_components(spec, pos, q, geom)
         # with one agent a scene the reshape is a view of the stride-0

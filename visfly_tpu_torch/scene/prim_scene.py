@@ -329,3 +329,23 @@ def scene_sdf_flat(scene: PrimitiveScene, sid: Tensor, p: Tensor) -> Tensor:
     if scene.num_scene == 1:
         return prim_sdf(scene.params[0], p)
     return prim_sdf(scene.params[sid], p)
+
+
+def scene_normal_grouped(scene: PrimitiveScene, p: Tensor) -> Tensor:
+    """Outward unit normals (S, Ns, 3) at points p (S, Ns, 3): the
+    normalised gradient of each scene's min-SDF, by autograd (each output
+    depends on its own point only, so the gradient of the sum is per
+    point). Works under ``torch.no_grad()``; the result carries a graph only
+    where p requires a gradient."""
+    keep = p.requires_grad
+    with torch.enable_grad():
+        x = p if keep else p.detach().requires_grad_(True)
+        g, = torch.autograd.grad(prim_sdf(scene.params[:, None], x).sum(), x, create_graph=keep)
+        n = g / (torch.linalg.vector_norm(g, dim=-1, keepdim=True) + 1e-9)
+    return n if keep else n.detach()
+
+
+def nearest_primitive_grouped(scene: PrimitiveScene, p: Tensor) -> Tensor:
+    """(S, Ns) index of the nearest primitive row at each point (the first
+    on a tie), for colour and semantic shading."""
+    return torch.argmin(prim_distances(scene.params[:, None], p), dim=-1)

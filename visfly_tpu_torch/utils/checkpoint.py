@@ -10,6 +10,8 @@ field with ``torch.save`` as plain containers: tensors (on the CPU), dicts,
 lists, tuples and scalars; a generator as ``{"generator_state": bytes}`` from
 ``get_state()``, an ``AdamChain`` as its step count and Adam's
 ``state_dict()``. So ``torch.load(..., weights_only=True)`` reads the file.
+:func:`save_pytree` and :func:`load_pytree` do the same for any nested
+structure of tensors, restored into a template's shape as below.
 
 :func:`load_train_state` restores into a template state built by the
 trainer's ``init()``, field by field: a field whose structure and tensor
@@ -117,7 +119,7 @@ def _restore(saved: Any, tmpl: Any) -> Any:
     """The template with the saved values; see the module docstring for what
     is written in place. Call only where :func:`_compatible` holds."""
     if isinstance(tmpl, Tensor):
-        value = saved.to(device=tmpl.device, dtype=tmpl.dtype)
+        value = asarray_like(saved, tmpl)
         if isinstance(tmpl, nn.Parameter) or tmpl.requires_grad:
             with torch.no_grad():
                 tmpl.copy_(value)
@@ -145,6 +147,37 @@ def _resolve(path: str) -> str:
     if not os.path.exists(path) and os.path.exists(path + SUFFIX):
         return path + SUFFIX
     return path
+
+
+def save_pytree(path: str, tree: Any) -> str:
+    """Any nested structure of tensors (NamedTuples, dicts, lists, tuples,
+    scalars, generators) → ``path`` (``.pt`` appended unless present), as
+    plain containers of CPU tensors; returns the file's path."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    p = path if path.endswith(SUFFIX) else path + SUFFIX
+    torch.save(to_payload(tree), p)
+    return p
+
+
+def asarray_like(saved: Any, tmpl: Any) -> Any:
+    """A saved leaf cast to the template leaf's dtype and device where both
+    are arrays; any other leaf as saved."""
+    if isinstance(tmpl, Tensor) and hasattr(saved, "dtype"):
+        return torch.as_tensor(saved).to(device=tmpl.device, dtype=tmpl.dtype)
+    return saved
+
+
+def load_pytree(path: str, template: Any) -> Any:
+    """The structure saved by :func:`save_pytree`, restored into the shape of
+    ``template`` (same structure and tensor shapes, else ``ValueError``):
+    each tensor on the template leaf's device and in its dtype, written in
+    place where the template's tensor requires a gradient, as
+    :func:`load_train_state` restores parameters."""
+    p = _resolve(path)
+    saved = torch.load(p, map_location="cpu", weights_only=True)
+    if not _compatible(saved, template):
+        raise ValueError(f"{p} does not match the template's structure and shapes")
+    return _restore(saved, template)
 
 
 def load_train_state(path: str, st_template: Any) -> Tuple[Any, List[str]]:
