@@ -1,0 +1,8 @@
+"""Idle ms of the card a step under the spawn rejection: the idle gaps of
+the program trace's window (``portbench/program_trace.py``) whose innermost
+span is ``env.auto_reset`` or ``env.spawn``, over its steps."""
+from portbench import program_trace
+
+
+def read(ctx):
+    return program_trace.per_unit(ctx, "idle_ms", ("env.auto_reset", "env.spawn"))

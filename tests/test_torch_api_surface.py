@@ -41,6 +41,12 @@ RENAMED = {
     "render/__init__.py::tri_trace_pallas": "render/__init__.py::tri_trace_tiled",
     # a leaf cast to the template's dtype (and device)
     "utils/checkpoint.py::jnp_asarray_like": "utils/checkpoint.py::asarray_like",
+    # a phase timer that waited for the card at every phase: a span on the
+    # profiler's own trace, whose key_averages sum the spans by name
+    "utils/profiling.py::StepTimer": "utils/profiling.py::span",
+    "utils/profiling.py::StepTimer.phase": "utils/profiling.py::span",
+    "utils/profiling.py::StepTimer.summary": "utils/profiling.py::device_trace",
+    "utils/profiling.py::StepTimer.report": "utils/profiling.py::device_trace",
 }
 
 # "module::name" of the JAX package → why the port has no counterpart

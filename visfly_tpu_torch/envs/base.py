@@ -77,6 +77,7 @@ from torch import Tensor
 from ..dynamics import DroneConfig, DynState, make_drone_params
 from ..dynamics import dynamics as dyn_mod
 from ..render.camera import camera_geometry
+from ..utils import profiling
 from . import randomization as rnd
 
 
@@ -422,6 +423,8 @@ class DroneGymEnv:
         the env holds rows of a larger one, the larger env's draws are made and
         sliced, and only this env's rows are tested for collisions."""
         lo, hi, n = self.global_rows
+        if profiling.tracing():
+            profiling.count("spawn.agents", n)
         n_per = n // max(len(self.randomizers), 1)
         target = getattr(self, "target", None)
         outs = [
@@ -532,15 +535,17 @@ class DroneGymEnv:
              ) -> Tuple[EnvState, StepOutput]:
         """One control step for all agents. ``is_test=True`` suppresses the
         auto-reset."""
-        dyn = dyn_mod.step(self.dyn_config, self.params, state.dyn, action,
-                           wind_fn=self.wind_fn, wind_const=self.wind_const)
+        with profiling.span("env.dynamics"):
+            dyn = dyn_mod.step(self.dyn_config, self.params, state.dyn, action,
+                               wind_fn=self.wind_fn, wind_const=self.wind_const)
         aux = self.step_aux(state.aux, dyn)
         objects = state.objects
         if self.objects is not None and type(objects) is not tuple:
             from ..scene.objects import step_objects
 
             objects = step_objects(self.objects, objects, self.dyn_config.ctrl_dt)
-        collision, once = self._update_collision(dyn, state.once_collided, objects)
+        with profiling.span("env.collision"):
+            collision, once = self._update_collision(dyn, state.once_collided, objects)
         step_count = state.step_count + 1
         st = state._replace(dyn=dyn, step_count=step_count, collision=collision,
                             once_collided=once, aux=aux, objects=objects)
@@ -550,11 +555,11 @@ class DroneGymEnv:
         if self.needs_sensors_for_reward:
             st = self.update_aux_from_sensors(st, pre_sensor_obs)
 
-        success = self.aggregate_success(self.get_success(st))
-        failure = self.get_failure(st)
-        st = st._replace(success=success, failure=failure)
-
-        reward = self.get_reward(st)
+        with profiling.span("env.reward"):
+            success = self.aggregate_success(self.get_success(st))
+            failure = self.get_failure(st)
+            st = st._replace(success=success, failure=failure)
+            reward = self.get_reward(st)
         indiv = {}
         if isinstance(reward, dict):
             indiv = {k: v for k, v in reward.items() if k != "reward"}
@@ -585,7 +590,8 @@ class DroneGymEnv:
                                                st.latent)
             info["terminal_observation"] = {k: v.detach() for k, v in term_obs.items()}
         if not is_test:
-            st = self._auto_reset(st, done)
+            with profiling.span("env.auto_reset"):
+                st = self._auto_reset(st, done)
         sensor_obs = self.sensor_observations(st)
         st = self.update_aux_from_sensors(st, sensor_obs)
         obs = self.get_observation(st, sensor_obs)
@@ -613,7 +619,10 @@ class DroneGymEnv:
         """Masked respawn of done agents, with a random clock phase. The
         spawned states carry no gradient; the selects let a live agent's
         gradient through and stop a done agent's."""
-        pos, q, vel, omega = (x.detach() for x in self._spawn(st.gen))
+        if profiling.tracing():
+            profiling.count("reset.respawned", done.sum())
+        with profiling.span("env.spawn"):
+            pos, q, vel, omega = (x.detach() for x in self._spawn(st.gen))
         clock = self._rows_draw(torch.rand, st.gen, (), st.dyn.pos.dtype) * 3.14 * 2
         dyn = dyn_mod.reset(self.dyn_config, self.params, st.dyn, mask=done, pos=pos, ori=q,
                             vel=vel, ori_vel=omega, t=clock, generator=st.gen,
@@ -622,7 +631,8 @@ class DroneGymEnv:
 
     def _reset_masked(self, st: EnvState, mask: Tensor, dyn: DynState) -> EnvState:
         """The bookkeeping of a masked reset to the dynamics ``dyn``."""
-        collision, once = self._update_collision(dyn, st.once_collided & ~mask, st.objects)
+        with profiling.span("env.collision"):
+            collision, once = self._update_collision(dyn, st.once_collided & ~mask, st.objects)
         return st._replace(
             dyn=dyn,
             aux=self.reset_aux(st._replace(dyn=dyn), mask),

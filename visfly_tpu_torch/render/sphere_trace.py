@@ -67,6 +67,7 @@ from ..core import quaternion as quat
 from ..scene.prim_scene import PrimitiveScene, prim_distances, prim_normal_single, prim_sdf
 from ..scene.queries import sample_sdf, sdf_normal
 from ..scene.scene import SceneData
+from ..utils import profiling
 from .camera import (CameraGeometry, camera_rays, camera_rays_components, tile_cones_body)
 from .noise import apply_noise
 from .trace_kernel import prepare_kernel_scene, trace_diff
@@ -550,9 +551,15 @@ def _object_mesh_hits(objects, o: Tensor, d: Tensor, max_depth: float):
     n = torch.zeros_like(o)
     col = torch.zeros_like(o)
     od, dd = o[:, :, None], d[:, :, None]  # (S, R, 1, 3)
+    tracing = profiling.tracing()
     for m in range(M):
         c = obj_pos[:, m]
         ts, outside, n_s = _sphere_candidates(c, obj_radius[:, m], o, d, max_depth)
+        if tracing:
+            # every ray is tested against every triangle; the candidates are
+            # the rays that meet the bounding sphere ahead, from outside it
+            profiling.count("object_hits.tests", S * o.shape[1] * K)
+            profiling.count("object_hits.candidate_tests", (ts < BIG).sum() * K)
         # the posed template: world vertices (S, K, 3, 3)
         v_l = mesh[:, m].reshape(S, K * 3, 3)
         v_w = torch.sum(rot[:, m, None] * v_l[:, :, None, :], dim=-1) + c[:, None]
@@ -721,7 +728,8 @@ def _render_triangles(data: SceneData, pos: Tensor, q: Tensor, spec: Dict, stype
         variant=str(spec.get("tri_variant", "scalar")))
     obj_px = None
     if objects is not None:
-        t, hit, obj_px, n_o, c_o = _compose_objects(objects, o_g3, d_g3, t, hit, max_depth)
+        with profiling.span("render.object_hits"):
+            t, hit, obj_px, n_o, c_o = _compose_objects(objects, o_g3, d_g3, t, hit, max_depth)
         normal = torch.where(obj_px[..., None], n_o, normal)
     if stype == "depth":
         depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f, max_depth)
@@ -877,12 +885,13 @@ def render_camera(
         # the per-tile cull takes whole 1,024-ray tiles (the JAX package takes
         # its un-culled path otherwise), and frustum planes only where a tile
         # never spans two cameras
-        out = trace_diff(kscene, o_full, d_full, None,
-                         int(spec.get("trace_steps_override", n_steps)), max_depth,
-                         float(spec.get("march_omega", 1.0)),
-                         bool(spec.get("cull", True)) and R % TILE == 0, analytic,
-                         int(spec.get("analytic_refine", 0)), want_kid,
-                         img_w=W if (H * W) % TILE == 0 else None)
+        with profiling.span("render.scene_trace"):
+            out = trace_diff(kscene, o_full, d_full, None,
+                             int(spec.get("trace_steps_override", n_steps)), max_depth,
+                             float(spec.get("march_omega", 1.0)),
+                             bool(spec.get("cull", True)) and R % TILE == 0, analytic,
+                             int(spec.get("analytic_refine", 0)), want_kid,
+                             img_w=W if (H * W) % TILE == 0 else None)
         t, hit = out[0], out[1]
         kid = out[2] if want_kid else None
         cos_f = cos_f.reshape(1, H, W)
@@ -891,7 +900,8 @@ def render_camera(
 
     obj_px = None
     if mesh_objs:
-        t, hit, obj_px, n_o, c_o = _compose_objects(objects, o_pm, d_pm, t, hit, max_depth)
+        with profiling.span("render.object_hits"):
+            t, hit, obj_px, n_o, c_o = _compose_objects(objects, o_pm, d_pm, t, hit, max_depth)
     if stype == "depth":
         depth = torch.where(hit.reshape(n, H, W), t.reshape(n, H, W) * cos_f, max_depth)
         return {"depth": depth[:, None, :, :]}
@@ -923,17 +933,18 @@ def render_sensors(env, state) -> Dict[str, Tensor]:
         return {}
     if not hasattr(env, "_baked_lighting"):
         env._baked_lighting = bake_lighting(env.scene_kwargs.get("lighting"), env.device)
-    objects = env.render_objects(state)
     noise = getattr(env, "noise_settings", None) or {}
     out: Dict[str, Tensor] = {}
-    for spec, geom in zip(env.sensor_kwargs, env.cameras):
-        res = render_camera(env.scene, state.dyn.pos, state.dyn.q, spec,
-                            n_steps=int(env.scene_kwargs.get("trace_steps", 40)),
-                            objects=objects, num_scene=env.num_scene,
-                            lighting=env._baked_lighting, geom=geom)
-        for k, v in res.items():
-            uuid = spec.get("uuid", k)
-            if uuid in noise and uuid != "IMU":
-                v = apply_noise(state.gen, uuid, v, noise, rows=env.global_rows)
-            out[uuid] = v
+    with profiling.span("render.sensors"):
+        objects = env.render_objects(state)
+        for spec, geom in zip(env.sensor_kwargs, env.cameras):
+            res = render_camera(env.scene, state.dyn.pos, state.dyn.q, spec,
+                                n_steps=int(env.scene_kwargs.get("trace_steps", 40)),
+                                objects=objects, num_scene=env.num_scene,
+                                lighting=env._baked_lighting, geom=geom)
+            for k, v in res.items():
+                uuid = spec.get("uuid", k)
+                if uuid in noise and uuid != "IMU":
+                    v = apply_noise(state.gen, uuid, v, noise, rows=env.global_rows)
+                out[uuid] = v
     return out
