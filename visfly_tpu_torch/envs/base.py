@@ -402,13 +402,13 @@ class DroneGymEnv:
 
     def is_collision_fn(self, pos: Tensor) -> Tensor:
         """Spawn rejection: closer than 1 m to a surface (the analytic SDF of
-        a primitive scene, the baked grid of a mesh scene) or out of bounds."""
+        a primitive scene, the baked grid of a mesh scene) or out of bounds.
+        ``pos (..., n, 3) -> (..., n)``: where the agent axis holds this env's
+        agents, each point is tested in its agent's scene (the scene ids
+        broadcast over the leading axes), else in scene 0."""
         from ..scene import point_is_collision
 
-        if pos.shape[0] == self.num_agent:
-            sid = self.scene_ids
-        else:
-            sid = torch.zeros((pos.shape[0],), dtype=torch.long, device=self.device)
+        sid = self.scene_ids if pos.shape[-2] == self.num_agent else None
         return point_is_collision(self.scene, pos, sid=sid, radius=1.0)
 
     def _rows_draw(self, draw, gen: torch.Generator, tail, dtype) -> Tensor:
@@ -438,22 +438,22 @@ class DroneGymEnv:
 
     def _spawn_collision(self, block: int, n_per: int):
         """The spawn rejection of randomizer block ``block`` (rows
-        ``block · n_per`` on) of the larger env's agents: ``is_collision_fn``
-        on the rows this env holds; the rest pass."""
+        ``block · n_per`` on) of the larger env's agents, ``pos (..., n_per,
+        3) -> (..., n_per)``: ``is_collision_fn`` on the rows this env holds;
+        the rest pass."""
         lo, hi, n = self.global_rows
         a, b = max(lo, block * n_per), min(hi, (block + 1) * n_per)
 
         def fn(pos: Tensor) -> Tensor:
-            bad = torch.zeros((pos.shape[0],), dtype=torch.bool, device=pos.device)
+            bad = torch.zeros(pos.shape[:-1], dtype=torch.bool, device=pos.device)
             if a < b:
                 rows = slice(a - block * n_per, b - block * n_per)
                 if n_per == n:  # one block: the rows are this env's agents, in their scenes
-                    bad[rows] = self.is_collision_fn(pos[rows])
+                    bad[..., rows] = self.is_collision_fn(pos[..., rows, :])
                 else:  # as is_collision_fn tests a block of several: all in scene 0
                     from ..scene import point_is_collision
 
-                    sid = torch.zeros((b - a,), dtype=torch.long, device=self.device)
-                    bad[rows] = point_is_collision(self.scene, pos[rows], sid=sid, radius=1.0)
+                    bad[..., rows] = point_is_collision(self.scene, pos[..., rows, :], radius=1.0)
             return bad
 
         return fn

@@ -9,8 +9,8 @@ spec's tensors. Reference sampling quirks kept for parity:
 * the Normal randomizer draws ``(2·N(0,1) − 1)·std + mean``;
 * orientation is sampled as euler angles and converted with ``from_euler``
   (zyx);
-* rejection resampling runs a fixed 16 masked iterations, not an unbounded
-  loop (``DEVIATIONS.md``).
+* rejection resampling takes a fixed 16 tries, not an unbounded loop
+  (``DEVIATIONS.md``), all drawn, tested and picked in one batched pass.
 """
 from __future__ import annotations
 
@@ -22,15 +22,16 @@ import torch
 from torch import Tensor
 
 from ..core import quaternion as quat
+from ..utils import profiling
 
 
 def calculate_yaw_pitch(vector: Tensor) -> Tuple[Tensor, Tensor]:
     """Heading angles of spawn→target vectors."""
     x, y, z = vector.unbind(-1)
     y_sign = torch.where(torch.sign(y) >= 0, 1.0, -1.0).to(vector.dtype)
-    xy_norm = torch.linalg.vector_norm(vector[:, :2], dim=1)
+    xy_norm = torch.linalg.vector_norm(vector[..., :2], dim=-1)
     yaw = torch.arccos(torch.clamp(x / torch.clamp(xy_norm, min=1e-9), -1.0, 1.0)) * y_sign
-    norm = torch.linalg.vector_norm(vector, dim=1)
+    norm = torch.linalg.vector_norm(vector, dim=-1)
     pitch = torch.arcsin(torch.clamp(z / torch.clamp(norm, min=1e-9), -1.0, 1.0))
     return yaw, pitch
 
@@ -97,60 +98,69 @@ def from_reference_kwargs(random_kwargs: dict, device=None) -> List[RandomizerSp
     return [RandomizerSpec.uniform(kind=kind, device=device, **kw) for kw in kwargs_list]
 
 
-def sample(spec: RandomizerSpec, gen: torch.Generator, n: int,
-           target_pos: Optional[Tensor] = None, target_vel: Optional[Tensor] = None
-           ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Draw (pos, quat, vel, omega) for n agents."""
+def _unit_draws(spec: RandomizerSpec, gen: torch.Generator, n: int, tries: int
+                ) -> List[Tensor]:
+    """The raw draws of ``tries`` samples, made one sample after another: four
+    (n, 3) draws each, for position, orientation, velocity and body rate, in
+    that order (``torch.randn`` for a normal randomizer, ``torch.rand``
+    otherwise), in a list in draw order."""
+    draw = torch.randn if spec.kind == "normal" else torch.rand
     dev = spec.pos_mean.device
+    return [draw((n, 3), generator=gen, device=dev) for _ in range(4 * tries)]
 
-    def unit(draw=torch.rand):
-        return draw((n, 3), generator=gen, device=dev)
 
-    def u(mean, half):
-        return (2.0 * unit() - 1.0) * half + mean
+def _states(spec: RandomizerSpec, u_pos: Tensor, u_ori: Tensor, u_vel: Tensor,
+            u_omega: Tensor, target_pos: Optional[Tensor] = None,
+            target_vel: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The map from a sample's raw draws (..., n, 3) to (pos, quat, vel,
+    omega); elementwise over the leading axes, so a stack of tries maps at
+    once to what each try alone maps to."""
+    shape = u_pos.shape
 
-    zeros = torch.zeros(n, device=dev)
-    if spec.kind == "normal":
-        def draw(mean, std):
-            return (2.0 * unit(torch.randn) - 1.0) * std + mean
+    def u(unit, mean, half):
+        return (2.0 * unit - 1.0) * half + mean
 
-        pos = draw(spec.pos_mean, spec.pos_half)
-        euler = draw(spec.ori_mean, spec.ori_half)
-        vel = draw(spec.vel_mean, spec.vel_half)
-        omega = draw(spec.omega_mean, spec.omega_half)
-    elif spec.kind == "target_uniform":
+    def yaw_only(yaw):
+        zeros = torch.zeros_like(yaw)
+        return torch.stack([zeros, zeros, yaw], dim=-1)
+
+    if spec.kind == "target_uniform":
         # spawn on a ring around a (moving) target, yaw aimed at it
-        tp = (torch.zeros((n, 3), device=dev) if target_pos is None
-              else target_pos.expand(n, 3))
-        offset = (2.0 * unit() - 1.0) * spec.pos_half
-        norm = torch.linalg.vector_norm(offset, dim=1, keepdim=True)
+        tp = (torch.zeros(shape, device=u_pos.device) if target_pos is None
+              else target_pos.expand(shape))
+        offset = (2.0 * u_pos - 1.0) * spec.pos_half
+        norm = torch.linalg.vector_norm(offset, dim=-1, keepdim=True)
         one = torch.ones_like(norm)
         scale = torch.where(norm > spec.max_dis, spec.max_dis / norm, one)
         scale = torch.where(norm < spec.min_dis, spec.min_dis / torch.clamp(norm, min=1e-9),
                             scale)
         pos = offset * scale + tp
         yaw, _pitch = calculate_yaw_pitch(tp - pos)
-        euler = torch.stack([zeros, zeros, yaw], dim=1) + (2.0 * unit() - 1.0) * spec.ori_half
+        euler = yaw_only(yaw) + (2.0 * u_ori - 1.0) * spec.ori_half
         if target_vel is not None:
-            vel = target_vel.expand(n, 3) + (2.0 * unit() - 1.0) * spec.vel_half
+            vel = target_vel.expand(shape) + (2.0 * u_vel - 1.0) * spec.vel_half
         else:
-            vel = u(spec.vel_mean, spec.vel_half)
-        omega = u(spec.omega_mean, spec.omega_half)
-    else:  # uniform
-        half = (2.0 * unit() - 1.0) * spec.pos_half
+            vel = u(u_vel, spec.vel_mean, spec.vel_half)
+    else:  # uniform, and normal: (2·N(0,1) − 1)·std + mean
+        half = (2.0 * u_pos - 1.0) * spec.pos_half
         pos = spec.pos_mean + half
-        if spec.heading:
+        if spec.heading and spec.kind == "uniform":
             # aim yaw back toward the spawn-range centre
             yaw, _pitch = calculate_yaw_pitch(-half)
-            euler = (torch.stack([zeros, zeros, yaw], dim=1)
-                     + (2.0 * unit() - 1.0) * spec.ori_half)
+            euler = yaw_only(yaw) + (2.0 * u_ori - 1.0) * spec.ori_half
         else:
-            euler = u(spec.ori_mean, spec.ori_half)
-        vel = u(spec.vel_mean, spec.vel_half)
-        omega = u(spec.omega_mean, spec.omega_half)
-
-    q = quat.from_euler(euler[:, 0], euler[:, 1], euler[:, 2], order="zyx")
+            euler = u(u_ori, spec.ori_mean, spec.ori_half)
+        vel = u(u_vel, spec.vel_mean, spec.vel_half)
+    omega = u(u_omega, spec.omega_mean, spec.omega_half)
+    q = quat.from_euler(euler[..., 0], euler[..., 1], euler[..., 2], order="zyx")
     return pos, q, vel, omega
+
+
+def sample(spec: RandomizerSpec, gen: torch.Generator, n: int,
+           target_pos: Optional[Tensor] = None, target_vel: Optional[Tensor] = None
+           ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Draw (pos, quat, vel, omega) for n agents."""
+    return _states(spec, *_unit_draws(spec, gen, n, 1), target_pos, target_vel)
 
 
 def meshgrid_sample(spec: RandomizerSpec, gen: torch.Generator, n: int, index: int = 0,
@@ -183,15 +193,25 @@ def safe_sample(spec: RandomizerSpec, gen: torch.Generator, n: int,
                 is_collision_fn: Optional[Callable[[Tensor], Tensor]] = None,
                 max_tries: int = 16, target_pos: Optional[Tensor] = None,
                 target_vel: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Collision-rejection resampling: ``max_tries`` masked redraws of the
-    agents whose spawn ``is_collision_fn(pos (n,3)) -> (n,) bool`` rejects.
-    The count is fixed, so agents still rejected after it keep their last
-    draw, as in the JAX package."""
-    state = sample(spec, gen, n, target_pos, target_vel)
+    """Collision-rejection resampling with a fixed ``max_tries``: each agent
+    keeps the first of its draws 0 .. max_tries − 1 that
+    ``is_collision_fn(pos (..., n, 3)) -> (..., n) bool`` accepts, else its
+    last draw, untested, as the JAX package's masked redraws do.
+
+    One pass: the ``max_tries + 1`` samples are drawn from ``gen`` in the
+    order the redraws would draw them, stacked on a leading try axis, mapped
+    and tested at once and picked on the device (no host synchronisation).
+    While tracing, ``spawn.redraws`` counts the kept tries' indices and
+    ``spawn.exhausted`` the agents rejected on every tested try."""
     if is_collision_fn is None:
-        return state
-    for _ in range(max_tries):
-        bad = is_collision_fn(state[0])[:, None]
-        redraw = sample(spec, gen, n, target_pos, target_vel)
-        state = tuple(torch.where(bad, new, old) for new, old in zip(redraw, state))
-    return state
+        return sample(spec, gen, n, target_pos, target_vel)
+    units = _unit_draws(spec, gen, n, max_tries + 1)
+    tries = _states(spec, *(torch.stack(units[k::4]) for k in range(4)), target_pos, target_vel)
+    ok = ~is_collision_fn(tries[0][:max_tries])
+    ok = torch.cat([ok, torch.ones_like(ok[:1])]).to(torch.uint8)
+    pick = torch.argmax(ok, dim=0)  # the first accepted try, else the last
+    if profiling.tracing():
+        profiling.count("spawn.redraws", pick.sum())
+        profiling.count("spawn.exhausted", (pick == max_tries).sum())
+    return tuple(torch.gather(x, 0, pick[None, :, None].expand(1, n, x.shape[-1]))[0]
+                 for x in tries)

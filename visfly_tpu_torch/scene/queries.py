@@ -169,7 +169,8 @@ def closest_point_query(data, sid: Tensor, p: Tensor) -> Tuple[Tensor, Tensor, T
 
 def point_is_collision(data, p: Tensor, sid: Tensor = None, radius: float = 1.0) -> Tensor:
     """Spawn rejection test: True when closer than ``radius`` to any
-    surface or outside the scene bounds."""
+    surface or outside the scene bounds. ``p (..., 3)``; ``sid`` broadcasts
+    against its leading axes (scene 0 where it is None)."""
     if sid is None:
         sid = torch.zeros(p.shape[:-1], dtype=torch.long, device=p.device)
     return (sample_sdf(data, sid, p) < radius) | _outside_bbox(data, p)

@@ -14,7 +14,9 @@ reduction or synchronize exists. Spans, by layer:
     env.dynamics, env.collision, env.reward, env.auto_reset, env.spawn
     render.sensors, render.scene_trace, render.object_hits
 
-Counters: ``spawn.agents`` (agents a spawn draws), ``reset.respawned``
+Counters: ``spawn.agents`` (agents a spawn draws), ``spawn.redraws`` (the
+sum over them of the index of the try the rejection keeps), ``spawn.exhausted``
+(those rejected on every tested try), ``reset.respawned``
 (agents an auto-reset respawns), ``object_hits.tests`` (ray-triangle tests
 of the drones' mesh hits), ``object_hits.candidate_tests`` (those on rays
 that meet the object's bounding sphere from outside it).
